@@ -1,0 +1,63 @@
+"""Uniform app registry: one runnable case per ported workload.
+
+Every app module registers a :func:`case` — a fully materialized (program,
+initial task, heap init, TV capacity) bundle, the same cases under the
+same names as the JAX reference's registry — so the engine equivalence
+tests and ``chip_smoke.py`` drive every workload through one entry point.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping
+
+from ..core.program import InitialTask, Program
+
+
+@dataclasses.dataclass(frozen=True)
+class AppCase:
+    """One concrete, engine-ready instantiation of a workload."""
+
+    name: str
+    program: Program
+    initial: InitialTask
+    heap_init: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    capacity: int = 1 << 13
+
+    def run(self, **engine_kw):
+        """Run this case on a ``HostEngine`` built with the given kwargs
+        (``device=`` among them; CUDA by default)."""
+        from ..core import HostEngine
+
+        kw = dict(capacity=self.capacity)
+        kw.update(engine_kw)
+        return HostEngine(self.program, **kw).run(
+            self.initial, heap_init=dict(self.heap_init) or None
+        )
+
+
+CASES: Dict[str, Callable[[], AppCase]] = {}
+
+
+def register_case(name: str):
+    """Register an app module's default test case factory."""
+
+    def deco(fn: Callable[[], AppCase]):
+        CASES[name] = fn
+        return fn
+
+    return deco
+
+
+def _register_all() -> None:
+    from . import bfs, fib, mergesort  # noqa: F401  (registration)
+
+
+def get_case(name: str) -> AppCase:
+    _register_all()
+    return CASES[name]()
+
+
+def all_cases() -> Dict[str, AppCase]:
+    """Materialize every registered case (imports all app modules)."""
+    _register_all()
+    return {name: fn() for name, fn in sorted(CASES.items())}

@@ -1,0 +1,42 @@
+# The TVM abstract machine and the TREES epoch-synchronized runtime, ported
+# to PyTorch: the host engine (engine.py) over the scheduler (phase-1
+# policy: stacks, coalescing, dispatch sizing) over the TVM (phase-2/3
+# execution substrate, tvm.py).
+from .engine import EngineError, EpochLoop, HostEngine, MapLauncher
+from .program import HeapVar, InitialTask, MapType, Program, TaskType
+from .scheduler import (
+    COMPACTED,
+    GATHER,
+    MASKED,
+    DispatchPolicy,
+    EpochScheduler,
+    NullStats,
+    RunStats,
+    RunStatsCollector,
+    StatsCollector,
+    launch_bucket,
+    resolve_policy,
+)
+
+__all__ = [
+    "EngineError",
+    "EpochLoop",
+    "HostEngine",
+    "MapLauncher",
+    "HeapVar",
+    "InitialTask",
+    "MapType",
+    "Program",
+    "TaskType",
+    "COMPACTED",
+    "GATHER",
+    "MASKED",
+    "DispatchPolicy",
+    "EpochScheduler",
+    "NullStats",
+    "RunStats",
+    "RunStatsCollector",
+    "StatsCollector",
+    "launch_bucket",
+    "resolve_policy",
+]

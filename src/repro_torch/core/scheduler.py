@@ -1,0 +1,309 @@
+"""Epoch scheduling layer, host half (PyTorch port of
+``repro/core/scheduler.py``): phase-1 policy above the TVM substrate.
+
+  * :class:`EpochScheduler` — the host-side join/NDRange stacks with
+    same-CEN range coalescing: every range sitting at the current epoch
+    number is merged into one dispatch, so the critical-path overhead
+    (launch + readback, the V_inf terms) is paid once for the whole system.
+  * :class:`DispatchPolicy` — launch-bucket sizing.  ``masked`` pads the
+    popped NDRange to a power-of-two bucket and runs every task type
+    full-width, masked.  ``compacted`` is the §5.4 contiguity principle:
+    active lanes are scattered into dense per-type ranges (the ``type_rank``
+    + ``fork_scan`` kernels) and each type launches as one dense slice sized
+    to its own population.  ``gather`` packs every scheduled lane into one
+    dense frontier (``kernels.ops.lane_pack``).
+  * :class:`StatsCollector` — pluggable work/critical-path accounting
+    (:class:`RunStats`).
+
+Pure host Python: no tensors here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+# --------------------------------------------------------------------------
+# Launch-bucket sizing (dispatch policy)
+# --------------------------------------------------------------------------
+def launch_bucket(n: int, minimum: int = 8) -> int:
+    """Round a launch size up to a power-of-two bucket."""
+    p = max(1, minimum)
+    while p < n:
+        p *= 2
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchPolicy:
+    """How phase 2 lays tasks into lanes and sizes the launch.
+
+    ``epoch_min_bucket`` sizes the full-NDRange launch (and the compaction
+    pass itself); ``type_min_bucket`` sizes each dense per-type slice under
+    the compacted dispatch (minimum 1: lane-exact launches).
+    """
+
+    name: str
+    epoch_min_bucket: int = 8
+    type_min_bucket: int = 1
+
+    def epoch_bucket(self, count: int) -> int:
+        return launch_bucket(count, self.epoch_min_bucket)
+
+    def type_bucket(self, count: int) -> int:
+        if count <= 0:
+            return 0
+        return launch_bucket(count, self.type_min_bucket)
+
+
+def size_type_buckets(policy: DispatchPolicy, counts, task_names):
+    """Per-type launch plan from the compaction counts readback (§5.4).
+
+    Returns ``(buckets, toffs, launched, by_type)``: the per-type bucket
+    tuple, the exclusive per-type offsets into the compaction permutation,
+    total lanes launched, and the ``{name: (active, lanes)}`` dict fed to
+    ``StatsCollector.lanes``.
+    """
+    counts = np.asarray(counts)
+    buckets = tuple(policy.type_bucket(int(c)) for c in counts)
+    toffs = np.zeros_like(counts)
+    toffs[1:] = np.cumsum(counts)[:-1]
+    by_type = {
+        task_names[t]: (int(counts[t]), buckets[t])
+        for t in range(len(buckets))
+        if buckets[t] > 0
+    }
+    return buckets, toffs, int(sum(buckets)), by_type
+
+
+MASKED = DispatchPolicy("masked")
+COMPACTED = DispatchPolicy("compacted")
+GATHER = DispatchPolicy("gather")
+_POLICIES = {p.name: p for p in (MASKED, COMPACTED, GATHER)}
+
+
+def resolve_policy(dispatch) -> DispatchPolicy:
+    if isinstance(dispatch, DispatchPolicy):
+        dispatch = dispatch.name
+    if dispatch == "auto":
+        raise ValueError(
+            "dispatch='auto' (the per-epoch dispatch controller) is not "
+            "ported yet; choose 'masked', 'compacted' or 'gather'"
+        )
+    try:
+        return _POLICIES[dispatch]
+    except KeyError:
+        raise ValueError(
+            f"unknown dispatch policy {dispatch!r}; "
+            f"expected one of {sorted(_POLICIES)}"
+        ) from None
+
+
+# --------------------------------------------------------------------------
+# Host-side epoch scheduler (paper phase 1, §5.2.2)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class EpochDispatch:
+    """One popped unit of work: every range at epoch number ``cen``."""
+
+    cen: int
+    start: int
+    count: int
+    n_ranges: int = 1  # how many stack ranges were coalesced into this span
+
+
+class EpochScheduler:
+    """Owns the join/NDRange stacks the paper keeps on the CPU (§5.2.2).
+
+    LIFO pop order gives the paper's depth-first epoch order.  With
+    ``coalesce=True`` a pop also drains every other stack entry carrying the
+    same epoch number and merges the ranges into one covering span — holes
+    between ranges hold lanes with different epoch numbers and are filtered
+    by the epoch-number (TMS) check.
+    """
+
+    def __init__(self, coalesce: bool = True):
+        self.coalesce = coalesce
+        self._join: List[int] = []
+        self._range: List[Tuple[int, int]] = []
+
+    def reset(self, cen: int = 1, start: int = 0, count: int = 1) -> None:
+        """Seed task in slot 0, eligible in the first epoch (paper §4.3)."""
+        self._join = [cen]
+        self._range = [(start, count)]
+
+    def __bool__(self) -> bool:
+        return bool(self._join)
+
+    def pop(self) -> EpochDispatch:
+        if not self._join:
+            raise RuntimeError("scheduler empty — program already drained")
+        cen = self._join.pop()
+        start, count = self._range.pop()
+        lo, hi, n = start, start + count, 1
+        if self.coalesce:
+            while self._join and self._join[-1] == cen:
+                self._join.pop()
+                s, c = self._range.pop()
+                lo, hi, n = min(lo, s), max(hi, s + c), n + 1
+        return EpochDispatch(cen=cen, start=lo, count=hi - lo, n_ranges=n)
+
+    def push_join(self, cen: int, start: int, count: int) -> None:
+        """Re-arm the current range: a join continuation runs at the same CEN."""
+        self._join.append(cen)
+        self._range.append((start, count))
+
+    def push_forked(self, cen: int, base: int, count: int) -> None:
+        """Schedule this epoch's forked children (eligible at CEN+1)."""
+        if count > 0:
+            self._join.append(cen)
+            self._range.append((base, count))
+
+
+# --------------------------------------------------------------------------
+# Stats: work / critical-path accounting (paper §4.4.1)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class RunStats:
+    """Work/critical-path accounting in the paper's terms (§4.4.1)."""
+
+    epochs: int = 0                 # critical path length T_inf (in epochs)
+    tasks_executed: int = 0         # work T_1 (in tasks)
+    lanes_launched: int = 0         # includes padding/invalid lanes
+    total_forks: int = 0
+    map_launches: int = 0
+    map_elements: int = 0           # live map element-lanes (useful work)
+    map_lanes_launched: int = 0     # incl. padding to the launch domain
+    peak_tv_slots: int = 0          # space (paper §4.4.2)
+    dispatches: int = 0             # host->device program launches (V_inf)
+    scalar_transfers: int = 0       # device->host readbacks (V_inf)
+    ranges_coalesced: int = 0       # extra same-CEN ranges merged into pops
+    hole_lanes_skipped: int = 0     # lanes a full-span launch would have paid
+    tasks_by_type: Dict[str, int] = dataclasses.field(default_factory=dict)
+    lanes_by_type: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def utilization(self) -> float:
+        """Active lanes / launched lanes — the SIMT-divergence analogue."""
+        return self.tasks_executed / max(1, self.lanes_launched)
+
+    @property
+    def map_lanes_wasted(self) -> int:
+        """Map element-lanes launched beyond the live domains."""
+        return max(0, self.map_lanes_launched - self.map_elements)
+
+    @property
+    def map_utilization(self) -> float:
+        """Live map elements / launched map lanes (1.0 when no maps ran)."""
+        if self.map_lanes_launched <= 0:
+            return 1.0
+        return self.map_elements / self.map_lanes_launched
+
+    def as_dict(self, derived: bool = True) -> Dict[str, object]:
+        """Canonical ``metric name -> value`` view of this run (the same
+        names as the JAX reference's ``RunStats.as_dict``)."""
+        out: Dict[str, object] = {
+            f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+        }
+        out["tasks_by_type"] = dict(self.tasks_by_type)
+        out["lanes_by_type"] = dict(self.lanes_by_type)
+        if derived:
+            out["utilization"] = self.utilization
+            out["map_lanes_wasted"] = self.map_lanes_wasted
+            out["map_utilization"] = self.map_utilization
+        return out
+
+
+class StatsCollector:
+    """No-op base; engines call these hooks, collectors interpret them."""
+
+    def epoch(self, cen: int, n_ranges: int = 1, n: int = 1) -> None:
+        pass
+
+    def lanes(self, n_active: int, launched: int,
+              by_type: Optional[Dict[str, Tuple[int, int]]] = None) -> None:
+        pass
+
+    def dispatch(self, n: int = 1) -> None:
+        pass
+
+    def transfer(self, n: int = 1) -> None:
+        pass
+
+    def forks(self, n: int) -> None:
+        pass
+
+    def map_launch(self, elements: int = 0, lanes: int = 0,
+                   n: int = 1) -> None:
+        pass
+
+    def holes_skipped(self, n: int) -> None:
+        """Lanes a full-span launch would have paid that a dense dispatch
+        (the gather frontier) did not launch."""
+        pass
+
+    def tv_peak(self, slots: int) -> None:
+        pass
+
+    def result(self) -> RunStats:
+        return RunStats()
+
+
+class NullStats(StatsCollector):
+    """Counts only what the driver needs for control plus the V_inf terms
+    (epochs, dispatches, transfers, map launches) — no per-lane accounting."""
+
+    def __init__(self):
+        self._stats = RunStats()
+
+    def epoch(self, cen: int, n_ranges: int = 1, n: int = 1) -> None:
+        self._stats.epochs += n
+
+    def dispatch(self, n: int = 1) -> None:
+        self._stats.dispatches += n
+
+    def transfer(self, n: int = 1) -> None:
+        self._stats.scalar_transfers += n
+
+    def map_launch(self, elements: int = 0, lanes: int = 0,
+                   n: int = 1) -> None:
+        self._stats.map_launches += n
+
+    def result(self) -> RunStats:
+        return self._stats
+
+
+class RunStatsCollector(NullStats):
+    """Full accounting, including per-type occupancy when the dispatch
+    policy knows per-type populations (compacted)."""
+
+    def lanes(self, n_active: int, launched: int,
+              by_type: Optional[Dict[str, Tuple[int, int]]] = None) -> None:
+        s = self._stats
+        s.tasks_executed += n_active
+        s.lanes_launched += launched
+        if by_type:
+            for name, (active, lanes) in by_type.items():
+                s.tasks_by_type[name] = s.tasks_by_type.get(name, 0) + active
+                s.lanes_by_type[name] = s.lanes_by_type.get(name, 0) + lanes
+
+    def epoch(self, cen: int, n_ranges: int = 1, n: int = 1) -> None:
+        super().epoch(cen, n_ranges, n)
+        self._stats.ranges_coalesced += n_ranges - n
+
+    def forks(self, n: int) -> None:
+        self._stats.total_forks += n
+
+    def map_launch(self, elements: int = 0, lanes: int = 0,
+                   n: int = 1) -> None:
+        super().map_launch(elements, lanes, n)
+        self._stats.map_elements += elements
+        self._stats.map_lanes_launched += lanes
+
+    def holes_skipped(self, n: int) -> None:
+        self._stats.hole_lanes_skipped += n
+
+    def tv_peak(self, slots: int) -> None:
+        self._stats.peak_tv_slots = max(self._stats.peak_tv_slots, slots)

@@ -1,0 +1,423 @@
+"""Task Vector Machine state + the bulk epoch step (paper §4, §5.1–5.2),
+PyTorch port of ``repro/core/tvm.py`` (its non-arena form).
+
+The Task Vector is stored struct-of-arrays so that every runtime access is
+a unit-stride vector load/store (the paper's memory coalescing, §5.1.2).
+The Task Mask Stack is replaced, exactly as in the paper, by per-slot Epoch
+Numbers (0 = invalid sentinel) plus host-side join/NDRange stacks.
+
+The epoch step implements the paper's three phases:
+  phase 1 (setup)    — pop stacks  (engine / scheduler)
+  phase 2 (execute)  — every task type runs as one masked dense vector op
+  phase 3 (commit)   — prefix-sum fork allocation, TMS update  (this module)
+
+**Sink rows.**  The JAX reference drops unwanted scatter lanes with an
+out-of-range index (``mode="drop"``).  Torch has no drop mode: an
+out-of-range index raises on the CPU and is a device-side assert on CUDA.
+So every TV array and every heap array the TVM touches carries one extra
+trailing row, the *sink*: dropped lanes write there, reads clip to the real
+rows and never see it, and ``core/convert.py`` and ``HostEngine.run`` strip
+it on the way out.  ``TVMState.capacity`` counts real rows only.
+
+**In place.**  Unlike the immutable JAX arrays, :func:`commit_epoch` and
+:func:`run_map_payload` update the TV and heap tensors in place (phase 2
+only gathers, so every read still sees the pre-epoch snapshot).
+
+**Kernels.**  Fork allocation and the compaction pass call
+``kernels/ops.py``: the ``fork_scan`` and ``type_rank`` CUDA kernels on
+the card, their plain versions on the CPU.  (The JAX ``HostEngine``
+allocates fork slots with ``jnp.cumsum`` unless given a hook; the port
+routes them through its own kernel — the same function, so the same
+bits.)
+
+**Dtypes.**  Every slot index, count and scan stays int32, as in the JAX
+Task Vector (``torch.arange``, ``cumsum`` and ``sum`` name their dtype).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from ..kernels import ops as kops
+from .primitives import EpochCtx, MapCtx
+from .program import InitialTask, Program, pack_args
+
+_I32 = torch.int32
+
+
+@dataclasses.dataclass
+class TVMState:
+    """Struct-of-arrays Task Vector (+ ``nextFreeCore``); row C is the sink."""
+
+    task: torch.Tensor         # i32[C + 1]  task type id
+    argi: torch.Tensor         # i32[C + 1, A]
+    argf: torch.Tensor         # f32[C + 1, Af]
+    epoch: torch.Tensor        # i32[C + 1]  epoch number; 0 = invalid
+    value: torch.Tensor        # value_dtype[C + 1, W]  emitted values
+    child_base: torch.Tensor   # i32[C + 1]  first child slot
+    child_count: torch.Tensor  # i32[C + 1]
+    next_free: torch.Tensor    # i32[]  paper's nextFreeCore
+
+    @property
+    def capacity(self) -> int:
+        return self.task.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.task.device
+
+
+def init_state(program: Program, capacity: int, initial: InitialTask,
+               device) -> TVMState:
+    """Paper §4.3: seed task in slot 0, eligible in the first epoch (CEN=1)."""
+    ai, af = pack_args(program, initial.argi, initial.argf)
+    rows = capacity + 1
+
+    def zeros(*shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state = TVMState(
+        task=zeros(rows),
+        argi=zeros(rows, program.n_arg_i),
+        argf=zeros(rows, program.n_arg_f, dtype=torch.float32),
+        epoch=zeros(rows),
+        value=zeros(rows, program.value_width, dtype=program.value_dtype),
+        child_base=zeros(rows),
+        child_count=zeros(rows),
+        next_free=torch.ones((), dtype=_I32, device=device),
+    )
+    state.task[0] = program.task_id(initial.task)
+    state.argi[0] = torch.as_tensor(ai, device=device)
+    state.argf[0] = torch.as_tensor(af, device=device)
+    state.epoch[0] = 1
+    return state
+
+
+def heap_with_sink(heap: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Copy user-shaped heap arrays into the TVM's sink-carrying form."""
+    return {
+        k: torch.cat([v, torch.zeros_like(v[:1])]) for k, v in heap.items()
+    }
+
+
+def heap_without_sink(heap: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v[:-1] for k, v in heap.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochSummary:
+    """Scalars the CPU reads back at the end of each epoch (paper §5.2.4);
+    0-d tensors on the TV's device until the engine's one readback."""
+
+    total_forks: torch.Tensor     # i32[]
+    join_scheduled: torch.Tensor  # bool[]
+    map_scheduled: torch.Tensor   # bool[]
+    n_active: torch.Tensor        # i32[]  (stats: work in tasks, T1)
+    overflow: torch.Tensor        # bool[]  TV capacity exhausted
+
+
+@dataclasses.dataclass
+class MapLaunch:
+    """One map site's scheduled lanes, for the payload launch."""
+
+    map_id: int
+    where: torch.Tensor  # bool[P]
+    argi: torch.Tensor   # i32[P, A]
+    argf: torch.Tensor   # f32[P, Af]
+
+
+def _run_type(program: Program, tid: int, state: TVMState, heap, src):
+    """Run task type ``tid`` over the TV rows ``src`` (clipped slots);
+    returns the context holding its recorded per-lane effects."""
+    ctx = EpochCtx(
+        program, state.argi[src], state.argf[src], state.child_base[src],
+        state.child_count[src], src, heap, state.value,
+    )
+    program.tasks[tid].fn(ctx)
+    return ctx
+
+
+def trace_tasks(program: Program, state: TVMState, heap, idx, active):
+    """Phase 2: run every task type as one masked dense vector op.
+
+    Baseline "work-together" dispatch: each type executes across all P
+    lanes, masked — lane utilization is the divergence term of §4.4.1.
+    Returns ``(per_type, cidx)`` with ``per_type`` a list of ``(mask_t,
+    effects)``.
+    """
+    cidx = idx.clamp(0, state.capacity - 1)
+    g_task = state.task[cidx]
+    return [
+        (active & (g_task == tid), _run_type(program, tid, state, heap, cidx))
+        for tid in range(len(program.tasks))
+    ], cidx
+
+
+def compact_types(program: Program, state: TVMState, idx, active):
+    """Compaction stage: scatter active lanes into contiguous per-type ranges.
+
+    Each active lane gets ``dest = type_start[type] + rank`` where ``rank``
+    is its stable within-type rank (the ``type_rank`` kernel) and
+    ``type_start`` the exclusive prefix sum of the per-type populations
+    (the ``fork_scan`` kernel).  Returns ``(perm, counts)``:
+    ``perm[d]`` is the lane position of the d-th compacted lane (-1 beyond
+    the active population), ``counts`` the per-type populations.
+    """
+    P = idx.shape[0]
+    n_types = len(program.tasks)
+    types = state.task[idx.clamp(0, state.capacity - 1)]
+    rank, counts = kops.type_rank(types, active, n_types)
+    type_start, _ = kops.fork_offsets(counts)
+    dest = type_start[types.clamp(0, n_types - 1)] + rank
+    # tvm.py drops inactive lanes at index P (mode="drop"): sink entry P here
+    perm = torch.full((P + 1,), -1, dtype=_I32, device=idx.device)
+    perm[torch.where(active, dest, P)] = torch.arange(
+        P, dtype=_I32, device=idx.device
+    )
+    return perm[:P], counts
+
+
+def _scatter_effects(ctx, pos, P: int):
+    """Scatter per-lane effects computed at bucket width back to the P
+    NDRange lane positions ``pos`` (``P`` = dropped), zeros elsewhere."""
+
+    def back(t: torch.Tensor) -> torch.Tensor:
+        if t.dim() == 0:  # a constant (e.g. a fork's task code): no lanes
+            return t
+        out = torch.zeros((P + 1,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        out[pos] = t
+        return out[:P]
+
+    def site(s):
+        return dataclasses.replace(s, **{
+            f.name: back(getattr(s, f.name))
+            for f in dataclasses.fields(s)
+            if isinstance(getattr(s, f.name), torch.Tensor)
+        })
+
+    ctx.forks = [site(f) for f in ctx.forks]
+    if ctx.join_site is not None:
+        ctx.join_site = site(ctx.join_site)
+    ctx.emit_where = back(ctx.emit_where)
+    ctx.emit_value = back(ctx.emit_value)
+    ctx.writes = [site(w) for w in ctx.writes]
+    ctx.map_sites = [site(m) for m in ctx.map_sites]
+    return ctx
+
+
+def trace_tasks_compacted(
+    program: Program,
+    state: TVMState,
+    heap,
+    start: int,
+    count: int,
+    cen: int,
+    perm: torch.Tensor,
+    type_offsets: Sequence[int],
+    type_counts: Sequence[int],
+    buckets: Tuple[int, ...],
+):
+    """Phase 2 under the compacted dispatch: dense per-type slices.
+
+    Each task type with a nonzero launch bucket runs over a contiguous
+    slice of the compaction permutation holding only its own lanes, at
+    width ``buckets[tid]``; types with no active lane launch nothing.  The
+    per-lane effects are scattered back to full NDRange lane positions so
+    that :func:`commit_epoch` sees exactly the masked dispatch's per-lane
+    layout — fork allocation order, and therefore every result, is
+    bit-identical between the two dispatches.  Offsets and counts are host
+    ints (the compaction pass's readback).
+
+    Returns ``(per_type, idx, active)`` compatible with :func:`commit_epoch`.
+    """
+    P = perm.shape[0]
+    C = state.capacity
+    dev = perm.device
+    ar = torch.arange(P, dtype=_I32, device=dev)
+    idx = start + ar
+    cidx = idx.clamp(0, C - 1)
+    active = (ar < count) & (cen > 0) & (state.epoch[cidx] == cen)
+    g_task = state.task[cidx]
+
+    perm_p = torch.cat([
+        perm, torch.full((max(buckets),), -1, dtype=_I32, device=dev)
+    ])
+    per_type = []
+    for tid, B in enumerate(buckets):
+        if B <= 0:
+            continue  # no active lanes of this type: no launch at all
+        ts = int(type_offsets[tid])
+        lanepos = perm_p[ts:ts + B]
+        within = torch.arange(B, dtype=_I32, device=dev) < int(type_counts[tid])
+        valid = within & (lanepos >= 0)
+        src = (start + lanepos).clamp(0, C - 1)
+        ctx = _run_type(program, tid, state, heap, src)
+        pos = torch.where(valid, lanepos, P)
+        per_type.append(
+            (active & (g_task == tid), _scatter_effects(ctx, pos, P))
+        )
+    return per_type, idx, active
+
+
+def _scatter_heap(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                  op: str) -> None:
+    """``arr[idx] (op)= val`` in place; ``idx`` points dropped lanes at the
+    sink row.  ``min``/``max`` include the old value, like the JAX
+    ``.at[].min``/``.max``; int ``add`` is exact.  Float ``add`` on CUDA is
+    order-dependent (no app of this slice uses it)."""
+    if op == "set":
+        arr.index_put_((idx,), val)
+    elif op == "add":
+        arr.index_add_(0, idx, val)
+    else:
+        full = idx.long().view((-1,) + (1,) * (val.dim() - 1)).expand_as(val)
+        arr.scatter_reduce_(0, full, val, "amin" if op == "min" else "amax",
+                            include_self=True)
+
+
+def commit_epoch(
+    program: Program,
+    state: TVMState,
+    heap: Dict[str, torch.Tensor],
+    idx: torch.Tensor,
+    active: torch.Tensor,
+    per_type,
+    cen,
+) -> Tuple[TVMState, Dict[str, torch.Tensor], EpochSummary, List[MapLaunch]]:
+    """Phase 3: prefix-sum fork allocation + TMS (epoch-number) update.
+
+    Fork slots come from ``kernels.ops.fork_offsets`` (the ``fork_scan``
+    kernel on CUDA).  ``cen`` is an int, an ``i32[]`` or a per-lane
+    ``i32[P]`` epoch number.
+    Updates ``state`` and ``heap`` in place and returns them.
+    """
+    C = state.capacity
+    P = idx.shape[0]
+    dev = idx.device
+    cidx = idx.clamp(0, C - 1)
+    drop = C  # the sink row
+
+    # ---- per-lane fork counts (disjoint across types) -------------------
+    lane_count = torch.zeros((P,), dtype=_I32, device=dev)
+    for mask_t, eff in per_type:
+        cnt = torch.zeros((P,), dtype=_I32, device=dev)
+        for f in eff.forks:
+            cnt = cnt + f.where.to(_I32)
+        lane_count = lane_count + torch.where(mask_t, cnt, 0)
+
+    lane_excl, total_forks = kops.fork_offsets(lane_count)
+    lane_base = state.next_free + lane_excl
+    overflow = (state.next_free + total_forks) > C
+
+    join_any = torch.zeros((), dtype=torch.bool, device=dev)
+    map_any = torch.zeros((), dtype=torch.bool, device=dev)
+    map_launches: List[MapLaunch] = []
+    s = state
+
+    for mask_t, eff in per_type:
+        # -------- forks: scatter children at contiguous prefix-sum slots;
+        # slots past capacity (overflow) drop to the sink like mode="drop"
+        within = torch.zeros((P,), dtype=_I32, device=dev)
+        for f in eff.forks:
+            fire = mask_t & f.where
+            raw = lane_base + within
+            slots = torch.where(fire & (raw < C), raw, drop)
+            s.task[slots] = f.task
+            s.argi[slots] = f.argi
+            s.argf[slots] = f.argf
+            s.epoch[slots] = cen + 1
+            # children's child_base=0 lands before the parents' child_base
+            # below (tvm.py:534 before :552); keep that order
+            s.child_base[slots] = 0
+            s.child_count[slots] = 0
+            within = within + fire.to(_I32)
+
+        # -------- join: replace own entry; epoch number stays CEN
+        jw = torch.zeros((P,), dtype=torch.bool, device=dev)
+        if eff.join_site is not None:
+            j = eff.join_site
+            jw = mask_t & j.where
+            jslots = torch.where(jw, cidx, drop)
+            s.task[jslots] = j.task
+            s.argi[jslots] = j.argi
+            s.argf[jslots] = j.argf
+            join_any = join_any | jw.any()
+
+        # -------- record children pointers on the (possibly joined) parent
+        pslots = torch.where(mask_t, cidx, drop)
+        s.child_base[pslots] = lane_base
+        s.child_count[pslots] = lane_count
+
+        # -------- emit: store value; entry becomes invalid unless joined
+        eslots = torch.where(mask_t & eff.emit_where, cidx, drop)
+        s.value[eslots] = eff.emit_value
+        s.epoch[torch.where(mask_t & ~jw, cidx, drop)] = 0
+
+        # -------- heap writes (reads saw the pre-epoch snapshot)
+        for w in eff.writes:
+            arr = heap[w.name]
+            n = arr.shape[0] - 1
+            fire = mask_t & w.where
+            widx = torch.where(fire, w.index.clamp(0, n - 1), n)
+            _scatter_heap(arr, widx, w.value, w.op)
+
+        # -------- map scheduling
+        for m in eff.map_sites:
+            fire = mask_t & m.where
+            map_any = map_any | fire.any()
+            map_launches.append(
+                MapLaunch(map_id=m.map_id, where=fire, argi=m.argi,
+                          argf=m.argf)
+            )
+
+    # ---- trailing-invalid reclamation (paper §5.3, nextFreeCore decrease)
+    iota = torch.arange(C, dtype=_I32, device=dev)
+    last_valid = torch.where(s.epoch[:C] > 0, iota, -1).max()
+    s.next_free = torch.minimum(s.next_free + total_forks, last_valid + 1)
+    summary = EpochSummary(
+        total_forks=total_forks,
+        join_scheduled=join_any,
+        map_scheduled=map_any,
+        n_active=active.sum(dtype=_I32),
+        overflow=overflow,
+    )
+    return s, heap, summary, map_launches
+
+
+def run_map_payload(
+    program: Program,
+    heap: Dict[str, torch.Tensor],
+    map_id: int,
+    where: torch.Tensor,
+    argi: torch.Tensor,
+    argf: torch.Tensor,
+    domain_size: int,
+) -> Dict[str, torch.Tensor]:
+    """Execute one map site's payload over lanes x dense element domain.
+
+    The paper launches these as a separate data-parallel kernel between
+    epochs (§5.2.4).  The JAX reference double-vmaps over lanes x domain;
+    here the payload runs once on ``[P, D]`` broadcasts (``eid`` is
+    ``i32[1, D]``), and its writes are flattened lane-major, as there.
+    Updates ``heap`` in place and returns it.
+    """
+    mt = program.maps[map_id]
+    P = where.shape[0]
+    dom = torch.as_tensor(mt.domain(argi)).to(_I32)  # i32[P]
+    eid = torch.arange(domain_size, dtype=_I32, device=where.device)[None, :]
+    ctx = MapCtx(program, argi, argf, eid, heap)
+    mt.fn(ctx)
+    lane_on = where[:, None] & (eid < dom[:, None])  # bool[P, D]
+    for w in ctx.writes:
+        arr = heap[w.name]
+        n = arr.shape[0] - 1
+        shape = (P, domain_size)
+        fire = lane_on & w.where
+        widx = torch.where(fire, w.index.clamp(0, n - 1).expand(shape), n)
+        val = w.value.expand(shape + tuple(arr.shape[1:]))
+        _scatter_heap(arr, widx.reshape(-1),
+                      val.reshape((-1,) + tuple(arr.shape[1:])), w.op)
+    return heap

@@ -1,0 +1,193 @@
+"""Hand-written CUDA kernels for fork-slot allocation and type compaction.
+
+``fork_scan`` and ``type_rank`` replace the Pallas TPU kernels of the same
+names in ``repro/kernels/fork_compact.py``; the CUDA C++ lives in
+``csrc/fork_compact.cu`` (its header says what bounds them and why the
+TPU's sequential-grid carry became a reduce-then-scan).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use, into ``build/`` beside this file
+(listed in ``.gitignore``); the library's name carries a hash of the
+source and flags, so an edited ``.cu`` file builds anew.  It is loaded with
+``ctypes``.  Nothing here compiles or loads at import time.
+
+Each wrapper checks device, dtype, contiguity and length, allocates the
+outputs and scratch with ``torch.empty``, launches on the current stream,
+raises if the launch reported an error, and adds one to its entry of
+:data:`LAUNCHES`.  The wrappers take CUDA tensors only: the CPU path of
+the port is ``kernels/ops.py``, which sends CPU tensors to ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_HERE = pathlib.Path(__file__).resolve().parent
+SOURCE = _HERE / "csrc" / "fork_compact.cu"
+BUILD_DIR = _HERE / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+MAX_TYPES = 8  # kMaxTypes in the source
+
+# launches of each kernel since the last reset (one per wrapper call)
+LAUNCHES: Dict[str, int] = {"fork_scan": 0, "type_rank": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = os.path.join(root, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> pathlib.Path:
+    """Where the built library for the current source and flags lives."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"fork_compact_{h.hexdigest()[:16]}.so"
+
+
+def build(ptxas_info: bool = False) -> Tuple[pathlib.Path, str]:
+    """Compile the source unless the library for it exists.
+
+    Returns ``(library path, compiler output)``; ``ptxas_info`` asks
+    ``ptxas`` for each kernel's registers and shared memory.
+    """
+    out = library_path()
+    if out.exists() and not ptxas_info:
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    if ptxas_info:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out, proc.stdout + proc.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.trees_fork_scan.argtypes = [p, p, p, p, i, p]
+            lib.trees_fork_scan.restype = i
+            lib.trees_type_rank.argtypes = [p, p, p, p, p, i, i, p]
+            lib.trees_type_rank.restype = i
+            lib.trees_tile_lanes.argtypes = []
+            lib.trees_tile_lanes.restype = i
+            lib.trees_max_types.argtypes = []
+            lib.trees_max_types.restype = i
+            if lib.trees_max_types() != MAX_TYPES:
+                raise RuntimeError("kernel library disagrees on MAX_TYPES")
+            _lib = lib
+        return _lib
+
+
+def _check_lanes(name: str, x: torch.Tensor, dtypes) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expects a CUDA tensor, got {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: expects dtype in {dtypes}, got {x.dtype}")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"{name}: expects a contiguous 1-D tensor")
+    if x.shape[0] >= 2**31:
+        raise ValueError(f"{name}: at most 2^31 - 1 lanes")
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def fork_scan(counts: torch.Tensor):
+    """Exclusive prefix sum + total of an ``i32[C]`` CUDA tensor.
+
+    Returns ``(offsets i32[C], total i32[])``, both on the card.
+    """
+    _check_lanes("fork_scan", counts, (torch.int32,))
+    lib = _load()
+    n = counts.shape[0]
+    nb = -(-n // lib.trees_tile_lanes())
+    offs = torch.empty_like(counts)
+    total = torch.empty((1,), dtype=torch.int32, device=counts.device)
+    scratch = torch.empty((max(nb, 1),), dtype=torch.int32,
+                          device=counts.device)
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_fork_scan(
+            _ptr(counts), _ptr(offs), _ptr(total), _ptr(scratch), n,
+            ctypes.c_void_p(stream),
+        )
+    _raise_on(err, "fork_scan")
+    LAUNCHES["fork_scan"] += 1
+    return offs, total[0]
+
+
+def type_rank(types: torch.Tensor, active: torch.Tensor, n_types: int):
+    """Stable within-type rank of each active lane + per-type counts.
+
+    ``types`` is ``i32[C]``, ``active`` ``bool[C]`` (or ``u8[C]``), both on
+    the card; ``1 <= n_types <= MAX_TYPES``.  Active lanes must carry a
+    type in ``[0, n_types)``.  Returns ``(rank i32[C], counts
+    i32[n_types])``, rank -1 for inactive lanes.
+    """
+    _check_lanes("type_rank", types, (torch.int32,))
+    _check_lanes("type_rank", active, (torch.bool, torch.uint8))
+    if active.shape[0] != types.shape[0]:
+        raise ValueError("type_rank: types and active differ in length")
+    if not 1 <= n_types <= MAX_TYPES:
+        raise ValueError(
+            f"type_rank: n_types={n_types} outside [1, {MAX_TYPES}]"
+        )
+    lib = _load()
+    n = types.shape[0]
+    nb = -(-n // lib.trees_tile_lanes())
+    rank = torch.empty_like(types)
+    counts = torch.empty((n_types,), dtype=torch.int32, device=types.device)
+    scratch = torch.empty((n_types * max(nb, 1),), dtype=torch.int32,
+                          device=types.device)
+    act = active.view(torch.uint8)  # bool is one byte: same storage
+    with torch.cuda.device(types.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_type_rank(
+            _ptr(types), _ptr(act), _ptr(rank), _ptr(counts), _ptr(scratch),
+            n, n_types, ctypes.c_void_p(stream),
+        )
+    _raise_on(err, "type_rank")
+    LAUNCHES["type_rank"] += 1
+    return rank, counts

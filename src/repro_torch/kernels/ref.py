@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They define the bits the CUDA kernels in ``csrc/`` must produce.  On the
+CPU the port runs them; on the card only the tests and ``chip_smoke.py``
+call them, to hold each kernel against its plain version.  Every scan,
+count and index stays int32, as in the JAX Task Vector: ``torch.cumsum``
+and ``.sum()`` of int32 default to int64, so each call names its dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+_I32 = torch.int32
+
+
+def fork_scan_ref(counts: torch.Tensor):
+    """Exclusive prefix sum + total of an i32 vector (plain ``fork_scan``).
+
+    Returns ``(offsets i32[C], total i32[])``.
+    """
+    counts = counts.to(_I32)
+    incl = torch.cumsum(counts, 0, dtype=_I32)
+    total = incl[-1] if counts.shape[0] else counts.new_zeros(())
+    return incl - counts, total
+
+
+def type_rank_ref(types: torch.Tensor, active: torch.Tensor, n_types: int):
+    """Stable within-type rank of each active lane + per-type counts.
+
+    ``rank[i]`` is the number of active lanes of lane i's type before lane
+    i (-1 for an inactive lane).  Returns ``(rank i32[C],
+    counts i32[n_types])``.
+    """
+    types = types.to(_I32)
+    act = active.to(torch.bool)
+    ids = torch.arange(n_types, dtype=_I32, device=types.device)
+    # [n_types, C]: each type's indicator row is scanned along the lanes
+    onehot = ((ids[:, None] == types[None, :]) & act[None, :]).to(_I32)
+    pos = torch.cumsum(onehot, 1, dtype=_I32) - onehot
+    rank = pos.gather(0, types.clamp(0, n_types - 1).long()[None, :])[0]
+    rank = torch.where(act, rank, -1)
+    return rank, onehot.sum(1, dtype=_I32)
+
+
+def rank_to_perm(rank: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Scatter a stable within-mask rank into a pack permutation.
+
+    ``perm[d]`` is the lane position of the d-th active lane (increasing,
+    so fork-allocation order is preserved), -1 beyond the active
+    population.  The JAX reference drops inactive lanes with an
+    out-of-range index (``mode="drop"``); torch has none, so they land in
+    a sink entry ``P`` that is cut off.
+    """
+    P = rank.shape[0]
+    perm = torch.full((P + 1,), -1, dtype=_I32, device=rank.device)
+    perm[torch.where(active.to(torch.bool), rank, P)] = torch.arange(
+        P, dtype=_I32, device=rank.device
+    )
+    return perm[:P]
+
+
+def lane_pack_ref(active: torch.Tensor):
+    """Stable frontier pack of the scheduled lanes (gather dispatch).
+
+    Returns ``(perm i32[P], count i32[])`` (:func:`rank_to_perm`).
+    """
+    act = active.to(torch.bool)
+    a = act.to(_I32)
+    rank = torch.cumsum(a, 0, dtype=_I32) - a
+    return rank_to_perm(rank, act), a.sum(dtype=_I32)

@@ -48,3 +48,12 @@ def multidevice_skip(required: int = 4):
     if jax.device_count() < required and jax.default_backend() != "cpu":
         return True, f"needs >= {required} devices (have {jax.device_count()})"
     return False, ""
+
+
+# ---------------------------------------------------------------- markers
+def pytest_configure(config):
+    # tests of the PyTorch port that need a CUDA card; each decides inside
+    # a fixture whether one is present and skips where there is none
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips where there is none)"
+    )

@@ -1,0 +1,90 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX package,
+runs on the CPU only when asked, and its chip smoke script refuses to run
+without a card or without the repository beside it."""
+from __future__ import annotations
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.apps import fib
+from repro_torch.core import HostEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_BLOCKED_RUN = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, _Block())
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke  # noqa: F401
+from repro_torch.apps import fib
+heap, value, stats = fib.case().run(device="cpu")
+assert int(value[0, 0]) == fib.fib_reference(12), value[0]
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert not leaked, leaked
+print("isolated", stats.epochs)
+'''
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    return env
+
+
+def test_port_imports_and_runs_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated 23" in out.stdout
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HostEngine(fib.PROGRAM, capacity=1 << 10)
+
+
+def test_auto_dispatch_is_refused():
+    with pytest.raises(ValueError, match="auto"):
+        HostEngine(fib.PROGRAM, dispatch="auto", device="cpu")
+
+
+def _no_result(proc) -> None:
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _no_result(subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+        text=True, env=_env(), cwd=ROOT, timeout=300,
+    ))
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    _no_result(subprocess.run(
+        [sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+        env=env, cwd=tmp_path, timeout=300,
+    ))

@@ -1,0 +1,94 @@
+"""The port's scan kernels against the JAX reference.
+
+On the CPU the port's ``fork_offsets``/``type_rank``/``lane_pack`` run their
+plain PyTorch versions; they must equal, exactly (integers: atol=0), both
+the JAX ``kernels/ref.py`` oracle and the Pallas kernel run by the Pallas
+interpreter.  The CUDA kernels themselves are held against the plain
+versions in ``test_torch_cuda.py``.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import fork_compact, ops
+
+LENGTHS = (1, 7, 1024, 1025, 3000)
+MASKS = ("random", "none", "all")
+
+
+def _mask(kind: str, n: int, rng) -> np.ndarray:
+    if kind == "none":
+        return np.zeros(n, bool)
+    if kind == "all":
+        return np.ones(n, bool)
+    return rng.rand(n) < 0.6
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_fork_offsets_matches_jax(n):
+    counts = np.random.RandomState(n).randint(0, 5, n).astype(np.int32)
+    offs, total = ops.fork_offsets(torch.as_tensor(counts))
+    assert offs.dtype == torch.int32 and total.dtype == torch.int32
+    for impl in ("ref", "interpret"):
+        j_offs, j_total = jops.fork_offsets(jnp.asarray(counts), impl=impl)
+        np.testing.assert_array_equal(offs.numpy(), np.asarray(j_offs))
+        assert int(total) == int(j_total)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("n_types", (1, 2, 3))
+@pytest.mark.parametrize("n", LENGTHS)
+def test_type_rank_matches_jax(n, n_types, kind):
+    rng = np.random.RandomState(100 * n + n_types)
+    types = rng.randint(0, n_types, n).astype(np.int32)
+    active = _mask(kind, n, rng)
+    rank, counts = ops.type_rank(
+        torch.as_tensor(types), torch.as_tensor(active), n_types
+    )
+    assert rank.dtype == torch.int32 and counts.dtype == torch.int32
+    for impl in ("ref", "interpret"):
+        j_rank, j_counts = jops.type_rank(
+            jnp.asarray(types), jnp.asarray(active), n_types, impl=impl
+        )
+        np.testing.assert_array_equal(rank.numpy(), np.asarray(j_rank))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(j_counts))
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_lane_pack_matches_jax(n, kind):
+    active = _mask(kind, n, np.random.RandomState(n + 7))
+    perm, count = ops.lane_pack(torch.as_tensor(active))
+    assert perm.dtype == torch.int32 and count.dtype == torch.int32
+    for impl in ("ref", "interpret"):
+        j_perm, j_count = jops.lane_pack(jnp.asarray(active), impl=impl)
+        np.testing.assert_array_equal(perm.numpy(), np.asarray(j_perm))
+        assert int(count) == int(j_count)
+
+
+def test_cpu_path_launches_no_kernel():
+    fork_compact.reset_launches()
+    x = torch.arange(10, dtype=torch.int32)
+    ops.fork_offsets(x)
+    ops.type_rank(x % 2, x > 3, 2)
+    ops.lane_pack(x > 3)
+    assert fork_compact.LAUNCHES == {"fork_scan": 0, "type_rank": 0}
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fork_compact.fork_scan(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fork_compact.type_rank(x, x > 0, 1)
+
+
+def test_library_name_follows_the_source():
+    path = fork_compact.library_path()
+    assert path.parent == fork_compact.BUILD_DIR
+    assert path.name.startswith("fork_compact_") and path.suffix == ".so"
+    assert fork_compact.library_path() == path  # stable for one source
