@@ -4,20 +4,33 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU fallback):
-  1. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc
-               with nvcc into src/repro_torch/kernels/build/ (ptxas report);
-  2. kernels — hold each kernel (fork_scan, type_rank, and lane_pack on top
-               of type_rank) against its plain PyTorch version on the card,
-               exactly, at every listed length; time kernel, plain version
-               and the library call at the main path's widest shape;
-  3. path    — drive the port's HostEngine on CUDA at full size (fib(28),
-               bfs on 2^17 vertices, mergesort of 2^18 floats) under the
-               masked, compacted and gather dispatches; check results
-               against the numpy references, the dispatches against each
-               other, the masked CUDA run against a masked CPU run, and
-               that the kernels' launch counters grew during the phase;
-  4. profile — one masked fib(28) run under torch.profiler: device busy
-               time, its share of the wall time, the top device ops.
+  1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
+                (fork_compact.cu, epoch_megakernel.cu: one nvcc each, in
+                parallel) into src/repro_torch/kernels/build/ (ptxas
+                report);
+  2. kernels  — hold each kernel against its plain PyTorch version on the
+                card, exactly: fork_scan, type_rank and lane_pack at every
+                listed length; epoch_chunk against epoch_chunk_ref from
+                the same fresh carry, every carry tensor, for fib, bfs and
+                mergesort at full size and at the registry's small size,
+                masked and gather, in chunks of K = 1, 4 and unbounded;
+                time each kernel, its plain version and the library call;
+  3. path     — drive the port's HostEngine on CUDA at full size (fib(28),
+                bfs on 2^17 vertices, mergesort of 2^18 floats) under the
+                masked, compacted and gather dispatches; check results
+                against the numpy references, the dispatches against each
+                other, the masked CUDA run against a masked CPU run, and
+                that fork_scan and type_rank were launched during the phase;
+  4. profile  — one masked fib(28) HostEngine run under torch.profiler:
+                device busy time, its share of the wall time, the top ops;
+  5. resident — drive DeviceEngine(megakernel=True) on CUDA on the same
+                three cases under masked and gather; check results against
+                the numpy references and the host path's heaps and values,
+                that epoch_chunk was launched during the phase, and (after
+                it) that RunStats equal a plain resident run on CUDA and
+                one on the CPU field for field;
+  6. profile  — one fib(28) DeviceEngine(megakernel=True) run under
+                torch.profiler.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX and nothing of the JAX package.
@@ -101,18 +114,25 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 # ---------------------------------------------------------------- phase 1
 def phase_build():
-    from repro_torch.kernels import fork_compact
+    from concurrent.futures import ThreadPoolExecutor
 
-    ver = subprocess.run([fork_compact.nvcc_path(), "--version"],
+    from repro_torch.kernels import epoch_megakernel, fork_compact, nvcc
+
+    ver = subprocess.run([nvcc.nvcc_path(), "--version"],
                          capture_output=True, text=True, check=True)
     print("[build] nvcc:", ver.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    path, log = fork_compact.build(ptxas_info=True)
+    mods = (fork_compact, epoch_megakernel)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.build(ptxas_info=True), mods))
     dt = time.perf_counter() - t0
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("[build]", line.strip())
-    print(f"[build] {path.name} built in {dt:.2f} s")
+    for path, log in built:
+        for line in log.splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print("[build]", line.strip())
+        print(f"[build] {path.name}")
+    print(f"[build] both libraries built in {dt:.2f} s (in parallel)")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -204,23 +224,176 @@ def phase_kernels(dev):
     return rows
 
 
+# ------------------------------------------------------- phase 2, epoch_chunk
+def _carry_tensors(carry):
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if f.name == "state":
+            for g in dataclasses.fields(v):
+                out["state." + g.name] = getattr(v, g.name)
+        elif f.name == "heap":
+            for k, t in v.items():
+                out["heap." + k] = t
+        elif v is not None:
+            out[f.name] = v
+    return out
+
+
+def carry_err(a, b, what) -> float:
+    """Max |a - b| over every carry tensor (shapes and dtypes must agree)."""
+    ta, tb = _carry_tensors(a), _carry_tensors(b)
+    if ta.keys() != tb.keys():
+        fail(f"{what}: carries hold different fields")
+    err = 0.0
+    for k in ta:
+        x, y = ta[k], tb[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{what}: {k} is {x.dtype}{tuple(x.shape)} vs "
+                 f"{y.dtype}{tuple(y.shape)}")
+        if x.numel():
+            wide = torch.float64 if x.is_floating_point() else torch.int64
+            err = max(err, float((x.to(wide) - y.to(wide)).abs().max()))
+    return err
+
+
+def run_chunks(eng, carry, K, max_epochs=1 << 16):
+    """Chunks of K epochs (K=None: one unbounded chunk) until the carry
+    drains; returns (carry, last ChunkSummary, readbacks)."""
+    reads = 0
+    while True:
+        limit = max_epochs if K is None else min(
+            max_epochs, int(carry.n_epochs) + K)
+        carry = eng.loop.run_chunk(carry, limit, 1)
+        s = eng.loop.chunk_summary(carry)
+        reads += 1
+        if not (s.sp > 0).any() or s.n_epochs >= max_epochs:
+            return carry, s, reads
+
+
+def _chunk_bound(program, stats):
+    """Least bytes a chunk must move, from its RunStats: every task's TV
+    row read and every fork's row written once, the heap once, and each
+    live map element's 4-byte read and 4-byte write (bound_by the
+    operations only if one operation per task outweighs that)."""
+    # task, epoch, child_base, child_count, the args and the value
+    row = 4 * (4 + program.n_arg_i + program.n_arg_f + program.value_width)
+    heap = sum(4 * hv.shape[0] for hv in program.heap)
+    n_bytes = ((stats.tasks_executed + stats.total_forks) * row + heap
+               + 8 * stats.map_elements)
+    return bound_ms(n_bytes, stats.tasks_executed)
+
+
+def phase_chunks(dev):
+    """epoch_chunk against epoch_chunk_ref on the card, every carry
+    tensor, at full size and the registry's size, K in {1, 4, inf}."""
+    from repro_torch.apps import get_case
+    from repro_torch.core import DeviceEngine
+
+    err = 0.0
+    timing = None
+    sizes = [(c, "full") for c, _ in path_cases()]
+    sizes += [(get_case(c.name), "small") for c, _ in path_cases()]
+    for case, size in sizes:
+        for d in ("masked", "gather"):
+            kw = dict(capacity=case.capacity, dispatch=d, device="cuda")
+            kern = DeviceEngine(case.program, megakernel=True, **kw)
+            plain = DeviceEngine(case.program, **kw)
+            fresh = kern.initial_carry(case.initial,
+                                       dict(case.heap_init) or None)
+            for K in (1, 4, None):
+                got, s_got, reads = run_chunks(kern, fresh.clone(), K)
+                want, s_want, _ = run_chunks(plain, fresh.clone(), K)
+                torch.cuda.synchronize()
+                if reads != (1 if K is None else -(-s_got.n_epochs // K)):
+                    fail(f"epoch_chunk {case.name} {size} {d} K={K}: "
+                         f"{reads} readbacks for {s_got.n_epochs} epochs")
+                e = carry_err(got, want, f"epoch_chunk {case.name} {size} "
+                              f"{d} K={K}")
+                err = max(err, e)
+                if e != 0 or s_got.sp.any() or s_got.failed.any():
+                    fail(f"epoch_chunk {case.name} {size} {d} K={K}: "
+                         f"max |kernel - plain| = {e}, sp={s_got.sp}, "
+                         f"failed={s_got.failed}")
+            print(f"[kernels] epoch_chunk {case.name:9s} {size:5s} {d:6s} "
+                  f"capacity={case.capacity} epochs={s_got.n_epochs}: "
+                  f"exact at K=1, 4, inf (readbacks = ceil(epochs / K))")
+            if case.name == "fib" and size == "full" and d == "masked":
+                timing = (case, kern, plain, fresh)
+    # the failure paths: forks past the TV, a push onto a full stack
+    case = get_case("fib")
+    for limits in ({"capacity": 64}, {"stack_depth": 2}):
+        for d in ("masked", "gather"):
+            kw = dict(capacity=case.capacity, dispatch=d, device="cuda")
+            kw.update(limits)
+            kern = DeviceEngine(case.program, megakernel=True, **kw)
+            plain = DeviceEngine(case.program, **kw)
+            fresh = kern.initial_carry(case.initial)
+            for K in (1, 4, None):
+                got, s_got, _ = run_chunks(kern, fresh.clone(), K)
+                want, _, _ = run_chunks(plain, fresh.clone(), K)
+                e = carry_err(got, want, f"epoch_chunk fib {limits} {d}")
+                err = max(err, e)
+                if (e != 0 or not s_got.failed[0] or s_got.sp[0] != 0
+                        or s_got.failed_stack[0] != ("stack_depth" in limits)):
+                    fail(f"epoch_chunk fib {limits} {d} K={K}: max |kernel "
+                         f"- plain| = {e}, summary {s_got}")
+        print(f"[kernels] epoch_chunk fib small {limits}: the region fails "
+              "as in the plain loop, exact at K=1, 4, inf, masked/gather")
+
+    # time the fib(28) masked chunk (the whole run in one chunk): fresh
+    # clones, CUDA events around the chunk alone
+    case, kern, plain, fresh = timing
+
+    def chunk_ms(eng, reps=3):
+        ts = []
+        for _ in range(reps):
+            c = fresh.clone()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = eng.loop.run_chunk(c, 1 << 16, 1)
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[len(ts) // 2], out
+
+    ms, out = chunk_ms(kern)
+    plain_ms, _ = chunk_ms(plain)
+    stats = kern.stats(kern.loop.chunk_summary(out))
+    b, by = _chunk_bound(case.program, stats)
+    print(f"[kernels] epoch_chunk fib(28) masked, one chunk: device "
+          f"{ms:.3f} ms, bound {b:.5f} ms ({by}), plain {plain_ms:.3f} ms "
+          f"({stats.epochs} epochs, {stats.tasks_executed} tasks)")
+    return dict(
+        name="epoch_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/epoch_megakernel.cu",
+        replaces="src/repro/kernels/epoch_megakernel.py:50",
+        max_abs_err=err, bound_ms=b, bound_by=by, ms=ms,
+        plain_ms=plain_ms, library_ms=None,
+    )
+
+
 # ---------------------------------------------------------------- phase 3
 INVARIANT = ("epochs", "tasks_executed", "total_forks", "peak_tv_slots",
              "map_launches", "map_elements", "map_lanes_launched",
              "ranges_coalesced")
 
 
-def _run(case, dispatch, device):
+def _run(case, dispatch, device, tag="path", **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    heap, value, stats = case.run(dispatch=dispatch, device=device)
+    heap, value, stats = case.run(dispatch=dispatch, device=device, **kw)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     heap = {k: v.cpu().numpy() for k, v in heap.items()}
     value = value.cpu().numpy()
-    print(f"[path] {case.name:9s} {dispatch:9s} {device:4s} "
+    print(f"[{tag}] {case.name:9s} {dispatch:9s} {device:4s} "
           f"capacity={case.capacity} epochs={stats.epochs} "
           f"tasks={stats.tasks_executed} peak_tv_slots={stats.peak_tv_slots}"
           f" wall_ms={wall * 1e3:.1f} "
@@ -294,12 +467,12 @@ def phase_path():
             fail(f"{case.name}: CUDA stats differ from the CPU run")
         _same(gpu, cpu, f"{case.name} masked cuda vs cpu")
     print("[path] all runs match their references, each other and the CPU")
-    return launches, cases
+    return launches, cases, runs
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_profile(case):
-    """Where the time goes: one masked run under ``torch.profiler``."""
+def phase_profile(label, run):
+    """Where the time goes: one run under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,7 +480,7 @@ def phase_profile(case):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, stats = case.run(dispatch="masked", device="cuda")
+        _, _, stats = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memcpy, memset): the host ops that
@@ -319,28 +492,89 @@ def phase_profile(case):
     if busy_us <= 0:
         fail("the profiler saw no device time")
     n_kernels = sum(e.count for e in events)
-    print(f"[profile] {case.name} masked (profiled): wall {wall_us:.0f} us, "
+    print(f"[profile] {label} (profiled): wall {wall_us:.0f} us, "
           f"device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), "
           f"{n_kernels} device ops, "
-          f"{n_kernels / stats.epochs:.0f} per epoch")
+          f"{n_kernels / stats.epochs:.1f} per epoch")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total:10.0f} us "
               f"x{e.count:<6d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------- phase 5
+def phase_resident(cases, host_runs):
+    """DeviceEngine(megakernel=True) on the card: the epoch_chunk path."""
+    from repro_torch.core import DeviceEngine
+    from repro_torch.kernels import epoch_megakernel
+
+    torch.cuda.synchronize()
+    epoch_megakernel.reset_launches()
+    runs = {}
+    for case, correct in cases:
+        for d in ("masked", "gather"):
+            runs[case.name, d] = r = _run(
+                case, d, "cuda", tag="resident", engine_cls=DeviceEngine,
+                megakernel=True)
+            if not correct(r[0], r[1]):
+                fail(f"resident {case.name} {d}: result differs from the "
+                     "reference")
+            hh, hv, _ = host_runs[case.name, "masked"]
+            if not np.array_equal(r[1], hv) or any(
+                    not np.array_equal(r[0][k], hh[k]) for k in hh):
+                fail(f"resident {case.name} {d}: heap or values differ "
+                     "from the masked HostEngine run")
+    torch.cuda.synchronize()
+    launches = dict(epoch_megakernel.LAUNCHES)
+    print(f"[resident] kernel launches during the resident phase: "
+          f"{launches}")
+    if launches["epoch_chunk"] <= 0:
+        fail("kernel epoch_chunk was not launched on the resident path")
+    # the plain resident loop on the card and on the CPU, for comparison
+    for case, _ in cases:
+        for d in ("masked", "gather"):
+            mega = runs[case.name, d]
+            for dev in ("cuda", "cpu"):
+                plain = _run(case, d, dev, tag="resident-plain",
+                             engine_cls=DeviceEngine)
+                if plain[2].as_dict() != mega[2].as_dict():
+                    fail(f"resident {case.name} {d}: RunStats differ from "
+                         f"the plain resident run on {dev}: "
+                         f"{mega[2]} vs {plain[2]}")
+                if not np.array_equal(plain[1], mega[1]) or any(
+                        not np.array_equal(plain[0][k], mega[0][k])
+                        for k in mega[0]):
+                    fail(f"resident {case.name} {d}: heap or values differ "
+                         f"from the plain resident run on {dev}")
+    print("[resident] all runs match their references, the host path, and "
+          "the plain resident loop on CUDA and on the CPU")
+    return launches
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from repro_torch.core import DeviceEngine
+
     dev = torch.device("cuda")
     print("[env]", sys.version.split()[0], "torch", torch.__version__,
           "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
-    launches, cases = phase_path()
-    phase_profile(cases[0][0])
+    rows.append(phase_chunks(dev))
+    launches, cases, host_runs = phase_path()
+    fib_case = cases[0][0]
+    phase_profile("fib HostEngine masked",
+                  lambda: fib_case.run(dispatch="masked", device="cuda"))
+    launches.update(phase_resident(cases, host_runs))
+    phase_profile("fib DeviceEngine(megakernel=True) masked",
+                  lambda: fib_case.run(engine_cls=DeviceEngine,
+                                       dispatch="masked", device="cuda",
+                                       megakernel=True))
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

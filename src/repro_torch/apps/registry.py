@@ -23,14 +23,15 @@ class AppCase:
     heap_init: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     capacity: int = 1 << 13
 
-    def run(self, **engine_kw):
-        """Run this case on a ``HostEngine`` built with the given kwargs
-        (``device=`` among them; CUDA by default)."""
+    def run(self, engine_cls=None, **engine_kw):
+        """Run this case; defaults to ``HostEngine`` built with the given
+        kwargs (``device=`` among them; CUDA by default)."""
         from ..core import HostEngine
 
+        cls = engine_cls or HostEngine
         kw = dict(capacity=self.capacity)
         kw.update(engine_kw)
-        return HostEngine(self.program, **kw).run(
+        return cls(self.program, **kw).run(
             self.initial, heap_init=dict(self.heap_init) or None
         )
 

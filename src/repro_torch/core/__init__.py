@@ -1,8 +1,16 @@
 # The TVM abstract machine and the TREES epoch-synchronized runtime, ported
-# to PyTorch: the host engine (engine.py) over the scheduler (phase-1
-# policy: stacks, coalescing, dispatch sizing) over the TVM (phase-2/3
-# execution substrate, tvm.py).
-from .engine import EngineError, EpochLoop, HostEngine, MapLauncher
+# to PyTorch: the host and resident engines (engine.py) over the scheduler
+# (phase-1 policy: stacks, coalescing, dispatch sizing) over the TVM
+# (phase-2/3 execution substrate, tvm.py).
+from .engine import (
+    ChunkSummary,
+    DeviceEngine,
+    EngineError,
+    EpochLoop,
+    HostEngine,
+    MapLauncher,
+    ResidentCarry,
+)
 from .program import HeapVar, InitialTask, MapType, Program, TaskType
 from .scheduler import (
     COMPACTED,
@@ -19,6 +27,9 @@ from .scheduler import (
 )
 
 __all__ = [
+    "ChunkSummary",
+    "DeviceEngine",
+    "ResidentCarry",
     "EngineError",
     "EpochLoop",
     "HostEngine",

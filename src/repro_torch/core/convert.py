@@ -1,12 +1,13 @@
 """Carry a Task Vector and heap between the JAX reference and the port.
 
 The system has no weights; what crosses between the two implementations is
-the TVM state and the heap.  These functions take the reference's
-``TVMState`` leaves and heap dicts as numpy arrays (``{field name:
-ndarray}``, ``{heap var: ndarray}``) and turn them into the port's tensors
-— adding the trailing sink row every TV and heap array carries here
-(``core/tvm.py``) — and back.  The tests use them to hand one state to
-both implementations.
+the TVM state and the heap, and on the resident path the whole
+``ResidentCarry``.  These functions take the reference's ``TVMState``
+leaves and heap dicts as numpy arrays (``{field name: ndarray}``, ``{heap
+var: ndarray}``) and turn them into the port's tensors — adding the
+trailing sink row every TV and heap array carries here (``core/tvm.py``)
+— and back.  The tests use them to hand one state to both
+implementations.
 """
 from __future__ import annotations
 
@@ -16,9 +17,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .engine import ResidentCarry, _hilo_value
 from .tvm import TVMState, heap_with_sink, heap_without_sink
 
 FIELDS = tuple(f.name for f in dataclasses.fields(TVMState))
+CARRY_FIELDS = tuple(f.name for f in dataclasses.fields(ResidentCarry))
+# the JAX carry's exact i32 (hi, lo) accumulators, int64 tensors here
+HILO_FIELDS = ("job_tasks", "job_forks", "map_elements", "map_lanes",
+               "hole_lanes")
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> TVMState:
@@ -55,3 +61,45 @@ def heap_from_numpy(heap: Mapping[str, np.ndarray],
 
 def heap_to_numpy(heap: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in heap_without_sink(heap).items()}
+
+
+def carry_from_numpy(leaves: Mapping[str, object], device) -> ResidentCarry:
+    """The port's ``ResidentCarry`` from the reference's, field by field.
+
+    ``leaves`` maps each JAX ``ResidentCarry`` field to numpy: ``state``
+    to its ``TVMState`` leaves, ``heap`` to the heap dict, ``arena`` to
+    ``None`` (solo carries only), every other field to its array.  TV and
+    heap arrays gain their sink rows, the hi/lo pairs are decoded to
+    int64, and the port's own ``fault`` word starts at 0.
+    """
+    if leaves.get("arena") is not None:
+        raise NotImplementedError("fleet (JobArena) carries are not ported")
+    out = {"arena": None,
+           "state": state_from_numpy(leaves["state"], device),
+           "heap": heap_from_numpy(leaves["heap"], device),
+           "fault": torch.zeros((), dtype=torch.int32, device=device)}
+    for name in CARRY_FIELDS:
+        if name in out:
+            continue
+        v = np.asarray(leaves[name])
+        if name in HILO_FIELDS:
+            v = _hilo_value(v)
+        out[name] = torch.as_tensor(np.array(v), device=device)
+    return ResidentCarry(**out)
+
+
+def carry_to_numpy(carry: ResidentCarry) -> Dict[str, object]:
+    """The reference's carry layout (sink rows dropped, counters int64,
+    ``fault`` left out)."""
+    out: Dict[str, object] = {"arena": None}
+    for name in CARRY_FIELDS:
+        if name in ("arena", "fault"):
+            continue
+        v = getattr(carry, name)
+        if name == "state":
+            out[name] = state_to_numpy(v)
+        elif name == "heap":
+            out[name] = heap_to_numpy(v)
+        else:
+            out[name] = v.cpu().numpy()
+    return out

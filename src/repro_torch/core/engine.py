@@ -1,12 +1,26 @@
-"""TREES epoch engine, host half (PyTorch port of ``repro/core/engine.py``).
+"""TREES epoch engines (PyTorch port of ``repro/core/engine.py``).
 
 :class:`EpochLoop` is the driver core: the masked full-width step, the §5.4
-compaction pass + dense per-type step, and the §11 gather pack + dense
-frontier step, plus the one-epoch driver :meth:`EpochLoop.run_epoch`.
-:class:`HostEngine` is the paper-faithful CPU/GPU split: the Python host
-performs phase 1 (stack bookkeeping) and reads the end-of-epoch scalars —
-the paper's ``joinScheduled``/``mapScheduled``/``nextFreeCore`` transfers —
-once per epoch, while phases 2 and 3 run as tensor code on the device.
+compaction pass + dense per-type step, the §11 gather pack + dense
+frontier step, the one-epoch driver :meth:`EpochLoop.run_epoch`, and the
+resident loop (:meth:`EpochLoop.resident_body`, :meth:`EpochLoop.run_chunk`).
+Two engines configure it:
+
+  * :class:`HostEngine` — the paper-faithful CPU/GPU split: the Python host
+    performs phase 1 (stack bookkeeping) and reads the end-of-epoch scalars
+    — the paper's ``joinScheduled``/``mapScheduled``/``nextFreeCore``
+    transfers — once per epoch, while phases 2 and 3 run as tensor code on
+    the device.
+  * :class:`DeviceEngine` — the resident variant: the stacks are
+    ``[1, depth]`` device tensors and every scalar a host loop would read
+    per epoch accrues in a :class:`ResidentCarry`, read once per chunk as a
+    :class:`ChunkSummary`.  With ``megakernel=True`` a chunk on the card is
+    one launch of the hand-written ``epoch_chunk`` kernel
+    (``kernels/epoch_megakernel.py``); otherwise, and on the CPU, it is the
+    plain loop ``kernels/ref.py::epoch_chunk_ref`` over
+    :meth:`EpochLoop.resident_body`, which reads the loop condition and the
+    popped range on the host once per epoch (eager PyTorch picks the step
+    width there, where the JAX reference ``lax.switch``-es on the device).
 
 PyTorch runs eagerly, so the step builders of the JAX reference are plain
 methods here (no jit caches).  The scans on the path run the port's CUDA
@@ -14,13 +28,19 @@ kernels on the card (``kernels/ops.py``): fork-slot allocation and the
 compaction offsets go through ``fork_scan``, the compaction rank and the
 gather pack through ``type_rank``.
 
-Not ported yet: the resident ``DeviceEngine``, ``dispatch="auto"``, the
-tracer, the controller, and the JAX engine's plug points for other scan
-implementations (``fork_offsets_fn``/``rank_fn``/``pack_fn``).
+Resident counters are native int64 tensors where the JAX carry keeps exact
+i32 hi/lo pairs (it runs without x64); decoded, they are the same numbers.
+
+Not ported yet: the fleet (``JobArena``) branch of the resident body, the
+sharded fleet chunk, ``dispatch="auto"``, the tracer, the controller, and
+the JAX engine's plug points for other scan implementations
+(``fork_offsets_fn``/``rank_fn``/``pack_fn``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import bisect
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,17 +55,35 @@ from .scheduler import (
     RunStats,
     RunStatsCollector,
     StatsCollector,
+    batched_device_pop,
+    batched_device_push,
+    batched_device_stacks,
     launch_bucket,
     resolve_policy,
     size_type_buckets,
 )
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 
 _I32 = torch.int32
 
 
 class EngineError(RuntimeError):
     pass
+
+
+_COMPACTED_RESIDENT_MSG = (
+    "resident (device) execution supports the 'masked' and 'gather' "
+    "dispatches: the on-device loop needs launch shapes fixed at trace "
+    "time — gather packs into a fixed-shape in-loop frontier, but "
+    "'compacted' sizes per-type launches from runtime populations (use a "
+    "host-loop driver for compacted dispatch)"
+)
+
+_FLEET_RESIDENT_MSG = (
+    "the fleet (JobArena) branch of the resident loop is not ported yet: "
+    "it comes with the multi-tenant service (ROADMAP item 7)"
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,14 +151,189 @@ class MapLauncher:
         return heap
 
 
-class EpochLoop:
-    """The host-driven epoch core: step builders and the one-epoch driver."""
+@dataclasses.dataclass
+class ResidentCarry:
+    """State of the resident loop, threaded from epoch to epoch.
 
-    def __init__(self, program: Program, dispatch: Any = MASKED):
+    The TVM + heap (both with their sink rows), the ``[n_regions, depth]``
+    scheduler stacks with per-region stack pointers, and device
+    accumulators for every scalar a host loop would have read back per
+    epoch — the resident "readback policy" is to fetch them once, after the
+    chunk.  The fields follow the JAX ``ResidentCarry`` in order; the
+    hi/lo pairs there are int64 tensors here, and ``fault`` is the port's
+    own (the ``epoch_chunk`` kernel's fault code, 0 = none; the plain loop
+    never sets it).
+    """
+
+    state: Any         # tvm.TVMState
+    heap: Any          # Dict[str, torch.Tensor]
+    arena: Any         # JobArena (fleet, not ported) or None (solo)
+    jstack: Any        # i32[J, depth]
+    rstack: Any        # i32[J, depth, 2]
+    sp: Any            # i32[J]   per-region stack pointers
+    failed: Any        # bool[J]  region failed (TV or stack overflow)
+    failed_stack: Any  # bool[J]  the failure was scheduler stack depth
+    n_epochs: Any      # i32[]    global epochs (loop iterations)
+    job_epochs: Any    # i32[J]   per-region epochs (== solo epochs)
+    job_tasks: Any     # i64[J]   per-region tasks executed (T1)
+    job_forks: Any     # i64[J]   per-region total forks
+    job_peak: Any      # i32[J]   per-region peak TV cursor
+    map_launches: Any  # i32[]    map payload launches
+    map_elements: Any  # i64[]    live map element-lanes
+    map_lanes: Any     # i64[]    launched element-lanes (lane x domain rung)
+    hole_lanes: Any    # i64[]    full-TV lanes the span buckets skipped
+    fault: Any         # i32[]    epoch_chunk kernel fault code (0 = none)
+
+    def clone(self) -> "ResidentCarry":
+        """A deep copy (the resident loop updates its carry in place)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                v = v.clone()
+            elif isinstance(v, dict):
+                v = {k: t.clone() for k, t in v.items()}
+            elif isinstance(v, tvm.TVMState):
+                v = tvm.TVMState(**{
+                    g.name: getattr(v, g.name).clone()
+                    for g in dataclasses.fields(v)
+                })
+            out[f.name] = v
+        return ResidentCarry(**out)
+
+
+_HILO_BASE = 1 << 20  # the JAX carry's split radix: hi * 2^20 + lo
+
+
+def _hilo_value(acc) -> np.ndarray:
+    """Decode the JAX carry's i32 hi/lo pairs (``[..., 2]``) to int64."""
+    a = np.asarray(acc).astype(np.int64)
+    return a[..., 0] * _HILO_BASE + a[..., 1]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkSummary:
+    """Host-side snapshot fetched once per chunk boundary (DESIGN.md §10).
+
+    Per-region stack pointers (``sp[j] == 0``: region ``j`` drained),
+    failure flags, the per-region accumulators, map-launch volumes — what
+    the host needs between chunks, without touching the bulk TV/heap
+    state.  ``arena_next`` is ``None`` (solo).
+    """
+
+    n_epochs: int             # global epochs run so far (all chunks)
+    sp: np.ndarray            # i32[J] remaining stack entries per region
+    failed: np.ndarray        # bool[J] region failed (TV or stack overflow)
+    failed_stack: np.ndarray  # bool[J] the failure was scheduler stack depth
+    job_epochs: np.ndarray    # i32[J] per-region epochs (== solo epochs)
+    job_tasks: np.ndarray     # i64[J] per-region tasks executed (T1)
+    job_forks: np.ndarray     # i64[J] per-region total forks
+    job_peak: np.ndarray      # i32[J] per-region peak TV cursor
+    map_launches: int
+    map_elements: int
+    map_lanes: int
+    hole_lanes: int           # full-TV lanes the live-span buckets skipped
+    arena_next: Optional[np.ndarray]  # i32[J] region cursors (fleet only)
+
+
+def _map_width_ladder(max_domain: int, minimum: int = 8) -> Tuple[int, ...]:
+    """Power-of-2 payload widths, capped at ``max_domain``.
+
+    The resident map launcher picks the smallest rung covering the max of
+    the scheduled lanes' live domains.  ``minimum`` is clamped when it
+    reaches ``max_domain``, so a tiny domain does not degenerate to one
+    full-width rung.
+    """
+    if max_domain <= minimum:
+        minimum = max(1, max_domain // 2)
+    widths: List[int] = []
+    w = minimum
+    while w < max_domain:
+        widths.append(w)
+        w *= 2
+    widths.append(max_domain)
+    return tuple(widths)
+
+
+def _span_width_ladder(capacity: int, levels: int = 4,
+                       minimum: int = 8) -> Tuple[int, ...]:
+    """Live-span launch widths for the resident epoch step.
+
+    A halving ladder from the full TV down ``levels`` rungs: each epoch
+    launches at the smallest rung covering the popped range (masked) or
+    the pack count (gather); the top rung is the full TV.  ``minimum`` is
+    clamped when it reaches ``capacity``.
+    """
+    if capacity <= minimum:
+        minimum = max(1, capacity // 2)
+    widths = [int(capacity)]
+    w = capacity // 2
+    while len(widths) < levels and w >= max(1, minimum):
+        widths.append(int(w))
+        w //= 2
+    return tuple(sorted(widths))
+
+
+def _rung(widths: Tuple[int, ...], key: int) -> int:
+    """The smallest rung ``>= key`` (``searchsorted`` left), clipped to the
+    top rung."""
+    return widths[min(bisect.bisect_left(widths, key), len(widths) - 1)]
+
+
+def _fresh_resident_carry(state, heap, arena, jstack, rstack, sp,
+                          n_regions: int) -> ResidentCarry:
+    dev = jstack.device
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return ResidentCarry(
+        state=state, heap=heap, arena=arena,
+        jstack=jstack, rstack=rstack, sp=sp,
+        failed=z((n_regions,), torch.bool),
+        failed_stack=z((n_regions,), torch.bool),
+        n_epochs=z((), _I32), job_epochs=z((n_regions,), _I32),
+        job_tasks=z((n_regions,), torch.int64),
+        job_forks=z((n_regions,), torch.int64),
+        job_peak=z((n_regions,), _I32),
+        map_launches=z((), _I32), map_elements=z((), torch.int64),
+        map_lanes=z((), torch.int64), hole_lanes=z((), torch.int64),
+        fault=z((), _I32),
+    )
+
+
+def _resident_cond(carry: ResidentCarry, limit) -> bool:
+    """Chunk loop condition: some stack is live and the epoch bound is not
+    reached (one host read)."""
+    return bool(((carry.sp > 0).any() & (carry.n_epochs < limit)).item())
+
+
+def _clear_sinks(state: tvm.TVMState, heap) -> None:
+    """Zero the sink rows, where the plain loop's dropped scatters land,
+    so that a carry's bits do not depend on which dropped write came last
+    (the ``epoch_chunk`` kernel drops them and never writes a sink)."""
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if t.dim() > 0:
+            t[-1] = 0
+    for t in heap.values():
+        t[-1] = 0
+
+
+class EpochLoop:
+    """The epoch core: step builders, the one-epoch host driver and the
+    resident chunk loop."""
+
+    def __init__(self, program: Program, dispatch: Any = MASKED,
+                 megakernel: bool = False):
         self.program = program
         self.policy: DispatchPolicy = resolve_policy(dispatch)
         self.task_names = [t.name for t in program.tasks]
         self.maps = MapLauncher(program)
+        # resident chunks on the card run as one epoch_chunk kernel launch
+        # (kernels/epoch_megakernel.py) instead of the plain loop; the
+        # same bits, one launch per chunk (DESIGN.md §12)
+        self.megakernel = bool(megakernel)
 
     # ------------------------------------------------------------ the steps
     def masked_step(self, state, heap, start: int, count: int, cen: int,
@@ -225,6 +438,222 @@ class EpochLoop:
         )
 
 
+    # --------------------------------------------------------- resident loop
+    def resident_body(self, capacity: int, stack_depth: int):
+        """Body of the plain resident epoch loop (solo carries only).
+
+        Pop → step → commit → push → map payloads, with every scalar a host
+        loop would read per epoch accrued in the :class:`ResidentCarry`:
+
+          * the step launches at the smallest :func:`_span_width_ladder`
+            rung covering the popped range (masked) or the count of the
+            stable full-TV ``lane_pack`` of the epoch's active lanes
+            (gather; the ``type_rank`` kernel on the card); the skipped
+            lanes accrue in ``hole_lanes``;
+          * the join continuation is pushed below this epoch's forked
+            range (LIFO, paper §4.3.3); TV overflow or a full stack fails
+            the region and zeroes its stack pointer;
+          * each map payload runs after the commit, over its scheduled
+            lanes packed in slot order, at the lane rung × domain rung the
+            JAX body launches (``map_lanes``); all-empty domains launch and
+            count nothing.
+
+        The carry's tensors are updated in place.  Eager PyTorch needs the
+        step width on the host, so each epoch reads the popped range (and
+        each map launch its row count and domain max) back once — the
+        plain version's cost, not the kernel's.
+        """
+        if self.policy.name not in ("masked", "gather"):
+            raise ValueError(_COMPACTED_RESIDENT_MSG)
+        gather = self.policy.name == "gather"
+        program = self.program
+        span_widths = _span_width_ladder(capacity)
+
+        def run_maps(heap, map_launches, carry):
+            map_ct = carry.map_launches
+            map_el = carry.map_elements
+            map_ln = carry.map_lanes
+            for ml in map_launches:
+                mt = program.maps[ml.map_id]
+                if mt.max_domain <= 0:
+                    raise EngineError(
+                        f"map '{mt.name}' needs max_domain>0 for resident "
+                        "(device) execution"
+                    )
+                dom = torch.as_tensor(mt.domain(ml.argi)).to(_I32).clamp(
+                    0, mt.max_domain)
+                live_dom = torch.where(ml.where, dom, 0)
+                lperm, lcount = kops.lane_pack(ml.where)
+                dmax, n_rows = torch.stack(
+                    [live_dom.max(), lcount.to(_I32)]).tolist()
+                map_el = map_el + live_dom.sum(dtype=torch.int64)
+                if dmax <= 0:
+                    # every scheduled lane has an empty domain: no launch
+                    continue
+                D = _rung(_map_width_ladder(mt.max_domain), dmax)
+                L = _rung(span_widths, n_rows)
+                rows = lperm[:n_rows].long()
+                # the packed rows alone: the JAX body's L - n_rows padding
+                # rows are invalid and write nothing
+                heap = tvm.run_map_payload(
+                    program, heap, ml.map_id, ml.where[rows], ml.argi[rows],
+                    ml.argf[rows], D,
+                )
+                map_ct = map_ct + 1
+                map_ln = map_ln + L * D
+            return heap, map_ct, map_el, map_ln
+
+        def body(carry: ResidentCarry) -> ResidentCarry:
+            if carry.arena is not None:
+                raise NotImplementedError(_FLEET_RESIDENT_MSG)
+            state, heap = carry.state, carry.heap
+            cen, start, count, live, sp = batched_device_pop(
+                carry.jstack, carry.rstack, carry.sp
+            )
+            if gather:
+                # gather packs over the full TV: the solo popped range
+                # becomes a per-lane CEN vector
+                lanes = torch.arange(capacity, dtype=_I32,
+                                     device=state.device)
+                in_pop = live[0] & (lanes >= start[0]) & (
+                    lanes < start[0] + count[0])
+                step_cen = torch.where(in_pop, cen[0], 0)
+                act = (step_cen > 0) & (state.epoch[:capacity] == step_cen)
+                perm, width_key = kops.lane_pack(act)
+            else:
+                width_key = torch.where(live[0], count[0], 0)
+            lo, ct, scen, key = torch.stack([
+                start[0], count[0], torch.where(live[0], cen[0], 0),
+                width_key.to(_I32),
+            ]).tolist()
+            W = _rung(span_widths, key)
+            if gather:
+                state, heap, summary, map_launches = self.gather_step(
+                    state, heap, 0, perm, W
+                )
+            else:
+                state, heap, summary, map_launches = self.masked_step(
+                    state, heap, lo, ct, scen, W
+                )
+            job_forks = summary.total_forks.reshape(1)
+            job_next = state.next_free.reshape(1)
+            failed = carry.failed | (live & summary.overflow)
+            ok = live & ~failed
+            # LIFO push order exactly as the host scheduler (§4.3.3): join
+            # continuation below, this epoch's forked range on top
+            jstack, rstack, sp, of1 = batched_device_push(
+                carry.jstack, carry.rstack, sp, cen, start, count,
+                ok & summary.join_scheduled, stack_depth,
+            )
+            jstack, rstack, sp, of2 = batched_device_push(
+                jstack, rstack, sp, cen + 1, job_next - job_forks,
+                job_forks, ok & (job_forks > 0), stack_depth,
+            )
+            failed = failed | of1 | of2
+            sp = torch.where(failed, 0, sp)
+            heap, map_ct, map_el, map_ln = run_maps(heap, map_launches,
+                                                    carry)
+            _clear_sinks(state, heap)
+            return ResidentCarry(
+                state=state, heap=heap, arena=None,
+                jstack=jstack, rstack=rstack, sp=sp, failed=failed,
+                failed_stack=carry.failed_stack | of1 | of2,
+                n_epochs=carry.n_epochs + 1,
+                job_epochs=carry.job_epochs + live.to(_I32),
+                job_tasks=carry.job_tasks + summary.n_active.to(torch.int64),
+                job_forks=carry.job_forks + job_forks.to(torch.int64),
+                job_peak=torch.maximum(carry.job_peak, job_next),
+                map_launches=map_ct, map_elements=map_el, map_lanes=map_ln,
+                hole_lanes=carry.hole_lanes + (capacity - W),
+                fault=carry.fault,
+            )
+
+        return body
+
+    def device_table(self):
+        """The ``epoch_chunk`` kernel's device task table for this program;
+        raises :class:`EngineError` where there is none."""
+        from ..kernels import epoch_megakernel as mk
+
+        table = mk.device_table(self.program)
+        if table is None:
+            raise EngineError(
+                f"program {self.program.name!r} has no device task table "
+                "for the epoch_chunk kernel (tables exist for fib, bfs and "
+                "mergesort(map); the others are ROADMAP §2.3's follow-up)"
+            )
+        return table
+
+    def run_chunk(self, carry: ResidentCarry, limit,
+                  n_regions: int = 1) -> ResidentCarry:
+        """Run the resident loop until every stack drains or the global
+        epoch counter reaches ``limit`` — one *chunk* (DESIGN.md §10).
+
+        ``limit`` is dynamic: K=1, K epochs per chunk and the fully
+        resident run (``limit`` = the epoch guard) run the same code, and
+        on the card the same compiled kernel, which reads ``limit`` on the
+        device.  A drained carry (or one already at ``limit``) comes back
+        unchanged.  The carry is updated in place and returned.
+
+        With ``megakernel=True`` a carry on the card runs through the
+        ``epoch_chunk`` kernel (one launch, no host read inside the
+        chunk); a carry on the CPU runs the plain loop either way.
+        """
+        if n_regions != 1 or carry.arena is not None:
+            raise NotImplementedError(_FLEET_RESIDENT_MSG)
+        capacity = carry.state.capacity
+        depth = carry.jstack.shape[1]
+        body = self.resident_body(capacity, depth)
+        if self.megakernel:
+            from ..kernels import epoch_megakernel as mk
+
+            if carry.state.device.type == "cuda":
+                self.device_table()
+            return mk.epoch_chunk(
+                _resident_cond, body, carry, limit, program=self.program,
+                gather=self.policy.name == "gather",
+            )
+        return kref.epoch_chunk_ref(_resident_cond, body, carry, limit)
+
+    def run_resident(self, carry: ResidentCarry, max_epochs: int,
+                     n_regions: int = 1) -> ResidentCarry:
+        """Run the resident loop to completion: one chunk bounded only by
+        the epoch guard — one dispatch for the whole program."""
+        return self.run_chunk(carry, max_epochs, n_regions)
+
+    def chunk_summary(self, carry: ResidentCarry) -> ChunkSummary:
+        """The chunk-boundary readback: the control and accounting scalars
+        gathered into one int64 tensor and brought back in one transfer.
+        Raises if the ``epoch_chunk`` kernel reported a fault."""
+        parts = (carry.n_epochs, carry.sp, carry.failed, carry.failed_stack,
+                 carry.job_epochs, carry.job_tasks, carry.job_forks,
+                 carry.job_peak, carry.map_launches, carry.map_elements,
+                 carry.map_lanes, carry.hole_lanes, carry.fault)
+        flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+        v = flat.cpu().numpy()
+        J = carry.sp.shape[0]
+        n_epochs, rest = int(v[0]), v[1:]
+        per = [rest[i * J:(i + 1) * J] for i in range(7)]
+        (m_ct, m_el, m_ln, holes, fault) = (int(x) for x in rest[7 * J:])
+        if fault:
+            raise EngineError(
+                f"epoch_chunk kernel fault {fault} (1: an epoch's live map "
+                "elements exceeded the payload stage)"
+            )
+        return ChunkSummary(
+            n_epochs=n_epochs,
+            sp=per[0].astype(np.int32),
+            failed=per[1].astype(bool),
+            failed_stack=per[2].astype(bool),
+            job_epochs=per[3].astype(np.int32),
+            job_tasks=per[4],
+            job_forks=per[5],
+            job_peak=per[6].astype(np.int32),
+            map_launches=m_ct, map_elements=m_el, map_lanes=m_ln,
+            hole_lanes=holes, arena_next=None,
+        )
+
+
 class HostEngine:
     """Paper-faithful engine: host drives stacks, device runs bulk epochs.
 
@@ -311,3 +740,91 @@ class HostEngine:
             col.forks(total_forks)
             col.tv_peak(nf)
         return tvm.heap_without_sink(heap), state.value[:-1], col.result()
+
+
+class DeviceEngine:
+    """Whole-program engine: stacks and epoch loop without a per-epoch
+    host readback — the :class:`EpochLoop` resident configuration with
+    ``n_regions=1``.
+
+    Dispatch: ``masked`` (span-ladder launches, §11) or ``gather`` (the
+    in-loop dense frontier pack, §12); ``compacted`` stays host-only.
+    ``device=None`` means CUDA (and raises where CUDA is absent); pass
+    ``device="cpu"`` to run the plain loop on the CPU.  ``megakernel=True``
+    runs each chunk on the card as one launch of the ``epoch_chunk``
+    kernel, which holds a device task table for fib, bfs and
+    mergesort(map); on the card any other program raises
+    :class:`EngineError` (there is no fallback), and on the CPU the flag
+    runs the plain loop, as the JAX package's ``"auto"`` does off the TPU.
+    """
+
+    def __init__(
+        self,
+        program: Program,
+        capacity: int = 1 << 12,
+        stack_depth: int = 1 << 10,
+        dispatch: Any = MASKED,
+        megakernel: bool = False,
+        device=None,
+    ):
+        self.program = program
+        self.capacity = capacity
+        self.stack_depth = stack_depth
+        if resolve_policy(dispatch).name not in ("masked", "gather"):
+            raise ValueError(_COMPACTED_RESIDENT_MSG)
+        self.device = resolve_device(device)
+        self.loop = EpochLoop(program, dispatch, megakernel=megakernel)
+        self.policy = self.loop.policy
+        if self.loop.megakernel and self.device.type == "cuda":
+            self.loop.device_table()
+
+    def initial_carry(self, initial: InitialTask,
+                      heap_init: Optional[Dict[str, Any]] = None
+                      ) -> ResidentCarry:
+        """A fresh solo carry: the seed task in slot 0, one stack entry."""
+        program = self.program
+        state = tvm.init_state(program, self.capacity, initial, self.device)
+        heap = tvm.heap_with_sink(
+            program.init_heap(self.device, **(heap_init or {}))
+        )
+        jstack, rstack, sp = batched_device_stacks(
+            1, self.stack_depth, self.device
+        )
+        return _fresh_resident_carry(state, heap, None, jstack, rstack, sp,
+                                     n_regions=1)
+
+    def stats(self, s: ChunkSummary) -> RunStats:
+        """``RunStats`` of a finished run from its last chunk summary."""
+        stats = RunStats(
+            epochs=s.n_epochs, dispatches=1, scalar_transfers=1,
+            tasks_executed=int(s.job_tasks[0]),
+            lanes_launched=s.n_epochs * self.capacity - s.hole_lanes,
+            total_forks=int(s.job_forks[0]),
+            map_launches=s.map_launches, map_elements=s.map_elements,
+            map_lanes_launched=s.map_lanes,
+            hole_lanes_skipped=s.hole_lanes,
+        )
+        stats.peak_tv_slots = int(s.job_peak[0])
+        return stats
+
+    def run(
+        self,
+        initial: InitialTask,
+        heap_init: Optional[Dict[str, Any]] = None,
+        max_epochs: int = 1 << 16,
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, RunStats]:
+        """Execute the program to completion in one chunk.
+
+        Returns (final heap, final TV value array ``[capacity, W]``,
+        stats); the chunk summary is the run's one scalar transfer.
+        """
+        out = self.loop.run_resident(
+            self.initial_carry(initial, heap_init), max_epochs, n_regions=1
+        )
+        s = self.loop.chunk_summary(out)
+        if s.failed.any():
+            raise EngineError("TV capacity or stack depth exhausted")
+        if (s.sp > 0).any():
+            raise EngineError(f"exceeded max_epochs={max_epochs}")
+        return (tvm.heap_without_sink(out.heap), out.state.value[:-1],
+                self.stats(s))

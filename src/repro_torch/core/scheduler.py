@@ -14,8 +14,12 @@
     dense frontier (``kernels.ops.lane_pack``).
   * :class:`StatsCollector` — pluggable work/critical-path accounting
     (:class:`RunStats`).
+  * :func:`batched_device_stacks` / :func:`batched_device_pop` /
+    :func:`batched_device_push` — the same join/NDRange discipline as
+    ``[n_regions, depth]`` tensors, for the resident loop (no host
+    readback per epoch).
 
-Pure host Python: no tensors here.
+Everything above the device stacks is pure host Python.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+_I32 = torch.int32
 
 
 # --------------------------------------------------------------------------
@@ -307,3 +314,68 @@ class RunStatsCollector(NullStats):
 
     def tv_peak(self, slots: int) -> None:
         self._stats.peak_tv_slots = max(self._stats.peak_tv_slots, slots)
+
+
+# --------------------------------------------------------------------------
+# Device-side stacks (the same discipline inside the resident loop)
+# --------------------------------------------------------------------------
+def batched_device_stacks(n_regions: int, depth: int, device, cens=None,
+                          starts=None, counts=None):
+    """``[n_regions, depth]`` join/NDRange stacks as device tensors.
+
+    Every region's stack is seeded like :meth:`EpochScheduler.reset`: one
+    entry ``(cen, start, count)`` with its stack pointer at 1.  Defaults
+    seed region ``j`` with ``(1, 0, 1)``.  Returns ``(jstack i32[J, depth],
+    rstack i32[J, depth, 2], sp i32[J])``.
+    """
+    J = n_regions
+
+    def seed(v, default):
+        if v is None:
+            return torch.full((J,), default, dtype=_I32, device=device)
+        return torch.as_tensor(v, device=device).to(_I32)
+
+    jstack = torch.zeros((J, depth), dtype=_I32, device=device)
+    rstack = torch.zeros((J, depth, 2), dtype=_I32, device=device)
+    jstack[:, 0] = seed(cens, 1)
+    rstack[:, 0, 0] = seed(starts, 0)
+    rstack[:, 0, 1] = seed(counts, 1)
+    return jstack, rstack, torch.ones((J,), dtype=_I32, device=device)
+
+
+def batched_device_pop(jstack, rstack, sp):
+    """Pop the top entry of every non-empty region stack at once.
+
+    Returns ``(cen, start, count, live, sp')``, all ``[n_regions]``; regions
+    with an empty stack report ``live=False`` and zeroed pop values (an
+    all-zero range is inert: epoch number 0 matches no valid TV slot).
+    The stacks themselves are left as they are.
+    """
+    J, depth = jstack.shape
+    live = sp > 0
+    top = (sp - 1).clamp(0, depth - 1).long()
+    rows = torch.arange(J, device=sp.device)
+    cen = torch.where(live, jstack[rows, top], 0)
+    start = torch.where(live, rstack[rows, top, 0], 0)
+    count = torch.where(live, rstack[rows, top, 1], 0)
+    return cen, start, count, live, sp - live.to(_I32)
+
+
+def batched_device_push(jstack, rstack, sp, cen, start, count, pred,
+                        depth: int):
+    """Conditionally push one ``(cen, range)`` entry per region.
+
+    ``cen``/``start``/``count``/``pred`` are ``[n_regions]``.  Updates the
+    stacks in place and returns ``(jstack, rstack, sp', overflow)`` where
+    ``overflow[j]`` flags a push attempted on a full stack: as in the JAX
+    reference the write is clipped to the top row (overwriting it) and the
+    caller must fail that region — its schedule is no longer trustworthy.
+    """
+    J = jstack.shape[0]
+    rows = torch.arange(J, device=sp.device)
+    overflow = pred & (sp >= depth)
+    ssp = sp.clamp(0, depth - 1).long()
+    jstack[rows, ssp] = torch.where(pred, cen.to(_I32), jstack[rows, ssp])
+    entry = torch.stack([start, count], dim=-1).to(_I32)
+    rstack[rows, ssp] = torch.where(pred[:, None], entry, rstack[rows, ssp])
+    return jstack, rstack, sp + pred.to(_I32), overflow

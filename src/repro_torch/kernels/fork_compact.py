@@ -6,9 +6,7 @@ names in ``repro/kernels/fork_compact.py``; the CUDA C++ lives in
 TPU's sequential-grid carry became a reduce-then-scan).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, into ``build/`` beside this file
-(listed in ``.gitignore``); the library's name carries a hash of the
-source and flags, so an edited ``.cu`` file builds anew.  It is loaded with
+with a plain C interface at first use (``kernels/nvcc.py``) and loaded with
 ``ctypes``.  Nothing here compiles or loads at import time.
 
 Each wrapper checks device, dtype, contiguity and length, allocates the
@@ -20,23 +18,16 @@ the port is ``kernels/ops.py``, which sends CPU tensors to ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 
-_HERE = pathlib.Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "fork_compact.cu"
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from . import nvcc
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "fork_compact.cu"
+BUILD_DIR = nvcc.BUILD_DIR
 MAX_TYPES = 8  # kMaxTypes in the source
 
 # launches of each kernel since the last reset (one per wrapper call)
@@ -51,46 +42,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for root in ([home] if home else []) + ["/usr/local/cuda"]:
-        cand = os.path.join(root, "bin", "nvcc")
-        if os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
 def library_path() -> pathlib.Path:
     """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fork_compact_{h.hexdigest()[:16]}.so"
+    return nvcc.library_path(SOURCE)
 
 
 def build(ptxas_info: bool = False) -> Tuple[pathlib.Path, str]:
-    """Compile the source unless the library for it exists.
-
-    Returns ``(library path, compiler output)``; ``ptxas_info`` asks
-    ``ptxas`` for each kernel's registers and shared memory.
-    """
-    out = library_path()
-    if out.exists() and not ptxas_info:
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if ptxas_info:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out, proc.stdout + proc.stderr
+    """Compile the source unless its library exists (``nvcc.build``)."""
+    return nvcc.build(SOURCE, ptxas_info)
 
 
 def _load() -> ctypes.CDLL:

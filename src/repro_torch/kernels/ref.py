@@ -68,3 +68,17 @@ def lane_pack_ref(active: torch.Tensor):
     a = act.to(_I32)
     rank = torch.cumsum(a, 0, dtype=_I32) - a
     return rank_to_perm(rank, act), a.sum(dtype=_I32)
+
+
+def epoch_chunk_ref(cond_fn, body_fn, carry, limit):
+    """Plain version of the ``epoch_chunk`` kernel (``epoch_megakernel.py``).
+
+    One K-epoch chunk of the resident loop — pop, step, commit, push, map
+    payloads — as a host loop over the carry: ``while cond_fn(carry,
+    limit): carry = body_fn(carry)``.  ``cond_fn`` returns a host bool, so
+    the host reads the condition once per iteration; the kernel reads it
+    on the device and must produce the same bits.
+    """
+    while cond_fn(carry, limit):
+        carry = body_fn(carry)
+    return carry

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.apps import fib
-from repro_torch.core import HostEngine
+from repro_torch.core import DeviceEngine, HostEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -32,11 +32,17 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke  # noqa: F401
 from repro_torch.apps import fib
+from repro_torch.core import DeviceEngine
+from repro_torch.kernels import epoch_megakernel
 heap, value, stats = fib.case().run(device="cpu")
 assert int(value[0, 0]) == fib.fib_reference(12), value[0]
+_, rvalue, rstats = fib.case().run(engine_cls=DeviceEngine, device="cpu",
+                                   dispatch="gather", megakernel=True)
+assert int(rvalue[0, 0]) == fib.fib_reference(12), rvalue[0]
+assert epoch_megakernel.device_table(fib.PROGRAM) is not None
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
-print("isolated", stats.epochs)
+print("isolated", stats.epochs, "resident", rstats.epochs)
 '''
 
 
@@ -52,7 +58,7 @@ def test_port_imports_and_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "isolated 23" in out.stdout
+    assert "isolated 23 resident 23" in out.stdout
 
 
 def test_default_device_is_cuda():
@@ -60,6 +66,8 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         HostEngine(fib.PROGRAM, capacity=1 << 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceEngine(fib.PROGRAM, capacity=1 << 10, megakernel=True)
 
 
 def test_auto_dispatch_is_refused():

@@ -1,0 +1,280 @@
+"""The port's resident chunk loop and its ``epoch_chunk`` kernel.
+
+On the CPU: the chunk cadence (K = 1, 4 and unbounded give the same final
+carry, with one readback per chunk), the reclamation invariant the kernel
+relies on, the device task table lookup, and the refusals.  On a card
+(marker ``cuda``; they skip here): the kernel against its plain version,
+``kernels/ref.py::epoch_chunk_ref``, every carry tensor exactly, and
+``DeviceEngine(megakernel=True)`` against the CPU.  The file imports no
+JAX, so it runs on a GPU machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_megakernel.py
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import all_cases, bfs, fib, mergesort
+from repro_torch.core import DeviceEngine, EngineError, EpochLoop, Program
+from repro_torch.core.program import HeapVar, TaskType
+from repro_torch.kernels import epoch_megakernel as mk
+
+APPS = ("bfs", "fib", "mergesort")
+DISPATCHES = ("masked", "gather")
+KS = (1, 4, None)  # None: one unbounded chunk
+
+
+def _engine(name, dispatch, device, megakernel=False):
+    case = all_cases()[name]
+    return case, DeviceEngine(case.program, capacity=case.capacity,
+                              dispatch=dispatch, megakernel=megakernel,
+                              device=device)
+
+
+def _fresh(case, eng):
+    return eng.initial_carry(case.initial, dict(case.heap_init) or None)
+
+
+def _run_chunks(eng, carry, K, max_epochs=1 << 16):
+    """Chunks of K epochs until the carry drains; (carry, summary, reads)."""
+    reads = 0
+    while True:
+        limit = max_epochs if K is None else min(
+            max_epochs, int(carry.n_epochs) + K)
+        carry = eng.loop.run_chunk(carry, limit, 1)
+        s = eng.loop.chunk_summary(carry)
+        reads += 1
+        if not (s.sp > 0).any() or s.n_epochs >= max_epochs:
+            return carry, s, reads
+
+
+def _tensors(carry):
+    out = {}
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if f.name == "state":
+            for g in dataclasses.fields(v):
+                out["state." + g.name] = getattr(v, g.name)
+        elif f.name == "heap":
+            for k, t in v.items():
+                out["heap." + k] = t
+        elif v is not None:
+            out[f.name] = v
+    return out
+
+
+def assert_carries_equal(a, b):
+    ta, tb = _tensors(a), _tensors(b)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        x, y = ta[k].cpu(), tb[k].cpu()
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        assert torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", APPS)
+def test_chunk_cadence_gives_one_carry(name, dispatch, K):
+    case, eng = _engine(name, dispatch, "cpu")
+    whole, s_whole, one = _run_chunks(eng, _fresh(case, eng), None)
+    assert one == 1
+    got, s, reads = _run_chunks(eng, _fresh(case, eng), K)
+    assert_carries_equal(got, whole)
+    E = s_whole.n_epochs
+    assert reads == (1 if K is None else math.ceil(E / K))
+    for f in dataclasses.fields(s):
+        np.testing.assert_array_equal(getattr(s, f.name),
+                                      getattr(s_whole, f.name))
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", APPS)
+def test_no_valid_slot_at_or_above_next_free(name, dispatch):
+    # the kernel searches for the last valid slot downward from
+    # next_free + forks - 1; that is exact only if this holds after
+    # every epoch
+    case, eng = _engine(name, dispatch, "cpu")
+    carry = _fresh(case, eng)
+    epochs = 0
+    while bool((carry.sp > 0).any()):
+        carry = eng.loop.run_chunk(carry, int(carry.n_epochs) + 1, 1)
+        nf = int(carry.state.next_free)
+        C = carry.state.capacity
+        assert 0 <= nf <= C
+        assert not bool((carry.state.epoch[nf:C] > 0).any())
+        epochs += 1
+    assert epochs == int(carry.n_epochs) > 1
+
+
+@pytest.mark.parametrize("name", APPS)
+def test_megakernel_flag_on_cpu_runs_the_plain_loop(name):
+    for dispatch in DISPATCHES:
+        case, _ = _engine(name, dispatch, "cpu")
+        h0, v0, s0 = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
+                              device="cpu")
+        h1, v1, s1 = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
+                              device="cpu", megakernel=True)
+        assert torch.equal(v0, v1) and s0 == s1
+        for k in h0:
+            assert torch.equal(h0[k], h1[k])
+
+
+def test_drained_carry_is_a_noop():
+    case, eng = _engine("fib", "masked", "cpu")
+    done, s, _ = _run_chunks(eng, _fresh(case, eng), None)
+    again = eng.loop.run_chunk(done.clone(), 1 << 16, 1)
+    assert_carries_equal(again, done)
+    # a carry already at its bound does not move either
+    fresh = _fresh(case, eng)
+    same = eng.loop.run_chunk(fresh.clone(), 0, 1)
+    assert_carries_equal(same, fresh)
+
+
+def test_device_tables_cover_the_registry_programs():
+    for name in APPS:
+        t = mk.device_table(all_cases()[name].program)
+        assert t is not None
+    assert mk.device_table(fib.PROGRAM).app_id == 0
+    assert mk.device_table(bfs.make_program(100, 400)).app_id == 1
+    assert mk.device_table(mergesort.make_program(64)).app_id == 2
+
+
+def _renamed(program: Program, **kw) -> Program:
+    return dataclasses.replace(program, **kw)
+
+
+def test_device_table_checks_more_than_the_name():
+    p = fib.PROGRAM
+    t0, t1 = p.tasks
+    assert mk.device_table(_renamed(p, name="other")) is not None
+    # same names, another body
+    assert mk.device_table(_renamed(p, tasks=(
+        t0, TaskType("fibsum", lambda ctx: ctx.emit(0))))) is None
+    assert mk.device_table(_renamed(p, tasks=(
+        TaskType("fib2", t0.fn), t1))) is None
+    assert mk.device_table(_renamed(p, n_arg_i=2)) is None
+    assert mk.device_table(_renamed(p, value_width=2)) is None
+    q = bfs.make_program(10, 40)
+    assert mk.device_table(_renamed(q, heap=q.heap[:2] + (
+        HeapVar("dist", (10,), torch.float32),))) is None
+    assert mk.device_table(_renamed(q, heap=q.heap[:2] + (
+        HeapVar("dist", (11,), torch.int32),))) is None
+    m = mergesort.make_program(16)
+    assert mk.device_table(_renamed(m, maps=())) is None
+
+
+def test_program_without_a_table_is_refused():
+    odd = _renamed(fib.PROGRAM, tasks=(
+        fib.PROGRAM.tasks[0], TaskType("fibsum", lambda ctx: None)))
+    loop = EpochLoop(odd, "masked", megakernel=True)
+    with pytest.raises(EngineError, match="device task table"):
+        loop.device_table()
+    case, eng = _engine("fib", "masked", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.launch(case.program, _fresh(case, eng), 8, gather=False)
+    with pytest.raises(ValueError, match="device task table"):
+        mk.launch(odd, _fresh(case, eng), 8, gather=False)
+
+
+# ------------------------------------------------------------------ on a card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", APPS)
+def test_kernel_matches_plain_loop(cuda_device, name, dispatch):
+    case, plain = _engine(name, dispatch, "cuda")
+    _, kern = _engine(name, dispatch, "cuda", megakernel=True)
+    for K in KS:
+        mk.reset_launches()
+        got, s_got, reads = _run_chunks(kern, _fresh(case, kern), K)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES["epoch_chunk"] == reads
+        want, s_want, _ = _run_chunks(plain, _fresh(case, plain), K)
+        assert_carries_equal(got, want)
+        for f in dataclasses.fields(s_got):
+            np.testing.assert_array_equal(getattr(s_got, f.name),
+                                          getattr(s_want, f.name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", APPS)
+def test_megakernel_engine_on_cuda_matches_cpu(cuda_device, name, dispatch):
+    case = all_cases()[name]
+    gh, gv, gs = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
+                          device="cuda", megakernel=True)
+    ch, cv, cs = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
+                          device="cpu")
+    assert torch.equal(gv.cpu(), cv) and gs == cs
+    for k in ch:
+        assert torch.equal(gh[k].cpu(), ch[k])
+
+
+@pytest.mark.cuda
+def test_unknown_program_raises_on_cuda(cuda_device):
+    odd = _renamed(fib.PROGRAM, tasks=(
+        fib.PROGRAM.tasks[0], TaskType("fibsum", lambda ctx: None)))
+    with pytest.raises(EngineError, match="device task table"):
+        DeviceEngine(odd, capacity=1 << 10, megakernel=True, device="cuda")
+    # the plain loop takes it
+    DeviceEngine(odd, capacity=1 << 10, device="cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_reads_a_device_limit(cuda_device):
+    case, kern = _engine("fib", "masked", "cuda", megakernel=True)
+    carry = _fresh(case, kern)
+    lim = torch.tensor(5, dtype=torch.int32, device=cuda_device)
+    carry = kern.loop.run_chunk(carry, lim, 1)
+    assert kern.loop.chunk_summary(carry).n_epochs == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limits", ({"capacity": 64}, {"stack_depth": 2}),
+                         ids=("tv_overflow", "stack_overflow"))
+def test_kernel_matches_plain_loop_on_failure(cuda_device, limits):
+    case = all_cases()["fib"]
+    for d in DISPATCHES:
+        kw = dict(capacity=case.capacity, dispatch=d, device="cuda")
+        kw.update(limits)
+        kern = DeviceEngine(case.program, megakernel=True, **kw)
+        plain = DeviceEngine(case.program, **kw)
+        fresh = kern.initial_carry(case.initial)
+        got, s, _ = _run_chunks(kern, fresh.clone(), None)
+        want, _, _ = _run_chunks(plain, fresh.clone(), None)
+        assert s.failed[0] and s.sp[0] == 0
+        assert s.failed_stack[0] == ("stack_depth" in limits)
+        assert_carries_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_reports_a_map_stage_fault(cuda_device):
+    # two merges of the whole array in one epoch need twice the stage the
+    # mergesort table allocates (n elements): the kernel must say so
+    # rather than write a wrong heap
+    n = 16
+    prog = mergesort.make_program(n)
+    eng = DeviceEngine(prog, capacity=64, megakernel=True, device="cuda")
+    carry = eng.initial_carry(mergesort.initial(n),
+                              dict(inp=mergesort.random_input(n, seed=1)))
+    st = carry.state
+    st.task[:2] = prog.task_id("merge")
+    st.argi[:2] = torch.tensor([0, n, 0, 0], dtype=torch.int32)
+    st.epoch[:2] = 1
+    st.next_free.fill_(2)
+    carry.rstack[0, 0, 1] = 2
+    carry = eng.loop.run_chunk(carry, 1, 1)
+    with pytest.raises(EngineError, match="fault 1"):
+        eng.loop.chunk_summary(carry)
