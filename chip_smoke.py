@@ -9,8 +9,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 parallel) into src/repro_torch/kernels/build/ (ptxas
                 report);
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card, exactly: fork_scan, type_rank and lane_pack at every
-                listed length; epoch_chunk against epoch_chunk_ref from
+                card, exactly: fork_scan, type_rank (1 to 24 types) and
+                lane_pack at every listed length; segmented_fork_scan at
+                every listed length and at 2^23 for 1, 3, 4, 8 and 33
+                segments, shuffled and out-of-range ids; epoch_chunk
+                against epoch_chunk_ref from
                 the same fresh carry, every carry tensor, for fib, bfs and
                 mergesort at full size and at the registry's small size,
                 masked and gather, in chunks of K = 1, 4 and unbounded;
@@ -30,6 +33,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 it) that RunStats equal a plain resident run on CUDA and
                 one on the CPU field for field;
   6. profile  — one fib(28) DeviceEngine(megakernel=True) run under
+                torch.profiler;
+  7. service  — drive JobService(engine="host") on CUDA on the full-size
+                mixed4 wave (phase 3's fib, bfs and mergesort cases plus
+                treewalk post-order on random_tree(2^16, seed=11)) under
+                masked, compacted and gather; check each tenant against its
+                solo HostEngine run on the card and its numpy reference, the
+                dispatches against each other, and that segmented_fork_scan
+                was launched during the phase; then streaming admission (six
+                fib jobs into four regions) and one preempt/resume of a bfs
+                tenant at a medium size, and one masked wave under
                 torch.profiler.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.
@@ -53,6 +66,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate (int32 alike)
 LENGTHS = (1, 1000, 1024, 1025, 2**16 + 3, 2**21)
 WIDE = 2**21  # the main path's widest fork_scan / type_rank shape
+FLEET_WIDE = 2**23  # the full-size mixed4 wave's epoch bucket
+N_SEGS = (1, 3, 4, 8, 33)
+N_TYPES = (1, 2, 4, 8, 9, 24)
+# phase 7: the treewalk tenant's tree, and the medium streaming and
+# preemption runs (fib sizes and their region quota, bfs vertices)
+SERVICE_TREE = 2**16
+MEDIUM_QUOTA = 2**18
+MEDIUM_FIBS = (24, 20, 21, 24, 24, 23)
+MEDIUM_BFS = 2**15
 
 
 def fail(msg: str) -> None:
@@ -140,7 +162,7 @@ def phase_kernels(dev):
     from repro_torch.kernels import fork_compact, ops, ref
 
     rng = np.random.RandomState(0)
-    err = {"fork_scan": 0, "type_rank": 0}
+    err = {"fork_scan": 0, "type_rank": 0, "segmented_fork_scan": 0}
 
     def check_equal(name, got, want, what):
         got, want = [t.to(torch.int64).cpu() for t in (got, want)]
@@ -160,7 +182,7 @@ def phase_kernels(dev):
         r_offs, r_total = ref.fork_scan_ref(counts)
         check_equal("fork_scan", offs, r_offs, f"P={P} offsets")
         check_equal("fork_scan", total, r_total, f"P={P} total")
-        for n_types in (1, 2, 4):
+        for n_types in N_TYPES:
             types = torch.as_tensor(
                 rng.randint(0, n_types, P).astype(np.int32), device=dev)
             for kind in ("random", "none", "all"):
@@ -178,9 +200,28 @@ def phase_kernels(dev):
         r_perm, r_n = ref.lane_pack_ref(active)
         check_equal("type_rank", perm, r_perm, f"P={P} lane_pack perm")
         check_equal("type_rank", n, r_n, f"P={P} lane_pack count")
+    for P in LENGTHS + (FLEET_WIDE,):
+        counts = rng.randint(0, 4, P).astype(np.int32)
+        counts[rng.rand(P) < 0.3] = 0
+        counts = torch.as_tensor(counts, device=dev)
+        for J in N_SEGS:
+            for kind, lo, hi in (("shuffled", 0, J), ("out-of-range", -1,
+                                                      J + 1)):
+                seg = torch.as_tensor(
+                    rng.randint(lo, hi, P).astype(np.int32), device=dev)
+                offs, tot = fork_compact.segmented_fork_scan(counts, seg, J)
+                r_offs, r_tot = ref.segmented_fork_scan_ref(counts, seg, J)
+                what = f"P={P} J={J} {kind}"
+                check_equal("segmented_fork_scan", offs, r_offs,
+                            what + " offsets")
+                check_equal("segmented_fork_scan", tot, r_tot,
+                            what + " totals")
     torch.cuda.synchronize()
     print(f"[kernels] exact at P in {list(LENGTHS)}: fork_scan, "
-          f"type_rank (n_types 1/2/4; random/none/all masks), lane_pack")
+          f"type_rank (n_types {'/'.join(map(str, N_TYPES))}; "
+          f"random/none/all masks), lane_pack; segmented_fork_scan also at "
+          f"P=2^23 (J {'/'.join(map(str, N_SEGS))}; shuffled and "
+          f"out-of-range ids)")
 
     # timing at the main path's widest shape
     counts = torch.as_tensor(rng.randint(0, 3, WIDE).astype(np.int32),
@@ -216,8 +257,22 @@ def phase_kernels(dev):
         **timed(lambda: fork_compact.type_rank(types, active, 2),
                 lambda: ref.type_rank_ref(types, active, 2), None),
     ))
+    counts = torch.as_tensor(rng.randint(0, 3, FLEET_WIDE).astype(np.int32),
+                             device=dev)
+    seg = torch.as_tensor(rng.randint(0, 4, FLEET_WIDE).astype(np.int32),
+                          device=dev)
+    b, by = bound_ms(12 * FLEET_WIDE + 4 * 4, FLEET_WIDE)
+    rows.append(dict(
+        name="segmented_fork_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/fork_compact.cu",
+        replaces="src/repro/kernels/fork_compact.py:114",
+        max_abs_err=err["segmented_fork_scan"], bound_ms=b, bound_by=by,
+        **timed(lambda: fork_compact.segmented_fork_scan(counts, seg, 4),
+                lambda: ref.segmented_fork_scan_ref(counts, seg, 4), None),
+    ))
     for r in rows:
-        print(f"[kernels] {r['name']} P=2^21: device {r['ms']:.5f} ms "
+        wide = "2^23, J=4" if r["name"] == "segmented_fork_scan" else "2^21"
+        print(f"[kernels] {r['name']} P={wide}: device {r['ms']:.5f} ms "
               f"(eager call {r['call_ms']:.5f} ms), bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.5f} ms, library {r['library_ms']}")
@@ -455,7 +510,9 @@ def phase_path():
                 fail(f"{case.name} {d}: result differs from the reference")
             _same(runs[case.name, "masked"], r, f"{case.name} {d} vs masked")
     torch.cuda.synchronize()
-    launches = dict(fork_compact.LAUNCHES)
+    # the solo host path's kernels (segmented_fork_scan is the service's)
+    launches = {k: fork_compact.LAUNCHES[k] for k in ("fork_scan",
+                                                      "type_rank")}
     print(f"[path] kernel launches during the path phase: {launches}")
     for k, n in launches.items():
         if n <= 0:
@@ -550,6 +607,181 @@ def phase_resident(cases, host_runs):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+def _tenant(h):
+    r = h.result
+    return ({k: v.cpu().numpy() for k, v in r.heap.items()},
+            r.value.cpu().numpy(), r.stats)
+
+
+def _same_tenant(got, want, what):
+    """Heap, values and the solo-comparable stats of a tenant."""
+    hg, vg, sg = got
+    hw, vw, sw = want
+    if not np.array_equal(vg, vw):
+        fail(f"{what}: TV values differ")
+    if hg.keys() != hw.keys() or any(
+            not np.array_equal(hg[k], hw[k]) for k in hw):
+        fail(f"{what}: heap differs")
+    sd = sg.solo_dict()
+    want_sd = {k: getattr(sw, k) for k in sd}
+    if sd != want_sd:
+        fail(f"{what}: solo_dict {sd} != {want_sd}")
+
+
+def service_cases(cases, runs):
+    """The full-size mixed4 wave, in the registry's order: phase 3's fib,
+    bfs and mergesort cases with their capacities as quotas, and treewalk
+    post-order on random_tree(2^16, seed=11) at the least power of two at
+    or above its solo peak (its solo runs go into ``runs``)."""
+    import dataclasses
+
+    from repro_torch.apps import treewalk
+    from repro_torch.apps.registry import AppCase
+
+    n = SERVICE_TREE
+    t0 = time.perf_counter()
+    left, right = treewalk.random_tree(n, seed=11)
+    gen_s = time.perf_counter() - t0
+    probe = AppCase("treewalk", treewalk.make_program(n, "post"),
+                    treewalk.initial(), dict(left=left, right=right),
+                    capacity=2**20)
+    peak = _run(probe, "masked", "cuda", tag="service")[2].peak_tv_slots
+    tw = dataclasses.replace(probe, capacity=1 << (peak - 1).bit_length())
+    print(f"[service] treewalk: random_tree({n}) in {gen_s:.1f} s, solo "
+          f"peak {peak} slots, quota {tw.capacity}")
+    visit, clock = treewalk.treewalk_reference(left, right)
+    correct = {c.name: ok for c, ok in cases}
+    correct["treewalk"] = lambda h, v: (
+        np.array_equal(h["visit_epoch"], visit)
+        and np.array_equal(h["visit_clock"], clock))
+    for d in ("masked", "compacted", "gather"):
+        runs["treewalk", d] = r = _run(tw, d, "cuda", tag="service")
+        if not correct["treewalk"](r[0], r[1]):
+            fail(f"treewalk {d}: result differs from the reference")
+    by_name = {c.name: c for c, _ in cases}
+    wave = [by_name["fib"], tw, by_name["bfs"], by_name["mergesort"]]
+    return wave, correct
+
+
+def run_wave(wave, dispatch, **kw):
+    from repro_torch.service import JobService
+
+    svc = JobService(capacity=sum(c.capacity for c in wave),
+                     dispatch=dispatch, device="cuda", **kw)
+    handles = [svc.submit_case(c, quota=c.capacity) for c in wave]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.drain()
+    torch.cuda.synchronize()
+    return svc, handles, time.perf_counter() - t0
+
+
+def phase_service(cases, runs):
+    """JobService(engine="host") on the card: the JobArena commit's
+    segmented_fork_scan path."""
+    from repro_torch.apps import bfs, fib
+    from repro_torch.apps.registry import AppCase
+    from repro_torch.kernels import fork_compact
+    from repro_torch.service import JobService
+
+    wave, correct = service_cases(cases, runs)
+    torch.cuda.synchronize()
+    fork_compact.reset_launches()
+    tenants = {}
+    for d in ("masked", "compacted", "gather"):
+        svc, handles, wall = run_wave(wave, d)
+        fs = svc.stats()
+        solo = [runs[c.name, d][2] for c in wave]
+        for c, h in zip(wave, handles):
+            if h.status.value != "done":
+                fail(f"service {d} {c.name}: {h.status} {h.error}")
+            got = tenants[c.name, d] = _tenant(h)
+            _same_tenant(got, runs[c.name, d], f"service {d} {c.name} vs "
+                         "its solo run")
+            if not correct[c.name](got[0], got[1]):
+                fail(f"service {d} {c.name}: differs from the reference")
+            _same_tenant(got, tenants[c.name, "masked"],
+                         f"service {c.name} {d} vs masked")
+        print(f"[service] mixed4 {d:9s} capacity={sum(c.capacity for c in wave)}"
+              f": global epochs {fs.epochs} (solo {'+'.join(str(s.epochs) for s in solo)}"
+              f" = {sum(s.epochs for s in solo)}), fleet dispatches "
+              f"{fs.dispatches} / transfers {fs.scalar_transfers} (solo "
+              f"{sum(s.dispatches for s in solo)} / "
+              f"{sum(s.scalar_transfers for s in solo)}), tasks "
+              f"{fs.tasks_executed}, lanes {fs.lanes_launched}, wall_ms="
+              f"{wall * 1e3:.1f}")
+    torch.cuda.synchronize()
+    launches = dict(fork_compact.LAUNCHES)
+    print(f"[service] kernel launches during the service waves: {launches}")
+    if launches["segmented_fork_scan"] <= 0:
+        fail("kernel segmented_fork_scan was not launched on the service "
+             "path")
+
+    # streaming: six fib jobs through four regions; the two queued jobs
+    # seat mid-flight in the regions of the two short jobs
+    q = MEDIUM_QUOTA
+    ns = MEDIUM_FIBS
+    svc = JobService(capacity=4 * q, max_jobs=4, device="cuda")
+    hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=q, name=f"fib{n}")
+          for n in ns]
+    muxes, order = [], []
+    t0 = time.perf_counter()
+    for h in svc.completions():
+        if svc._mux not in muxes:
+            muxes.append(svc._mux)
+        order.append(h.job.name)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first_done = min(h.finished_at for h in hs)
+    if len(muxes) != 1 or not all(h.started_at > first_done
+                                  for h in hs[4:]):
+        fail("streaming: the queued jobs were not seated mid-flight")
+    solo = {}
+    for h, n in zip(hs, ns):
+        if n not in solo:
+            solo[n] = _run(AppCase(f"fib{n}", fib.PROGRAM, fib.initial(n),
+                                   capacity=q), "masked", "cuda",
+                           tag="service")
+        _same_tenant(_tenant(h), solo[n], f"streaming fib({n})")
+        if int(h.result.value[0, 0]) != fib.fib_reference(n):
+            fail(f"streaming fib({n}): wrong value")
+    print(f"[service] streaming: 6 fib jobs (n={ns}) through 4 regions of "
+          f"{q} slots in one wave, completion order {order}, "
+          f"{svc.stats().epochs} global epochs, wall_ms={wall * 1e3:.1f}")
+
+    # preempt/resume of a bfs tenant, against its uninterrupted solo run
+    n = MEDIUM_BFS
+    adj_off, adj = bfs.random_graph(n, avg_degree=4, seed=1)
+    bcase = AppCase("bfs", bfs.make_program(n, len(adj)), bfs.initial(0),
+                    bfs.heap_init(adj_off, adj, n), capacity=8 * n)
+    fcase = AppCase("fib", fib.PROGRAM, fib.initial(22), capacity=2**17)
+    b_solo = _run(bcase, "masked", "cuda", tag="service")
+    svc = JobService(capacity=bcase.capacity + fcase.capacity, device="cuda")
+    hb = svc.submit_case(bcase, quota=bcase.capacity)
+    hf = svc.submit_case(fcase, quota=fcase.capacity)
+    for _ in range(4):
+        svc._pump()
+    if not svc.preempt(hb):
+        fail("preempt: the bfs tenant could not be preempted")
+    svc.drain()
+    if hb.preemptions != 1 or hb.status.value != "done":
+        fail(f"preempt: bfs tenant {hb.status} after {hb.preemptions} "
+             "preemptions")
+    got = _tenant(hb)
+    _same_tenant(got, b_solo, "preempted bfs vs its uninterrupted run")
+    if not np.array_equal(got[0]["dist"],
+                          bfs.bfs_reference(adj_off, adj, 0, n)):
+        fail("preempted bfs: differs from the reference")
+    if int(hf.result.value[0, 0]) != fib.fib_reference(22):
+        fail("preempt: the fib neighbour's value is wrong")
+    print(f"[service] preempt/resume: bfs on {n} vertices preempted after "
+          "4 global epochs and resumed, equal to its uninterrupted run")
+    print("[service] every tenant matches its solo run on the card, its "
+          "numpy reference and the other dispatches")
+    return launches, wave
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -572,6 +804,14 @@ def main() -> int:
                   lambda: fib_case.run(engine_cls=DeviceEngine,
                                        dispatch="masked", device="cuda",
                                        megakernel=True))
+    svc_launches, wave = phase_service(cases, host_runs)
+    launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
+
+    def masked_wave():
+        svc, _, _ = run_wave(wave, "masked")
+        return None, None, svc.stats()
+
+    phase_profile("mixed4 JobService masked (global epochs)", masked_wave)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")

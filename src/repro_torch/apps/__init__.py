@@ -1,6 +1,10 @@
 # Task-parallel applications from the paper's evaluation (§6), rewritten
-# over lane vectors: fib, bfs and mergesort (map variant) so far.  Each
+# over lane vectors: fib, bfs, mergesort (map variant) and treewalk so far.  Each
 # registers an engine-ready default case in ``registry`` under the same
-# name as the JAX reference's.
-from . import bfs, fib, mergesort  # noqa: F401
-from .registry import AppCase, all_cases, get_case, register_case  # noqa: F401
+# name as the JAX reference's; ``treewalk`` (the paper's running example)
+# joins them for the service's mixed fleets.
+from . import bfs, fib, mergesort, treewalk  # noqa: F401
+from .registry import (  # noqa: F401
+    FLEETS, AppCase, all_cases, get_case, get_fleet, register_case,
+    register_fleet,
+)

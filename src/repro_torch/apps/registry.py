@@ -8,7 +8,7 @@ tests and ``chip_smoke.py`` drive every workload through one entry point.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 from ..core.program import InitialTask, Program
 
@@ -50,7 +50,7 @@ def register_case(name: str):
 
 
 def _register_all() -> None:
-    from . import bfs, fib, mergesort  # noqa: F401  (registration)
+    from . import bfs, fib, mergesort, treewalk  # noqa: F401  (registration)
 
 
 def get_case(name: str) -> AppCase:
@@ -62,3 +62,33 @@ def all_cases() -> Dict[str, AppCase]:
     """Materialize every registered case (imports all app modules)."""
     _register_all()
     return {name: fn() for name, fn in sorted(CASES.items())}
+
+
+# ---------------------------------------------------------------- fleets
+# A *fleet* is a named mix of cases co-scheduled by the job service
+# (``repro_torch.service``), the same fleets under the same names and
+# quotas as the JAX reference's registry.  ``quota`` is the TV region the
+# service grants each member (solo-equivalence runs use it as the solo
+# engine's capacity, keeping layouts bit-comparable).
+FLEETS: Dict[str, Tuple[Tuple[str, int], ...]] = {}
+
+
+def register_fleet(name: str, members) -> None:
+    """Register a fleet: a tuple of (case_name, quota) pairs."""
+    FLEETS[name] = tuple(members)
+
+
+def get_fleet(name: str) -> List[Tuple[AppCase, int]]:
+    """Materialize a fleet as a list of (AppCase, quota) pairs."""
+    return [(get_case(case), quota) for case, quota in FLEETS[name]]
+
+
+# mixed fleets: different programs co-scheduled in one shared TVM
+register_fleet("mixed3", (("fib", 512), ("treewalk", 256), ("bfs", 2048)))
+# mixed4 adds a map-bearing tenant (mergesort schedules bulk map payloads)
+register_fleet(
+    "mixed4",
+    (("fib", 512), ("treewalk", 256), ("bfs", 2048), ("mergesort", 512)),
+)
+# homogeneous fleet: the throughput-vs-concurrency scaling case
+register_fleet("fib_fleet", (("fib", 512),) * 4)

@@ -1,8 +1,8 @@
 """Carry a Task Vector and heap between the JAX reference and the port.
 
 The system has no weights; what crosses between the two implementations is
-the TVM state and the heap, and on the resident path the whole
-``ResidentCarry``.  These functions take the reference's ``TVMState``
+the TVM state and the heap, the service's ``JobArena``, and on the
+resident path the whole (solo) ``ResidentCarry``.  These functions take the reference's ``TVMState``
 leaves and heap dicts as numpy arrays (``{field name: ndarray}``, ``{heap
 var: ndarray}``) and turn them into the port's tensors — adding the
 trailing sink row every TV and heap array carries here (``core/tvm.py``)
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .engine import ResidentCarry, _hilo_value
-from .tvm import TVMState, heap_with_sink, heap_without_sink
+from .tvm import JobArena, TVMState, heap_with_sink, heap_without_sink
 
 FIELDS = tuple(f.name for f in dataclasses.fields(TVMState))
 CARRY_FIELDS = tuple(f.name for f in dataclasses.fields(ResidentCarry))
@@ -63,6 +63,29 @@ def heap_to_numpy(heap: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in heap_without_sink(heap).items()}
 
 
+def arena_from_numpy(leaves: Mapping[str, np.ndarray], device) -> JobArena:
+    """``JobArena`` from the reference's leaves (``slot_job`` is ``[C]``;
+    the port's sink row is tagged ``J``, unowned)."""
+    J = np.asarray(leaves["base"]).shape[0]
+    slot_job = np.concatenate([np.asarray(leaves["slot_job"], np.int32),
+                               np.array([J], np.int32)])
+    return JobArena(
+        slot_job=torch.as_tensor(slot_job, device=device),
+        **{k: torch.as_tensor(np.array(leaves[k], np.int32), device=device)
+           for k in ("base", "end", "next")},
+    )
+
+
+def arena_to_numpy(arena: JobArena) -> Dict[str, np.ndarray]:
+    """The reference's arena leaves (sink row dropped)."""
+    return {
+        "slot_job": arena.slot_job[:-1].cpu().numpy(),
+        "base": arena.base.cpu().numpy(),
+        "end": arena.end.cpu().numpy(),
+        "next": arena.next.cpu().numpy(),
+    }
+
+
 def carry_from_numpy(leaves: Mapping[str, object], device) -> ResidentCarry:
     """The port's ``ResidentCarry`` from the reference's, field by field.
 
@@ -73,7 +96,10 @@ def carry_from_numpy(leaves: Mapping[str, object], device) -> ResidentCarry:
     int64, and the port's own ``fault`` word starts at 0.
     """
     if leaves.get("arena") is not None:
-        raise NotImplementedError("fleet (JobArena) carries are not ported")
+        raise NotImplementedError(
+            "resident fleet (JobArena) carries are not ported: they come "
+            "with the device half of the service (ROADMAP item 7b); host "
+            "fleet state carries across with arena_from_numpy")
     out = {"arena": None,
            "state": state_from_numpy(leaves["state"], device),
            "heap": heap_from_numpy(leaves["heap"], device),

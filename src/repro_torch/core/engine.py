@@ -31,10 +31,16 @@ gather pack through ``type_rank``.
 Resident counters are native int64 tensors where the JAX carry keeps exact
 i32 hi/lo pairs (it runs without x64); decoded, they are the same numbers.
 
+The host steps and :meth:`EpochLoop.run_epoch` also drive fused fleets
+(``service/multiplexer.py``): a per-lane CEN vector over the popped
+regions and a ``tvm.JobArena``, whose commit allocates through the
+``segmented_fork_scan`` kernel on the card.  Idle task types run masked
+(no per-type host sync to skip them; the same bits).
+
 Not ported yet: the fleet (``JobArena``) branch of the resident body, the
 sharded fleet chunk, ``dispatch="auto"``, the tracer, the controller, and
 the JAX engine's plug points for other scan implementations
-(``fork_offsets_fn``/``rank_fn``/``pack_fn``).
+(``fork_offsets_fn``/``seg_offsets_fn``/``rank_fn``/``pack_fn``).
 """
 from __future__ import annotations
 
@@ -82,7 +88,8 @@ _COMPACTED_RESIDENT_MSG = (
 
 _FLEET_RESIDENT_MSG = (
     "the fleet (JobArena) branch of the resident loop is not ported yet: "
-    "it comes with the multi-tenant service (ROADMAP item 7)"
+    "it comes with the device half of the multi-tenant service (ROADMAP "
+    "item 7b)"
 )
 
 
@@ -100,19 +107,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _frontier_mask(state: tvm.TVMState, start: int, count: int, cen: int,
+def _frontier_mask(state: tvm.TVMState, start: int, count: int, cen,
                    P: int):
     """Per-lane active predicate of a popped NDRange frontier.
 
     A lane is active when it is inside the popped range, carries a nonzero
-    epoch number, and TMS-matches (``epoch[slot] == cen``).  This predicate
-    defines which lanes every dispatch mode executes.  Returns ``(idx,
-    active, cen_l)``.
+    epoch number (0 tags lanes outside every popped range on fused
+    frontiers), and TMS-matches (``epoch[slot] == cen``).  ``cen`` is an
+    int (solo frontier) or an ``i32[P]`` tensor (one epoch number per
+    lane).  This predicate defines which lanes every dispatch mode
+    executes.  Returns ``(idx, active, cen_l)``.
     """
     ar = torch.arange(P, dtype=_I32, device=state.device)
     idx = start + ar
     cidx = idx.clamp(0, state.capacity - 1)
-    cen_l = torch.tensor(cen, dtype=_I32, device=state.device)
+    cen_l = torch.as_tensor(cen, dtype=_I32, device=state.device)
     active = (ar < count) & (cen_l > 0) & (state.epoch[cidx] == cen_l)
     return idx, active, cen_l
 
@@ -121,8 +130,12 @@ class MapLauncher:
     """Host-side launcher for scheduled ``map`` payloads (paper §5.2.4).
 
     Sizes each payload launch to the *live* element domain of its scheduled
-    lanes and skips payloads whose lanes all have empty domains.  Reads each
-    launch's ``where`` and ``argi`` on the host, as the JAX reference does.
+    lanes and skips payloads whose lanes all have empty domains.  Reads the
+    scheduled lanes' ``argi`` on the host to size the launch, as the JAX
+    reference does, and launches the payload over those lanes alone, in
+    lane order (the same writes: an unscheduled lane writes nothing; a
+    fused fleet's ``P`` spans every tenant's region, and ``[P, D]`` would
+    not fit).  The stats count the reference's ``[P, D]`` launch.
     """
 
     def __init__(self, program: Program):
@@ -131,23 +144,25 @@ class MapLauncher:
     def run(self, map_launches, heap, col: StatsCollector):
         """Launch each scheduled map payload, sized to its live domain."""
         for ml in map_launches:
-            where = ml.where.cpu().numpy()
-            if not where.any():
+            rows = torch.nonzero(ml.where).flatten()
+            if rows.numel() == 0:
                 continue
-            argi = ml.argi.cpu().numpy()
-            dom = np.asarray(self.program.maps[ml.map_id].domain(argi))
-            dmax = int(dom[where].max()) if dom[where].size else 0
+            argi = ml.argi[rows]
+            dom = np.asarray(
+                self.program.maps[ml.map_id].domain(argi.cpu().numpy()))
+            dmax = int(dom.max())
             if dmax <= 0:
                 # every scheduled lane has an empty element domain: a launch
                 # would dispatch a wasted payload
                 continue
             D = launch_bucket(dmax, minimum=8)
-            P = int(where.shape[0])
+            P = int(ml.where.shape[0])
             heap = tvm.run_map_payload(
-                self.program, heap, ml.map_id, ml.where, ml.argi, ml.argf, D
+                self.program, heap, ml.map_id, ml.where[rows], argi,
+                ml.argf[rows], D,
             )
             col.dispatch()
-            col.map_launch(int(dom[where].sum()), P * D)
+            col.map_launch(int(dom.sum()), P * D)
         return heap
 
 
@@ -336,38 +351,45 @@ class EpochLoop:
         self.megakernel = bool(megakernel)
 
     # ------------------------------------------------------------ the steps
-    def masked_step(self, state, heap, start: int, count: int, cen: int,
-                    P: int):
+    # ``cen`` is an int or a per-lane ``i32[P]`` tensor (a fused frontier);
+    # ``arena`` is None (solo: one nextFreeCore) or a ``tvm.JobArena``
+    # (per-region cursors, the service's fleets).
+    def masked_step(self, state, heap, start: int, count: int, cen,
+                    P: int, arena=None):
         """Phase 2+3 over the full padded NDRange, every type masked."""
         idx, active, cen_l = _frontier_mask(state, start, count, cen, P)
         per_type, _ = tvm.trace_tasks(self.program, state, heap, idx, active)
         return tvm.commit_epoch(
-            self.program, state, heap, idx, active, per_type, cen_l
+            self.program, state, heap, idx, active, per_type, cen_l,
+            arena=arena,
         )
 
-    def compact_pass(self, state, start: int, count: int, cen: int, P: int):
+    def compact_pass(self, state, start: int, count: int, cen, P: int):
         """Compaction pass: types -> ``(perm, per-type counts)`` (§5.4's
         extra dispatch + transfer, paid to make phase 2 lane-exact)."""
         idx, active, _ = _frontier_mask(state, start, count, cen, P)
         return tvm.compact_types(self.program, state, idx, active)
 
-    def compacted_step(self, state, heap, start: int, count: int, cen: int,
-                       perm, toffs, tcounts, buckets: Tuple[int, ...]):
+    def compacted_step(self, state, heap, start: int, count: int, cen,
+                       perm, toffs, tcounts, buckets: Tuple[int, ...],
+                       arena=None):
         """Phase 2 over dense per-type slices, then the shared commit."""
         per_type, idx, active = tvm.trace_tasks_compacted(
             self.program, state, heap, start, count, cen, perm, toffs,
             tcounts, buckets,
         )
         return tvm.commit_epoch(
-            self.program, state, heap, idx, active, per_type, cen
+            self.program, state, heap, idx, active, per_type, cen,
+            arena=arena,
         )
 
-    def gather_pass(self, state, start: int, count: int, cen: int, P: int):
+    def gather_pass(self, state, start: int, count: int, cen, P: int):
         """Frontier pack pass: active mask -> ``(perm, count)``."""
         _, active, _ = _frontier_mask(state, start, count, cen, P)
         return kops.lane_pack(active)
 
-    def gather_step(self, state, heap, start: int, perm, G: int):
+    def gather_step(self, state, heap, start: int, perm, G: int,
+                    arena=None):
         """Phase 2+3 over the packed dense frontier (gather dispatch).
 
         The frontier holds every active lane of the epoch in increasing
@@ -383,20 +405,30 @@ class EpochLoop:
         cen_g = torch.where(valid, state.epoch[idx.clamp(0, C - 1)], 0)
         per_type, _ = tvm.trace_tasks(self.program, state, heap, idx, valid)
         return tvm.commit_epoch(
-            self.program, state, heap, idx, valid, per_type, cen_g
+            self.program, state, heap, idx, valid, per_type, cen_g,
+            arena=arena,
         )
 
     # ------------------------------------------------- one host-driven epoch
-    def run_epoch(self, state, heap, start: int, span: int, cen: int,
-                  col: StatsCollector, readback: Callable):
+    def run_epoch(self, state, heap, start: int, span: int, cen,
+                  col: StatsCollector, readback: Callable, arena=None):
         """One host-driven epoch: optional compaction or gather-pack pass
         (+ its count readback), the phase-2/3 step, then the end-of-epoch
         readback ``readback(summary, state)`` — one host transfer.
+
+        ``cen`` is an int (solo frontier) or an ``i32`` vector of length
+        ``span`` (a fused multi-region frontier), padded here to the
+        launch bucket with inert zeros and sent to the device once;
+        ``arena`` is the fleet's ``tvm.JobArena`` (None: solo).
 
         Returns ``(state, heap, summary, fetched, map_launches, launched,
         by_type, n_dispatches)``.
         """
         P = self.policy.epoch_bucket(span)
+        if np.ndim(cen) != 0:
+            cen_np = np.zeros(P, np.int32)
+            cen_np[: np.shape(cen)[0]] = np.asarray(cen)
+            cen = torch.as_tensor(cen_np, device=state.device)
         dispatches = 1
         by_type = None
         mode = self.policy.name
@@ -410,7 +442,8 @@ class EpochLoop:
                 self.policy, counts, self.task_names
             )
             state, heap, summary, map_launches = self.compacted_step(
-                state, heap, start, span, cen, perm, toffs, counts, buckets
+                state, heap, start, span, cen, perm, toffs, counts, buckets,
+                arena,
             )
         elif mode == "gather":
             perm, count_dev = self.gather_pass(state, start, span, cen, P)
@@ -420,13 +453,13 @@ class EpochLoop:
             dispatches += 1
             G = self.policy.epoch_bucket(n_sched)
             state, heap, summary, map_launches = self.gather_step(
-                state, heap, start, perm, G
+                state, heap, start, perm, G, arena
             )
             launched = G
             col.holes_skipped(P - G)
         else:
             state, heap, summary, map_launches = self.masked_step(
-                state, heap, start, span, cen, P
+                state, heap, start, span, cen, P, arena
             )
             launched = P
         fetched = readback(summary, state)

@@ -51,9 +51,15 @@ class MapSite:
 
 
 def heap_read(arr: torch.Tensor, index) -> torch.Tensor:
-    """Gather ``arr[clip(index)]`` from a sink-carrying heap array."""
+    """Gather ``arr[clip(index)]`` from a sink-carrying heap array.
+
+    Always a copy: indexing with a 0-d tensor would return a *view*, and
+    the commit's in-place heap writes would then show through it, where
+    the reference reads the pre-epoch snapshot.
+    """
     idx = torch.as_tensor(index, dtype=torch.int32, device=arr.device)
-    return arr[idx.clamp(0, arr.shape[0] - 2)]
+    flat = idx.reshape(-1).clamp(0, arr.shape[0] - 2)
+    return arr.index_select(0, flat).reshape(idx.shape + arr.shape[1:])
 
 
 def _check_op(op: str) -> None:

@@ -12,6 +12,9 @@
     + ``fork_scan`` kernels) and each type launches as one dense slice sized
     to its own population.  ``gather`` packs every scheduled lane into one
     dense frontier (``kernels.ops.lane_pack``).
+  * :class:`MuxPopPolicy` — which tenants' stacks pop into one fused
+    global epoch of the job service (``fuse_all``, ``round_robin``,
+    ``deepest_first``, with an optional ``gang`` bound).
   * :class:`StatsCollector` — pluggable work/critical-path accounting
     (:class:`RunStats`).
   * :func:`batched_device_stacks` / :func:`batched_device_pop` /
@@ -168,6 +171,84 @@ class EpochScheduler:
             self._join.append(cen)
             self._range.append((base, count))
 
+    def __len__(self) -> int:
+        return len(self._join)
+
+    # -------------------------------------------------- checkpoint support
+    def export_stack(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Snapshot the stacks bottom-to-top as ``(cens i32[sp],
+        ranges i32[sp, 2])`` — the layout of one row of the device stacks,
+        so a preempted job's stacks travel in a ``RegionCheckpoint``."""
+        cens = np.asarray(self._join, np.int32)
+        ranges = (
+            np.asarray(self._range, np.int32).reshape(-1, 2)
+            if self._range else np.zeros((0, 2), np.int32)
+        )
+        return cens, ranges
+
+    def load_stack(self, cens, ranges) -> None:
+        """Restore a snapshot taken by :meth:`export_stack`: entries are
+        bottom-to-top, replacing any current content."""
+        self._join = [int(c) for c in np.asarray(cens).reshape(-1)]
+        self._range = [
+            (int(s), int(c))
+            for s, c in np.asarray(ranges).reshape(-1, 2)
+        ]
+
+
+# --------------------------------------------------------------------------
+# Multi-stack pop policy (service layer: which jobs fuse into one epoch)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MuxPopPolicy:
+    """Which per-job scheduler stacks pop into one fused global epoch.
+
+    The epoch multiplexer keeps one :class:`EpochScheduler` per admitted
+    job; each global epoch it selects a *gang* of ready jobs, pops one
+    dispatch from each, and fuses them into a single launch + readback.
+    ``gang`` bounds the fan-in (0 = unlimited); the name picks the
+    selection order when the gang is full:
+
+      * ``fuse_all``      — every ready job, maximal fusion;
+      * ``round_robin``   — rotate the starting job each global epoch, so
+        a bounded gang shares the fused dispatches fairly;
+      * ``deepest_first`` — prefer jobs with the deepest stacks.
+    """
+
+    name: str
+    gang: int = 0  # max jobs fused per global epoch; 0 = no limit
+
+    def select(self, ready: List[int], depths: List[int],
+               rotor: int) -> List[int]:
+        """Pick which of the ready job indices pop this global epoch."""
+        if self.gang <= 0 or len(ready) <= self.gang:
+            return list(ready)
+        if self.name == "round_robin":
+            k = rotor % len(ready)
+            rotated = ready[k:] + ready[:k]
+            return rotated[: self.gang]
+        if self.name == "deepest_first":
+            order = sorted(range(len(ready)), key=lambda i: -depths[i])
+            return [ready[i] for i in order[: self.gang]]
+        return list(ready)[: self.gang]
+
+
+FUSE_ALL = MuxPopPolicy("fuse_all")
+_MUX_POLICIES = ("fuse_all", "round_robin", "deepest_first")
+
+
+def resolve_mux_policy(policy, gang: int = 0) -> MuxPopPolicy:
+    if isinstance(policy, MuxPopPolicy):
+        # an explicitly requested gang bound overrides the instance's
+        if gang and gang != policy.gang:
+            return dataclasses.replace(policy, gang=gang)
+        return policy
+    if policy in _MUX_POLICIES:
+        return MuxPopPolicy(policy, gang)
+    raise ValueError(
+        f"unknown mux pop policy {policy!r}; expected one of {_MUX_POLICIES}"
+    )
+
 
 # --------------------------------------------------------------------------
 # Stats: work / critical-path accounting (paper §4.4.1)
@@ -221,6 +302,24 @@ class RunStats:
             out["map_lanes_wasted"] = self.map_lanes_wasted
             out["map_utilization"] = self.map_utilization
         return out
+
+    def merge(self, s: "RunStats") -> "RunStats":
+        """Accumulate another run/wave's stats into this one, in place.
+
+        Counters add; ``peak_tv_slots`` is a high-water mark and takes the
+        max; the per-type dicts merge per key.  Returns ``self``.
+        """
+        for f in dataclasses.fields(self):
+            if f.name == "peak_tv_slots":
+                self.peak_tv_slots = max(self.peak_tv_slots, s.peak_tv_slots)
+            elif f.name in ("tasks_by_type", "lanes_by_type"):
+                mine = getattr(self, f.name)
+                for k, v in getattr(s, f.name).items():
+                    mine[k] = mine.get(k, 0) + v
+            else:
+                setattr(self, f.name, getattr(self, f.name)
+                        + getattr(s, f.name))
+        return self
 
 
 class StatsCollector:

@@ -1,5 +1,5 @@
 """Task Vector Machine state + the bulk epoch step (paper §4, §5.1–5.2),
-PyTorch port of ``repro/core/tvm.py`` (its non-arena form).
+PyTorch port of ``repro/core/tvm.py``.
 
 The Task Vector is stored struct-of-arrays so that every runtime access is
 a unit-stride vector load/store (the paper's memory coalescing, §5.1.2).
@@ -24,11 +24,18 @@ it on the way out.  ``TVMState.capacity`` counts real rows only.
 only gathers, so every read still sees the pre-epoch snapshot).
 
 **Kernels.**  Fork allocation and the compaction pass call
-``kernels/ops.py``: the ``fork_scan`` and ``type_rank`` CUDA kernels on
-the card, their plain versions on the CPU.  (The JAX ``HostEngine``
-allocates fork slots with ``jnp.cumsum`` unless given a hook; the port
-routes them through its own kernel — the same function, so the same
-bits.)
+``kernels/ops.py``: the ``fork_scan``, ``segmented_fork_scan`` and
+``type_rank`` CUDA kernels on the card, their plain versions on the CPU.
+(The JAX ``HostEngine`` and ``EpochMultiplexer`` allocate fork slots with
+``jnp.cumsum`` or the jnp segmented reference unless given a hook; the
+port routes them through its own kernels — the same functions, so the
+same bits.)
+
+**Arena.**  With a :class:`JobArena` (the multi-tenant service) the one
+``nextFreeCore`` becomes one cursor per tenant region: fork allocation is
+the segmented scan over each lane's region, children past their region's
+end drop to the sink row (never into a neighbour), and reclamation runs
+per region.  The arena's ``slot_job`` tags the sink row as unowned.
 
 **Dtypes.**  Every slot index, count and scan stays int32, as in the JAX
 Task Vector (``torch.arange``, ``cumsum`` and ``sum`` name their dtype).
@@ -36,7 +43,7 @@ Task Vector (``torch.arange``, ``cumsum`` and ``sum`` name their dtype).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -106,6 +113,41 @@ def heap_without_sink(heap: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v[:-1] for k, v in heap.items()}
 
 
+@dataclasses.dataclass
+class JobArena:
+    """Per-job slot regions inside one shared Task Vector (service layer).
+
+    Job ``j`` owns the contiguous slot region ``[base[j], end[j])`` — its
+    private Task Vector, laid out exactly as a solo run of capacity
+    ``end[j] - base[j]`` shifted by ``base[j]`` — and ``slot_job`` tags
+    every TV slot with its region index (``J`` for slots outside every
+    region, and for the sink row).  ``next`` is the per-region
+    ``nextFreeCore`` cursor (absolute slots).
+    """
+
+    slot_job: torch.Tensor  # i32[C + 1] region per slot (J = unowned)
+    base: torch.Tensor      # i32[J] region start (inclusive)
+    end: torch.Tensor       # i32[J] region end (exclusive)
+    next: torch.Tensor      # i32[J] per-region nextFreeCore
+
+    @property
+    def n_jobs(self) -> int:
+        return self.base.shape[0]
+
+
+def arena_reset_region(arena: JobArena, j: int, base: int,
+                       quota: int) -> JobArena:
+    """Re-point region ``j``'s cursors at a freshly reseeded tenant: its
+    ``end`` becomes ``base + quota`` and its cursor ``base + 1`` (root slot
+    occupied), the solo ``init_state`` layout shifted by ``base``.
+    Returns a new arena; the argument is not changed."""
+    end = arena.end.clone()
+    nxt = arena.next.clone()
+    end[j] = base + quota
+    nxt[j] = base + 1
+    return dataclasses.replace(arena, end=end, next=nxt)
+
+
 @dataclasses.dataclass(frozen=True)
 class EpochSummary:
     """Scalars the CPU reads back at the end of each epoch (paper §5.2.4);
@@ -116,6 +158,29 @@ class EpochSummary:
     map_scheduled: torch.Tensor   # bool[]
     n_active: torch.Tensor        # i32[]  (stats: work in tasks, T1)
     overflow: torch.Tensor        # bool[]  TV capacity exhausted
+
+
+@dataclasses.dataclass(frozen=True)
+class MuxEpochSummary:
+    """Per-job end-of-epoch scalars for the fused multi-tenant readback.
+
+    The first five fields aggregate like :class:`EpochSummary`; the
+    ``job_*`` vectors carry each region's own forks, join flag, active
+    lanes, overflow flag and post-commit cursor, so every job's scheduler
+    pushes its continuations exactly as a solo engine would.  Tensors on
+    the TV's device until the multiplexer's one readback.
+    """
+
+    total_forks: torch.Tensor     # i32[]
+    join_scheduled: torch.Tensor  # bool[]
+    map_scheduled: torch.Tensor   # bool[]
+    n_active: torch.Tensor        # i32[]
+    overflow: torch.Tensor        # bool[]  any region exhausted
+    job_forks: torch.Tensor       # i32[J]  forks allocated per region
+    job_join: torch.Tensor        # bool[J] join scheduled per region
+    job_active: torch.Tensor      # i32[J]  active lanes per region
+    job_overflow: torch.Tensor    # bool[J] region capacity exhausted
+    job_next: torch.Tensor        # i32[J]  post-commit region cursors
 
 
 @dataclasses.dataclass
@@ -214,7 +279,7 @@ def trace_tasks_compacted(
     heap,
     start: int,
     count: int,
-    cen: int,
+    cen,
     perm: torch.Tensor,
     type_offsets: Sequence[int],
     type_counts: Sequence[int],
@@ -286,12 +351,15 @@ def commit_epoch(
     active: torch.Tensor,
     per_type,
     cen,
-) -> Tuple[TVMState, Dict[str, torch.Tensor], EpochSummary, List[MapLaunch]]:
+    arena: Optional[JobArena] = None,
+) -> Tuple[TVMState, Dict[str, torch.Tensor], Any, List[MapLaunch]]:
     """Phase 3: prefix-sum fork allocation + TMS (epoch-number) update.
 
     Fork slots come from ``kernels.ops.fork_offsets`` (the ``fork_scan``
-    kernel on CUDA).  ``cen`` is an int, an ``i32[]`` or a per-lane
-    ``i32[P]`` epoch number.
+    kernel on CUDA), or with ``arena`` from ``ops.segmented_fork_offsets``
+    over each lane's region (the ``segmented_fork_scan`` kernel on CUDA);
+    the summary is then a :class:`MuxEpochSummary`.  ``cen`` is an int, an
+    ``i32[]`` or a per-lane ``i32[P]`` epoch number.
     Updates ``state`` and ``heap`` in place and returns them.
     """
     C = state.capacity
@@ -308,23 +376,42 @@ def commit_epoch(
             cnt = cnt + f.where.to(_I32)
         lane_count = lane_count + torch.where(mask_t, cnt, 0)
 
-    lane_excl, total_forks = kops.fork_offsets(lane_count)
-    lane_base = state.next_free + lane_excl
-    overflow = (state.next_free + total_forks) > C
+    lane_cap = None  # per-lane scatter bound (arena mode only)
+    if arena is None:
+        lane_excl, total_forks = kops.fork_offsets(lane_count)
+        lane_base = state.next_free + lane_excl
+        overflow = (state.next_free + total_forks) > C
+    else:
+        J = arena.n_jobs
+        jl = arena.slot_job[cidx].clamp(0, J - 1)  # region per lane
+        # each lane's offset among its own region's forks: the solo scan
+        # restricted to that region
+        lane_excl, job_forks = kops.segmented_fork_offsets(lane_count, jl, J)
+        lane_base = arena.next[jl] + lane_excl
+        lane_cap = arena.end[jl]
+        job_overflow = (arena.next + job_forks) > arena.end
+        total_forks = job_forks.sum(dtype=_I32)
+        overflow = job_overflow.any()
 
     join_any = torch.zeros((), dtype=torch.bool, device=dev)
+    lane_join = torch.zeros((P,), dtype=torch.bool, device=dev)
     map_any = torch.zeros((), dtype=torch.bool, device=dev)
     map_launches: List[MapLaunch] = []
     s = state
 
     for mask_t, eff in per_type:
         # -------- forks: scatter children at contiguous prefix-sum slots;
-        # slots past capacity (overflow) drop to the sink like mode="drop"
+        # slots past capacity (overflow) drop to the sink like mode="drop",
+        # and under an arena so do slots past the lane's region end
         within = torch.zeros((P,), dtype=_I32, device=dev)
         for f in eff.forks:
             fire = mask_t & f.where
             raw = lane_base + within
-            slots = torch.where(fire & (raw < C), raw, drop)
+            if lane_cap is None:
+                slots = torch.where(fire & (raw < C), raw, drop)
+            else:
+                fire = fire & (raw < lane_cap)
+                slots = torch.where(fire, raw, drop)
             s.task[slots] = f.task
             s.argi[slots] = f.argi
             s.argf[slots] = f.argf
@@ -345,6 +432,7 @@ def commit_epoch(
             s.argi[jslots] = j.argi
             s.argf[jslots] = j.argf
             join_any = join_any | jw.any()
+            lane_join = lane_join | jw
 
         # -------- record children pointers on the (possibly joined) parent
         pslots = torch.where(mask_t, cidx, drop)
@@ -375,14 +463,41 @@ def commit_epoch(
 
     # ---- trailing-invalid reclamation (paper §5.3, nextFreeCore decrease)
     iota = torch.arange(C, dtype=_I32, device=dev)
-    last_valid = torch.where(s.epoch[:C] > 0, iota, -1).max()
-    s.next_free = torch.minimum(s.next_free + total_forks, last_valid + 1)
-    summary = EpochSummary(
+    lv = torch.where(s.epoch[:C] > 0, iota, -1)
+    if arena is None:
+        s.next_free = torch.minimum(s.next_free + total_forks,
+                                    lv.max() + 1)
+        summary = EpochSummary(
+            total_forks=total_forks,
+            join_scheduled=join_any,
+            map_scheduled=map_any,
+            n_active=active.sum(dtype=_I32),
+            overflow=overflow,
+        )
+        return s, heap, summary, map_launches
+    # per-region reclamation: each cursor shrinks to just past its own
+    # region's last valid slot, the solo rule shifted by base; slots of no
+    # region (tag J) reduce into an extra row that is cut off
+    last_valid = torch.full((J + 1,), -1, dtype=_I32, device=dev)
+    last_valid.scatter_reduce_(0, arena.slot_job[:C].long(), lv, "amax")
+    job_next = torch.minimum(
+        arena.next + job_forks,
+        torch.maximum(last_valid[:J] + 1, arena.base),
+    )
+    s.next_free = job_next.max()  # fleet high-water
+    per_job = torch.zeros((2, J), dtype=_I32, device=dev).index_add_(
+        1, jl, torch.stack([lane_join.to(_I32), active.to(_I32)]))
+    summary = MuxEpochSummary(
         total_forks=total_forks,
         join_scheduled=join_any,
         map_scheduled=map_any,
         n_active=active.sum(dtype=_I32),
         overflow=overflow,
+        job_forks=job_forks,
+        job_join=per_job[0] > 0,
+        job_active=per_job[1],
+        job_overflow=job_overflow,
+        job_next=job_next,
     )
     return s, heap, summary, map_launches
 

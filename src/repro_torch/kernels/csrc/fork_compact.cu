@@ -1,10 +1,14 @@
 // Fork-slot allocation and type compaction scans for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of src/repro/kernels/fork_compact.py:
+// Replaces the three Pallas TPU kernels of src/repro/kernels/fork_compact.py:
 //   * trees_fork_scan  <- fork_scan (_fork_scan_kernel): exclusive prefix
 //     sum + grand total of an i32 vector.  The epoch commit's fork-slot
 //     allocation (the paper's atomicInc(nextFreeCore)) and the compaction
 //     pass's per-type start offsets.
+//   * trees_segmented_fork_scan <- segmented_fork_scan (_seg_scan_kernel):
+//     each lane's exclusive prefix sum among the lanes of its own segment
+//     + per-segment totals.  The JobArena commit's per-region fork-slot
+//     allocation (one nextFreeCore per tenant region).
 //   * trees_type_rank  <- type_rank (_type_rank_kernel): the stable rank of
 //     each active lane among the active lanes of its type (-1 if inactive)
 //     + per-type counts.  The compacted dispatch's permutation, and, with
@@ -12,25 +16,40 @@
 //
 // What bounds them on this card: memory.  fork_scan must read 4 bytes and
 // write 4 bytes per lane (8 B/lane); type_rank reads an i32 type and a u8
-// active flag and writes an i32 rank (9 B/lane).  At 2^21 lanes that is
-// 16.8 MB and 18.9 MB: about 5 and 6 microseconds at 3.35 TB/s.  The
-// arithmetic (one add, or n_types ballots, per lane) is far below the
-// card's rate.
+// active flag and writes an i32 rank (9 B/lane); segmented_fork_scan reads
+// an i32 count and an i32 segment id and writes an i32 offset (12 B/lane).
+// At 2^21 lanes the first two move 16.8 MB and 18.9 MB, about 5 and 6
+// microseconds at 3.35 TB/s; segmented_fork_scan at 2^23 lanes moves
+// 100.7 MB, about 30 microseconds.  The arithmetic (one add, n_types
+// ballots, or a 32-step shuffle sum per lane) is far below the card's rate.
 //
 // Why reduce-then-scan: the Pallas kernels carry a running sum from one
 // grid step to the next in SMEM, which is race-free only because TPU grid
 // steps run in order on one core.  CUDA blocks run in no order, so the
 // carry becomes three launches on one stream:
-//   1. each block reduces its 1024-lane tile to one total (per type);
+//   1. each block reduces its 1024-lane tile to one total (per type or
+//      segment);
 //   2. one block per row scans the tile totals into tile offsets and
-//      writes the grand total (per type);
+//      writes the grand total (per type or segment);
 //   3. each block scans its tile again (warp shuffles / ballots, then the
 //      warp totals) and adds its tile offset.
-// The input is read twice (12 or 13 B/lane moved against the 8 or 9 of
-// the bound); a single-pass decoupled look-back scan is later work.
+// The input is read twice (12, 13 or 20 B/lane moved against the 8, 9 or
+// 12 of the bound); a single-pass decoupled look-back scan is later work.
 //
-// Ranks are stable by construction: lanes are visited in order of
-// (chunk, warp, lane), which is increasing lane index, and the commit's
+// Groups: type_rank and segmented_fork_scan keep one shared-memory counter
+// per type or segment, so a block handles a group of at most kTypeGroup
+// types or kSegGroup segments; blockIdx.y (with a grid-stride loop past
+// 65535 groups) walks the groups, so any n_types or n_segs >= 1 works.
+// Each group reads the tile again.
+//
+// Segments need not be contiguous (the gather and compacted dispatches
+// permute lanes), so within a warp __match_any_sync finds the lanes of the
+// same segment and a 32-step shuffle sums the lower ones among them; the
+// warp sums per segment go through shared memory and the tile offsets
+// through the scanned scratch rows, as for type_rank.
+//
+// Ranks and offsets are stable by construction: lanes are visited in order
+// of (chunk, warp, lane), which is increasing lane index, and the commit's
 // bit-identity depends on it.  All sums are taken in uint32 and wrap like
 // the JAX int32 cumsum.
 //
@@ -46,8 +65,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 4;                    // chunks of kThreads lanes per tile
 constexpr int kTile = kThreads * kItems;     // 1024 lanes per block
-constexpr int kMaxTypes = 8;
+constexpr int kTypeGroup = 8;               // types per block (type_rank)
+constexpr int kSegGroup = 32;               // segments per block (seg scan)
+constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kSegGroup == 32, "one warp lane per segment of a group");
 
 // Inclusive scan of one value per thread across the block.  Every thread
 // of the block must call it.  *total receives the block total.
@@ -136,101 +158,243 @@ __global__ void fork_scan_tiles(const int* __restrict__ counts,
 }
 
 // Pass 1 of type_rank: per-tile, per-type active counts into
-// counts[type * nb + tile].  Lanes whose type lies outside [0, n_types)
-// count nothing.
+// counts[type * nb + tile], one group of kTypeGroup types per loop trip.
+// Lanes whose type lies outside [0, n_types) count nothing.
 __global__ void type_rank_reduce(const int* __restrict__ types,
                                  const unsigned char* __restrict__ active,
                                  unsigned* __restrict__ counts, int n,
                                  int n_types, int nb) {
-  __shared__ unsigned s_cnt[kMaxTypes];
-  if (threadIdx.x < kMaxTypes) s_cnt[threadIdx.x] = 0u;
-  __syncthreads();
+  __shared__ unsigned s_cnt[kTypeGroup];
+  const int n_groups = (n_types + kTypeGroup - 1) / kTypeGroup;
   const long long base = (long long)blockIdx.x * kTile;
-  unsigned warp_cnt[kMaxTypes];
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kTypeGroup;
+    const int width = min(kTypeGroup, n_types - g0);
+    if (threadIdx.x < kTypeGroup) s_cnt[threadIdx.x] = 0u;
+    __syncthreads();
+    unsigned warp_cnt[kTypeGroup];
 #pragma unroll
-  for (int j = 0; j < kMaxTypes; ++j) warp_cnt[j] = 0u;
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    int t = -1;
-    if (i < n && active[i]) t = types[i];
+    for (int j = 0; j < kTypeGroup; ++j) warp_cnt[j] = 0u;
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k * kThreads + threadIdx.x;
+      int t = -1;
+      if (i < n && active[i]) {
+        const int tv = types[i];
+        if (tv >= g0 && tv < g0 + width) t = tv - g0;
+      }
 #pragma unroll
-    for (int j = 0; j < kMaxTypes; ++j) {
-      if (j < n_types) warp_cnt[j] += __popc(__ballot_sync(kFull, t == j));
+      for (int j = 0; j < kTypeGroup; ++j) {
+        if (j < width) warp_cnt[j] += __popc(__ballot_sync(kFull, t == j));
+      }
     }
-  }
-  if ((threadIdx.x & 31u) == 0) {
+    if ((threadIdx.x & 31u) == 0) {
 #pragma unroll
-    for (int j = 0; j < kMaxTypes; ++j) {
-      if (j < n_types) atomicAdd(&s_cnt[j], warp_cnt[j]);
+      for (int j = 0; j < kTypeGroup; ++j) {
+        if (j < width) atomicAdd(&s_cnt[j], warp_cnt[j]);
+      }
     }
-  }
-  __syncthreads();
-  if ((int)threadIdx.x < n_types) {
-    counts[(long long)threadIdx.x * nb + blockIdx.x] = s_cnt[threadIdx.x];
+    __syncthreads();
+    if ((int)threadIdx.x < width) {
+      counts[(long long)(g0 + threadIdx.x) * nb + blockIdx.x] =
+          s_cnt[threadIdx.x];
+    }
+    __syncthreads();  // s_cnt is zeroed again by the next group
   }
 }
 
 // Pass 3 of type_rank: rank = tile offset of the lane's type + same-type
 // active lanes in earlier chunks of the tile + in earlier warps of this
 // chunk + in earlier lanes of this warp (popc of the ballot under the
-// lane's less-than mask).  An active lane of an out-of-range type gets
-// rank 0, as in the Pallas kernel.
+// lane's less-than mask).  Each lane is written once: by the group of its
+// type, or, if it is inactive (-1) or active with a type outside
+// [0, n_types) (0, as in the Pallas kernel), by group 0.
 __global__ void type_rank_tiles(const int* __restrict__ types,
                                 const unsigned char* __restrict__ active,
                                 const unsigned* __restrict__ tile_offs,
                                 int* __restrict__ rank, int n, int n_types,
                                 int nb) {
-  __shared__ unsigned s_warp[kWarps][kMaxTypes];
-  __shared__ unsigned s_carry[kMaxTypes];
+  __shared__ unsigned s_warp[kWarps][kTypeGroup];
+  __shared__ unsigned s_carry[kTypeGroup];
   const unsigned lane = threadIdx.x & 31u;
   const unsigned warp = threadIdx.x >> 5;
   const unsigned lt_mask = (1u << lane) - 1u;
-  if (threadIdx.x < kMaxTypes) {
-    s_carry[threadIdx.x] =
-        (int)threadIdx.x < n_types
-            ? tile_offs[(long long)threadIdx.x * nb + blockIdx.x]
-            : 0u;
-  }
-  __syncthreads();
+  const int n_groups = (n_types + kTypeGroup - 1) / kTypeGroup;
   const long long base = (long long)blockIdx.x * kTile;
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    bool act = false;
-    int t = -1;
-    if (i < n) {
-      act = active[i] != 0;
-      if (act) t = types[i];
-    }
-    unsigned within = 0;
-#pragma unroll
-    for (int j = 0; j < kMaxTypes; ++j) {
-      if (j < n_types) {
-        const unsigned b = __ballot_sync(kFull, t == j);
-        if (t == j) within = __popc(b & lt_mask);
-        if (lane == 0) s_warp[warp][j] = __popc(b);
-      }
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kTypeGroup;
+    const int width = min(kTypeGroup, n_types - g0);
+    if (threadIdx.x < kTypeGroup) {
+      s_carry[threadIdx.x] =
+          (int)threadIdx.x < width
+              ? tile_offs[(long long)(g0 + threadIdx.x) * nb + blockIdx.x]
+              : 0u;
     }
     __syncthreads();
-    if (i < n) {
-      int r = -1;
-      if (act) {
-        if (t >= 0 && t < n_types) {
-          unsigned off = s_carry[t] + within;
-          for (unsigned w = 0; w < warp; ++w) off += s_warp[w][t];
-          r = (int)off;
-        } else {
-          r = 0;
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k * kThreads + threadIdx.x;
+      bool act = false;
+      int tv = -1;  // the lane's type
+      int t = -1;   // its index in this group, -1 outside the group
+      if (i < n) {
+        act = active[i] != 0;
+        if (act) {
+          tv = types[i];
+          if (tv >= g0 && tv < g0 + width) t = tv - g0;
         }
       }
-      rank[i] = r;
+      unsigned within = 0;
+#pragma unroll
+      for (int j = 0; j < kTypeGroup; ++j) {
+        if (j < width) {
+          const unsigned b = __ballot_sync(kFull, t == j);
+          if (t == j) within = __popc(b & lt_mask);
+          if (lane == 0) s_warp[warp][j] = __popc(b);
+        }
+      }
+      __syncthreads();
+      if (i < n) {
+        if (t >= 0) {
+          unsigned off = s_carry[t] + within;
+          for (unsigned w = 0; w < warp; ++w) off += s_warp[w][t];
+          rank[i] = (int)off;
+        } else if (g == 0 && (!act || tv < 0 || tv >= n_types)) {
+          rank[i] = act ? 0 : -1;
+        }
+      }
+      __syncthreads();
+      if ((int)threadIdx.x < width) {
+        unsigned s = 0;
+        for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
+        s_carry[threadIdx.x] += s;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Sum of v over the lanes of this warp below this lane that carry the same
+// key; *peers receives the mask of the lanes with this lane's key.  Every
+// lane of the warp must call it (the shuffles read every lane).
+__device__ __forceinline__ unsigned peer_exclusive_sum(int key, unsigned v,
+                                                       unsigned* peers) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned same = __match_any_sync(kFull, key);
+  const unsigned below = same & ((1u << lane) - 1u);
+  unsigned s = 0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const unsigned x = __shfl_sync(kFull, v, k);
+    if (below & (1u << k)) s += x;
+  }
+  *peers = same;
+  return s;
+}
+
+// Lane i's key within the segment group [g0, g0 + width): its segment's
+// index in the group, or -1 (outside the group, or past the end).  *sv
+// receives the lane's segment id (0 past the end), *c its count (0 when
+// the key is -1).
+__device__ __forceinline__ int seg_key(const int* __restrict__ counts,
+                                       const int* __restrict__ seg,
+                                       long long i, int n, int g0, int width,
+                                       int* sv, unsigned* c) {
+  *c = 0u;
+  *sv = 0;
+  if (i >= n) return -1;
+  *sv = seg[i];
+  if (*sv < g0 || *sv >= g0 + width) return -1;
+  *c = (unsigned)counts[i];
+  return *sv - g0;
+}
+
+// Pass 1 of segmented_fork_scan: per-tile, per-segment sums into
+// sums[segment * nb + tile], one group of kSegGroup segments per loop
+// trip.  The highest lane of each same-segment set in a warp adds the
+// set's sum to a shared counter.
+__global__ void seg_scan_reduce(const int* __restrict__ counts,
+                                const int* __restrict__ seg,
+                                unsigned* __restrict__ sums, int n,
+                                int n_segs, int nb) {
+  __shared__ unsigned s_tot[kSegGroup];
+  const int lane = (int)(threadIdx.x & 31u);
+  const int n_groups = (n_segs + kSegGroup - 1) / kSegGroup;
+  const long long base = (long long)blockIdx.x * kTile;
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kSegGroup;
+    const int width = min(kSegGroup, n_segs - g0);
+    if (threadIdx.x < kSegGroup) s_tot[threadIdx.x] = 0u;
+    __syncthreads();
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k * kThreads + threadIdx.x;
+      int sv;
+      unsigned c, peers;
+      const int key = seg_key(counts, seg, i, n, g0, width, &sv, &c);
+      const unsigned excl = peer_exclusive_sum(key, c, &peers);
+      if (key >= 0 && 31 - __clz(peers) == lane) {
+        atomicAdd(&s_tot[key], excl + c);
+      }
     }
     __syncthreads();
-    if ((int)threadIdx.x < n_types) {
-      unsigned s = 0;
-      for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
-      s_carry[threadIdx.x] += s;
+    if ((int)threadIdx.x < width) {
+      sums[(long long)(g0 + threadIdx.x) * nb + blockIdx.x] =
+          s_tot[threadIdx.x];
     }
-    __syncthreads();
+    __syncthreads();  // s_tot is zeroed again by the next group
+  }
+}
+
+// Pass 3 of segmented_fork_scan: offset = tile offset of the lane's
+// segment + same-segment counts in earlier chunks of the tile + in earlier
+// warps of this chunk + in earlier lanes of this warp.  Each lane is
+// written once: by the group of its segment, or, if its id lies outside
+// [0, n_segs), with 0 by group 0.
+__global__ void seg_scan_tiles(const int* __restrict__ counts,
+                               const int* __restrict__ seg,
+                               const unsigned* __restrict__ tile_offs,
+                               int* __restrict__ offs, int n, int n_segs,
+                               int nb) {
+  __shared__ unsigned s_warp[kWarps][kSegGroup];
+  __shared__ unsigned s_carry[kSegGroup];
+  const int lane = (int)(threadIdx.x & 31u);
+  const unsigned warp = threadIdx.x >> 5;
+  const int n_groups = (n_segs + kSegGroup - 1) / kSegGroup;
+  const long long base = (long long)blockIdx.x * kTile;
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kSegGroup;
+    const int width = min(kSegGroup, n_segs - g0);
+    if ((int)threadIdx.x < width) {
+      s_carry[threadIdx.x] =
+          tile_offs[(long long)(g0 + threadIdx.x) * nb + blockIdx.x];
+    }
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = base + k * kThreads + threadIdx.x;
+      s_warp[warp][lane] = 0u;  // this chunk's per-warp segment sums
+      __syncthreads();
+      int sv;
+      unsigned c, peers;
+      const int key = seg_key(counts, seg, i, n, g0, width, &sv, &c);
+      const unsigned excl = peer_exclusive_sum(key, c, &peers);
+      if (key >= 0 && 31 - __clz(peers) == lane) {
+        s_warp[warp][key] = excl + c;
+      }
+      __syncthreads();
+      if (i < n) {
+        if (key >= 0) {
+          unsigned off = s_carry[key] + excl;
+          for (unsigned w = 0; w < warp; ++w) off += s_warp[w][key];
+          offs[i] = (int)off;
+        } else if (g == 0 && (sv < 0 || sv >= n_segs)) {
+          offs[i] = 0;
+        }
+      }
+      __syncthreads();
+      if ((int)threadIdx.x < width) {
+        unsigned s = 0;
+        for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
+        s_carry[threadIdx.x] += s;
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -239,8 +403,6 @@ __global__ void type_rank_tiles(const int* __restrict__ types,
 extern "C" {
 
 int trees_tile_lanes() { return kTile; }
-
-int trees_max_types() { return kMaxTypes; }
 
 // offs[i] = counts[0] + ... + counts[i-1]; *total = sum of counts.
 // scratch: max(1, ceil(n / trees_tile_lanes())) uint32.
@@ -256,23 +418,48 @@ int trees_fork_scan(const int* counts, int* offs, int* total,
   return (int)cudaGetLastError();
 }
 
+// offs[i] = sum of counts[k] over k < i with seg[k] == seg[i] (0 where
+// seg[i] lies outside [0, n_segs)); totals[s] = sum of counts over segment
+// s.  n_segs >= 1; scratch: n_segs * max(1, nb) uint32.
+int trees_segmented_fork_scan(const int* counts, const int* seg, int* offs,
+                              int* totals, unsigned* scratch, int n,
+                              int n_segs, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_segs < 1) return (int)cudaErrorInvalidValue;
+  const int nb = (n + kTile - 1) / kTile;
+  const int groups = (n_segs + kSegGroup - 1) / kSegGroup;
+  const dim3 grid(nb, groups < kMaxGridY ? groups : kMaxGridY);
+  if (nb > 0) {
+    seg_scan_reduce<<<grid, kThreads, 0, s>>>(counts, seg, scratch, n,
+                                              n_segs, nb);
+  }
+  scan_rows<<<n_segs, kThreads, 0, s>>>(scratch, nb, totals);
+  if (nb > 0) {
+    seg_scan_tiles<<<grid, kThreads, 0, s>>>(counts, seg, scratch, offs, n,
+                                             n_segs, nb);
+  }
+  return (int)cudaGetLastError();
+}
+
 // rank[i] = stable rank of active lane i among active lanes of its type,
 // -1 for an inactive lane; counts[t] = active lanes of type t.
-// 1 <= n_types <= trees_max_types(); scratch: n_types * max(1, nb) uint32.
+// n_types >= 1; scratch: n_types * max(1, nb) uint32.
 int trees_type_rank(const int* types, const unsigned char* active,
                     int* rank, int* counts, unsigned* scratch, int n,
                     int n_types, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_types < 1 || n_types > kMaxTypes) return (int)cudaErrorInvalidValue;
+  if (n_types < 1) return (int)cudaErrorInvalidValue;
   const int nb = (n + kTile - 1) / kTile;
+  const int groups = (n_types + kTypeGroup - 1) / kTypeGroup;
+  const dim3 grid(nb, groups < kMaxGridY ? groups : kMaxGridY);
   if (nb > 0) {
-    type_rank_reduce<<<nb, kThreads, 0, s>>>(types, active, scratch, n,
-                                             n_types, nb);
+    type_rank_reduce<<<grid, kThreads, 0, s>>>(types, active, scratch, n,
+                                               n_types, nb);
   }
   scan_rows<<<n_types, kThreads, 0, s>>>(scratch, nb, counts);
   if (nb > 0) {
-    type_rank_tiles<<<nb, kThreads, 0, s>>>(types, active, scratch, rank, n,
-                                            n_types, nb);
+    type_rank_tiles<<<grid, kThreads, 0, s>>>(types, active, scratch, rank,
+                                              n, n_types, nb);
   }
   return (int)cudaGetLastError();
 }

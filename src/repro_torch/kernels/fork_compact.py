@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for fork-slot allocation and type compaction.
 
-``fork_scan`` and ``type_rank`` replace the Pallas TPU kernels of the same
-names in ``repro/kernels/fork_compact.py``; the CUDA C++ lives in
-``csrc/fork_compact.cu`` (its header says what bounds them and why the
-TPU's sequential-grid carry became a reduce-then-scan).
+``fork_scan``, ``segmented_fork_scan`` and ``type_rank`` replace the Pallas
+TPU kernels of the same names in ``repro/kernels/fork_compact.py``; the
+CUDA C++ lives in ``csrc/fork_compact.cu`` (its header says what bounds
+them and why the TPU's sequential-grid carry became a reduce-then-scan).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``kernels/nvcc.py``) and loaded with
@@ -28,10 +28,11 @@ from . import nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "fork_compact.cu"
 BUILD_DIR = nvcc.BUILD_DIR
-MAX_TYPES = 8  # kMaxTypes in the source
 
 # launches of each kernel since the last reset (one per wrapper call)
-LAUNCHES: Dict[str, int] = {"fork_scan": 0, "type_rank": 0}
+LAUNCHES: Dict[str, int] = {
+    "fork_scan": 0, "segmented_fork_scan": 0, "type_rank": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -61,14 +62,12 @@ def _load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.trees_fork_scan.argtypes = [p, p, p, p, i, p]
             lib.trees_fork_scan.restype = i
+            lib.trees_segmented_fork_scan.argtypes = [p, p, p, p, p, i, i, p]
+            lib.trees_segmented_fork_scan.restype = i
             lib.trees_type_rank.argtypes = [p, p, p, p, p, i, i, p]
             lib.trees_type_rank.restype = i
             lib.trees_tile_lanes.argtypes = []
             lib.trees_tile_lanes.restype = i
-            lib.trees_max_types.argtypes = []
-            lib.trees_max_types.restype = i
-            if lib.trees_max_types() != MAX_TYPES:
-                raise RuntimeError("kernel library disagrees on MAX_TYPES")
             _lib = lib
         return _lib
 
@@ -117,22 +116,55 @@ def fork_scan(counts: torch.Tensor):
     return offs, total[0]
 
 
+def segmented_fork_scan(counts: torch.Tensor, seg: torch.Tensor,
+                        n_segs: int):
+    """Per-segment exclusive prefix sum + per-segment totals.
+
+    ``counts`` and ``seg`` are ``i32[C]`` on the card, ``n_segs >= 1``.
+    Lane ``i``'s offset is the sum of ``counts[k]`` over ``k < i`` with
+    ``seg[k] == seg[i]``; lanes of a segment need not be contiguous, and
+    ids outside ``[0, n_segs)`` add nothing and read 0.  Returns
+    ``(offsets i32[C], totals i32[n_segs])``, sums wrapping like int32.
+    """
+    _check_lanes("segmented_fork_scan", counts, (torch.int32,))
+    _check_lanes("segmented_fork_scan", seg, (torch.int32,))
+    if seg.shape[0] != counts.shape[0]:
+        raise ValueError(
+            "segmented_fork_scan: counts and seg differ in length")
+    if n_segs < 1:
+        raise ValueError(f"segmented_fork_scan: n_segs={n_segs} < 1")
+    lib = _load()
+    n = counts.shape[0]
+    nb = -(-n // lib.trees_tile_lanes())
+    offs = torch.empty_like(counts)
+    totals = torch.empty((n_segs,), dtype=torch.int32, device=counts.device)
+    scratch = torch.empty((n_segs * max(nb, 1),), dtype=torch.int32,
+                          device=counts.device)
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_segmented_fork_scan(
+            _ptr(counts), _ptr(seg), _ptr(offs), _ptr(totals), _ptr(scratch),
+            n, n_segs, ctypes.c_void_p(stream),
+        )
+    _raise_on(err, "segmented_fork_scan")
+    LAUNCHES["segmented_fork_scan"] += 1
+    return offs, totals
+
+
 def type_rank(types: torch.Tensor, active: torch.Tensor, n_types: int):
     """Stable within-type rank of each active lane + per-type counts.
 
     ``types`` is ``i32[C]``, ``active`` ``bool[C]`` (or ``u8[C]``), both on
-    the card; ``1 <= n_types <= MAX_TYPES``.  Active lanes must carry a
-    type in ``[0, n_types)``.  Returns ``(rank i32[C], counts
-    i32[n_types])``, rank -1 for inactive lanes.
+    the card; ``n_types >= 1`` (the kernel walks the types in groups of
+    eight).  Active lanes must carry a type in ``[0, n_types)``.  Returns
+    ``(rank i32[C], counts i32[n_types])``, rank -1 for inactive lanes.
     """
     _check_lanes("type_rank", types, (torch.int32,))
     _check_lanes("type_rank", active, (torch.bool, torch.uint8))
     if active.shape[0] != types.shape[0]:
         raise ValueError("type_rank: types and active differ in length")
-    if not 1 <= n_types <= MAX_TYPES:
-        raise ValueError(
-            f"type_rank: n_types={n_types} outside [1, {MAX_TYPES}]"
-        )
+    if n_types < 1:
+        raise ValueError(f"type_rank: n_types={n_types} < 1")
     lib = _load()
     n = types.shape[0]
     nb = -(-n // lib.trees_tile_lanes())

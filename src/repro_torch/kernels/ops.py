@@ -19,6 +19,20 @@ def fork_offsets(counts: torch.Tensor):
     return fork_compact.fork_scan(counts)
 
 
+def segmented_fork_offsets(counts: torch.Tensor, seg: torch.Tensor,
+                           n_segs: int):
+    """Per-region exclusive fork allocation (the ``JobArena`` segmented
+    scan): ``(offsets i32[C], per-region totals i32[n_segs])``.
+
+    ``seg`` tags each lane with its TV region; each region's forks get
+    contiguous offsets among that region's own counts, so the service's
+    multi-tenant commit stays bit-identical to the solo scan per region.
+    """
+    if counts.device.type == "cpu":
+        return ref.segmented_fork_scan_ref(counts, seg, n_segs)
+    return fork_compact.segmented_fork_scan(counts, seg, n_segs)
+
+
 def type_rank(types: torch.Tensor, active: torch.Tensor, n_types: int):
     """Stable within-type rank of each active lane + per-type counts.
 

@@ -24,6 +24,29 @@ def fork_scan_ref(counts: torch.Tensor):
     return incl - counts, total
 
 
+def segmented_fork_scan_ref(counts: torch.Tensor, seg: torch.Tensor,
+                            n_segs: int):
+    """Per-segment exclusive prefix sum + per-segment totals (plain
+    ``segmented_fork_scan``), one masked scan per segment.
+
+    ``seg[i]`` is lane i's segment (TV region) id; ids outside ``[0,
+    n_segs)`` add nothing and read 0.  Returns ``(offsets i32[C], totals
+    i32[n_segs])``.
+    """
+    counts = counts.to(_I32)
+    seg = seg.to(_I32)
+    offs = torch.zeros_like(counts)
+    totals = []
+    for s in range(n_segs):
+        m = seg == s
+        x = torch.where(m, counts, 0)
+        offs = torch.where(m, torch.cumsum(x, 0, dtype=_I32) - x, offs)
+        totals.append(x.sum(dtype=_I32))
+    if not totals:
+        return offs, counts.new_zeros((0,))
+    return offs, torch.stack(totals)
+
+
 def type_rank_ref(types: torch.Tensor, active: torch.Tensor, n_types: int):
     """Stable within-type rank of each active lane + per-type counts.
 

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX package,
-runs on the CPU only when asked, and its chip smoke script refuses to run
-without a card or without the repository beside it."""
+"""The port stands alone: it imports no JAX and nothing of the JAX package
+(every module, the job service and the treewalk app among them, runs with
+both blocked), runs on the CPU only when asked, and its chip smoke script
+refuses to run without a card or without the repository beside it."""
 from __future__ import annotations
 
 import os
@@ -40,9 +41,21 @@ _, rvalue, rstats = fib.case().run(engine_cls=DeviceEngine, device="cpu",
                                    dispatch="gather", megakernel=True)
 assert int(rvalue[0, 0]) == fib.fib_reference(12), rvalue[0]
 assert epoch_megakernel.device_table(fib.PROGRAM) is not None
+from repro_torch.apps import get_fleet, treewalk
+from repro_torch.service import JobService
+fleet = get_fleet("mixed3")
+svc = JobService(capacity=sum(q for _, q in fleet), device="cpu")
+handles = [svc.submit_case(c, quota=q) for c, q in fleet]
+svc.drain()
+assert all(h.status.value == "done" for h in handles), handles
+walk = handles[1].result.heap
+visit, clock = treewalk.treewalk_reference(
+    fleet[1][0].heap_init["left"], fleet[1][0].heap_init["right"])
+assert (walk["visit_epoch"].numpy() == visit).all()
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
-print("isolated", stats.epochs, "resident", rstats.epochs)
+print("isolated", stats.epochs, "resident", rstats.epochs,
+      "service", svc.stats().epochs)
 '''
 
 
@@ -58,7 +71,7 @@ def test_port_imports_and_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "isolated 23 resident 23" in out.stdout
+    assert "isolated 23 resident 23 service 23" in out.stdout
 
 
 def test_default_device_is_cuda():

@@ -76,7 +76,9 @@ def test_cpu_path_launches_no_kernel():
     ops.fork_offsets(x)
     ops.type_rank(x % 2, x > 3, 2)
     ops.lane_pack(x > 3)
-    assert fork_compact.LAUNCHES == {"fork_scan": 0, "type_rank": 0}
+    ops.segmented_fork_offsets(x, x % 3, 3)
+    assert fork_compact.LAUNCHES == {
+        "fork_scan": 0, "segmented_fork_scan": 0, "type_rank": 0}
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
