@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
-                (fork_compact.cu, epoch_megakernel.cu: one nvcc each, in
-                parallel) into src/repro_torch/kernels/build/ (ptxas
-                report);
+                (fork_compact.cu, epoch_megakernel.cu, flash_attention.cu,
+                decode_attention.cu: one nvcc each, in parallel) into
+                src/repro_torch/kernels/build/ (ptxas report);
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card, exactly: fork_scan, type_rank (1 to 24 types) and
                 lane_pack at every listed length; segmented_fork_scan at
@@ -17,7 +17,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 the same fresh carry, every carry tensor, for fib, bfs and
                 mergesort at full size and at the registry's small size,
                 masked and gather, in chunks of K = 1, 4 and unbounded;
-                time each kernel, its plain version and the library call;
+                flash_attention against mha_ref at the prefill shape
+                (16 x 32 q heads x 1024, 8 kv heads, D = 128, bf16, causal)
+                and at ragged shapes (q_offset, window, group 1 and 4,
+                lengths off the tile) in bf16 and float32; decode_attention
+                against decode_attention_ref at 16 x 32 q heads over a
+                2048-row cache with lengths 1, S - 1, S and above S, with
+                and without a window; tolerance 1e-5 (float32) and 2e-2
+                (bf16) of max(1, max |plain|); time each kernel, its plain
+                version and the library call;
   3. path     — drive the port's HostEngine on CUDA at full size (fib(28),
                 bfs on 2^17 vertices, mergesort of 2^18 floats) under the
                 masked, compacted and gather dispatches; check results
@@ -43,7 +51,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 was launched during the phase; then streaming admission (six
                 fib jobs into four regions) and one preempt/resume of a bfs
                 tenant at a medium size, and one masked wave under
-                torch.profiler.
+                torch.profiler;
+  8. serve    — drive EpochServer on granite-3-8b at full width and depth
+                (40 layers, bf16, random weights from seed 0) with 16 slots
+                of 2048 rows: 48 requests, prompts of 64-1024 tokens, 32-128
+                new tokens each; check every output, finite logits, the
+                epoch count the host bookkeeping predicts, and that
+                flash_attention, decode_attention and fork_scan were
+                launched during the run; then the same model at 2 layers in
+                float32 on the card and on the CPU from the same weights
+                (equal tokens, first decode epoch's logits within 1e-3), and
+                one decode epoch under torch.profiler.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX and nothing of the JAX package.
@@ -64,6 +82,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate (int32 alike)
+TENSOR_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 LENGTHS = (1, 1000, 1024, 1025, 2**16 + 3, 2**21)
 WIDE = 2**21  # the main path's widest fork_scan / type_rank shape
 FLEET_WIDE = 2**23  # the full-size mixed4 wave's epoch bucket
@@ -128,9 +147,10 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return _events_ms(run, iters * reps)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -138,13 +158,16 @@ def bound_ms(n_bytes: float, n_ops: float):
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels import epoch_megakernel, fork_compact, nvcc
+    from repro_torch.kernels import (
+        decode_attention, epoch_megakernel, flash_attention, fork_compact,
+        nvcc,
+    )
 
     ver = subprocess.run([nvcc.nvcc_path(), "--version"],
                          capture_output=True, text=True, check=True)
     print("[build] nvcc:", ver.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    mods = (fork_compact, epoch_megakernel)
+    mods = (fork_compact, epoch_megakernel, flash_attention, decode_attention)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(ptxas_info=True), mods))
     dt = time.perf_counter() - t0
@@ -154,7 +177,7 @@ def phase_build():
                     or "spill" in line):
                 print("[build]", line.strip())
         print(f"[build] {path.name}")
-    print(f"[build] both libraries built in {dt:.2f} s (in parallel)")
+    print(f"[build] {len(mods)} libraries built in {dt:.2f} s (in parallel)")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -782,6 +805,339 @@ def phase_service(cases, runs):
     return launches, wave
 
 
+# ------------------------------------------------------ phase 2, attention
+# B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window: the prefill shape, then
+# ragged shapes (lengths off the 64-row tile, q_offset, window, group 1/4)
+FLASH_PREFILL = (16, 32, 8, 1024, 1024, 128, True, 0, 0)
+FLASH_RAGGED = (
+    (2, 8, 8, 100, 100, 128, True, 0, 0),       # group 1
+    (2, 32, 8, 77, 333, 128, True, 256, 0),     # group 4, q_offset
+    (1, 32, 8, 300, 300, 128, True, 0, 64),     # window
+    (2, 8, 2, 50, 200, 64, False, 0, 0),        # non-causal
+    (1, 32, 8, 129, 129, 128, False, 0, 40),    # window, non-causal
+    (1, 4, 2, 40, 40, 16, True, 0, 0),          # the reduced configs' D
+)
+DECODE_SHAPE = (16, 32, 8, 2048, 128)  # B, Hq, Hkv, S, D
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_err(got, want, dtype, what):
+    """max |kernel - plain|, failing past tol * max(1, max |plain|)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: non-finite output")
+    err = float((g - w).abs().max())
+    if err > ATTN_TOL[dtype] * max(1.0, float(w.abs().max())):
+        fail(f"{what}: max |kernel - plain| = {err}")
+    return err
+
+
+def _flash_inputs(case, dtype, gen):
+    """q as the strided transpose the attention block hands over."""
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda",
+                    dtype=dtype).transpose(1, 2)
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda",
+                        dtype=dtype).transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+def _flash_work(case):
+    """(bytes, flops) the function needs: q, k, v read and the output
+    written once; 4 D flops per visible (query, key) pair."""
+    B, Hq, Hkv, Sq, Skv, D, causal, qo, win = case
+    qpos = torch.arange(Sq)[:, None] + qo
+    kpos = torch.arange(Skv)[None, :]
+    vis = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        vis &= qpos >= kpos
+    if win > 0:
+        vis &= qpos - kpos < win
+    pairs = int(vis.sum())
+    n_bytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+    return n_bytes, 4 * D * B * Hq * pairs
+
+
+def _decode_work(lengths, S, B, Hq, Hkv, D, window=0):
+    """(bytes, flops): each visible cache row's K and V once, q and the
+    output once; 4 D flops per (q head, visible row)."""
+    lens = lengths.cpu().long()
+    hi = lens.clamp(max=S)
+    lo = (lens - window).clamp(min=0) if window > 0 else torch.zeros_like(lens)
+    rows = int((hi - lo).clamp(min=0).sum())
+    n_bytes = 2 * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B
+    return n_bytes, 4 * D * Hq * rows
+
+
+def phase_attention(dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for case in (FLASH_PREFILL,) + FLASH_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _flash_inputs(case, dtype, gen)
+            causal, qo, win = case[6:]
+            got = flash_attention.flash_attention(
+                q, k, v, causal=causal, q_offset=qo, window=win)
+            want = ref.mha_ref(q, k, v, causal=causal, q_offset=qo,
+                               window=win)
+            e = _attn_err(got, want, dtype, f"flash_attention {case} {dtype}")
+            err["flash_attention"] = max(err["flash_attention"], e)
+            del q, k, v, got, want
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention within tolerance at the prefill shape "
+          f"{FLASH_PREFILL[:6]} and {len(FLASH_RAGGED)} ragged shapes, bf16 "
+          f"and float32: max |kernel - plain| = {err['flash_attention']:.3g}")
+
+    B, Hq, Hkv, S, D = DECODE_SHAPE
+    for window in (0, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            lens = torch.randint(1, S + 200, (B,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            lens[:5] = torch.tensor([1, S - 1, S, S + 1, S + 200])
+            q = torch.randn((B, Hq, D), generator=gen, device=dev,
+                            dtype=dtype)
+            kc, vc = (torch.randn((B, Hkv, S, D), generator=gen, device=dev,
+                                  dtype=dtype) for _ in range(2))
+            got = decode_attention.decode_attention(q, kc, vc, lens,
+                                                    window=window)
+            want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
+            e = _attn_err(got, want, dtype, f"decode_attention window="
+                          f"{window} {dtype}")
+            err["decode_attention"] = max(err["decode_attention"], e)
+    torch.cuda.synchronize()
+    print(f"[kernels] decode_attention within tolerance at {DECODE_SHAPE} "
+          f"(lengths 1, S-1, S, S+1, S+200 and random), window 0 and 256, "
+          f"bf16 and float32: max |kernel - plain| = "
+          f"{err['decode_attention']:.3g}")
+
+    rows = []
+    # the prefill shape, bf16: the main path's widest flash launch
+    case = FLASH_PREFILL
+    q, k, v = _flash_inputs(case, torch.bfloat16, gen)
+    b, by = bound_ms(*_flash_work(case), ops_per_s=TENSOR_BF16_FLOPS)
+    t = {"ms": cuda_ms(lambda: flash_attention.flash_attention(q, k, v),
+                       iters=5, reps=2),
+         "plain_ms": cuda_ms(lambda: ref.mha_ref(q, k, v), iters=2, reps=2),
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=True, enable_gqa=True), iters=5, reps=2)}
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        max_abs_err=err["flash_attention"], bound_ms=b, bound_by=by, **t))
+    del q, k, v
+    # decode over the serving cell's cache: 16 slots of 2048 rows, lengths
+    # of a prompt (64-1024) plus the tokens made so far (up to 128)
+    lens = torch.randint(64, 1024 + 128, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc = (torch.randn((B, Hkv, S, D), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
+    b, by = bound_ms(*_decode_work(lens, S, B, Hq, Hkv, D),
+                     ops_per_s=TENSOR_BF16_FLOPS)
+    t = {"ms": cuda_ms(lambda: decode_attention.decode_attention(
+             q, kc, vc, lens)),
+         "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(
+             q, kc, vc, lens)),
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))}
+    rows.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:78",
+        max_abs_err=err["decode_attention"], bound_ms=b, bound_by=by, **t))
+    for r, shape in zip(rows, (f"{FLASH_PREFILL[:6]} causal bf16",
+                               f"{DECODE_SHAPE} bf16, lengths "
+                               f"{lens.tolist()}")):
+        print(f"[kernels] {r['name']} at {shape}: device {r['ms']:.5f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.5f} ms, library (SDPA) "
+              f"{r['library_ms']:.5f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 8
+SERVE_SLOTS = 16
+SERVE_MAX_LEN = 2048
+SERVE_REQUESTS = 48
+
+
+def serve_requests(n, vocab, seed, plen=(64, 1024), new=(32, 128)):
+    """``n`` requests from ``seed``: prompt lengths and new-token counts
+    uniform in the closed ranges, token ids uniform in [3, vocab), no
+    eos."""
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        p = rng.randint(3, vocab, rng.randint(plen[0], plen[1] + 1))
+        out.append(Request(prompt=p.astype(np.int32),
+                           max_new_tokens=int(rng.randint(new[0],
+                                                          new[1] + 1))))
+    return out
+
+
+def predicted_epochs(max_new, n_slots):
+    """Decode epochs the server's bookkeeping gives for requests with these
+    ``max_new_tokens`` and no eos: FIFO admission into free slots, each
+    request holding its slot for max_new_tokens epochs."""
+    queue, left, epochs = list(max_new), [0] * n_slots, 0
+    while queue or any(left):
+        for s in range(n_slots):
+            if not left[s] and queue:
+                left[s] = queue.pop(0)
+        epochs += 1
+        left = [max(0, x - 1) for x in left]
+    return epochs
+
+
+def _serve_run(srv, reqs, vocab):
+    """Serve ``reqs`` to completion; check each request and that every
+    epoch's logits were finite.  Returns the wall seconds."""
+    for r in reqs:
+        srv.submit(r)
+    finite = torch.ones((), dtype=torch.bool, device=srv.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while srv.queue or srv.active.any():
+        srv.step()
+        finite &= torch.isfinite(srv.last_logits[:, :vocab]).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(finite):
+        fail("serve: non-finite logits in a decode epoch")
+    for r in reqs:
+        if len(r.output) != r.max_new_tokens:
+            fail(f"serve: request {r.rid} made {len(r.output)} tokens, "
+                 f"asked for {r.max_new_tokens}")
+        if not all(0 <= t < vocab for t in r.output):
+            fail(f"serve: request {r.rid} made a token outside the vocab")
+    return wall
+
+
+def phase_serve():
+    import copy
+    import dataclasses
+    import types
+
+    from repro_torch import configs
+    from repro_torch.kernels import (
+        decode_attention, flash_attention, fork_compact,
+    )
+    from repro_torch.models import init_model
+    from repro_torch.serving import EpochServer, Request
+
+    cfg = configs.get_config("granite_3_8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    srv = EpochServer(cfg, model, n_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+          f"parameters drawn on the card and the {SERVE_SLOTS} x "
+          f"{SERVE_MAX_LEN} cache allocated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # one short request first, so cuBLAS and the kernels' first launches
+    # are not charged to the timed run
+    _serve_run(srv, [Request(prompt=np.arange(3, 67, dtype=np.int32),
+                             max_new_tokens=4)], cfg.vocab)
+    reqs = serve_requests(SERVE_REQUESTS, cfg.vocab, seed=0)
+    warm_epochs = srv.epochs
+    srv.timings.update(prefill_s=0.0, decode_s=0.0, prefills=0)
+    for mod in (fork_compact, flash_attention, decode_attention):
+        mod.reset_launches()
+    wall = _serve_run(srv, reqs, cfg.vocab)
+    launches = {"fork_scan": fork_compact.LAUNCHES["fork_scan"],
+                **flash_attention.LAUNCHES, **decode_attention.LAUNCHES}
+    epochs = srv.epochs - warm_epochs
+    want = predicted_epochs([r.max_new_tokens for r in reqs], SERVE_SLOTS)
+    if epochs != want:
+        fail(f"serve: {epochs} decode epochs, the bookkeeping predicts "
+             f"{want}")
+    n_pf = srv.timings["prefills"]
+    print(f"[serve] kernel launches during the run: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
+    if launches["decode_attention"] != epochs * cfg.n_layers or \
+            launches["flash_attention"] != n_pf * cfg.n_layers or \
+            launches["fork_scan"] != n_pf:
+        fail(f"serve: launches {launches} do not match {epochs} epochs and "
+             f"{n_pf} prefills of {cfg.n_layers} layers")
+    n_tok = sum(len(r.output) for r in reqs)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    print(f"[serve] {SERVE_REQUESTS} requests ({n_prompt} prompt tokens, "
+          f"{n_tok} generated) in {epochs} decode epochs (predicted {want}) "
+          f"and {n_pf} prefills: wall {wall:.3f} s, {n_tok / wall:.1f} "
+          f"generated tokens/s, prefill {srv.timings['prefill_s']:.3f} s "
+          f"({100 * srv.timings['prefill_s'] / wall:.1f}% of the wall), "
+          f"decode {srv.timings['decode_s']:.3f} s "
+          f"({1e3 * srv.timings['decode_s'] / epochs:.2f} ms per epoch), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one decode epoch (phase 2 of step) under the profiler
+    toks = torch.as_tensor(srv.last_token[:, None], device="cuda")
+    from repro_torch.models import decode_step
+
+    def one_epoch():
+        logits, _ = decode_step(model, cfg, toks, srv.cache)
+        logits.argmax(-1).cpu()
+        return None, None, types.SimpleNamespace(epochs=1)
+
+    one_epoch()
+    phase_profile("granite-3-8b decode epoch, 16 slots (one epoch)", one_epoch)
+    del srv, model
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, float32 compute, 2 layers at full width
+    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    cpu_model = init_model(cfg32, seed=1, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(cpu_model).to(dev) if dev == "cuda" else cpu_model
+        srv = EpochServer(cfg32, m, n_slots=4, max_len=256, device=dev)
+        reqs = serve_requests(6, cfg.vocab, seed=1, plen=(16, 200),
+                              new=(8, 8))
+        for r in reqs:
+            srv.submit(r)
+        t0 = time.perf_counter()
+        srv.step()
+        first = srv.last_logits[:, :cfg.vocab].cpu()
+        srv.run_to_completion()
+        runs[dev] = ([(r.rid, r.output) for r in srv.completed], srv.epochs,
+                     first, time.perf_counter() - t0)
+        del srv, m
+    (g_out, g_ep, g_lg, g_s), (c_out, c_ep, c_lg, c_s) = (runs["cuda"],
+                                                          runs["cpu"])
+    lg_err = float((g_lg - c_lg).abs().max())
+    if g_out != c_out or g_ep != c_ep:
+        fail(f"serve float32: the card's tokens {g_out} (epochs {g_ep}) "
+             f"differ from the CPU's {c_out} (epochs {c_ep})")
+    if not lg_err <= 1e-3:
+        fail(f"serve float32: first decode epoch's logits differ by "
+             f"{lg_err}")
+    print(f"[serve] float32, 2 layers at full width, 6 requests in 4 slots: "
+          f"card and CPU give equal tokens per request, completion order "
+          f"and {g_ep} epochs; first decode epoch's logits within "
+          f"{lg_err:.3g} (card {g_s:.2f} s, CPU {c_s:.2f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -793,8 +1149,11 @@ def main() -> int:
           "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(dev)
     rows.append(phase_chunks(dev))
+    rows += phase_attention(dev)
     launches, cases, host_runs = phase_path()
     fib_case = cases[0][0]
     phase_profile("fib HostEngine masked",
@@ -812,6 +1171,10 @@ def main() -> int:
         return None, None, svc.stats()
 
     phase_profile("mixed4 JobService masked (global epochs)", masked_wave)
+    serve_launches = phase_serve()
+    # fork_scan's count: the host path's launches and the server's
+    launches["fork_scan"] += serve_launches.pop("fork_scan")
+    launches.update(serve_launches)
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")

@@ -4,8 +4,11 @@ The same module layout as the JAX package ``repro`` (the reference), which
 this package never imports: ``core`` (program, effect API, TVM, scheduler,
 host engine), ``kernels`` (hand-written CUDA kernels and their plain
 PyTorch versions), ``apps`` (fib, bfs, mergesort, treewalk, and the
-service's fleets) and ``service`` (the multi-tenant job service on the host
-loop).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+service's fleets), ``service`` (the multi-tenant job service on the host
+loop), and the LLM serving path: ``configs``, ``models`` (dense GQA
+decoders), ``serving`` (``EpochServer``) and ``launch`` (``serve.py``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
-from . import apps, core, kernels, service  # noqa: F401
+from . import (  # noqa: F401
+    apps, configs, core, kernels, models, serving, service,
+)

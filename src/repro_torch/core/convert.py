@@ -1,12 +1,14 @@
-"""Carry a Task Vector and heap between the JAX reference and the port.
+"""Carry state and weights between the JAX reference and the port.
 
-The system has no weights; what crosses between the two implementations is
-the TVM state and the heap, the service's ``JobArena``, and on the
-resident path the whole (solo) ``ResidentCarry``.  These functions take the reference's ``TVMState``
-leaves and heap dicts as numpy arrays (``{field name: ndarray}``, ``{heap
-var: ndarray}``) and turn them into the port's tensors — adding the
-trailing sink row every TV and heap array carries here (``core/tvm.py``)
-— and back.  The tests use them to hand one state to both
+What crosses between the two implementations is the TVM state and the
+heap, the service's ``JobArena``, on the resident path the whole (solo)
+``ResidentCarry``, and on the serving path a model's weights and a decode
+cache.  These functions take the reference's ``TVMState`` leaves and heap
+dicts as numpy arrays (``{field name: ndarray}``, ``{heap var: ndarray}``)
+and turn them into the port's tensors — adding the trailing sink row every
+TV and heap array carries here (``core/tvm.py``) — and back; and the
+reference's ``init_model`` dict and cache dict, as numpy arrays, into the
+port's ``Model`` and cache.  The tests use them to hand one state to both
 implementations.
 """
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..models.common import ModelConfig, storage_dtype
+from ..models.model import Model
 from .engine import ResidentCarry, _hilo_value
 from .tvm import JobArena, TVMState, heap_with_sink, heap_without_sink
 
@@ -129,3 +133,39 @@ def carry_to_numpy(carry: ResidentCarry) -> Dict[str, object]:
         else:
             out[name] = v.cpu().numpy()
     return out
+
+
+def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
+                      device) -> Model:
+    """The port's ``Model`` from the reference's ``init_model`` dict.
+
+    Stacked ``layers/...`` arrays are split along their leading ``L`` axis
+    into one tensor per layer; matmul weights are cast once to
+    ``cfg.compute_dtype`` — the same round-to-nearest-even cast the
+    reference applies at each use, so the values are the same bits — and
+    norm scales stay in the parameter dtype.
+    """
+    values = {}
+    for name, arr in params_np.items():
+        arr = np.asarray(arr)
+        if name.startswith("layers/"):
+            dt = storage_dtype(cfg, arr.ndim - 1)
+            values[name] = [torch.as_tensor(np.array(a), device=device)
+                            .to(dt) for a in arr]
+        else:
+            dt = storage_dtype(cfg, arr.ndim)
+            values[name] = torch.as_tensor(np.array(arr), device=device).to(dt)
+    return Model(cfg, values)
+
+
+def cache_from_numpy(cache_np: Mapping[str, np.ndarray], cfg: ModelConfig,
+                     device) -> Dict[str, torch.Tensor]:
+    """The port's decode cache from the reference's (``lengths``, ``k``,
+    ``v`` of shape (L, B, Hkv, S, hd)), in the compute dtype."""
+    return {
+        "lengths": torch.as_tensor(np.array(cache_np["lengths"], np.int32),
+                                   device=device),
+        **{k: torch.as_tensor(np.array(cache_np[k], np.float32),
+                              device=device).to(cfg.compute_dtype)
+           for k in ("k", "v")},
+    }

@@ -1,7 +1,12 @@
-# Hand-written CUDA kernels of the epoch machine — the scans
-# (fork_compact.py) and the resident megakernel (epoch_megakernel.py),
-# sources in csrc/, built by nvcc.py — their plain PyTorch versions
-# (ref.py), and the wrappers that pick one by the tensor's device (ops.py).
-# Importing builds nothing.
-from . import epoch_megakernel, fork_compact, nvcc, ops, ref  # noqa: F401
-from .ops import fork_offsets, lane_pack, type_rank  # noqa: F401
+# Hand-written CUDA kernels — the scans (fork_compact.py), the resident
+# megakernel (epoch_megakernel.py) and the serving path's attention
+# (flash_attention.py, decode_attention.py), sources in csrc/, built by
+# nvcc.py — their plain PyTorch versions (ref.py), and the wrappers that
+# pick one by the tensor's device (ops.py).  Importing builds nothing.
+from . import (  # noqa: F401
+    decode_attention, epoch_megakernel, flash_attention, fork_compact, nvcc,
+    ops, ref,
+)
+from .ops import (  # noqa: F401
+    attention, fork_offsets, gqa_decode, lane_pack, type_rank,
+)

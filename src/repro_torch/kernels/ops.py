@@ -1,15 +1,18 @@
 """Public wrappers around the port's kernels, dispatched on the tensor.
 
 A CPU tensor takes the plain PyTorch version in ``ref.py``; a CUDA tensor
-launches the hand-written kernel in ``fork_compact.py``, which raises if it
-cannot build or launch — there is no fallback from the card to the plain
-version.  The choice follows the tensor's device alone.
+launches the hand-written kernel (``fork_compact.py``, ``flash_attention.py``,
+``decode_attention.py``), which raises if it cannot build or launch — there
+is no fallback from the card to the plain version.  The choice follows the
+tensor's device alone.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from . import fork_compact, ref
+from . import decode_attention, flash_attention, fork_compact, ref
 
 
 def fork_offsets(counts: torch.Tensor):
@@ -62,3 +65,36 @@ def lane_pack(active: torch.Tensor):
         active, 1,
     )
     return ref.rank_to_perm(rank, active), counts[0]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: Optional[float] = None,
+              q_offset: int = 0, window: int = 0) -> torch.Tensor:
+    """GQA attention (B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    On the CPU the plain version switches to the blockwise online-softmax
+    form beyond 1024 keys, as the reference's does; on the card it is the
+    ``flash_attention`` kernel.
+    """
+    if q.device.type == "cpu":
+        if k.shape[2] > 1024:
+            return ref.mha_blockwise(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, window=window,
+                                     block_k=512)
+        return ref.mha_ref(q, k, v, causal=causal, scale=scale,
+                           q_offset=q_offset, window=window)
+    return flash_attention.flash_attention(q, k, v, causal=causal,
+                                           scale=scale, q_offset=q_offset,
+                                           window=window)
+
+
+def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, lengths: torch.Tensor,
+               scale: Optional[float] = None,
+               window: int = 0) -> torch.Tensor:
+    """Single-token decode attention over a ragged KV cache."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                        scale=scale, window=window)
+    return decode_attention.decode_attention(q, k_cache, v_cache, lengths,
+                                             scale=scale, window=window)

@@ -105,3 +105,107 @@ def epoch_chunk_ref(cond_fn, body_fn, carry, limit):
     while cond_fn(carry, limit):
         carry = body_fn(carry)
     return carry
+
+
+# ------------------------------------------------------------- attention
+def _attn_mask(Sq: int, Skv: int, causal: bool, q_offset: int, window: int,
+               device) -> torch.Tensor:
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, scale: float | None = None,
+            q_offset: int = 0, window: int = 0) -> torch.Tensor:
+    """Grouped-query attention (plain ``mha_flash``), float32 accumulation.
+
+    q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype.  Query i sits at absolute position ``q_offset + i`` for the
+    causal mask; ``window > 0`` keeps the last ``window`` positions.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qf = q.float().reshape(B, Hkv, group, Sq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    if causal or window > 0:
+        mask = _attn_mask(Sq, Skv, causal, q_offset, window, q.device)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: float | None = None,
+                  q_offset: int = 0, window: int = 0,
+                  block_k: int = 512) -> torch.Tensor:
+    """The same function as :func:`mha_ref` as an online softmax over key
+    blocks of ``block_k`` (O(Sq * block_k) score memory), masked with the
+    kernels' -1e30 sentinel."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    block_k = min(block_k, Skv)
+    qf = q.float().reshape(B, Hkv, g, Sq, D) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    m = torch.full((B, Hkv, g, Sq, 1), -1e30, device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, D), device=q.device)
+    for k0 in range(0, Skv, block_k):
+        kpos = torch.arange(k0, k0 + block_k, device=q.device)[None, :]
+        kb = k[:, :, k0:k0 + block_k].float()
+        vb = v[:, :, k0:k0 + block_k].float()
+        if kb.shape[2] < block_k:  # the reference pads the last block
+            pad = block_k - kb.shape[2]
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb)
+        mask = kpos < Skv
+        if causal:
+            mask = mask & (qpos >= kpos)
+        if window > 0:
+            mask = mask & (qpos - kpos < window)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         scale: float | None = None,
+                         window: int = 0) -> torch.Tensor:
+    """One-token GQA decode over a ragged cache (plain
+    ``decode_attention``): q (B, Hq, D), caches (B, Hkv, S, D), lengths
+    i32[B].  Cache row j of sequence b is read when ``j < lengths[b]`` (a
+    length above S reads every row) and, with a window, when
+    ``j >= lengths[b] - window``."""
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qf = q.float().reshape(B, Hkv, group, D)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)[None]
+    lens = lengths.to(q.device)[:, None]
+    valid = pos < lens  # (B, S)
+    if window > 0:
+        valid = valid & (pos >= lens - window)
+    logits = logits.masked_fill(~valid[:, None, None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, D).to(q.dtype)

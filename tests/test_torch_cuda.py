@@ -1,5 +1,6 @@
 """The port on a CUDA card: each kernel against its plain PyTorch version,
-and whole runs on the card against runs on the CPU.
+and whole runs on the card (engine, service, LLM server) against runs on
+the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card.  The
 file imports no JAX, so it runs on a GPU machine that has only PyTorch:
@@ -12,8 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch import configs
 from repro_torch.apps import all_cases, get_fleet
-from repro_torch.kernels import fork_compact, ops, ref
+from repro_torch.kernels import (
+    decode_attention, flash_attention, fork_compact, ops, ref,
+)
+from repro_torch.models import init_model
+from repro_torch.serving import EpochServer, Request
 from repro_torch.service import JobService
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +163,104 @@ def test_service_on_cuda_matches_cpu(cuda_device, dispatch):
         assert g.result.stats == c.result.stats
     assert gs.as_dict() == cs.as_dict()
     assert launches["segmented_fork_scan"] == gs.epochs
+
+
+# B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window
+FLASH = [
+    (2, 8, 2, 128, 128, 128, True, 0, 0),
+    (1, 4, 4, 100, 100, 64, True, 0, 0),      # group 1, ragged tile
+    (2, 8, 2, 40, 300, 32, True, 260, 0),     # q_offset
+    (1, 8, 2, 200, 200, 128, True, 0, 50),    # window
+    (1, 4, 1, 70, 130, 64, False, 0, 0),      # non-causal, group 4
+]
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_attention_matches_plain(cuda_device, case, dtype):
+    B, Hq, Hkv, Sq, Skv, D, causal, qo, win = case
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda_device,
+                    dtype=dtype).transpose(1, 2)   # strided, as on the path
+    k, v = (torch.randn((B, Hkv, Skv, D), generator=g, device=cuda_device,
+                        dtype=dtype) for _ in range(2))
+    flash_attention.reset_launches()
+    got = ops.attention(q, k, v, causal=causal, q_offset=qo, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dtype
+    _attn_close(got, ref.mha_ref(q, k, v, causal=causal, q_offset=qo,
+                                 window=win), dtype)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("group,D,window", ((1, 128, 0), (4, 128, 0),
+                                            (4, 128, 100), (2, 64, 0),
+                                            (8, 32, 7)))
+def test_decode_attention_matches_plain(cuda_device, group, D, window,
+                                        dtype):
+    B, Hkv, S = 6, 2, 512
+    g = torch.Generator(device=cuda_device).manual_seed(group * D + window)
+    q = torch.randn((B, Hkv * group, D), generator=g, device=cuda_device,
+                    dtype=dtype)
+    k, v = (torch.randn((B, Hkv, S, D), generator=g, device=cuda_device,
+                        dtype=dtype) for _ in range(2))
+    lengths = torch.tensor([1, 37, S - 1, S, S + 5, 300], dtype=torch.int32,
+                           device=cuda_device)
+    if window:  # every sequence keeps a visible row
+        lengths = lengths.clamp(max=S + window - 1)
+    decode_attention.reset_launches()
+    got = ops.gqa_decode(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES["decode_attention"] == 1
+    _attn_close(got, ref.decode_attention_ref(q, k, v, lengths,
+                                              window=window), dtype)
+
+
+def test_attention_wrappers_check_their_inputs(cuda_device):
+    q = torch.zeros((1, 2, 8, 128), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q[..., :48], q[..., :48],
+                                        q[..., :48])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q[..., ::2], q[..., ::2],
+                                        q[..., ::2])
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention.decode_attention(q[:, :, 0], q, q,
+                                          torch.ones(1, device=cuda_device))
+
+
+def test_server_on_cuda_matches_cpu(cuda_device):
+    cfg = dataclasses.replace(configs.get_reduced("granite_3_8b"),
+                              compute_dtype=torch.float32, head_dim=32,
+                              d_model=128)
+    model = init_model(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(3, cfg.vocab, n).astype(np.int32)
+               for n in (5, 30, 9, 17, 2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        flash_attention.reset_launches()
+        decode_attention.reset_launches()
+        fork_compact.reset_launches()
+        srv = EpochServer(cfg, model.to(dev), n_slots=3, max_len=64,
+                          device=dev)
+        for p in prompts:
+            srv.submit(Request(prompt=p, max_new_tokens=6))
+        done = srv.run_to_completion()
+        out[dev] = ([(r.rid, r.output) for r in done], srv.epochs)
+        if dev == "cuda":
+            assert flash_attention.LAUNCHES["flash_attention"] > 0
+            assert decode_attention.LAUNCHES["decode_attention"] == \
+                srv.epochs * cfg.n_layers
+            assert fork_compact.LAUNCHES["fork_scan"] > 0
+    assert out["cuda"] == out["cpu"]

@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(every module, the job service and the treewalk app among them, runs with
-both blocked), runs on the CPU only when asked, and its chip smoke script
+(every module, the job service, the treewalk app and the LLM server among
+them, runs with both blocked), runs on the CPU only when asked, and its chip smoke script
 refuses to run without a card or without the repository beside it."""
 from __future__ import annotations
 
@@ -52,10 +52,22 @@ walk = handles[1].result.heap
 visit, clock = treewalk.treewalk_reference(
     fleet[1][0].heap_init["left"], fleet[1][0].heap_init["right"])
 assert (walk["visit_epoch"].numpy() == visit).all()
+import numpy as np
+from repro_torch import configs
+from repro_torch.models import init_model
+from repro_torch.serving import EpochServer, Request
+cfg = configs.get_reduced("granite_3_8b")
+srv = EpochServer(cfg, init_model(cfg, seed=0, device="cpu"), n_slots=2,
+                  max_len=32, device="cpu")
+for n in (5, 9):
+    srv.submit(Request(prompt=np.arange(3, 3 + n, dtype=np.int32),
+                       max_new_tokens=4))
+served = srv.run_to_completion()
+assert [len(r.output) for r in served] == [4, 4], served
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
 print("isolated", stats.epochs, "resident", rstats.epochs,
-      "service", svc.stats().epochs)
+      "service", svc.stats().epochs, "served", srv.epochs)
 '''
 
 
@@ -71,7 +83,7 @@ def test_port_imports_and_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "isolated 23 resident 23 service 23" in out.stdout
+    assert "isolated 23 resident 23 service 23 served 4" in out.stdout
 
 
 def test_default_device_is_cuda():
