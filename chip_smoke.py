@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
                 (fork_compact.cu, epoch_megakernel.cu, flash_attention.cu,
-                decode_attention.cu: one nvcc each, in parallel) into
+                decode_attention.cu, ssd_scan.cu: one nvcc each, in
+                parallel) into
                 src/repro_torch/kernels/build/ (ptxas report);
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card, exactly: fork_scan, type_rank (1 to 24 types) and
@@ -19,13 +20,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 masked and gather, in chunks of K = 1, 4 and unbounded;
                 flash_attention against mha_ref at the prefill shape
                 (16 x 32 q heads x 1024, 8 kv heads, D = 128, bf16, causal)
-                and at ragged shapes (q_offset, window, group 1 and 4,
-                lengths off the tile) in bf16 and float32; decode_attention
+                at ragged shapes (q_offset, window, group 1 and 4,
+                lengths off the tile) and at hymba's prefill bucket (16 x 25
+                q heads x 1024 over 5 kv heads, D = 64, causal, windows 2048
+                and 0) in bf16 and float32; decode_attention
                 against decode_attention_ref at 16 x 32 q heads over a
                 2048-row cache with lengths 1, S - 1, S and above S, with
-                and without a window; tolerance 1e-5 (float32) and 2e-2
-                (bf16) of max(1, max |plain|); time each kernel, its plain
-                version and the library call;
+                and without a window, and at hymba's group of 5 (16 x 25 q
+                heads over 5 kv heads, D = 64, windows 2048 and 0);
+                tolerance 1e-5 (float32) and 2e-2 (bf16) of max(1, max
+                |plain|); ssd_scan against ssd_chunked at the mamba2
+                prefill bucket (16 x 1024, 64 heads, P = 64, N = 128, bf16,
+                x, B and C strided as the block hands them), hymba's 50
+                heads with N = 16, and S in {1, 65, 1000, 8192} with and
+                without h0 in float32 and bf16, plus a sequence split in
+                two with the state carried across; tolerance 1e-4
+                (float32) and 2e-2 (bf16) of max(1, max |plain|); time
+                each kernel, its plain version and the library call;
   3. path     — drive the port's HostEngine on CUDA at full size (fib(28),
                 bfs on 2^17 vertices, mergesort of 2^18 floats) under the
                 masked, compacted and gather dispatches; check results
@@ -61,7 +72,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 launched during the run; then the same model at 2 layers in
                 float32 on the card and on the CPU from the same weights
                 (equal tokens, first decode epoch's logits within 1e-3), and
-                one decode epoch under torch.profiler.
+                one decode epoch under torch.profiler;
+  9. ssm      — drive EpochServer on mamba2-1.3b at full width and depth
+                (48 layers, bf16, random weights from seed 0) with phase
+                8's slots and request mix; check every output, finite
+                logits, the predicted epochs, ssd_scan launched once per
+                layer of every prefill, fork_scan once per prefill and no
+                attention kernel; one decode epoch under torch.profiler;
+                the same model at 2 layers in float32 on the card and on
+                the CPU (equal tokens, first decode epoch's logits within
+                1e-3); then hymba-1.5b (attention ∥ SSM, 32 layers) at full
+                width and depth on 16 requests, flash_attention and
+                ssd_scan once per layer of every prefill, decode_attention
+                once per layer of every epoch.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel, and, last, ``{"ok": true, "device": {...}}``.
 It imports nothing of JAX and nothing of the JAX package.
@@ -160,14 +183,15 @@ def phase_build():
 
     from repro_torch.kernels import (
         decode_attention, epoch_megakernel, flash_attention, fork_compact,
-        nvcc,
+        nvcc, ssd_scan,
     )
 
     ver = subprocess.run([nvcc.nvcc_path(), "--version"],
                          capture_output=True, text=True, check=True)
     print("[build] nvcc:", ver.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    mods = (fork_compact, epoch_megakernel, flash_attention, decode_attention)
+    mods = (fork_compact, epoch_megakernel, flash_attention, decode_attention,
+            ssd_scan)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(ptxas_info=True), mods))
     dt = time.perf_counter() - t0
@@ -817,11 +841,16 @@ FLASH_RAGGED = (
     (1, 32, 8, 129, 129, 128, False, 0, 40),    # window, non-causal
     (1, 4, 2, 40, 40, 16, True, 0, 0),          # the reduced configs' D
 )
+# hymba-1.5b's prefill bucket: group 5, D 64, its sliding window and the
+# window 0 of its global layers
+HYMBA_PREFILL = ((16, 25, 5, 1024, 1024, 64, True, 0, 2048),
+                 (16, 25, 5, 1024, 1024, 64, True, 0, 0))
 DECODE_SHAPE = (16, 32, 8, 2048, 128)  # B, Hq, Hkv, S, D
+HYMBA_DECODE_SHAPE = (16, 25, 5, 2048, 64)
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def _attn_err(got, want, dtype, what):
+def _attn_err(got, want, dtype, what, tols=ATTN_TOL):
     """max |kernel - plain|, failing past tol * max(1, max |plain|)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {got.dtype}{tuple(got.shape)} vs "
@@ -830,7 +859,7 @@ def _attn_err(got, want, dtype, what):
     if not torch.isfinite(g).all():
         fail(f"{what}: non-finite output")
     err = float((g - w).abs().max())
-    if err > ATTN_TOL[dtype] * max(1.0, float(w.abs().max())):
+    if err > tols[dtype] * max(1.0, float(w.abs().max())):
         fail(f"{what}: max |kernel - plain| = {err}")
     return err
 
@@ -880,7 +909,7 @@ def phase_attention(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    for case in (FLASH_PREFILL,) + FLASH_RAGGED:
+    for case in (FLASH_PREFILL,) + FLASH_RAGGED + HYMBA_PREFILL:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _flash_inputs(case, dtype, gen)
             causal, qo, win = case[6:]
@@ -893,8 +922,9 @@ def phase_attention(dev):
             del q, k, v, got, want
     torch.cuda.synchronize()
     print(f"[kernels] flash_attention within tolerance at the prefill shape "
-          f"{FLASH_PREFILL[:6]} and {len(FLASH_RAGGED)} ragged shapes, bf16 "
-          f"and float32: max |kernel - plain| = {err['flash_attention']:.3g}")
+          f"{FLASH_PREFILL[:6]}, {len(FLASH_RAGGED)} ragged shapes and "
+          f"hymba's {HYMBA_PREFILL[0][:6]} (group 5) with windows "
+          f"{HYMBA_PREFILL[0][8]} and 0, bf16 and float32: max |kernel - plain| = {err['flash_attention']:.3g}")
 
     B, Hq, Hkv, S, D = DECODE_SHAPE
     for window in (0, 256):
@@ -912,10 +942,27 @@ def phase_attention(dev):
             e = _attn_err(got, want, dtype, f"decode_attention window="
                           f"{window} {dtype}")
             err["decode_attention"] = max(err["decode_attention"], e)
+    B5, Hq5, Hkv5, S5, D5 = HYMBA_DECODE_SHAPE
+    for window in (S5, 0):
+        for dtype in (torch.bfloat16, torch.float32):
+            lens = torch.randint(1, S5 + 1, (B5,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            lens[:3] = torch.tensor([1, S5 - 1, S5])
+            q = torch.randn((B5, Hq5, D5), generator=gen, device=dev,
+                            dtype=dtype)
+            kc, vc = (torch.randn((B5, Hkv5, S5, D5), generator=gen,
+                                  device=dev, dtype=dtype) for _ in range(2))
+            got = decode_attention.decode_attention(q, kc, vc, lens,
+                                                    window=window)
+            want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
+            e = _attn_err(got, want, dtype, f"decode_attention group 5 "
+                          f"window={window} {dtype}")
+            err["decode_attention"] = max(err["decode_attention"], e)
     torch.cuda.synchronize()
     print(f"[kernels] decode_attention within tolerance at {DECODE_SHAPE} "
           f"(lengths 1, S-1, S, S+1, S+200 and random), window 0 and 256, "
-          f"bf16 and float32: max |kernel - plain| = "
+          f"and at hymba's {HYMBA_DECODE_SHAPE} (group 5), windows {S5} "
+          f"and 0, bf16 and float32: max |kernel - plain| = "
           f"{err['decode_attention']:.3g}")
 
     rows = []
@@ -964,6 +1011,103 @@ def phase_attention(dev):
               f"{r['plain_ms']:.5f} ms, library (SDPA) "
               f"{r['library_ms']:.5f} ms")
     return rows
+
+
+# ------------------------------------------------------------ phase 2, SSD
+# Bt, S, H, P, N: the mamba2-1.3b prefill bucket, then hymba-1.5b's heads
+SSD_BUCKET = (16, 1024, 64, 64, 128)
+SSD_HYMBA = (16, 1024, 50, 64, 16)
+SSD_LENGTHS = (1, 65, 1000, 8192)  # at 2 sequences of the mamba2 heads
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_REF_CHUNK = 128  # the reference's chunk, for the operation count
+
+
+def _ssd_inputs(case, dtype, gen, with_h0=False):
+    """x, B and C as strided slices of one (Bt, S, H * P + 2N) tensor, as
+    the SSM block hands them over; dt in 0.01-0.2, A in -2..-0.5."""
+    Bt, S, H, P, N = case
+    conv = torch.randn((Bt, S, H * P + 2 * N), generator=gen,
+                       device="cuda").to(dtype)
+    x = conv[..., :H * P].reshape(Bt, S, H, P)
+    B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dt = (torch.rand((Bt, S, H), generator=gen, device="cuda") * 0.19
+          + 0.01).to(dtype)
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 1.5 + 0.5)
+    h0 = (torch.randn((Bt, H, P, N), generator=gen, device="cuda")
+          if with_h0 else None)
+    return x, dt, A, B, C, h0
+
+
+def _ssd_err(got, want, dtype, what):
+    """max |kernel - plain| over y and h, failing past tol * max(1, max
+    |plain|)."""
+    return max(_attn_err(g, w, dtype, f"{what} {name}", SSD_TOL)
+               for g, w, name in zip(got, want, "yh"))
+
+
+def _ssd_work(case, elem=2, with_h0=False):
+    """(bytes, flops): x, dt, B and C read and y written once in ``elem``
+    bytes, A and h0 read and h written once in float32; the chunked
+    form's 2 T (N + P) + 4 P N flops per (step, head) at the reference's
+    chunk T = 128."""
+    Bt, S, H, P, N = case
+    n_bytes = elem * (2 * Bt * S * H * P + 2 * Bt * S * N + Bt * S * H) \
+        + 4 * H + 4 * Bt * H * P * N * (2 if with_h0 else 1)
+    T = SSD_REF_CHUNK
+    return n_bytes, Bt * S * H * (2 * T * (N + P) + 4 * P * N)
+
+
+def phase_ssd(dev):
+    from repro_torch.kernels import ref, ssd_scan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    err = 0.0
+    checks = [(SSD_BUCKET, torch.bfloat16, False),
+              (SSD_HYMBA, torch.bfloat16, False)]
+    H, P, N = SSD_BUCKET[2:]
+    checks += [((2, S, H, P, N), dtype, h0) for S in SSD_LENGTHS
+               for dtype in (torch.float32, torch.bfloat16)
+               for h0 in (False, True)]
+    for case, dtype, with_h0 in checks:
+        x, dt, A, B, C, h0 = _ssd_inputs(case, dtype, gen, with_h0)
+        got = ssd_scan.ssd_scan(x, dt, A, B, C, h0)
+        want = ref.ssd_chunked(x, dt, A, B, C, h0)
+        err = max(err, _ssd_err(got, want, dtype, f"ssd_scan {case} {dtype} "
+                                f"h0={with_h0}"))
+        del x, dt, B, C, h0, got, want
+    # a sequence split in two, the state carried across, equals the whole
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, B, C, _ = _ssd_inputs((2, 1000, H, P, N), dtype, gen)
+        y, h = ssd_scan.ssd_scan(x, dt, A, B, C)
+        y1, h1 = ssd_scan.ssd_scan(x[:, :333], dt[:, :333], A, B[:, :333],
+                                   C[:, :333])
+        y2, h2 = ssd_scan.ssd_scan(x[:, 333:], dt[:, 333:], A, B[:, 333:],
+                                   C[:, 333:], h1)
+        err = max(err, _ssd_err((torch.cat([y1, y2], 1), h2), (y, h), dtype,
+                                f"ssd_scan split at 333 {dtype}"))
+    torch.cuda.synchronize()
+    print(f"[kernels] ssd_scan within tolerance at the mamba2 bucket "
+          f"{SSD_BUCKET}, hymba's {SSD_HYMBA} (bf16, strided), S in "
+          f"{list(SSD_LENGTHS)} with and without h0, float32 and bf16, and "
+          f"a split at 333 of 1000 steps: max |kernel - plain| = {err:.3g}")
+
+    x, dt, A, B, C, _ = _ssd_inputs(SSD_BUCKET, torch.bfloat16, gen)
+    b, by = bound_ms(*_ssd_work(SSD_BUCKET), ops_per_s=TENSOR_BF16_FLOPS)
+    row = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:82", max_abs_err=err,
+        bound_ms=b, bound_by=by,
+        ms=cuda_ms(lambda: ssd_scan.ssd_scan(x, dt, A, B, C), iters=5,
+                   reps=2),
+        plain_ms=cuda_ms(lambda: ref.ssd_chunked(x, dt, A, B, C), iters=2,
+                         reps=2),
+        library_ms=None)
+    print(f"[kernels] ssd_scan at {SSD_BUCKET} bf16: device {row['ms']:.5f}"
+          f" ms, bound {b:.5f} ms ({by}), plain {row['plain_ms']:.5f} ms, "
+          "library none (no PyTorch call computes the SSD scan)")
+    return row
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1026,62 +1170,63 @@ def _serve_run(srv, reqs, vocab):
     return wall
 
 
-def phase_serve():
-    import copy
-    import dataclasses
-    import types
-
-    from repro_torch import configs
+def _serve_cell(cfg, n_requests, tag):
+    """Serve ``n_requests`` of the phase 8 mix (seed 0) on ``cfg`` on the
+    card, 16 slots of 2048 rows, random weights from seed 0: one short
+    request first, so cuBLAS and the kernels' first launches are not
+    charged to the timed run, then every kernel's count set to 0 and the
+    run.  Checks every output, finite logits and the epochs the
+    bookkeeping predicts; returns (server, model, epochs, prefills, the
+    run's launches)."""
     from repro_torch.kernels import (
-        decode_attention, flash_attention, fork_compact,
+        decode_attention, flash_attention, fork_compact, ssd_scan,
     )
     from repro_torch.models import init_model
     from repro_torch.serving import EpochServer, Request
 
-    cfg = configs.get_config("granite_3_8b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_model(cfg, seed=0, device="cuda")
     srv = EpochServer(cfg, model, n_slots=SERVE_SLOTS,
                       max_len=SERVE_MAX_LEN, device="cuda")
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+    mixer = {"attn": f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                     f"{cfg.resolved_head_dim}"}.get(cfg.block)
+    if mixer is None:
+        s = cfg.ssm
+        mixer = (f"{cfg.block}: {s.n_heads(cfg.d_model)} SSM heads of P = "
+                 f"{s.headdim}, N = {s.d_state}, d_inner "
+                 f"{s.d_inner(cfg.d_model)}")
+        if cfg.block == "hybrid":
+            mixer += (f" ∥ {cfg.n_heads}/{cfg.n_kv_heads} attention heads "
+                      f"of {cfg.resolved_head_dim}")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {mixer}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
-          f"parameters drawn on the card and the {SERVE_SLOTS} x "
-          f"{SERVE_MAX_LEN} cache allocated in "
-          f"{time.perf_counter() - t0:.1f} s")
-    # one short request first, so cuBLAS and the kernels' first launches
-    # are not charged to the timed run
+          f"parameters drawn on the card and the {SERVE_SLOTS}-slot cache "
+          f"allocated in {time.perf_counter() - t0:.1f} s")
     _serve_run(srv, [Request(prompt=np.arange(3, 67, dtype=np.int32),
                              max_new_tokens=4)], cfg.vocab)
-    reqs = serve_requests(SERVE_REQUESTS, cfg.vocab, seed=0)
+    reqs = serve_requests(n_requests, cfg.vocab, seed=0)
     warm_epochs = srv.epochs
     srv.timings.update(prefill_s=0.0, decode_s=0.0, prefills=0)
-    for mod in (fork_compact, flash_attention, decode_attention):
+    mods = (fork_compact, flash_attention, decode_attention, ssd_scan)
+    for mod in mods:
         mod.reset_launches()
     wall = _serve_run(srv, reqs, cfg.vocab)
     launches = {"fork_scan": fork_compact.LAUNCHES["fork_scan"],
-                **flash_attention.LAUNCHES, **decode_attention.LAUNCHES}
+                **flash_attention.LAUNCHES, **decode_attention.LAUNCHES,
+                **ssd_scan.LAUNCHES}
     epochs = srv.epochs - warm_epochs
     want = predicted_epochs([r.max_new_tokens for r in reqs], SERVE_SLOTS)
     if epochs != want:
-        fail(f"serve: {epochs} decode epochs, the bookkeeping predicts "
+        fail(f"{tag}: {epochs} decode epochs, the bookkeeping predicts "
              f"{want}")
     n_pf = srv.timings["prefills"]
-    print(f"[serve] kernel launches during the run: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the serving path")
-    if launches["decode_attention"] != epochs * cfg.n_layers or \
-            launches["flash_attention"] != n_pf * cfg.n_layers or \
-            launches["fork_scan"] != n_pf:
-        fail(f"serve: launches {launches} do not match {epochs} epochs and "
-             f"{n_pf} prefills of {cfg.n_layers} layers")
+    print(f"[{tag}] kernel launches during the run: {launches}")
     n_tok = sum(len(r.output) for r in reqs)
     n_prompt = sum(len(r.prompt) for r in reqs)
-    print(f"[serve] {SERVE_REQUESTS} requests ({n_prompt} prompt tokens, "
+    print(f"[{tag}] {n_requests} requests ({n_prompt} prompt tokens, "
           f"{n_tok} generated) in {epochs} decode epochs (predicted {want}) "
           f"and {n_pf} prefills: wall {wall:.3f} s, {n_tok / wall:.1f} "
           f"generated tokens/s, prefill {srv.timings['prefill_s']:.3f} s "
@@ -1089,10 +1234,23 @@ def phase_serve():
           f"decode {srv.timings['decode_s']:.3f} s "
           f"({1e3 * srv.timings['decode_s'] / epochs:.2f} ms per epoch), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return srv, model, epochs, n_pf, launches
 
-    # one decode epoch (phase 2 of step) under the profiler
-    toks = torch.as_tensor(srv.last_token[:, None], device="cuda")
+
+def _expect_launches(tag, launches, want):
+    """Fail unless every kernel's count equals ``want``'s."""
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad:
+        fail(f"{tag}: launches (got, want) {bad}")
+
+
+def _profile_epoch(label, srv, model, cfg):
+    """One decode epoch (phase 2 of step) under the profiler."""
+    import types
+
     from repro_torch.models import decode_step
+
+    toks = torch.as_tensor(srv.last_token[:, None], device="cuda")
 
     def one_epoch():
         logits, _ = decode_step(model, cfg, toks, srv.cache)
@@ -1100,11 +1258,19 @@ def phase_serve():
         return None, None, types.SimpleNamespace(epochs=1)
 
     one_epoch()
-    phase_profile("granite-3-8b decode epoch, 16 slots (one epoch)", one_epoch)
-    del srv, model
-    torch.cuda.empty_cache()
+    phase_profile(label, one_epoch)
 
-    # the card against the CPU, float32 compute, 2 layers at full width
+
+def _card_vs_cpu(cfg, tag):
+    """The card against the CPU, float32 compute, 2 layers at full width:
+    equal tokens, completion order and epochs, and the first decode
+    epoch's logits within 1e-3."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import init_model
+    from repro_torch.serving import EpochServer
+
     cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
     cpu_model = init_model(cfg32, seed=1, device="cpu")
     runs = {}
@@ -1126,15 +1292,67 @@ def phase_serve():
                                                           runs["cpu"])
     lg_err = float((g_lg - c_lg).abs().max())
     if g_out != c_out or g_ep != c_ep:
-        fail(f"serve float32: the card's tokens {g_out} (epochs {g_ep}) "
+        fail(f"{tag} float32: the card's tokens {g_out} (epochs {g_ep}) "
              f"differ from the CPU's {c_out} (epochs {c_ep})")
     if not lg_err <= 1e-3:
-        fail(f"serve float32: first decode epoch's logits differ by "
+        fail(f"{tag} float32: first decode epoch's logits differ by "
              f"{lg_err}")
-    print(f"[serve] float32, 2 layers at full width, 6 requests in 4 slots: "
-          f"card and CPU give equal tokens per request, completion order "
-          f"and {g_ep} epochs; first decode epoch's logits within "
-          f"{lg_err:.3g} (card {g_s:.2f} s, CPU {c_s:.2f} s)")
+    print(f"[{tag}] {cfg.name} float32, 2 layers at full width, 6 requests "
+          f"in 4 slots: card and CPU give equal tokens per request, "
+          f"completion order and {g_ep} epochs; first decode epoch's logits "
+          f"within {lg_err:.3g} (card {g_s:.2f} s, CPU {c_s:.2f} s)")
+
+
+def phase_serve():
+    from repro_torch import configs
+
+    cfg = configs.get_config("granite_3_8b")
+    srv, model, epochs, n_pf, launches = _serve_cell(cfg, SERVE_REQUESTS,
+                                                     "serve")
+    L = cfg.n_layers
+    _expect_launches("serve", launches, {
+        "fork_scan": n_pf, "flash_attention": n_pf * L,
+        "decode_attention": epochs * L, "ssd_scan": 0})
+    _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
+                   model, cfg)
+    del srv, model
+    torch.cuda.empty_cache()
+    _card_vs_cpu(cfg, "serve")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+HYMBA_REQUESTS = 16
+
+
+def phase_ssm_serve():
+    """The SSM serving path: mamba2-1.3b (every prefill layer one ssd_scan
+    launch, no attention kernel), its float32 card-vs-CPU run, and the
+    hybrid hymba-1.5b (attention ∥ SSM in every layer)."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("mamba2_1_3b")
+    srv, model, epochs, n_pf, launches = _serve_cell(cfg, SERVE_REQUESTS,
+                                                     "ssm")
+    L = cfg.n_layers
+    _expect_launches("ssm", launches, {
+        "fork_scan": n_pf, "ssd_scan": n_pf * L, "flash_attention": 0,
+        "decode_attention": 0})
+    _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
+                   model, cfg)
+    del srv, model
+    torch.cuda.empty_cache()
+    _card_vs_cpu(cfg, "ssm")
+
+    hcfg = configs.get_config("hymba_1_5b")
+    srv, model, h_epochs, h_pf, h_launches = _serve_cell(
+        hcfg, HYMBA_REQUESTS, "hybrid")
+    L = hcfg.n_layers
+    _expect_launches("hybrid", h_launches, {
+        "fork_scan": h_pf, "ssd_scan": h_pf * L, "flash_attention": h_pf * L,
+        "decode_attention": h_epochs * L})
+    del srv, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1154,6 +1372,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     rows.append(phase_chunks(dev))
     rows += phase_attention(dev)
+    rows.append(phase_ssd(dev))
     launches, cases, host_runs = phase_path()
     fib_case = cases[0][0]
     phase_profile("fib HostEngine masked",
@@ -1174,7 +1393,11 @@ def main() -> int:
     serve_launches = phase_serve()
     # fork_scan's count: the host path's launches and the server's
     launches["fork_scan"] += serve_launches.pop("fork_scan")
-    launches.update(serve_launches)
+    launches.update(flash_attention=serve_launches["flash_attention"],
+                    decode_attention=serve_launches["decode_attention"])
+    ssm_launches = phase_ssm_serve()
+    launches["fork_scan"] += ssm_launches["fork_scan"]
+    launches["ssd_scan"] = ssm_launches["ssd_scan"]
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")

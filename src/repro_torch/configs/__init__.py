@@ -1,8 +1,9 @@
-"""Architecture registry: one module per dense-attention architecture the
-port's model code runs, plus the input-shape table and per-cell skip rules
-(a copy of ``repro/configs/__init__.py``).  The other architectures of the
-reference need model code that is not ported yet; asking for one raises
-``NotImplementedError`` naming its ROADMAP item."""
+"""Architecture registry: one module per architecture the port's model code
+runs (dense attention, the Mamba-2 SSM and the attention ∥ SSM hybrid),
+plus the input-shape table and per-cell skip rules (a copy of
+``repro/configs/__init__.py``).  The other architectures of the reference
+(MoE, encoder-decoder) need model code that is not ported yet; asking for
+one raises ``NotImplementedError`` naming its ROADMAP item."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,10 +27,6 @@ ARCH_IDS = (
 
 # architecture -> the ROADMAP item whose model code it waits for
 NOT_PORTED = {
-    "mamba2_1_3b": "ROADMAP item 11 (the SSM serving path: models/ssm.py "
-                   "and the ssd_scan kernel)",
-    "hymba_1_5b": "ROADMAP item 11 (the SSM serving path: models/ssm.py "
-                  "and the ssd_scan kernel)",
     "whisper_large_v3": "ROADMAP item 11 (the encoder-decoder path: "
                         "encode, cross-attention)",
     "granite_moe_1b_a400m": "ROADMAP item 11 (the MoE path: models/moe.py)",

@@ -140,10 +140,11 @@ def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
     """The port's ``Model`` from the reference's ``init_model`` dict.
 
     Stacked ``layers/...`` arrays are split along their leading ``L`` axis
-    into one tensor per layer; matmul weights are cast once to
-    ``cfg.compute_dtype`` — the same round-to-nearest-even cast the
-    reference applies at each use, so the values are the same bits — and
-    norm scales stay in the parameter dtype.
+    into one tensor per layer; matmul weights and the SSM's ``conv_w`` (2-D
+    per layer) are cast once to ``cfg.compute_dtype`` — the same
+    round-to-nearest-even cast the reference applies at each use, so the
+    values are the same bits — and norm scales and the SSM's ``a_log``,
+    ``dt_bias`` and ``d_skip`` stay in the parameter dtype.
     """
     values = {}
     for name, arr in params_np.items():
@@ -160,12 +161,15 @@ def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
 
 def cache_from_numpy(cache_np: Mapping[str, np.ndarray], cfg: ModelConfig,
                      device) -> Dict[str, torch.Tensor]:
-    """The port's decode cache from the reference's (``lengths``, ``k``,
-    ``v`` of shape (L, B, Hkv, S, hd)), in the compute dtype."""
-    return {
-        "lengths": torch.as_tensor(np.array(cache_np["lengths"], np.int32),
-                                   device=device),
-        **{k: torch.as_tensor(np.array(cache_np[k], np.float32),
-                              device=device).to(cfg.compute_dtype)
-           for k in ("k", "v")},
-    }
+    """The port's decode cache from the reference's: ``lengths``, and
+    those of ``k``, ``v`` (L, B, Hkv, S, hd) and ``ssm_conv``
+    (L, B, K-1, di+2N) it holds in the compute dtype, ``ssm_state``
+    (L, B, nh, P, N) in float32."""
+    out = {"lengths": torch.as_tensor(np.array(cache_np["lengths"], np.int32),
+                                      device=device)}
+    for k in ("k", "v", "ssm_conv", "ssm_state"):
+        if k in cache_np:
+            dt = torch.float32 if k == "ssm_state" else cfg.compute_dtype
+            out[k] = torch.as_tensor(np.array(cache_np[k], np.float32),
+                                     device=device).to(dt)
+    return out

@@ -254,6 +254,8 @@ int dispatch_g(int G, const void* q, const void* k, const void* v,
                                    window, s);
     case 4: return launch<T, D, 4>(q, k, v, lengths, o, B, Hkv, S, st, scale,
                                    window, s);
+    case 5: return launch<T, D, 5>(q, k, v, lengths, o, B, Hkv, S, st, scale,
+                                   window, s);
     case 8: return launch<T, D, 8>(q, k, v, lengths, o, B, Hkv, S, st, scale,
                                    window, s);
     default: return (int)cudaErrorInvalidValue;
@@ -284,7 +286,7 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16.  q and o contiguous (B, Hkv * G, D);
 // strides (in elements) of the caches: k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
 // the stride of D is 1.  lengths: i32[B].  D in {16, 32, 64, 128}, G (the group)
-// in {1, 2, 4, 8}; Hkv, B <= 65535.
+// in {1, 2, 4, 5, 8}; Hkv, B <= 65535.
 int trees_decode_attention(int dtype, const void* q, const void* k,
                            const void* v, const int* lengths, void* o, int B,
                            int Hkv, int G, int S, int D,

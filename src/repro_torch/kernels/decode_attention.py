@@ -24,7 +24,7 @@ from .flash_attention import DTYPES, HEAD_DIMS, check_strided
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "decode_attention.cu"
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 5, 8)  # 5: hymba-1.5b's 25 q heads over 5 kv heads
 
 # launches of the kernel since the last reset (one per wrapper call)
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}

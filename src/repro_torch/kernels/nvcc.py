@@ -1,7 +1,7 @@
 """Build a CUDA source of this package into a shared library with ``nvcc``.
 
 Each kernel module (``fork_compact.py``, ``epoch_megakernel.py``,
-``flash_attention.py``, ``decode_attention.py``) compiles
+``flash_attention.py``, ``decode_attention.py``, ``ssd_scan.py``) compiles
 its source under ``csrc/`` for ``sm_90a`` into a library with a plain C
 interface, at first use, into ``build/`` beside this file (listed in
 ``.gitignore``), and loads it with ``ctypes``.  The library's name carries

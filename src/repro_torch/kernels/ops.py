@@ -2,7 +2,7 @@
 
 A CPU tensor takes the plain PyTorch version in ``ref.py``; a CUDA tensor
 launches the hand-written kernel (``fork_compact.py``, ``flash_attention.py``,
-``decode_attention.py``), which raises if it cannot build or launch — there
+``decode_attention.py``, ``ssd_scan.py``), which raises if it cannot build or launch — there
 is no fallback from the card to the plain version.  The choice follows the
 tensor's device alone.
 """
@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from . import decode_attention, flash_attention, fork_compact, ref
+from . import decode_attention, flash_attention, fork_compact, ref, ssd_scan
 
 
 def fork_offsets(counts: torch.Tensor):
@@ -98,3 +98,17 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
                                         scale=scale, window=window)
     return decode_attention.decode_attention(q, k_cache, v_cache, lengths,
                                              scale=scale, window=window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """Mamba-2 SSD scan over a batch of sequences: x (Bt, S, H, P), dt
+    (Bt, S, H), A (H,), B and C (Bt, S, N), h0 (Bt, H, P, N) or None ->
+    (y in x's dtype, final state float32).
+
+    On the CPU the chunked plain version (chunks of 128, as the reference's
+    ``ops.ssd`` takes there); on the card the ``ssd_scan`` kernel.
+    """
+    if x.device.type == "cpu":
+        return ref.ssd_chunked(x, dt, A, B, C, h0=h0)
+    return ssd_scan.ssd_scan(x, dt, A, B, C, h0=h0)

@@ -209,3 +209,77 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+# ------------------------------------------------------------------- SSD
+# Batched over a leading sequence axis: x (Bt, S, H, P), dt (Bt, S, H),
+# A (H,), B and C (Bt, S, N) shared by every head, h0 (Bt, H, P, N) or None.
+# Both return y (Bt, S, H, P) in x's dtype and the final state (Bt, H, P, N)
+# in float32, as the reference's per-sequence versions do.
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor,
+                 h0: torch.Tensor | None = None):
+    """Sequential Mamba-2 SSD recurrence (the oracle of the chunked forms):
+    ``h_t = exp(A dt_t) h_{t-1} + dt_t (x_t outer B_t)``, ``y_t = h_t C_t``.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    h = (torch.zeros((Bt, H, P, N), device=x.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(Af * dtf[:, t])[..., None, None]     # (Bt, H, 1, 1)
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) \
+            * Bf[:, t, None, None, :]
+        h = decay * h + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((Bt, 0, H, P))
+    return y.to(x.dtype), h
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor,
+                h0: torch.Tensor | None = None, chunk: int = 128):
+    """Chunked SSD (plain ``ssd_scan``), the same matrix form as the
+    reference's ``ssd_chunked``: per chunk of T steps, y = ((C B^T) o M)
+    (dt o X) + exp(cum) (C . h) with M[t, s] = exp(cum_t - cum_s) for
+    s <= t, and h' = exp(cum_T) h + X^T diag(dt exp(cum_T - cum)) B.  A
+    ragged tail is padded with dt = 0 (a no-op on the state)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if S == 0:
+        return ssd_scan_ref(x, dt, A, B, C, h0)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+
+    def padded(t):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bt, pad) + t.shape[2:])], 1)
+        return t
+
+    xf, dtf, Bf, Cf = (padded(t) for t in (x, dt, B, C))
+    Af = A.float()
+    h = (torch.zeros((Bt, H, P, N), device=x.device) if h0 is None
+         else h0.float())
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(Af * dtc, 1)                       # (Bt, T, H)
+        logm = cum[:, :, None, :] - cum[:, None, :, :]        # (Bt, T, T, H)
+        m = torch.where(tri, torch.exp(logm.clamp(max=0.0)), 0.0)
+        w = (Cc @ Bc.transpose(1, 2))[..., None] * m          # (Bt, T, T, H)
+        y_intra = torch.einsum("btsh,bshp->bthp", w, xc * dtc[..., None])
+        cdecay = Cc[:, :, None, :] * torch.exp(cum)[..., None]
+        y_carry = torch.einsum("bthn,bhpn->bthp", cdecay, h)
+        wvec = dtc * torch.exp(cum[:, -1:] - cum)             # (Bt, T, H)
+        upd = torch.einsum("bthp,bth,btn->bhpn", xc, wvec, Bc)
+        h = torch.exp(cum[:, -1])[..., None, None] * h + upd
+        ys.append(y_intra + y_carry)
+    y = torch.cat(ys, 1)[:, :S]
+    return y.to(x.dtype), h

@@ -1,9 +1,10 @@
 """Serving entry point: the epoch-synchronized (TVM) continuous-batching
-engine over a dense-attention architecture config, on the card unless
-``--device cpu`` is given.
+engine over an architecture config (dense attention, Mamba-2 SSM or the
+hybrid), on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
       --requests 16 --slots 4 --max-new 24
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
 
 As in the reference, ``--reduced`` is on by default (it cannot be turned
 off), so the model is the architecture's small same-family config.

@@ -1,7 +1,8 @@
-# Model stack of the serving path: dense GQA decoders (attention, layers,
-# model), their configuration and parameter builder (common).  Loops over
-# one ParameterDict per layer; SSM, MoE and encoder-decoder blocks are not
-# ported yet and raise.
+# Model stack of the serving path: decoders of dense GQA attention, Mamba-2
+# SSM or hybrid (attention ∥ SSM) blocks (attention, ssm, layers, model),
+# their configuration and parameter builder (common).  Loops over one
+# ParameterDict per layer; MoE and encoder-decoder blocks are not ported
+# yet and raise.
 from .common import (  # noqa: F401
     ModelConfig,
     MoEConfig,

@@ -16,9 +16,11 @@ The mapping to the paper's machine (§4):
                        mask (the ``fork_scan`` kernel on the card)
   phase 1/3 (CPU)  <-> admission + retirement bookkeeping on the host
 
-Prefills are batched per epoch (bucketed padding) and write their K/V
-straight into the slots they were allocated — the analogue of the paper's
-coalesced TV writes at fork time.  Each epoch reads back one argmax vector.
+Prefills are batched per epoch (bucketed padding) and write their K/V, or
+their SSM state and conv window, straight into the slots they were
+allocated — the analogue of the paper's coalesced TV writes at fork time.
+Each epoch reads back one argmax vector.  The server runs any block type
+the model code runs: dense attention, Mamba-2 SSM, or the hybrid.
 """
 from __future__ import annotations
 

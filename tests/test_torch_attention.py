@@ -35,6 +35,7 @@ FLASH = [
     (2, 4, 4, 20, 70, 32, False, 0, 0),    # Skv not a multiple of 32
     (1, 2, 1, 33, 33, 16, True, 0, 5),     # narrow window, 33 rows
     (1, 4, 2, 30, 30, 16, False, 0, 8),    # window without causal
+    (1, 10, 2, 40, 40, 16, True, 0, 8),    # group 5 (hymba), window
 ]
 FLASH_IDS = [f"B{c[0]}h{c[1]}x{c[2]}q{c[3]}k{c[4]}d{c[5]}"
              f"{'c' if c[6] else 'n'}o{c[7]}w{c[8]}" for c in FLASH]
@@ -47,6 +48,7 @@ DECODE = [
     (3, 4, 4, 64, 16, (1, 64, 80), 0),         # group 1: 1, S, above S
     (3, 8, 2, 96, 32, (1, 96, 150), 0),        # group 4
     (4, 4, 2, 50, 16, (1, 30, 50, 49), 10),    # group 2 with a window
+    (2, 10, 2, 64, 16, (1, 40), 0),            # group 5 (hymba)
 ]
 
 

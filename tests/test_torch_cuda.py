@@ -18,7 +18,7 @@ import dataclasses
 from repro_torch import configs
 from repro_torch.apps import all_cases, get_fleet
 from repro_torch.kernels import (
-    decode_attention, flash_attention, fork_compact, ops, ref,
+    decode_attention, flash_attention, fork_compact, ops, ref, ssd_scan,
 )
 from repro_torch.models import init_model
 from repro_torch.serving import EpochServer, Request
@@ -203,7 +203,8 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("group,D,window", ((1, 128, 0), (4, 128, 0),
                                             (4, 128, 100), (2, 64, 0),
-                                            (8, 32, 7)))
+                                            (8, 32, 7), (5, 64, 0),
+                                            (5, 64, 100)))
 def test_decode_attention_matches_plain(cuda_device, group, D, window,
                                         dtype):
     B, Hkv, S = 6, 2, 512
@@ -263,4 +264,85 @@ def test_server_on_cuda_matches_cpu(cuda_device):
             assert decode_attention.LAUNCHES["decode_attention"] == \
                 srv.epochs * cfg.n_layers
             assert fork_compact.LAUNCHES["fork_scan"] > 0
+    assert out["cuda"] == out["cpu"]
+
+
+# Bt, S, H, P, N: the reduced configs' shapes, hymba's heads, ragged S
+SSD = [
+    (2, 96, 16, 8, 16),
+    (3, 65, 5, 64, 16),
+    (2, 130, 4, 32, 128),
+    (1, 1, 2, 16, 8),
+    (2, 200, 3, 64, 64),
+    (1, 64, 2, 8, 32),
+]
+
+
+@pytest.mark.parametrize("with_h0", (False, True))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", SSD)
+def test_ssd_scan_matches_plain(cuda_device, case, dtype, with_h0):
+    """x, B and C as strided slices of one (Bt, S, H * P + 2N) tensor, as
+    the SSM block hands them over."""
+    Bt, S, H, P, N = case
+    g = torch.Generator(device=cuda_device).manual_seed(S * H + P + N)
+    conv = torch.randn((Bt, S, H * P + 2 * N), generator=g,
+                       device=cuda_device).to(dtype)
+    x = conv[..., :H * P].reshape(Bt, S, H, P)
+    B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dt = (torch.rand((Bt, S, H), generator=g, device=cuda_device) * 0.2
+          + 0.01).to(dtype)
+    A = -(torch.rand((H,), generator=g, device=cuda_device) * 1.5 + 0.5)
+    h0 = (torch.randn((Bt, H, P, N), generator=g, device=cuda_device)
+          if with_h0 else None)
+    ssd_scan.reset_launches()
+    y, h = ops.ssd(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    ry, rh = ref.ssd_chunked(x, dt, A, B, C, h0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((y, ry), (h, rh)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+def test_ssd_scan_checks_its_inputs(cuda_device):
+    x = torch.zeros((1, 8, 2, 8), device=cuda_device)
+    dt = torch.zeros((1, 8, 2), device=cuda_device)
+    A = torch.zeros((2,), device=cuda_device)
+    B = torch.zeros((1, 8, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x, dt.bfloat16(), A, B, B)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan.ssd_scan(torch.zeros((1, 8, 2, 12), device=cuda_device),
+                          dt, A, B, B)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x, dt, A, torch.zeros((1, 8, 32),
+                                                device=cuda_device)[..., ::2],
+                          B)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan.ssd_scan(x.cpu(), dt, A, B, B)
+
+
+@pytest.mark.parametrize("arch", ("mamba2_1_3b", "hymba_1_5b"))
+def test_ssm_server_on_cuda_matches_cpu(cuda_device, arch):
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              compute_dtype=torch.float32)
+    model = init_model(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(3, cfg.vocab, n).astype(np.int32)
+               for n in (5, 30, 9, 17, 2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ssd_scan.reset_launches()
+        srv = EpochServer(cfg, model.to(dev), n_slots=3, max_len=64,
+                          device=dev)
+        for p in prompts:
+            srv.submit(Request(prompt=p, max_new_tokens=6))
+        done = srv.run_to_completion()
+        out[dev] = ([(r.rid, r.output) for r in done], srv.epochs)
+        if dev == "cuda":
+            assert ssd_scan.LAUNCHES["ssd_scan"] == \
+                srv.timings["prefills"] * cfg.n_layers
     assert out["cuda"] == out["cpu"]

@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(every module, the job service, the treewalk app and the LLM server among
-them, runs with both blocked), runs on the CPU only when asked, and its chip smoke script
+(every module, the job service, the treewalk app and the LLM server, on
+an attention and an SSM model, among them, runs with both blocked), runs on the CPU only when asked, and its chip smoke script
 refuses to run without a card or without the repository beside it."""
 from __future__ import annotations
 
@@ -64,10 +64,18 @@ for n in (5, 9):
                        max_new_tokens=4))
 served = srv.run_to_completion()
 assert [len(r.output) for r in served] == [4, 4], served
+cfg = configs.get_reduced("mamba2_1_3b")
+ssm_srv = EpochServer(cfg, init_model(cfg, seed=0, device="cpu"), n_slots=2,
+                      max_len=32, device="cpu")
+for n in (5, 9):
+    ssm_srv.submit(Request(prompt=np.arange(3, 3 + n, dtype=np.int32),
+                           max_new_tokens=3))
+assert [len(r.output) for r in ssm_srv.run_to_completion()] == [3, 3]
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
 print("isolated", stats.epochs, "resident", rstats.epochs,
-      "service", svc.stats().epochs, "served", srv.epochs)
+      "service", svc.stats().epochs, "served", srv.epochs,
+      "ssm", ssm_srv.epochs)
 '''
 
 
@@ -83,7 +91,7 @@ def test_port_imports_and_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "isolated 23 resident 23 service 23 served 4" in out.stdout
+    assert "isolated 23 resident 23 service 23 served 4 ssm 3" in out.stdout
 
 
 def test_default_device_is_cuda():

@@ -8,10 +8,12 @@ float32 compute: max |port - JAX| <= 1e-4 * max |JAX| (sums in another
 order).  In bfloat16 compute: ||port - JAX||_2 <= 2e-2 * ||JAX||_2 (XLA and
 torch round bf16 at other places, so single elements can differ by a few
 bf16 ulps).  Logits are compared over the real vocabulary; the padded
-entries must be -1e30 in both.  Granite runs in both dtypes; yi (with its
-heads padded for a tensor-parallel degree of 8), command-r (parallel
-block) and chameleon (QK-norm) in float32, where the check is tightest.
-The JAX runs are cached per architecture.
+entries must be -1e30 in both.  Granite and mamba2 (the SSM block) run in
+both dtypes; yi (with its heads padded for a tensor-parallel degree of 8),
+command-r (parallel block), chameleon (QK-norm) and hymba (attention ∥ SSM,
+sliding windows) in float32, where the check is tightest.  The caches
+compared are the block's: K/V for attention, the SSM state and conv window
+for the SSM.  The JAX runs are cached per architecture.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def _configs(name):
 
 
 ARCHS = ("granite_3_8b:f32", "granite_3_8b:bf16", "yi_34b:f32pad8",
-         "command_r_35b:f32", "chameleon_34b:f32")
+         "command_r_35b:f32", "chameleon_34b:f32", "mamba2_1_3b:f32",
+         "mamba2_1_3b:bf16", "hymba_1_5b:f32")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -117,10 +120,13 @@ def test_prefill_matches_jax(runs):
     np.testing.assert_array_equal(t["cache"]["lengths"],
                                   j["cache"]["lengths"])
     np.testing.assert_array_equal(t["cache"]["lengths"], np.add(LAST, 1))
-    for k in ("k", "v"):
+    assert t["cache"].keys() == j["cache"].keys()
+    for k in ("k", "v", "ssm_state", "ssm_conv"):
+        if k not in j["cache"]:
+            continue
         _close(runs, t["cache"][k], j["cache"][k], k)
-        # rows past the prompt bucket are zero in both
-        assert not t["cache"][k][..., 12:, :].any()
+        if k in ("k", "v"):  # rows past the prompt bucket are zero in both
+            assert not t["cache"][k][..., 12:, :].any()
 
 
 @pytest.mark.parametrize("i", range(N_DECODE))
@@ -134,8 +140,7 @@ def test_decode_lengths_advance(runs):
                                   runs["jax"]["lengths"])
 
 
-@pytest.mark.parametrize("arch", ("mamba2_1_3b", "hymba_1_5b",
-                                  "whisper_large_v3", "granite_moe_1b_a400m",
+@pytest.mark.parametrize("arch", ("whisper_large_v3", "granite_moe_1b_a400m",
                                   "llama4_scout_17b_a16e"))
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
@@ -146,13 +151,18 @@ def test_unported_architectures_raise(arch):
 
 def test_configs_match_the_reference():
     for arch in ("granite_3_8b", "yi_34b", "deepseek_67b", "command_r_35b",
-                 "chameleon_34b"):
+                 "chameleon_34b", "mamba2_1_3b", "hymba_1_5b"):
         for get, jget in ((configs.get_config, jconfigs.get_config),
                           (configs.get_reduced, jconfigs.get_reduced)):
             tc, jc = get(arch), jget(arch)
             for f in dataclasses.fields(tc):
-                if f.name not in ("param_dtype", "compute_dtype"):
-                    assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+                if f.name in ("param_dtype", "compute_dtype"):
+                    continue
+                got, want = getattr(tc, f.name), getattr(jc, f.name)
+                if f.name == "ssm" and want is not None:  # two classes
+                    got, want = (dataclasses.asdict(got),
+                                 dataclasses.asdict(want))
+                assert got == want, f.name
             assert tc.n_params() == jc.n_params()
             assert tc.vocab_padded == jc.vocab_padded
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
