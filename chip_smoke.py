@@ -20,14 +20,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 masked and gather, in chunks of K = 1, 4 and unbounded;
                 flash_attention against mha_ref at the prefill shape
                 (16 x 32 q heads x 1024, 8 kv heads, D = 128, bf16, causal)
-                at ragged shapes (q_offset, window, group 1 and 4,
-                lengths off the tile) and at hymba's prefill bucket (16 x 25
-                q heads x 1024 over 5 kv heads, D = 64, causal, windows 2048
-                and 0) in bf16 and float32; decode_attention
-                against decode_attention_ref at 16 x 32 q heads over a
-                2048-row cache with lengths 1, S - 1, S and above S, with
-                and without a window, and at hymba's group of 5 (16 x 25 q
-                heads over 5 kv heads, D = 64, windows 2048 and 0);
+                at ragged shapes (q_offset, window, group 1, 4 and yi-34b's
+                7, D = 16, lengths off the tile) and at hymba's prefill
+                bucket (16 x 25 q heads x 1024 over 5 kv heads, D = 64,
+                causal, windows 2048 and 0) in bf16 and float32;
+                decode_attention against decode_attention_ref at 16 x 32 q
+                heads over a 2048-row cache with lengths 1, S - 1, S and
+                above S, with and without a window, at hymba's group of 5
+                (16 x 25 q heads over 5 kv heads, D = 64, windows 2048 and
+                0), at yi-34b's group 7 (56 q heads over 8) and at D = 16;
                 tolerance 1e-5 (float32) and 2e-2 (bf16) of max(1, max
                 |plain|); ssd_scan against ssd_chunked at the mamba2
                 prefill bucket (16 x 1024, 64 heads, P = 64, N = 128, bf16,
@@ -36,7 +37,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 without h0 in float32 and bf16, plus a sequence split in
                 two with the state carried across; tolerance 1e-4
                 (float32) and 2e-2 (bf16) of max(1, max |plain|); time
-                each kernel, its plain version and the library call;
+                each kernel, its plain version and the library call
+                (decode over copies of its caches that keep them cold in
+                L2, as on the path, and warm beside it);
   3. path     — drive the port's HostEngine on CUDA at full size (fib(28),
                 bfs on 2^17 vertices, mergesort of 2^18 floats) under the
                 masked, compacted and gather dispatches; check results
@@ -71,8 +74,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 flash_attention, decode_attention and fork_scan were
                 launched during the run; then the same model at 2 layers in
                 float32 on the card and on the CPU from the same weights
-                (equal tokens, first decode epoch's logits within 1e-3), and
-                one decode epoch under torch.profiler;
+                (equal tokens, first decode epoch's logits within 1e-3), one
+                decode epoch under torch.profiler (device ms per epoch,
+                decode_attention's share) and one full-bucket prefill (16 x
+                1024 tokens; flash_attention's share);
   9. ssm      — drive EpochServer on mamba2-1.3b at full width and depth
                 (48 layers, bf16, random weights from seed 0) with phase
                 8's slots and request mix; check every output, finite
@@ -91,6 +96,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -603,6 +609,13 @@ def phase_profile(label, run):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total:10.0f} us "
               f"x{e.count:<6d} {e.key[:90]}")
+    return busy_us, wall_us, events
+
+
+def device_us(events, *names):
+    """Device time of the kernels whose names contain one of ``names``."""
+    return sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in names))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -831,7 +844,7 @@ def phase_service(cases, runs):
 
 # ------------------------------------------------------ phase 2, attention
 # B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window: the prefill shape, then
-# ragged shapes (lengths off the 64-row tile, q_offset, window, group 1/4)
+# ragged shapes (lengths off the tile, q_offset, window, group 1/4/7, D 16)
 FLASH_PREFILL = (16, 32, 8, 1024, 1024, 128, True, 0, 0)
 FLASH_RAGGED = (
     (2, 8, 8, 100, 100, 128, True, 0, 0),       # group 1
@@ -840,6 +853,7 @@ FLASH_RAGGED = (
     (2, 8, 2, 50, 200, 64, False, 0, 0),        # non-causal
     (1, 32, 8, 129, 129, 128, False, 0, 40),    # window, non-causal
     (1, 4, 2, 40, 40, 16, True, 0, 0),          # the reduced configs' D
+    (1, 56, 8, 200, 200, 128, True, 0, 0),      # group 7: yi-34b's heads
 )
 # hymba-1.5b's prefill bucket: group 5, D 64, its sliding window and the
 # window 0 of its global layers
@@ -847,6 +861,10 @@ HYMBA_PREFILL = ((16, 25, 5, 1024, 1024, 64, True, 0, 2048),
                  (16, 25, 5, 1024, 1024, 64, True, 0, 0))
 DECODE_SHAPE = (16, 32, 8, 2048, 128)  # B, Hq, Hkv, S, D
 HYMBA_DECODE_SHAPE = (16, 25, 5, 2048, 64)
+# decode's other checked shapes: yi-34b's group 7 over the serving cache,
+# and the reduced configs' D = 16
+DECODE_MORE = ((16, 56, 8, 2048, 128), (4, 8, 2, 600, 16))
+L2_BYTES = 50e6  # the H100's L2: decode is timed over caches twice its size
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -926,44 +944,41 @@ def phase_attention(dev):
           f"hymba's {HYMBA_PREFILL[0][:6]} (group 5) with windows "
           f"{HYMBA_PREFILL[0][8]} and 0, bf16 and float32: max |kernel - plain| = {err['flash_attention']:.3g}")
 
-    B, Hq, Hkv, S, D = DECODE_SHAPE
-    for window in (0, 256):
-        for dtype in (torch.bfloat16, torch.float32):
-            lens = torch.randint(1, S + 200, (B,), generator=gen,
-                                 device=dev, dtype=torch.int32)
-            lens[:5] = torch.tensor([1, S - 1, S, S + 1, S + 200])
-            q = torch.randn((B, Hq, D), generator=gen, device=dev,
-                            dtype=dtype)
-            kc, vc = (torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                                  dtype=dtype) for _ in range(2))
-            got = decode_attention.decode_attention(q, kc, vc, lens,
-                                                    window=window)
-            want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
-            e = _attn_err(got, want, dtype, f"decode_attention window="
-                          f"{window} {dtype}")
-            err["decode_attention"] = max(err["decode_attention"], e)
-    B5, Hq5, Hkv5, S5, D5 = HYMBA_DECODE_SHAPE
-    for window in (S5, 0):
-        for dtype in (torch.bfloat16, torch.float32):
-            lens = torch.randint(1, S5 + 1, (B5,), generator=gen,
-                                 device=dev, dtype=torch.int32)
-            lens[:3] = torch.tensor([1, S5 - 1, S5])
-            q = torch.randn((B5, Hq5, D5), generator=gen, device=dev,
-                            dtype=dtype)
-            kc, vc = (torch.randn((B5, Hkv5, S5, D5), generator=gen,
-                                  device=dev, dtype=dtype) for _ in range(2))
-            got = decode_attention.decode_attention(q, kc, vc, lens,
-                                                    window=window)
-            want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
-            e = _attn_err(got, want, dtype, f"decode_attention group 5 "
-                          f"window={window} {dtype}")
-            err["decode_attention"] = max(err["decode_attention"], e)
+    def check_decode(shape, windows, lengths, what):
+        B, Hq, Hkv, S, D = shape
+        for window in windows:
+            for dtype in (torch.bfloat16, torch.float32):
+                lens = torch.randint(1, S + 1, (B,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                lens[:len(lengths)] = torch.tensor(lengths)
+                q = torch.randn((B, Hq, D), generator=gen, device=dev,
+                                dtype=dtype)
+                kc, vc = (torch.randn((B, Hkv, S, D), generator=gen,
+                                      device=dev, dtype=dtype)
+                          for _ in range(2))
+                got = decode_attention.decode_attention(q, kc, vc, lens,
+                                                        window=window)
+                want = ref.decode_attention_ref(q, kc, vc, lens,
+                                                window=window)
+                e = _attn_err(got, want, dtype, f"decode_attention {what} "
+                              f"{shape} window={window} {dtype}")
+                err["decode_attention"] = max(err["decode_attention"], e)
+
+    S = DECODE_SHAPE[3]
+    check_decode(DECODE_SHAPE, (0, 256), (1, S - 1, S, S + 1, S + 200),
+                 "granite")
+    S5 = HYMBA_DECODE_SHAPE[3]
+    check_decode(HYMBA_DECODE_SHAPE, (S5, 0), (1, S5 - 1, S5), "group 5")
+    for shape in DECODE_MORE:
+        S = shape[3]
+        check_decode(shape, (0, 256), (1, S - 1, S, S + 1), "more")
     torch.cuda.synchronize()
     print(f"[kernels] decode_attention within tolerance at {DECODE_SHAPE} "
           f"(lengths 1, S-1, S, S+1, S+200 and random), window 0 and 256, "
-          f"and at hymba's {HYMBA_DECODE_SHAPE} (group 5), windows {S5} "
-          f"and 0, bf16 and float32: max |kernel - plain| = "
-          f"{err['decode_attention']:.3g}")
+          f"at hymba's {HYMBA_DECODE_SHAPE} (group 5), windows {S5} and 0, "
+          f"and at {DECODE_MORE[0]} (yi-34b's group 7) and "
+          f"{DECODE_MORE[1]} (D = 16), windows 0 and 256, bf16 and float32: "
+          f"max |kernel - plain| = {err['decode_attention']:.3g}")
 
     rows = []
     # the prefill shape, bf16: the main path's widest flash launch
@@ -982,34 +997,68 @@ def phase_attention(dev):
         max_abs_err=err["flash_attention"], bound_ms=b, bound_by=by, **t))
     del q, k, v
     # decode over the serving cell's cache: 16 slots of 2048 rows, lengths
-    # of a prompt (64-1024) plus the tokens made so far (up to 128)
+    # of a prompt (64-1024) plus the tokens made so far (up to 128).  On
+    # the path each layer's cache slice is read once per epoch and evicted
+    # by the weights, so the row's times are over enough copies of the
+    # caches that the rows read between two uses of a copy exceed twice
+    # the L2 (cold); the warm times, one copy read again and again, are
+    # printed beside them.
+    B, Hq, Hkv, S, D = DECODE_SHAPE
     lens = torch.randint(64, 1024 + 128, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
     q = torch.randn((B, Hq, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
-    kc, vc = (torch.randn((B, Hkv, S, D), generator=gen, device=dev,
-                          dtype=torch.bfloat16) for _ in range(2))
+    n_bytes, n_ops = _decode_work(lens, S, B, Hq, Hkv, D)
+    n_copies = 2 + int(2 * L2_BYTES // n_bytes)
+    caches = [tuple(torch.randn((B, Hkv, S, D), generator=gen, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+              for _ in range(n_copies)]
     mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
-    b, by = bound_ms(*_decode_work(lens, S, B, Hq, Hkv, D),
-                     ops_per_s=TENSOR_BF16_FLOPS)
-    t = {"ms": cuda_ms(lambda: decode_attention.decode_attention(
-             q, kc, vc, lens)),
-         "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(
-             q, kc, vc, lens)),
-         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))}
+    b, by = bound_ms(n_bytes, n_ops, ops_per_s=TENSOR_BF16_FLOPS)
+
+    def kernel(kc, vc):
+        return decode_attention.decode_attention(q, kc, vc, lens)
+
+    def plain(kc, vc):
+        return ref.decode_attention_ref(q, kc, vc, lens)
+
+    def library(kc, vc):
+        return F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                              attn_mask=mask, enable_gqa=True)
+
+    def cold(fn):
+        """``fn`` over the copies in turn: each call finds its caches out
+        of L2."""
+        turn = itertools.count()
+        return cuda_ms(lambda: fn(*caches[next(turn) % n_copies]),
+                       iters=4 * n_copies)
+
+    t = {"ms": cold(kernel), "plain_ms": cold(plain),
+         "library_ms": cold(library),
+         "warm_ms": cuda_ms(lambda: kernel(*caches[0])),
+         "library_warm_ms": cuda_ms(lambda: library(*caches[0]))}
     rows.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:78",
         max_abs_err=err["decode_attention"], bound_ms=b, bound_by=by, **t))
-    for r, shape in zip(rows, (f"{FLASH_PREFILL[:6]} causal bf16",
-                               f"{DECODE_SHAPE} bf16, lengths "
-                               f"{lens.tolist()}")):
-        print(f"[kernels] {r['name']} at {shape}: device {r['ms']:.5f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.5f} ms, library (SDPA) "
-              f"{r['library_ms']:.5f} ms")
+    del caches
+    r = rows[0]
+    print(f"[kernels] flash_attention at {FLASH_PREFILL[:6]} causal bf16: "
+          f"device {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}; {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+          f"plain {r['plain_ms']:.5f} ms, library (SDPA) "
+          f"{r['library_ms']:.5f} ms (kernel / SDPA "
+          f"{r['ms'] / r['library_ms']:.2f})")
+    r = rows[1]
+    print(f"[kernels] decode_attention at {DECODE_SHAPE} bf16, lengths "
+          f"{lens.tolist()}, caches cold in L2 ({n_copies} copies, "
+          f"{n_bytes / 1e6:.1f} MB read a call): device {r['ms']:.5f} ms, "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; kernel / bound "
+          f"{r['ms'] / r['bound_ms']:.2f}), plain {r['plain_ms']:.5f} ms, "
+          f"library (SDPA) {r['library_ms']:.5f} ms (kernel / SDPA "
+          f"{r['ms'] / r['library_ms']:.2f}); warm in L2: kernel "
+          f"{r['warm_ms']:.5f} ms, SDPA {r['library_warm_ms']:.5f} ms")
     return rows
 
 
@@ -1258,7 +1307,37 @@ def _profile_epoch(label, srv, model, cfg):
         return None, None, types.SimpleNamespace(epochs=1)
 
     one_epoch()
-    phase_profile(label, one_epoch)
+    busy, wall, events = phase_profile(label, one_epoch)
+    attn = device_us(events, "decode_split", "decode_combine")
+    print(f"[profile]   device time per decode epoch {busy / 1e3:.3f} ms "
+          f"(wall {wall / 1e3:.3f} ms), decode_attention {attn / 1e3:.3f} "
+          f"ms of it ({100 * attn / busy:.1f}%)")
+
+
+def _profile_prefill(label, srv, model, cfg):
+    """One prefill of the full bucket (every slot, 1024 tokens) into the
+    server's cache under the profiler: flash_attention's share of it."""
+    import types
+
+    from repro_torch.models import prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(3, cfg.vocab, (SERVE_SLOTS, 1024), generator=gen,
+                         device="cuda")
+    slots = torch.arange(SERVE_SLOTS, device="cuda")
+
+    def one_prefill():
+        logits, _ = prefill(model, cfg, toks, cache=srv.cache, slots=slots)
+        logits.argmax(-1).cpu()
+        return None, None, types.SimpleNamespace(epochs=1)
+
+    one_prefill()
+    busy, wall, events = phase_profile(label, one_prefill)
+    attn = device_us(events, "flash_")
+    print(f"[profile]   flash_attention {attn / 1e3:.3f} ms of the "
+          f"prefill's {busy / 1e3:.3f} ms of device time "
+          f"({100 * attn / busy:.1f}%) and {wall / 1e3:.3f} ms of wall "
+          f"({100 * attn / wall:.1f}%)")
 
 
 def _card_vs_cpu(cfg, tag):
@@ -1315,6 +1394,9 @@ def phase_serve():
         "decode_attention": epochs * L, "ssd_scan": 0})
     _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
                    model, cfg)
+    # after the run and its profile: this overwrites the slots' caches
+    _profile_prefill(f"{cfg.name} prefill, 16 x 1024 tokens (one bucket)",
+                     srv, model, cfg)
     del srv, model
     torch.cuda.empty_cache()
     _card_vs_cpu(cfg, "serve")

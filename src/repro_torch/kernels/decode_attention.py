@@ -3,8 +3,11 @@
 ``decode_attention`` replaces the Pallas TPU kernel of the same name in
 ``repro/kernels/decode_attention.py``; the CUDA C++ lives in
 ``csrc/decode_attention.cu`` (its header says what bounds it and how it is
-laid out).  The plain version is ``ref.decode_attention_ref``;
-``kernels/ops.py`` sends CPU tensors there.
+laid out): split-K over the cache rows, each split's rows streamed through
+a ``cp.async`` ring, then a second launch that merges the splits.  The
+plain version is ``ref.decode_attention_ref``, and
+``ref.decode_attention_split_ref`` computes the same split partials and
+merge; ``kernels/ops.py`` sends CPU tensors to the first.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/nvcc.py``) and loaded with ``ctypes``.  Nothing here compiles or
@@ -24,7 +27,9 @@ from .flash_attention import DTYPES, HEAD_DIMS, check_strided
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "decode_attention.cu"
-GROUPS = (1, 2, 4, 5, 8)  # 5: hymba-1.5b's 25 q heads over 5 kv heads
+MAX_GROUP = 8  # q heads per kv head the kernel is built for: 1..8
+SPLIT_ROWS = 256  # cache rows per split, up to MAX_SPLITS splits
+MAX_SPLITS = 64
 
 # launches of the kernel since the last reset (one per wrapper call)
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
@@ -50,10 +55,29 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.trees_decode_attention.argtypes = [
-                i, p, p, p, p, p, i, i, i, i, i, p, ctypes.c_float, i, p]
+                i, p, p, p, p, p, p, i, i, i, i, i, i, i, p, ctypes.c_float,
+                i, p]
             lib.trees_decode_attention.restype = i
             _lib = lib
         return _lib
+
+
+def check_shape(Hq: int, Hkv: int, D: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes these heads and head
+    dim: a group ``Hq / Hkv`` of 1 to :data:`MAX_GROUP`, D in
+    :data:`HEAD_DIMS`.  Needs no card."""
+    if Hkv <= 0 or Hq % Hkv or not 1 <= Hq // Hkv <= MAX_GROUP:
+        raise ValueError(f"decode_attention: {Hq} q heads over {Hkv} kv "
+                         f"heads is not a group of 1 to {MAX_GROUP}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
+
+
+def split_rows(S: int) -> int:
+    """Cache rows per split, from the cache's row count alone (the lengths
+    stay on the card): :data:`SPLIT_ROWS`, or a multiple of it that keeps
+    the splits at most :data:`MAX_SPLITS`."""
+    return SPLIT_ROWS * max(1, -(-S // (SPLIT_ROWS * MAX_SPLITS)))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -86,14 +110,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != B or k_cache.shape[3] != D \
-            or lengths.shape != (B,) or Hq % Hkv:
+            or lengths.shape != (B,):
         raise ValueError(f"decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(lengths.shape)} "
                          "do not match")
+    check_shape(Hq, Hkv, D)
     group = Hq // Hkv
-    if D not in HEAD_DIMS or group not in GROUPS:
-        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}"
-                         f" or group {group} not in {GROUPS}")
     if max(B, Hkv) > 65535:
         raise ValueError("decode_attention: at most 65535 sequences and heads")
     if not q.is_contiguous() or q.data_ptr() % 16:
@@ -102,6 +124,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     check_strided("decode_attention v_cache", v_cache)
     scale = (D ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
+    split = split_rows(S)
+    n_split = max(1, -(-S // split))
+    # per split: m and l for each q row of the group, then acc[group][D]
+    part = torch.empty((B * Hkv * n_split * group * (D + 2),),
+                       dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 6)(*k_cache.stride()[:3],
                                       *v_cache.stride()[:3])
     lib = _load()
@@ -109,9 +136,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trees_decode_attention(
             DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv,
-            group, S, D, strides, float(scale), int(window),
-            ctypes.c_void_p(stream))
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part.data_ptr(), B, Hkv, group, S, D, split, n_split, strides,
+            float(scale), int(window), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"decode_attention: CUDA launch failed with error {err}")

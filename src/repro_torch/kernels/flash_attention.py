@@ -3,7 +3,11 @@
 ``flash_attention`` replaces the Pallas TPU kernel ``mha_flash`` of
 ``repro/kernels/flash_attention.py``; the CUDA C++ lives in
 ``csrc/flash_attention.cu`` (its header says what bounds it and how it is
-laid out).  The plain versions are ``ref.mha_ref`` and
+laid out).  Three designs, by type and head dim: bfloat16 at D = 64 and 128
+(the serving path's prefill) takes Hopper's ``wgmma`` fed by TMA in a
+persistent kernel; bfloat16 at D = 16 and 32 takes ``mma.sync`` tiles fed
+by a ``cp.async`` ring; float32 takes the CUDA-core kernel, which keeps
+float32 products exact to 1e-5.  The plain versions are ``ref.mha_ref`` and
 ``ref.mha_blockwise``; ``kernels/ops.py`` sends CPU tensors there.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use
@@ -57,6 +61,17 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def check_shape(Hq: int, Hkv: int, D: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes these heads and head
+    dim: any GQA group (``Hq`` a multiple of ``Hkv``), D in
+    :data:`HEAD_DIMS`.  Needs no card."""
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: {Hq} q heads over {Hkv} kv "
+                         "heads (GQA needs Hq a multiple of Hkv)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+
+
 def check_strided(name: str, x: torch.Tensor) -> None:
     """The kernels read 16-byte vectors along D: D contiguous, every other
     stride a multiple of 8 elements, the data 16-byte aligned."""
@@ -95,12 +110,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(B,Hkv,Skv,D)")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
+    if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)} and "
-                         f"{tuple(k.shape)} do not match (GQA needs Hq a "
-                         "multiple of Hkv)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+                         f"{tuple(k.shape)} do not match")
+    check_shape(Hq, Hkv, D)
     if max(B, Hq) > 65535:
         raise ValueError("flash_attention: at most 65535 sequences and heads")
     for name, x in (("q", q), ("k", k), ("v", v)):

@@ -211,6 +211,48 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               split: int, window: int = 0,
+                               scale: float | None = None) -> torch.Tensor:
+    """The ``decode_attention`` kernel's split-K algorithm in plain PyTorch
+    (tests only): the cache rows are cut into splits of ``split`` rows; each
+    split gives a float32 partial (its max m, its sum l, its accumulator)
+    over its visible rows, in log2 units, and the partials with l > 0 are
+    merged as ``sum acc_s 2^(m_s - M) / sum l_s 2^(m_s - M)``.  The same
+    function as :func:`decode_attention_ref`, except that a sequence with
+    no visible row reads 0."""
+    B, Hq, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    n = max(1, -(-S // split))
+    pad = n * split - S
+    log2e = 1.4426950408889634
+    qf = q.float().reshape(B, Hkv, group, D) * (scale * log2e)
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, pad))
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, kf)
+    pos = torch.arange(n * split, device=q.device)[None]
+    lens = lengths.to(q.device).long()[:, None]
+    valid = pos < lens.clamp(max=S)
+    if window > 0:
+        valid = valid & (pos >= lens - window)
+    valid = valid[:, None, None].reshape(B, 1, 1, n, split)
+    s = s.reshape(B, Hkv, group, n, split).masked_fill(~valid, -1e30)
+    m = s.amax(-1)                                        # (B, Hkv, g, n)
+    p = torch.where(valid, torch.exp2(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgnk,bhnkd->bhgnd", p,
+                       vf.reshape(B, Hkv, n, split, D))
+    has = l > 0
+    top = torch.where(has, m, -1e30).amax(-1, keepdim=True)
+    w = torch.where(has, torch.exp2(m - top), 0.0)
+    out = (acc * w[..., None]).sum(-2) \
+        / torch.clamp((l * w).sum(-1), min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
 # ------------------------------------------------------------------- SSD
 # Batched over a leading sequence axis: x (Bt, S, H, P), dt (Bt, S, H),
 # A (H,), B and C (Bt, S, N) shared by every head, h0 (Bt, H, P, N) or None.

@@ -12,16 +12,20 @@ the plain versions in ``test_torch_cuda.py``.
 """
 from __future__ import annotations
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.kernels.flash_attention import mha_flash
-from repro_torch.kernels import ops, ref
+from repro_torch import configs
+from repro_torch.kernels import decode_attention, flash_attention, ops, ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -140,3 +144,55 @@ def test_gqa_decode_matches_pallas_decode(case, dtype):
     got = ops.gqa_decode(*targs, window=case[6])
     _close(got, jdecode(*jargs, window=case[6], block_k=32, interpret=True),
            tol)
+
+
+def test_wrappers_accept_every_config_group():
+    """Every ported config's attention shape, full and reduced, passes both
+    kernels' shape checks (needs no card): groups 2, 4, 5, 7 and 8, and
+    any group of 1 to 8 at every head dim."""
+    groups = set()
+    for arch in configs.ARCH_IDS:
+        if arch in configs.NOT_PORTED:
+            continue
+        for cfg in (configs.get_config(arch), configs.get_reduced(arch)):
+            if cfg.block == "ssm":  # attention-free
+                continue
+            Hq, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
+            flash_attention.check_shape(Hq, Hkv, cfg.resolved_head_dim)
+            decode_attention.check_shape(Hq, Hkv, cfg.resolved_head_dim)
+            groups.add(Hq // Hkv)
+    assert {2, 4, 5, 7, 8} <= groups, groups
+    for g in range(1, 9):
+        for D in flash_attention.HEAD_DIMS:
+            decode_attention.check_shape(3 * g, 3, D)
+    with pytest.raises(ValueError, match="group"):
+        decode_attention.check_shape(9, 1, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention.check_shape(8, 2, 48)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.check_shape(9, 2, 64)
+
+
+# B, Hq, Hkv, S, D, lengths, window, split: splits that do not divide S,
+# splits wholly past a length or wholly before a window, lengths 1, S and
+# S + 5 (S a multiple of the Pallas kernel's 32-row block, see DECODE)
+SPLIT = [
+    (4, 2, 2, 96, 16, (1, 96, 101, 50), 0, 40),     # group 1
+    (3, 10, 2, 64, 16, (1, 64, 69), 0, 24),         # group 5
+    (3, 14, 2, 96, 32, (70, 96, 101), 20, 40),      # group 7, window
+]
+
+
+@pytest.mark.parametrize("case", SPLIT,
+                         ids=[f"g{c[1] // c[2]}w{c[6]}s{c[7]}" for c in SPLIT])
+def test_decode_split_ref_matches_jax(case):
+    """The kernel's split-K algorithm (``ref.decode_attention_split_ref``)
+    against the Pallas kernel in interpret mode and the plain version, in
+    float32 at 1e-5."""
+    jargs, targs, tol = _decode_inputs(case[:7], "f32")
+    window, split = case[6], case[7]
+    got = ref.decode_attention_split_ref(*targs, split=split, window=window)
+    assert got.dtype == targs[0].dtype and got.shape == targs[0].shape
+    _close(got, jdecode(*jargs, window=window, block_k=32, interpret=True),
+           tol)
+    _close(got, ref.decode_attention_ref(*targs, window=window), tol)

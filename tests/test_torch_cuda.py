@@ -9,11 +9,12 @@ file imports no JAX, so it runs on a GPU machine that has only PyTorch:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
-import torch
 
-import dataclasses
+torch = pytest.importorskip("torch")
 
 from repro_torch import configs
 from repro_torch.apps import all_cases, get_fleet
@@ -172,6 +173,11 @@ FLASH = [
     (2, 8, 2, 40, 300, 32, True, 260, 0),     # q_offset
     (1, 8, 2, 200, 200, 128, True, 0, 50),    # window
     (1, 4, 1, 70, 130, 64, False, 0, 0),      # non-causal, group 4
+    (1, 8, 2, 512, 512, 128, False, 0, 0),    # interior tiles only
+    (1, 8, 2, 200, 456, 64, True, 256, 0),    # q tile across the diagonal
+    (1, 8, 2, 300, 300, 128, True, 0, 100),   # window edge inside a K tile
+    (1, 56, 8, 130, 130, 128, True, 0, 0),    # group 7: yi-34b's heads
+    (2, 4, 2, 77, 77, 16, True, 0, 0),        # D = 16, the smallest tile
 ]
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -204,9 +210,12 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
 @pytest.mark.parametrize("group,D,window", ((1, 128, 0), (4, 128, 0),
                                             (4, 128, 100), (2, 64, 0),
                                             (8, 32, 7), (5, 64, 0),
-                                            (5, 64, 100)))
+                                            (5, 64, 100), (7, 128, 0),
+                                            (7, 64, 100), (3, 16, 0)))
 def test_decode_attention_matches_plain(cuda_device, group, D, window,
                                         dtype):
+    # lengths 37, 300 and S - 1 end inside a split of the kernel's
+    # (decode_attention.split_rows: 128 rows at S = 512, 256 at D = 16 bf16)
     B, Hkv, S = 6, 2, 512
     g = torch.Generator(device=cuda_device).manual_seed(group * D + window)
     q = torch.randn((B, Hkv * group, D), generator=g, device=cuda_device,

@@ -10,10 +10,13 @@ Heaps, values and every ``RunStats`` field must be equal, exactly.
 """
 from __future__ import annotations
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.core import HeapVar as JHeapVar
 from repro.core import HostEngine as JHostEngine

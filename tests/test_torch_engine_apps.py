@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 from repro.apps import get_case as jget_case
 from repro_torch.apps import bfs, mergesort
 from repro_torch.apps import get_case as tget_case

@@ -10,6 +10,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 from repro.apps import fib as jfib
 from repro.core import HostEngine as JHostEngine
 from repro_torch.apps import fib as tfib

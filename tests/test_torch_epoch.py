@@ -12,11 +12,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.apps import fib as jfib
 from repro.apps import get_case as jget_case

@@ -11,7 +11,8 @@ import subprocess
 import sys
 
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.apps import fib
 from repro_torch.core import DeviceEngine, HostEngine

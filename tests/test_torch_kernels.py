@@ -8,10 +8,13 @@ versions in ``test_torch_cuda.py``.
 """
 from __future__ import annotations
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import fork_compact, ops

@@ -17,7 +17,8 @@ import math
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.apps import all_cases, bfs, fib, mergesort
 from repro_torch.core import DeviceEngine, EngineError, EpochLoop, Program

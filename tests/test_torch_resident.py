@@ -13,11 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.apps import get_case as jget_case
 from repro.core import DeviceEngine as JDeviceEngine

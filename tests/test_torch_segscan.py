@@ -11,10 +11,13 @@ The CUDA kernel itself is held against the plain version in
 """
 from __future__ import annotations
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro.kernels import fork_compact as jfc
 from repro.kernels import ops as jops

@@ -19,7 +19,9 @@ import functools
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
 
 from repro.apps import get_fleet as jget_fleet
 from repro.service import EpochMultiplexer as JEpochMultiplexer

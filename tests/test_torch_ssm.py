@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from repro import configs as jconfigs
 from repro.kernels import ref as jref
