@@ -8,10 +8,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 (fork_compact.cu, epoch_megakernel.cu, flash_attention.cu,
                 decode_attention.cu, ssd_scan.cu: one nvcc each, in
                 parallel) into
-                src/repro_torch/kernels/build/ (ptxas report);
+                src/repro_torch/kernels/build/ (ptxas report: each
+                kernel's registers, spills and shared memory);
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card, exactly: fork_scan, type_rank (1 to 24 types) and
-                lane_pack at every listed length; segmented_fork_scan at
+                lane_pack at every listed length; fork_scan also either
+                side of its 4096-lane tiles, on views 4 bytes off, and in
+                every call of the CUDA graph that times it, after the
+                replays; segmented_fork_scan at
                 every listed length and at 2^23 for 1, 3, 4, 8 and 33
                 segments, shuffled and out-of-range ids; epoch_chunk
                 against epoch_chunk_ref from
@@ -37,7 +41,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 without h0 in float32 and bf16, plus a sequence split in
                 two with the state carried across; tolerance 1e-4
                 (float32) and 2e-2 (bf16) of max(1, max |plain|); time
-                each kernel, its plain version and the library call
+                each kernel (ssd_scan at the mamba2 and hymba buckets, its
+                CUDA-core design beside it), its plain version and the
+                library call
                 (decode over copies of its caches that keep them cold in
                 L2, as on the path, and warm beside it);
   3. path     — drive the port's HostEngine on CUDA at full size (fib(28),
@@ -83,15 +89,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 8's slots and request mix; check every output, finite
                 logits, the predicted epochs, ssd_scan launched once per
                 layer of every prefill, fork_scan once per prefill and no
-                attention kernel; one decode epoch under torch.profiler;
-                the same model at 2 layers in float32 on the card and on
+                attention kernel; one decode epoch and one full-bucket
+                prefill (16 x 1024 tokens; ssd_scan's share) under
+                torch.profiler; the same model at 2 layers in float32 on the card and on
                 the CPU (equal tokens, first decode epoch's logits within
                 1e-3); then hymba-1.5b (attention ∥ SSM, 32 layers) at full
                 width and depth on 16 requests, flash_attention and
                 ssd_scan once per layer of every prefill, decode_attention
                 once per layer of every epoch.
 Then it prints the card's name and power limit, one JSON line describing
-each kernel, and, last, ``{"ok": true, "device": {...}}``.
+each kernel (with its design), and, last, ``{"ok": true, "device":
+{...}}``.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -113,6 +121,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 rate (int32 alike)
 TENSOR_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 LENGTHS = (1, 1000, 1024, 1025, 2**16 + 3, 2**21)
+# fork_scan's tiles are 4096 lanes: either side of one and two boundaries,
+# and the widest main-path shape with a ragged tail
+SCAN_LENGTHS = (4095, 4096, 4097, 8191, 8193, 2**21 + 5)
 WIDE = 2**21  # the main path's widest fork_scan / type_rank shape
 FLEET_WIDE = 2**23  # the full-size mixed4 wave's epoch bucket
 N_SEGS = (1, 3, 4, 8, 33)
@@ -152,11 +163,13 @@ def call_ms(fn, iters: int = 50) -> float:
     return _events_ms(run, iters)
 
 
-def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
+def cuda_ms(fn, iters: int = 20, reps: int = 5, check=None) -> float:
     """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
     graph, replayed ``reps`` times and timed with CUDA events, so the
     host's launch overhead is not counted.  Inputs stay in L2 between
-    calls, as they do on the path (the engine has just written them)."""
+    calls, as they do on the path (the engine has just written them).
+    ``check``, if given, receives the captured calls' results after the
+    last replay."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -165,15 +178,17 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        outs = [fn() for _ in range(iters)]
     graph.replay()
     torch.cuda.synchronize()
 
     def run():
         for _ in range(reps):
             graph.replay()
-    return _events_ms(run, iters * reps)
+    ms = _events_ms(run, iters * reps)
+    if check is not None:
+        check(outs)
+    return ms
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -202,12 +217,37 @@ def phase_build():
         built = list(pool.map(lambda m: m.build(ptxas_info=True), mods))
     dt = time.perf_counter() - t0
     for path, log in built:
-        for line in log.splitlines():
-            if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line):
-                print("[build]", line.strip())
         print(f"[build] {path.name}")
+        for name, info in ptxas_kernels(log):
+            print(f"[build]   {name}: {info}")
     print(f"[build] {len(mods)} libraries built in {dt:.2f} s (in parallel)")
+
+
+def ptxas_kernels(log: str):
+    """(kernel, "N registers, spills ..., smem ...") for each entry
+    function of a ``ptxas -v`` report, names demangled where ``c++filt``
+    is found."""
+    import re
+    import shutil
+
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = line.split(",", 1)[-1].strip()
+        elif name and "registers" in line:
+            used = line.split("Used", 1)[-1].strip()
+            entries.append([name, f"{used}; {spill}"])
+            name = None
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True).stdout
+        for e, d in zip(entries, out.splitlines()):
+            e[0] = re.sub(r"^void |\(anonymous namespace\)::|\(.*", "",
+                          d)
+    return entries
 
 
 # ---------------------------------------------------------------- phase 2
@@ -269,7 +309,18 @@ def phase_kernels(dev):
                             what + " offsets")
                 check_equal("segmented_fork_scan", tot, r_tot,
                             what + " totals")
+    for P in SCAN_LENGTHS:
+        for offset in (0, 1):  # 1: a view 4 bytes into its storage
+            counts = torch.as_tensor(
+                rng.randint(0, 4, P + offset).astype(np.int32),
+                device=dev)[offset:]
+            offs, total = fork_compact.fork_scan(counts)
+            r_offs, r_total = ref.fork_scan_ref(counts)
+            check_equal("fork_scan", offs, r_offs, f"P={P}+{offset} offsets")
+            check_equal("fork_scan", total, r_total, f"P={P}+{offset} total")
     torch.cuda.synchronize()
+    print(f"[kernels] fork_scan exact at P in {list(SCAN_LENGTHS)}, aligned "
+          "and 4 bytes off")
     print(f"[kernels] exact at P in {list(LENGTHS)}: fork_scan, "
           f"type_rank (n_types {'/'.join(map(str, N_TYPES))}; "
           f"random/none/all masks), lane_pack; segmented_fork_scan also at "
@@ -283,27 +334,51 @@ def phase_kernels(dev):
                             device=dev)
     active = torch.as_tensor(rng.rand(WIDE) < 0.6, device=dev)
 
-    def timed(kernel, plain, library):
-        t = {"ms": cuda_ms(kernel), "call_ms": call_ms(kernel),
+    def timed(kernel, plain, library, check=None):
+        t = {"ms": cuda_ms(kernel, check=check), "call_ms": call_ms(kernel),
              "plain_ms": cuda_ms(plain), "library_ms": None}
         if library is not None:
             t["library_ms"] = cuda_ms(library)
         return t
 
+    r_offs, r_total = ref.fork_scan_ref(counts)
+
+    def replayed(outs):
+        """Every call of the timed graph exact after its last replay (the
+        scratch's status words are cleared by each call, not left over)."""
+        for i, (offs, total) in enumerate(outs):
+            check_equal("fork_scan", offs, r_offs, f"graph call {i} offsets")
+            check_equal("fork_scan", total, r_total, f"graph call {i} total")
+
     rows = []
     b, by = bound_ms(8 * WIDE + 4, WIDE)
     rows.append(dict(
         name="fork_scan", route="cuda",
+        design="single pass, decoupled look-back: a memset of the status "
+               "words and one launch, 4096-lane tiles from an atomic counter",
         source="src/repro_torch/kernels/csrc/fork_compact.cu",
         replaces="src/repro/kernels/fork_compact.py:51",
         max_abs_err=err["fork_scan"], bound_ms=b, bound_by=by,
         **timed(lambda: fork_compact.fork_scan(counts),
                 lambda: ref.fork_scan_ref(counts),
-                lambda: torch.cumsum(counts, 0, dtype=torch.int32) - counts),
+                lambda: torch.cumsum(counts, 0, dtype=torch.int32) - counts,
+                check=replayed),
     ))
+    # yardsticks: one pass that reads and writes the lanes, and clearing a
+    # scratch of the look-back's size (its tile counter and status words)
+    copy_out = torch.empty_like(counts)
+    rows[0]["copy_ms"] = cuda_ms(lambda: copy_out.copy_(counts))
+    words = fork_compact._load().trees_fork_scan_scratch_words(WIDE)
+    scratch = torch.empty((words,), dtype=torch.int64, device=dev)
+    rows[0]["clear_ms"] = cuda_ms(lambda: scratch.zero_())
+    print(f"[kernels] fork_scan exact in all 20 calls of its timing graph "
+          f"after 5 replays; a plain copy of its input takes "
+          f"{rows[0]['copy_ms']:.5f} ms, clearing its {8 * words}-byte "
+          f"scratch {rows[0]['clear_ms']:.5f} ms")
     b, by = bound_ms(9 * WIDE + 4 * 2, 2 * WIDE)
     rows.append(dict(
         name="type_rank", route="cuda",
+        design="reduce-then-scan: three launches, 1024-lane tiles",
         source="src/repro_torch/kernels/csrc/fork_compact.cu",
         replaces="src/repro/kernels/fork_compact.py:195",
         max_abs_err=err["type_rank"], bound_ms=b, bound_by=by,
@@ -317,6 +392,8 @@ def phase_kernels(dev):
     b, by = bound_ms(12 * FLEET_WIDE + 4 * 4, FLEET_WIDE)
     rows.append(dict(
         name="segmented_fork_scan", route="cuda",
+        design="reduce-then-scan: three launches, 1024-lane tiles, groups "
+               "of 32 segments",
         source="src/repro_torch/kernels/csrc/fork_compact.cu",
         replaces="src/repro/kernels/fork_compact.py:114",
         max_abs_err=err["segmented_fork_scan"], bound_ms=b, bound_by=by,
@@ -478,6 +555,7 @@ def phase_chunks(dev):
           f"({stats.epochs} epochs, {stats.tasks_executed} tasks)")
     return dict(
         name="epoch_chunk", route="cuda",
+        design="one CTA of 1024 threads runs the whole chunk of epochs",
         source="src/repro_torch/kernels/csrc/epoch_megakernel.cu",
         replaces="src/repro/kernels/epoch_megakernel.py:50",
         max_abs_err=err, bound_ms=b, bound_by=by, ms=ms,
@@ -992,6 +1070,8 @@ def phase_attention(dev):
              q, k, v, is_causal=True, enable_gqa=True), iters=5, reps=2)}
     rows.append(dict(
         name="flash_attention", route="cuda",
+        design="bf16 at D 64/128: persistent wgmma + TMA; D 16/32: mma.sync "
+               "+ cp.async; float32: CUDA cores",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:98",
         max_abs_err=err["flash_attention"], bound_ms=b, bound_by=by, **t))
@@ -1039,6 +1119,8 @@ def phase_attention(dev):
          "library_warm_ms": cuda_ms(lambda: library(*caches[0]))}
     rows.append(dict(
         name="decode_attention", route="cuda",
+        design="split-K (256-row splits) over a cp.async ring, mma.sync in "
+               "bf16, CUDA cores in float32, a merge launch",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:78",
         max_abs_err=err["decode_attention"], bound_ms=b, bound_by=by, **t))
@@ -1141,21 +1223,47 @@ def phase_ssd(dev):
           f"{list(SSD_LENGTHS)} with and without h0, float32 and bf16, and "
           f"a split at 333 of 1000 steps: max |kernel - plain| = {err:.3g}")
 
-    x, dt, A, B, C, _ = _ssd_inputs(SSD_BUCKET, torch.bfloat16, gen)
-    b, by = bound_ms(*_ssd_work(SSD_BUCKET), ops_per_s=TENSOR_BF16_FLOPS)
+    # both buckets, the design the kernel picks (tensor cores) and the
+    # CUDA-core one beside it, in turns
+    t = {}
+    for name, case in (("mamba2", SSD_BUCKET), ("hymba", SSD_HYMBA)):
+        x, dt, A, B, C, _ = _ssd_inputs(case, torch.bfloat16, gen)
+
+        def run(design):
+            return cuda_ms(lambda: ssd_scan.ssd_scan(x, dt, A, B, C,
+                                                     design=design),
+                           iters=5, reps=2)
+        tc = [run("tensor_core"), run("cuda_core"), run("cuda_core"),
+              run("tensor_core")]
+        t[name] = {"ms": min(tc[0], tc[3]), "cuda_core_ms": min(tc[1:3]),
+                   "bound": bound_ms(*_ssd_work(case),
+                                     ops_per_s=TENSOR_BF16_FLOPS)}
+        if name == "mamba2":
+            plain_ms = cuda_ms(lambda: ref.ssd_chunked(x, dt, A, B, C),
+                               iters=2, reps=2)
+        del x, dt, B, C
+    (b, by), m, hy = t["mamba2"]["bound"], t["mamba2"], t["hymba"]
     row = dict(
         name="ssd_scan", route="cuda",
+        design="bf16 at P, N multiples of 16: a G = C B^T launch per "
+               "(sequence, chunk), then tensor cores over a 2-stage cp.async "
+               "ring, two heads a CTA (wgmma at P = 64, N = 64/128; mma.sync "
+               "else); float32 and P or N = 8: CUDA cores",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:82", max_abs_err=err,
-        bound_ms=b, bound_by=by,
-        ms=cuda_ms(lambda: ssd_scan.ssd_scan(x, dt, A, B, C), iters=5,
-                   reps=2),
-        plain_ms=cuda_ms(lambda: ref.ssd_chunked(x, dt, A, B, C), iters=2,
-                         reps=2),
-        library_ms=None)
-    print(f"[kernels] ssd_scan at {SSD_BUCKET} bf16: device {row['ms']:.5f}"
-          f" ms, bound {b:.5f} ms ({by}), plain {row['plain_ms']:.5f} ms, "
-          "library none (no PyTorch call computes the SSD scan)")
+        bound_ms=b, bound_by=by, ms=m["ms"], plain_ms=plain_ms,
+        library_ms=None, cuda_core_ms=m["cuda_core_ms"],
+        hymba_ms=hy["ms"], hymba_cuda_core_ms=hy["cuda_core_ms"],
+        hymba_bound_ms=hy["bound"][0])
+    print(f"[kernels] ssd_scan at {SSD_BUCKET} bf16: device {m['ms']:.5f}"
+          f" ms (the CUDA-core design {m['cuda_core_ms']:.5f} ms), bound "
+          f"{b:.5f} ms ({by}; {100 * b / m['ms']:.1f}% of it), plain "
+          f"{plain_ms:.5f} ms, library none (no PyTorch call computes the "
+          "SSD scan)")
+    print(f"[kernels] ssd_scan at hymba's {SSD_HYMBA} bf16: device "
+          f"{hy['ms']:.5f} ms (the CUDA-core design "
+          f"{hy['cuda_core_ms']:.5f} ms), bound {hy['bound'][0]:.5f} ms "
+          f"({hy['bound'][1]})")
     return row
 
 
@@ -1314,9 +1422,11 @@ def _profile_epoch(label, srv, model, cfg):
           f"ms of it ({100 * attn / busy:.1f}%)")
 
 
-def _profile_prefill(label, srv, model, cfg):
+def _profile_prefill(label, srv, model, cfg, kernel="flash_attention",
+                     names=("flash_",)):
     """One prefill of the full bucket (every slot, 1024 tokens) into the
-    server's cache under the profiler: flash_attention's share of it."""
+    server's cache under the profiler: the share of it of ``kernel``, whose
+    device kernels' names contain one of ``names``."""
     import types
 
     from repro_torch.models import prefill
@@ -1333,8 +1443,8 @@ def _profile_prefill(label, srv, model, cfg):
 
     one_prefill()
     busy, wall, events = phase_profile(label, one_prefill)
-    attn = device_us(events, "flash_")
-    print(f"[profile]   flash_attention {attn / 1e3:.3f} ms of the "
+    attn = device_us(events, *names)
+    print(f"[profile]   {kernel} {attn / 1e3:.3f} ms of the "
           f"prefill's {busy / 1e3:.3f} ms of device time "
           f"({100 * attn / busy:.1f}%) and {wall / 1e3:.3f} ms of wall "
           f"({100 * attn / wall:.1f}%)")
@@ -1422,6 +1532,8 @@ def phase_ssm_serve():
         "decode_attention": 0})
     _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
                    model, cfg)
+    _profile_prefill(f"{cfg.name} prefill, 16 x 1024 tokens (one bucket)",
+                     srv, model, cfg, "ssd_scan", ("ssd_",))
     del srv, model
     torch.cuda.empty_cache()
     _card_vs_cpu(cfg, "ssm")
@@ -1489,9 +1601,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     )
     print(smi.stdout.strip())
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    keys = ("name", "route", "design", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    extra = ("copy_ms", "clear_ms", "cuda_core_ms", "hymba_ms", "hymba_cuda_core_ms",
+             "hymba_bound_ms")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,8 +3,8 @@
 // Replaces the three Pallas TPU kernels of src/repro/kernels/fork_compact.py:
 //   * trees_fork_scan  <- fork_scan (_fork_scan_kernel): exclusive prefix
 //     sum + grand total of an i32 vector.  The epoch commit's fork-slot
-//     allocation (the paper's atomicInc(nextFreeCore)) and the compaction
-//     pass's per-type start offsets.
+//     allocation (the paper's atomicInc(nextFreeCore)), the compaction
+//     pass's per-type start offsets and the server's slot allocation.
 //   * trees_segmented_fork_scan <- segmented_fork_scan (_seg_scan_kernel):
 //     each lane's exclusive prefix sum among the lanes of its own segment
 //     + per-segment totals.  The JobArena commit's per-region fork-slot
@@ -23,18 +23,44 @@
 // 100.7 MB, about 30 microseconds.  The arithmetic (one add, n_types
 // ballots, or a 32-step shuffle sum per lane) is far below the card's rate.
 //
-// Why reduce-then-scan: the Pallas kernels carry a running sum from one
-// grid step to the next in SMEM, which is race-free only because TPU grid
-// steps run in order on one core.  CUDA blocks run in no order, so the
-// carry becomes three launches on one stream:
-//   1. each block reduces its 1024-lane tile to one total (per type or
-//      segment);
+// The Pallas kernels carry a running sum from one grid step to the next in
+// SMEM, which is race-free only because TPU grid steps run in order on one
+// core.  CUDA blocks run in no order, so the carry needs a cross-block
+// scheme.
+//
+// fork_scan: one pass, decoupled look-back.  The old design reduced every
+// tile, scanned the tile sums in one block and scanned every tile again:
+// three launches, the input read twice (12 B/lane against the bound's 8),
+// and a single-block pass between the two wide ones; at 2^21 lanes it ran
+// at 37 % of its bound, no faster than torch.cumsum.  Now each block of
+// 128 threads takes a tile of 4096 lanes from an atomic tile counter (not
+// from blockIdx: blocks are not scheduled in blockIdx order, and a tile
+// must only wait for tiles whose blocks are already running), loads it
+// once with 16-byte vector loads (eight a thread, each warp-wide load 512
+// contiguous bytes), and reduces it in registers and shared memory.  Warp
+// 0 publishes the tile's aggregate as a packed 64-bit (status, uint32
+// value) word, then reads its predecessors' words 32 at a time, nearest
+// first, until it meets an inclusive prefix (windows of 128 words were no
+// faster at 2^21 lanes); it publishes its own inclusive prefix and the
+// block writes the offsets from the values still in registers (one
+// 16-byte store per vector).  Value and status share one word, so a
+// relaxed 64-bit load sees both or neither and no fence is needed.  The
+// last tile writes the total.  The status words and the counter live in
+// caller scratch that trees_fork_scan clears with a cudaMemsetAsync on the
+// same stream before the launch, so a CUDA graph that replays the call,
+// scratch and all, never reads a stale word.  8 B/lane moved; two device
+// operations (the memset, the scan).
+//
+// type_rank and segmented_fork_scan: reduce-then-scan, three launches on
+// one stream:
+//   1. each block reduces its 1024-lane tile to one total per type or
+//      segment;
 //   2. one block per row scans the tile totals into tile offsets and
 //      writes the grand total (per type or segment);
 //   3. each block scans its tile again (warp shuffles / ballots, then the
 //      warp totals) and adds its tile offset.
-// The input is read twice (12, 13 or 20 B/lane moved against the 8, 9 or
-// 12 of the bound); a single-pass decoupled look-back scan is later work.
+// The input is read twice (13 or 20 B/lane moved against the 9 or 12 of
+// the bound); the look-back is their next design.
 //
 // Groups: type_rank and segmented_fork_scan keep one shared-memory counter
 // per type or segment, so a block handles a group of at most kTypeGroup
@@ -48,10 +74,9 @@
 // warp sums per segment go through shared memory and the tile offsets
 // through the scanned scratch rows, as for type_rank.
 //
-// Ranks and offsets are stable by construction: lanes are visited in order
-// of (chunk, warp, lane), which is increasing lane index, and the commit's
-// bit-identity depends on it.  All sums are taken in uint32 and wrap like
-// the JAX int32 cumsum.
+// Ranks and offsets are stable by construction: lanes are visited in
+// increasing lane order, and the commit's bit-identity depends on it.  All
+// sums are taken in uint32 and wrap like the JAX int32 cumsum.
 //
 // C interface (bound with ctypes): every entry point launches on the given
 // stream, allocates nothing (the caller passes outputs and scratch), does
@@ -100,29 +125,153 @@ __device__ __forceinline__ unsigned block_inclusive_scan(
   return v + before;
 }
 
-// Pass 1 of fork_scan: block b writes the sum of its tile to sums[b].
-__global__ void fork_scan_reduce(const int* __restrict__ counts,
-                                 unsigned* __restrict__ sums, int n) {
-  __shared__ unsigned warp_tot[kWarps];
-  const long long base = (long long)blockIdx.x * kTile;
-  unsigned s = 0;
+// ------------------------------------------- fork_scan: decoupled look-back
+constexpr int kScanThreads = 128;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanVecs = 8;                        // int4 vectors a thread
+constexpr int kScanWarpLanes = 32 * 4 * kScanVecs;  // 1024 lanes a warp
+constexpr int kScanTile = kScanWarps * kScanWarpLanes;  // 4096 a block
+constexpr unsigned long long kAggregate = 1ull << 32;  // status words:
+constexpr unsigned long long kInclusive = 2ull << 32;  // (status << 32) | sum
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned warp_inclusive_scan(unsigned v) {
+  const unsigned lane = threadIdx.x & 31u;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    if (i < n) s += (unsigned)counts[i];
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, v, d);
+    if (lane >= (unsigned)d) v += y;
   }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(kFull, s, d);
-  if ((threadIdx.x & 31u) == 0) warp_tot[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned t = 0;
-    for (int w = 0; w < kWarps; ++w) t += warp_tot[w];
-    sums[blockIdx.x] = t;
+  return v;
+}
+
+// The exclusive prefix of everything before tile `tile`: the nearest
+// predecessors' words 32 at a time (lane k reads tile - 1 - k), waiting
+// until all 32 have published, summed up to and including the nearest
+// inclusive one.  Tile 0 is inclusive from the start, so the walk ends.
+// Warp-wide: every lane of the warp calls it and receives the sum.
+__device__ __forceinline__ unsigned look_back(
+    const unsigned long long* status, int tile) {
+  const int lane = (int)(threadIdx.x & 31u);
+  unsigned excl = 0;
+  for (int last = tile - 1;; last -= 32) {
+    const int idx = last - lane;
+    unsigned long long w = idx >= 0 ? load_status(status + idx) : kInclusive;
+    while (__any_sync(kFull, (w >> 32) == 0)) {
+      if ((w >> 32) == 0) w = load_status(status + idx);
+    }
+    const unsigned incl = __ballot_sync(kFull, (w >> 32) == 2);
+    if (incl) {
+      const int first = __ffs(incl) - 1;
+      return excl + __reduce_add_sync(kFull, lane <= first ? (unsigned)w : 0u);
+    }
+    excl += __reduce_add_sync(kFull, (unsigned)w);
   }
 }
 
-// Pass 2 (both kernels): block r scans row r of rows[rows, nb] in place
+// scratch[0]: the tile counter (low 32 bits); scratch[1 + t]: tile t's
+// status word.  Both zero at the launch.  vec: counts and offs are 16-byte
+// aligned, so whole vectors move as int4.
+__global__ void __launch_bounds__(kScanThreads)
+fork_scan_lookback(const int* __restrict__ counts, int* __restrict__ offs,
+                   int* __restrict__ total,
+                   unsigned long long* __restrict__ scratch, int n,
+                   int n_tiles, int vec) {
+  __shared__ unsigned warp_tot[kScanWarps];
+  __shared__ unsigned s_tile, s_excl;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  unsigned long long* status = scratch + 1;
+  if (threadIdx.x == 0) {
+    s_tile = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
+  }
+  __syncthreads();
+  const int tile = (int)s_tile;
+  // this lane's vector j holds lanes [i_j, i_j + 4), i_j = base + 128 j + 4
+  // lane: a warp's j-th load is 512 contiguous bytes
+  const long long base =
+      (long long)tile * kScanTile + warp * kScanWarpLanes + 4 * lane;
+  unsigned v[kScanVecs][4];
+#pragma unroll
+  for (int j = 0; j < kScanVecs; ++j) {
+    const long long i = base + 128 * j;
+    if (vec && i + 4 <= n) {
+      const int4 q = *reinterpret_cast<const int4*>(counts + i);
+      v[j][0] = q.x; v[j][1] = q.y; v[j][2] = q.z; v[j][3] = q.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[j][e] = i + e < n ? counts[i + e] : 0u;
+    }
+  }
+  // the exclusive prefix of each vector within the warp: lanes in order
+  // within a load, loads in order within the warp
+  unsigned pre[kScanVecs];
+  unsigned run = 0;
+#pragma unroll
+  for (int j = 0; j < kScanVecs; ++j) {
+    const unsigned s = v[j][0] + v[j][1] + v[j][2] + v[j][3];
+    const unsigned incl = warp_inclusive_scan(s);
+    pre[j] = run + incl - s;
+    run += __shfl_sync(kFull, incl, 31);
+  }
+  if (lane == 0) warp_tot[warp] = run;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned wt = lane < (unsigned)kScanWarps ? warp_tot[lane] : 0u;
+    const unsigned incl = warp_inclusive_scan(wt);
+    const unsigned agg = __shfl_sync(kFull, incl, kScanWarps - 1);
+    if (lane < (unsigned)kScanWarps) warp_tot[lane] = incl - wt;
+    unsigned excl = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, kInclusive | agg);
+    } else {
+      if (lane == 0) store_status(status + tile, kAggregate | agg);
+      excl = look_back(status, tile);
+      if (lane == 0) store_status(status + tile, kInclusive | (excl + agg));
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      if (tile == n_tiles - 1) *total = (int)(excl + agg);
+    }
+  }
+  __syncthreads();
+  const unsigned off = s_excl + warp_tot[warp];
+#pragma unroll
+  for (int j = 0; j < kScanVecs; ++j) {
+    const long long i = base + 128 * j;
+    unsigned o[4];
+    o[0] = off + pre[j];
+    o[1] = o[0] + v[j][0];
+    o[2] = o[1] + v[j][1];
+    o[3] = o[2] + v[j][2];
+    if (vec && i + 4 <= n) {
+      *reinterpret_cast<int4*>(offs + i) =
+          make_int4((int)o[0], (int)o[1], (int)o[2], (int)o[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i + e < n) offs[i + e] = (int)o[e];
+      }
+    }
+  }
+}
+
+// Pass 2 of type_rank and segmented_fork_scan: block r scans row r of rows[rows, nb] in place
 // into exclusive tile offsets and writes the row total to totals[r].
 __global__ void scan_rows(unsigned* __restrict__ rows, int nb,
                           int* __restrict__ totals) {
@@ -138,23 +287,6 @@ __global__ void scan_rows(unsigned* __restrict__ rows, int nb,
     carry += tot;
   }
   if (threadIdx.x == 0) totals[blockIdx.x] = (int)carry;
-}
-
-// Pass 3 of fork_scan: scan each tile and add its tile offset.
-__global__ void fork_scan_tiles(const int* __restrict__ counts,
-                                const unsigned* __restrict__ tile_offs,
-                                int* __restrict__ offs, int n) {
-  __shared__ unsigned warp_tot[kWarps];
-  const long long base = (long long)blockIdx.x * kTile;
-  unsigned carry = tile_offs[blockIdx.x];
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    const unsigned v = i < n ? (unsigned)counts[i] : 0u;
-    unsigned tot;
-    const unsigned incl = block_inclusive_scan(v, warp_tot, &tot);
-    if (i < n) offs[i] = (int)(carry + incl - v);
-    carry += tot;
-  }
 }
 
 // Pass 1 of type_rank: per-tile, per-type active counts into
@@ -402,19 +534,31 @@ __global__ void seg_scan_tiles(const int* __restrict__ counts,
 
 extern "C" {
 
+// Lanes a block of type_rank and segmented_fork_scan takes (their scratch
+// holds one uint32 per tile and type or segment).
 int trees_tile_lanes() { return kTile; }
 
+// uint64 words of scratch trees_fork_scan takes for n lanes: the tile
+// counter and one status word per tile.
+int trees_fork_scan_scratch_words(int n) {
+  const long long tiles = ((long long)n + kScanTile - 1) / kScanTile;
+  return 1 + (int)(tiles > 1 ? tiles : 1);
+}
+
 // offs[i] = counts[0] + ... + counts[i-1]; *total = sum of counts.
-// scratch: max(1, ceil(n / trees_tile_lanes())) uint32.
+// scratch: trees_fork_scan_scratch_words(n) uint64, 8-byte aligned, any
+// contents (cleared here, on the stream, before the scan).
 int trees_fork_scan(const int* counts, int* offs, int* total,
-                    unsigned* scratch, int n, void* stream) {
+                    unsigned long long* scratch, int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kTile - 1) / kTile;
-  if (nb > 0) fork_scan_reduce<<<nb, kThreads, 0, s>>>(counts, scratch, n);
-  scan_rows<<<1, kThreads, 0, s>>>(scratch, nb, total);
-  if (nb > 0) {
-    fork_scan_tiles<<<nb, kThreads, 0, s>>>(counts, scratch, offs, n);
-  }
+  const int words = trees_fork_scan_scratch_words(n);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(*scratch) * words, s);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = reinterpret_cast<unsigned long long>(counts) % 16 == 0 &&
+                  reinterpret_cast<unsigned long long>(offs) % 16 == 0;
+  fork_scan_lookback<<<words - 1, kScanThreads, 0, s>>>(counts, offs, total,
+                                                    scratch, n, words - 1,
+                                                    vec);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,11 @@
 ``fork_scan``, ``segmented_fork_scan`` and ``type_rank`` replace the Pallas
 TPU kernels of the same names in ``repro/kernels/fork_compact.py``; the
 CUDA C++ lives in ``csrc/fork_compact.cu`` (its header says what bounds
-them and why the TPU's sequential-grid carry became a reduce-then-scan).
+them and what the TPU's sequential-grid carry became on the card).
+
+``fork_scan`` is one pass with a decoupled look-back (one memset of its
+scratch and one launch); the other two reduce, scan the tile sums and scan
+again (three launches).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``kernels/nvcc.py``) and loaded with
@@ -68,6 +72,8 @@ def _load() -> ctypes.CDLL:
             lib.trees_type_rank.restype = i
             lib.trees_tile_lanes.argtypes = []
             lib.trees_tile_lanes.restype = i
+            lib.trees_fork_scan_scratch_words.argtypes = [i]
+            lib.trees_fork_scan_scratch_words.restype = i
             _lib = lib
         return _lib
 
@@ -95,16 +101,18 @@ def _raise_on(err: int, name: str) -> None:
 def fork_scan(counts: torch.Tensor):
     """Exclusive prefix sum + total of an ``i32[C]`` CUDA tensor.
 
-    Returns ``(offsets i32[C], total i32[])``, both on the card.
+    Returns ``(offsets i32[C], total i32[])``, both on the card.  The
+    scratch (the look-back's tile counter and status words) comes from
+    ``torch.empty``; the launch sequence clears it on the stream, so the
+    call may be captured in a CUDA graph and replayed.
     """
     _check_lanes("fork_scan", counts, (torch.int32,))
     lib = _load()
     n = counts.shape[0]
-    nb = -(-n // lib.trees_tile_lanes())
     offs = torch.empty_like(counts)
     total = torch.empty((1,), dtype=torch.int32, device=counts.device)
-    scratch = torch.empty((max(nb, 1),), dtype=torch.int32,
-                          device=counts.device)
+    scratch = torch.empty((lib.trees_fork_scan_scratch_words(n),),
+                          dtype=torch.int64, device=counts.device)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trees_fork_scan(

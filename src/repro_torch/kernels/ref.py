@@ -325,3 +325,53 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_intra + y_carry)
     y = torch.cat(ys, 1)[:, :S]
     return y.to(x.dtype), h
+
+
+def ssd_chunked_tc(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   h0: torch.Tensor | None = None, chunk: int = 64):
+    """The ``ssd_scan`` kernel's tensor-core design in plain PyTorch (tests
+    only): :func:`ssd_chunked`'s form at the kernel's chunk, with its
+    roundings.  Per chunk, G = C B^T in float32 once per sequence (not per
+    head); W = G o M o dt rounded to bfloat16; y = W X + exp(cum) o (C .
+    h_bf16) with the state rounded to bfloat16 as the operand; X' = x o dt
+    exp(cum_T - cum) rounded to bfloat16 and h' = exp(cum_T) h + X'^T B.
+    Sums are float32 and the carried state stays float32; a ragged tail is
+    padded with dt = 0."""
+    Bt, S, H, P = x.shape
+    if S == 0:
+        return ssd_scan_ref(x, dt, A, B, C, h0)
+    pad = (-S) % chunk
+
+    def padded(t):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bt, pad) + t.shape[2:])], 1)
+        return t
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    xf, dtf, Bf, Cf = (padded(t) for t in (x, dt, B, C))
+    Af = A.float()
+    h = (torch.zeros((Bt, H, P, B.shape[-1]), device=x.device)
+         if h0 is None else h0.float())
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(Af * dtc, 1)                       # (Bt, T, H)
+        g = Cc @ Bc.transpose(1, 2)                           # (Bt, T, T)
+        logm = cum[:, :, None, :] - cum[:, None, :, :]        # (Bt, T, T, H)
+        m = torch.where(tri, torch.exp(logm.clamp(max=0.0)), 0.0)
+        w = bf16(g[..., None] * m * dtc[:, None])             # (Bt, T, T, H)
+        y_carry = torch.einsum("btn,bhpn->bthp", Cc, bf16(h)) \
+            * torch.exp(cum)[..., None]
+        ys.append(y_carry + torch.einsum("btsh,bshp->bthp", w, xc))
+        xs = bf16(xc * (dtc * torch.exp(cum[:, -1:] - cum))[..., None])
+        h = torch.exp(cum[:, -1])[..., None, None] * h \
+            + torch.einsum("bthp,btn->bhpn", xs, Bc)
+    y = torch.cat(ys, 1)[:, :S]
+    return y.to(x.dtype), h

@@ -2,9 +2,15 @@
 
 ``ssd_scan`` replaces the Pallas TPU kernel of the same name in
 ``repro/kernels/ssd_scan.py``; the CUDA C++ lives in ``csrc/ssd_scan.cu``
-(its header says what bounds it and how it is laid out).  The plain
-versions are ``ref.ssd_chunked`` and ``ref.ssd_scan_ref``;
-``kernels/ops.py`` sends CPU tensors there.
+(its header says what bounds it and how it is laid out).  Two designs,
+chosen by :func:`pick_design` from dtype and shape alone: bfloat16 with P
+and N multiples of 16 (mamba2, hymba) takes the tensor-core design (a
+launch for G = C B^T per sequence and chunk, then the scan's products on
+the tensor cores over a cp.async ring: wgmma at P = 64 with N a multiple
+of 64, mma.sync otherwise); float32, and bfloat16 at P or N = 8, the
+CUDA-core design.  The plain versions are ``ref.ssd_chunked`` and
+``ref.ssd_scan_ref`` (``ref.ssd_chunked_tc`` repeats the tensor-core
+design's rounding); ``kernels/ops.py`` sends CPU tensors there.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/nvcc.py``) and loaded with ``ctypes``.  Nothing here compiles or
@@ -25,6 +31,7 @@ from .flash_attention import DTYPES
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 HEAD_DIMS = (8, 16, 32, 64)           # P
 STATE_DIMS = (8, 16, 32, 64, 128)     # N
+DESIGNS = {"cuda_core": 0, "tensor_core": 1}
 
 # launches of the kernel since the last reset (one per wrapper call)
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
@@ -50,24 +57,40 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.trees_ssd_scan.argtypes = [
-                i, p, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
+                i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
             lib.trees_ssd_scan.restype = i
+            lib.trees_ssd_chunk.argtypes = []
+            lib.trees_ssd_chunk.restype = i
             _lib = lib
         return _lib
 
 
+def pick_design(dtype: torch.dtype, P: int, N: int) -> str:
+    """The kernel's design for these inputs, a pure function of dtype and
+    shape (needs no card): ``"tensor_core"`` for bfloat16 with P and N
+    multiples of 16, else ``"cuda_core"`` (float32 stays exact to 1e-4,
+    which TF32 would not)."""
+    if dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor,
-             h0: Optional[torch.Tensor] = None):
+             h0: Optional[torch.Tensor] = None,
+             design: Optional[str] = None):
     """Mamba-2 SSD scan over a batch of sequences: x (Bt, S, H, P), dt
     (Bt, S, H), A f32[H], B and C (Bt, S, N), h0 f32 (Bt, H, P, N) or None
     -> (y (Bt, S, H, P) in x's dtype, h (Bt, H, P, N) float32).
 
-    The same function as ``ref.ssd_chunked`` (sums in another order, and
-    in chunks of 64 steps where the plain version takes 128).  x, dt, B and
-    C share one dtype, float32 or bfloat16, and may be strided views whose
-    last axis is contiguous (x, B and C as slices of the SSM block's conv
-    output are read in place); A and h0 must be contiguous.
+    The same function as ``ref.ssd_chunked`` (sums in another order, in
+    chunks of 64 steps where the plain version takes 128, and in the
+    tensor-core design with the bf16 operands of ``ref.ssd_chunked_tc``).
+    x, dt, B and C share one dtype, float32 or bfloat16, and may be strided
+    views whose last axis is contiguous (x, B and C as slices of the SSM
+    block's conv output are read in place); A and h0 must be contiguous.
+    ``design`` (default :func:`pick_design`) may name ``"cuda_core"`` for
+    any input, to time that design beside the other.
     """
     ins = (x, dt, A, B, C) + (() if h0 is None else (h0,))
     if not all(t.is_cuda and t.device == x.device for t in ins):
@@ -100,6 +123,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "contiguous")
     if not A.is_contiguous() or (h0 is not None and not h0.is_contiguous()):
         raise ValueError("ssd_scan: A and h0 must be contiguous")
+    if design is None:
+        design = pick_design(x.dtype, P, N)
+    elif design not in DESIGNS or (design == "tensor_core" and
+                                   pick_design(x.dtype, P, N) != design):
+        raise ValueError(f"ssd_scan: design {design!r} does not take "
+                         f"{x.dtype} at P={P}, N={N}")
     y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
     if Bt == 0 or H == 0:
@@ -107,13 +136,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(),
                                        *B.stride()[:2], *C.stride()[:2])
     lib = _load()
+    gram = None
+    if design == "tensor_core":  # G = C B^T per sequence and chunk, float32
+        T = lib.trees_ssd_chunk()
+        gram = torch.empty((max(1, Bt * -(-S // T) * T * T),),
+                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trees_ssd_scan(
-            DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B.data_ptr(), C.data_ptr(),
+            DTYPES[x.dtype], DESIGNS[design], x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h.data_ptr(), Bt, S, H, P, N, strides, ctypes.c_void_p(stream))
+            h.data_ptr(), None if gram is None else gram.data_ptr(), Bt, S,
+            H, P, N, strides, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA launch failed with error {err}")
     LAUNCHES["ssd_scan"] += 1

@@ -67,6 +67,75 @@ def test_fork_scan_wraps_like_int32(cuda_device):
     assert torch.equal(offs.cpu(), r_offs) and int(total) == int(r_total)
 
 
+# fork_scan takes tiles of 4096 lanes: lengths on either side of one and
+# two tile boundaries, and the widest main-path shape plus a ragged tail
+SCAN_LENGTHS = (4095, 4096, 4097, 8191, 8193, 2**21 + 5)
+
+
+@pytest.mark.parametrize("offset", (0, 1), ids=("aligned", "offset"))
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_fork_scan_exact_across_tiles(cuda_device, n, offset):
+    """Exact at tile boundaries; ``offset`` starts the view 4 bytes into
+    its storage, so the kernel takes its scalar loads."""
+    rng = np.random.RandomState(n + offset)
+    base = torch.as_tensor(rng.randint(0, 4, n + offset).astype(np.int32),
+                           device=cuda_device)
+    counts = base[offset:]
+    fork_compact.reset_launches()
+    offs, total = fork_compact.fork_scan(counts)
+    r_offs, r_total = ref.fork_scan_ref(counts)
+    torch.cuda.synchronize()
+    assert fork_compact.LAUNCHES["fork_scan"] == 1
+    assert torch.equal(offs, r_offs) and int(total) == int(r_total)
+
+
+def test_fork_scan_wraps_across_tiles(cuda_device):
+    counts = torch.full((50 * 4096 + 7,), 2**30 + 3, dtype=torch.int32,
+                        device=cuda_device)
+    offs, total = fork_compact.fork_scan(counts)
+    r_offs, r_total = ref.fork_scan_ref(counts.cpu())
+    assert torch.equal(offs.cpu(), r_offs) and int(total) == int(r_total)
+
+
+def test_fork_scan_back_to_back_calls(cuda_device):
+    """Three calls in a row at one length: the caching allocator hands each
+    the scratch the last one left, status words and counter set."""
+    rng = np.random.RandomState(5)
+    n = 2**20 + 3
+    inputs = [torch.as_tensor(rng.randint(0, 5, n).astype(np.int32),
+                              device=cuda_device) for _ in range(3)]
+    outs = [fork_compact.fork_scan(c) for c in inputs]
+    for c, (offs, total) in zip(inputs, outs):
+        r_offs, r_total = ref.fork_scan_ref(c)
+        assert torch.equal(offs, r_offs) and int(total) == int(r_total)
+
+
+def test_fork_scan_graph_replay(cuda_device):
+    """Four calls captured in one CUDA graph, replayed three times with new
+    counts written in place before each replay: every replay is exact, so
+    no call reads a status word that an earlier call or replay left."""
+    rng = np.random.RandomState(6)
+    n = 2**21
+    counts = torch.empty((n,), dtype=torch.int32, device=cuda_device)
+    counts.copy_(torch.as_tensor(rng.randint(0, 4, n).astype(np.int32)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fork_compact.fork_scan(counts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fork_compact.fork_scan(counts) for _ in range(4)]
+    for rep in range(3):
+        counts.copy_(torch.as_tensor(
+            rng.randint(0, 4 + rep, n).astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        r_offs, r_total = ref.fork_scan_ref(counts)
+        for offs, total in outs:
+            assert torch.equal(offs, r_offs) and int(total) == int(r_total)
+
+
 def test_wrappers_check_their_inputs(cuda_device):
     x = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="n_types"):
@@ -276,7 +345,8 @@ def test_server_on_cuda_matches_cpu(cuda_device):
     assert out["cuda"] == out["cpu"]
 
 
-# Bt, S, H, P, N: the reduced configs' shapes, hymba's heads, ragged S
+# Bt, S, H, P, N: the reduced configs' shapes, hymba's heads, ragged S;
+# bf16 with P and N multiples of 16 takes the tensor-core design
 SSD = [
     (2, 96, 16, 8, 16),
     (3, 65, 5, 64, 16),
@@ -284,6 +354,8 @@ SSD = [
     (1, 1, 2, 16, 8),
     (2, 200, 3, 64, 64),
     (1, 64, 2, 8, 32),
+    (2, 1000, 8, 64, 128),   # mamba2's head, a ragged last chunk
+    (2, 300, 50, 64, 16),    # hymba's heads, an odd pair count
 ]
 
 
@@ -314,6 +386,33 @@ def test_ssd_scan_matches_plain(cuda_device, case, dtype, with_h0):
     for got, want in ((y, ry), (h, rh)):
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+def test_ssd_scan_unaligned_views_and_cuda_core_design(cuda_device):
+    """The tensor-core design on views that are not 16-byte aligned (its
+    plain-load staging), and the CUDA-core design asked for by name on the
+    same bf16 inputs, each within the bf16 tolerance of the plain version."""
+    Bt, S, H, P, N = 2, 200, 4, 64, 32
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    conv = torch.randn((Bt, S, 1 + H * P + 2 * N), generator=g,
+                       device=cuda_device).bfloat16()
+    x = conv[..., 1:1 + H * P].reshape(Bt, S, H, P)
+    B, C = conv[..., 1 + H * P:1 + H * P + N], conv[..., 1 + H * P + N:]
+    dt = (torch.rand((Bt, S, H), generator=g, device=cuda_device) * 0.2
+          + 0.01).bfloat16()
+    A = -(torch.rand((H,), generator=g, device=cuda_device) * 1.5 + 0.5)
+    h0 = torch.randn((Bt, H, P, N), generator=g, device=cuda_device)
+    assert ssd_scan.pick_design(torch.bfloat16, P, N) == "tensor_core"
+    ry, rh = ref.ssd_chunked(x, dt, A, B, C, h0)
+    for design in ("tensor_core", "cuda_core"):
+        y, h = ssd_scan.ssd_scan(x, dt, A, B, C, h0, design=design)
+        torch.cuda.synchronize()
+        for got, want in ((y, ry), (h, rh)):
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= 2e-2 * max(1.0, float(want.float().abs().max()))
+    with pytest.raises(ValueError, match="design"):
+        ssd_scan.ssd_scan(x.float(), dt.float(), A, B.float(), C.float(),
+                          design="tensor_core")
 
 
 def test_ssd_scan_checks_its_inputs(cuda_device):

@@ -5,7 +5,9 @@ sequential oracle, and ``ref.ssd_chunked``, which ``ops.ssd`` runs on the
 CPU) are batched over sequences; each sequence is held against JAX's
 ``ssd_scan_ref``, ``ssd_chunked`` and the Pallas ``ssd_scan`` run by the
 Pallas interpreter (as ``tests/test_kernels.py`` runs it), on the same
-inputs drawn from numpy, at the JAX sweep's shapes.  Tolerances, of
+inputs drawn from numpy, at the JAX sweep's shapes; the kernel's
+tensor-core design in plain PyTorch (``ref.ssd_chunked_tc``) against the
+JAX oracle at the card's bf16 tolerance.  Tolerances, of
 max(1, max |JAX|): 1e-5 in float32 (sums in another order), 2e-2 in
 bfloat16 (one rounding of y).
 
@@ -38,7 +40,7 @@ from repro.serving import EpochServer as JServer
 from repro.serving import Request as JRequest
 from repro_torch import configs
 from repro_torch.core.convert import cache_from_numpy, params_from_numpy
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import model, ssm
 from repro_torch.serving import EpochServer, Request
 from repro_torch.serving.engine import _bucket
@@ -155,6 +157,54 @@ def test_ssd_carries_initial_state():
                                 jC[0, 24:], h0=jh1)
     _close(y2[0], jy2, 1e-5, "carried y vs JAX")
     _close(h2[0], jh2, 1e-5, "carried h vs JAX")
+
+
+_JAX_ORACLE = {}
+
+
+@pytest.mark.parametrize("with_h0", (False, True), ids=("h0none", "h0"))
+@pytest.mark.parametrize("S", (65, 1000))
+def test_ssd_tensor_core_ref_matches_jax(S, with_h0):
+    """The ``ssd_scan`` kernel's tensor-core design (``ref.ssd_chunked_tc``:
+    chunks of 64, G = C B^T once per sequence and chunk, W, X' and the
+    state operand rounded to bf16) against JAX's sequential oracle, on
+    bf16-representable float32 inputs at P and N multiples of 16, within
+    the card's bf16 tolerance 2e-2 of max(1, max |JAX|)."""
+    arrs = list(_ssd_inputs(S, 3, 16, 32, seed=S))
+    for i in (0, 1, 3, 4):  # x, dt, B, C as the kernel sees them
+        arrs[i] = np.asarray(torch.as_tensor(arrs[i]).bfloat16().float())
+    if not with_h0:
+        arrs[5] = np.zeros_like(arrs[5])
+    (jx, jdt, jA, jB, jC, jh0), (x, dt, A, B, C, h0) = _both(arrs, "f32")
+    if S not in _JAX_ORACLE:  # one compile per length, h0 given as zeros
+        _JAX_ORACLE[S] = jax.jit(jax.vmap(jref.ssd_scan_ref,
+                                          (0, 0, None, 0, 0, 0)))
+    want = _JAX_ORACLE[S](jx, jdt, jA, jB, jC, jh0)
+    got = ref.ssd_chunked_tc(x, dt, A, B, C, h0 if with_h0 else None)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
+    _close(got[0], want[0], 2e-2, "tensor-core ref y")
+    _close(got[1], want[1], 2e-2, "tensor-core ref h")
+
+
+def test_ssd_design_by_dtype_and_shape():
+    """``ssd_scan.pick_design`` is a pure function of dtype and shape (needs
+    no card): every ported SSM config at full width takes the tensor-core
+    design in bfloat16 and the CUDA-core one in float32; the reduced
+    configs' P = 8 takes the CUDA-core one; every shape is one the kernel
+    takes."""
+    seen = set()
+    for arch in configs.ARCH_IDS:
+        if arch in configs.NOT_PORTED or configs.get_config(arch).ssm is None:
+            continue
+        for cfg, full in ((configs.get_config(arch), True),
+                          (configs.get_reduced(arch), False)):
+            P, N = cfg.ssm.headdim, cfg.ssm.d_state
+            assert P in ssd_scan.HEAD_DIMS and N in ssd_scan.STATE_DIMS
+            assert ssd_scan.pick_design(torch.float32, P, N) == "cuda_core"
+            want = "tensor_core" if full else "cuda_core"
+            assert ssd_scan.pick_design(torch.bfloat16, P, N) == want, arch
+            seen.add(arch)
+    assert {"mamba2_1_3b", "hymba_1_5b"} <= seen, seen
 
 
 # ------------------------------------------------------------- the block
