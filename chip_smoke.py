@@ -16,12 +16,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 side of its 4096-lane tiles, on views 4 bytes off, and in
                 every call of the CUDA graph that times it, after the
                 replays; segmented_fork_scan at
-                every listed length and at 2^23 for 1, 3, 4, 8 and 33
-                segments, shuffled and out-of-range ids; epoch_chunk
-                against epoch_chunk_ref from
+                every listed length, either side of its 2048-lane tiles
+                and at 2^23 for 1, 3, 4, 8, 32 and 33 segments, shuffled
+                and out-of-range ids, and in every call of its timing
+                graph; epoch_chunk against epoch_chunk_ref from
                 the same fresh carry, every carry tensor, for fib, bfs and
                 mergesort at full size and at the registry's small size,
-                masked and gather, in chunks of K = 1, 4 and unbounded;
+                masked and gather, in chunks of K = 1, 4 and unbounded,
+                then its cooperative grid, the cost of one grid barrier
+                (an empty cooperative kernel of 2000 barriers), and each
+                full-size masked chunk and fib's gather chunk timed beside
+                its bytes bound, its barrier floor (the barriers it
+                crossed x that cost) and its narrow and wide epochs;
                 flash_attention against mha_ref at the prefill shape
                 (16 x 32 q heads x 1024, 8 kv heads, D = 128, bf16, causal)
                 at ragged shapes (q_offset, window, group 1, 4 and yi-34b's
@@ -60,8 +66,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 that epoch_chunk was launched during the phase, and (after
                 it) that RunStats equal a plain resident run on CUDA and
                 one on the CPU field for field;
-  6. profile  — one fib(28) DeviceEngine(megakernel=True) run under
-                torch.profiler;
+  6. profile  — one DeviceEngine(megakernel=True) masked run of each of
+                the three cases under torch.profiler, walls and busy shares
+                beside the one-CTA kernel's (phase 5's walls too);
   7. service  — drive JobService(engine="host") on CUDA on the full-size
                 mixed4 wave (phase 3's fib, bfs and mergesort cases plus
                 treewalk post-order on random_tree(2^16, seed=11)) under
@@ -124,9 +131,11 @@ LENGTHS = (1, 1000, 1024, 1025, 2**16 + 3, 2**21)
 # fork_scan's tiles are 4096 lanes: either side of one and two boundaries,
 # and the widest main-path shape with a ragged tail
 SCAN_LENGTHS = (4095, 4096, 4097, 8191, 8193, 2**21 + 5)
+# segmented_fork_scan's are 2048 lanes
+SEG_LENGTHS = (2047, 2048, 2049, 4095, 4096, 4097)
 WIDE = 2**21  # the main path's widest fork_scan / type_rank shape
 FLEET_WIDE = 2**23  # the full-size mixed4 wave's epoch bucket
-N_SEGS = (1, 3, 4, 8, 33)
+N_SEGS = (1, 3, 4, 8, 32, 33)  # 32: one group of the single pass; 33: two
 N_TYPES = (1, 2, 4, 8, 9, 24)
 # phase 7: the treewalk tenant's tree, and the medium streaming and
 # preemption runs (fib sizes and their region quota, bfs vertices)
@@ -134,6 +143,15 @@ SERVICE_TREE = 2**16
 MEDIUM_QUOTA = 2**18
 MEDIUM_FIBS = (24, 20, 21, 24, 24, 23)
 MEDIUM_BFS = 2**15
+# phases 5-6 with the one-CTA epoch_chunk that preceded the cooperative
+# grid (this script on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's
+ONE_CTA_RESIDENT_WALL_MS = {
+    ("fib", "masked"): 8.8, ("fib", "gather"): 7.9,
+    ("bfs", "masked"): 22.5, ("bfs", "gather"): 21.1,
+    ("mergesort", "masked"): 28.0, ("mergesort", "gather"): 27.7,
+}
+ONE_CTA_RESIDENT_BUSY = {"fib": "54.6% of 11069 us"}
 
 
 def fail(msg: str) -> None:
@@ -293,7 +311,7 @@ def phase_kernels(dev):
         r_perm, r_n = ref.lane_pack_ref(active)
         check_equal("type_rank", perm, r_perm, f"P={P} lane_pack perm")
         check_equal("type_rank", n, r_n, f"P={P} lane_pack count")
-    for P in LENGTHS + (FLEET_WIDE,):
+    for P in LENGTHS + SEG_LENGTHS + (FLEET_WIDE,):
         counts = rng.randint(0, 4, P).astype(np.int32)
         counts[rng.rand(P) < 0.3] = 0
         counts = torch.as_tensor(counts, device=dev)
@@ -323,9 +341,9 @@ def phase_kernels(dev):
           "and 4 bytes off")
     print(f"[kernels] exact at P in {list(LENGTHS)}: fork_scan, "
           f"type_rank (n_types {'/'.join(map(str, N_TYPES))}; "
-          f"random/none/all masks), lane_pack; segmented_fork_scan also at "
-          f"P=2^23 (J {'/'.join(map(str, N_SEGS))}; shuffled and "
-          f"out-of-range ids)")
+          f"random/none/all masks), lane_pack; segmented_fork_scan also "
+          f"either side of its 2048-lane tiles and at P=2^23 (J "
+          f"{'/'.join(map(str, N_SEGS))}; shuffled and out-of-range ids)")
 
     # timing at the main path's widest shape
     counts = torch.as_tensor(rng.randint(0, 3, WIDE).astype(np.int32),
@@ -389,17 +407,31 @@ def phase_kernels(dev):
                              device=dev)
     seg = torch.as_tensor(rng.randint(0, 4, FLEET_WIDE).astype(np.int32),
                           device=dev)
+    r_seg = ref.segmented_fork_scan_ref(counts, seg, 4)
+
+    def seg_replayed(outs):
+        for i, (offs, totals) in enumerate(outs):
+            check_equal("segmented_fork_scan", offs, r_seg[0],
+                        f"graph call {i} offsets")
+            check_equal("segmented_fork_scan", totals, r_seg[1],
+                        f"graph call {i} totals")
+
     b, by = bound_ms(12 * FLEET_WIDE + 4 * 4, FLEET_WIDE)
     rows.append(dict(
         name="segmented_fork_scan", route="cuda",
-        design="reduce-then-scan: three launches, 1024-lane tiles, groups "
-               "of 32 segments",
+        design="single pass, decoupled look-back: a memset of the status "
+               "words and one launch, 2048-lane tiles from an atomic "
+               "counter, one status word per (tile, segment), groups of 32 "
+               "segments",
         source="src/repro_torch/kernels/csrc/fork_compact.cu",
         replaces="src/repro/kernels/fork_compact.py:114",
         max_abs_err=err["segmented_fork_scan"], bound_ms=b, bound_by=by,
         **timed(lambda: fork_compact.segmented_fork_scan(counts, seg, 4),
-                lambda: ref.segmented_fork_scan_ref(counts, seg, 4), None),
+                lambda: ref.segmented_fork_scan_ref(counts, seg, 4), None,
+                check=seg_replayed),
     ))
+    print("[kernels] segmented_fork_scan exact in all 20 calls of its "
+          "timing graph after 5 replays")
     for r in rows:
         wide = "2^23, J=4" if r["name"] == "segmented_fork_scan" else "2^21"
         print(f"[kernels] {r['name']} P={wide}: device {r['ms']:.5f} ms "
@@ -476,9 +508,10 @@ def phase_chunks(dev):
     tensor, at full size and the registry's size, K in {1, 4, inf}."""
     from repro_torch.apps import get_case
     from repro_torch.core import DeviceEngine
+    from repro_torch.kernels import epoch_megakernel
 
     err = 0.0
-    timing = None
+    timing = {}
     sizes = [(c, "full") for c, _ in path_cases()]
     sizes += [(get_case(c.name), "small") for c, _ in path_cases()]
     for case, size in sizes:
@@ -505,8 +538,8 @@ def phase_chunks(dev):
             print(f"[kernels] epoch_chunk {case.name:9s} {size:5s} {d:6s} "
                   f"capacity={case.capacity} epochs={s_got.n_epochs}: "
                   f"exact at K=1, 4, inf (readbacks = ceil(epochs / K))")
-            if case.name == "fib" and size == "full" and d == "masked":
-                timing = (case, kern, plain, fresh)
+            if size == "full" and (d == "masked" or case.name == "fib"):
+                timing[case.name, d] = (case, kern, plain, fresh)
     # the failure paths: forks past the TV, a push onto a full stack
     case = get_case("fib")
     for limits in ({"capacity": 64}, {"stack_depth": 2}):
@@ -528,17 +561,38 @@ def phase_chunks(dev):
         print(f"[kernels] epoch_chunk fib small {limits}: the region fails "
               "as in the plain loop, exact at K=1, 4, inf, masked/gather")
 
-    # time the fib(28) masked chunk (the whole run in one chunk): fresh
-    # clones, CUDA events around the chunk alone
-    case, kern, plain, fresh = timing
+    # the grid, and the barrier's own cost: an empty cooperative kernel of
+    # N grid barriers against one of none
+    G = epoch_megakernel.grid(0, dev)
+    print(f"[kernels] epoch_chunk grid: {G} CTAs x 1024 threads "
+          f"({torch.cuda.get_device_properties(dev).multi_processor_count} "
+          f"SMs; cooperative launch)")
+    def bench_ms(n, iters=5):
+        epoch_megakernel.grid_sync_bench(n, G, dev)
+        torch.cuda.synchronize()
+        return _events_ms(lambda: [epoch_megakernel.grid_sync_bench(n, G, dev)
+                                   for _ in range(iters)], iters)
 
-    def chunk_ms(eng, reps=3):
+    n_bar = 2000
+    t_n, t_0 = bench_ms(n_bar), bench_ms(0)
+    barrier_us = (t_n - t_0) / n_bar * 1e3
+    print(f"[kernels] grid barrier of {G} CTAs: {barrier_us:.3f} us "
+          f"({n_bar} barriers {t_n:.4f} ms, none {t_0:.4f} ms)")
+
+    # time each full-size chunk (the whole run in one chunk): fresh clones,
+    # CUDA events around the chunk alone, median of 3.  With `device`, the
+    # card first sleeps while the host enqueues the chunk (the wrapper's
+    # checks and scratch), so the events hold the device's time alone;
+    # without, they hold the whole call, the host's part included.
+    def chunk_ms(eng, fresh, reps=3, device=True):
         ts = []
         for _ in range(reps):
             c = fresh.clone()
             torch.cuda.synchronize()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if device:
+                torch.cuda._sleep(5_000_000)
             a.record()
             out = eng.loop.run_chunk(c, 1 << 16, 1)
             b.record()
@@ -546,21 +600,51 @@ def phase_chunks(dev):
             ts.append(a.elapsed_time(b))
         return sorted(ts)[len(ts) // 2], out
 
-    ms, out = chunk_ms(kern)
-    plain_ms, _ = chunk_ms(plain)
-    stats = kern.stats(kern.loop.chunk_summary(out))
-    b, by = _chunk_bound(case.program, stats)
-    print(f"[kernels] epoch_chunk fib(28) masked, one chunk: device "
-          f"{ms:.3f} ms, bound {b:.5f} ms ({by}), plain {plain_ms:.3f} ms "
-          f"({stats.epochs} epochs, {stats.tasks_executed} tasks)")
-    return dict(
+    row = dict(
         name="epoch_chunk", route="cuda",
-        design="one CTA of 1024 threads runs the whole chunk of epochs",
+        design=f"cooperative grid of {G} CTAs x 1024 threads: each epoch "
+               "starts at a grid barrier; a range wider than one CTA splits "
+               "into contiguous blocks over the first CTAs (about four group "
+               "barriers an epoch), a narrower one runs on CTA 0",
         source="src/repro_torch/kernels/csrc/epoch_megakernel.cu",
         replaces="src/repro/kernels/epoch_megakernel.py:50",
-        max_abs_err=err, bound_ms=b, bound_by=by, ms=ms,
-        plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, library_ms=None, grid_ctas=G,
+        barrier_us=barrier_us,
     )
+    for (name, d), (case, kern, plain, fresh) in timing.items():
+        ms, out = chunk_ms(kern, fresh)
+        call_ms, _ = chunk_ms(kern, fresh, device=False)
+        plain_ms, _ = chunk_ms(plain, fresh)
+        stats = kern.stats(kern.loop.chunk_summary(out))
+        b, by = _chunk_bound(case.program, stats)
+        st = torch.zeros(len(epoch_megakernel.STATS), dtype=torch.int64,
+                         device=dev)
+        again = fresh.clone()
+        epoch_megakernel.launch(case.program, again, 1 << 16,
+                                gather=d == "gather", stats=st)
+        if carry_err(again, out, f"epoch_chunk {name} {d} stats run") != 0:
+            fail(f"epoch_chunk {name} {d}: the counted run differs")
+        st = dict(zip(epoch_megakernel.STATS, st.tolist()))
+        n_barriers = st["grid_barriers"] + st["group_barriers"]
+        floor = n_barriers * barrier_us * 1e-3
+        print(f"[kernels] epoch_chunk {name}({case.capacity}) {d}, one "
+              f"chunk: device {ms:.3f} ms (with the host's enqueue "
+              f"{call_ms:.3f} ms), bound {b:.5f} ms ({by}), barrier floor "
+              f"{floor:.3f} ms, plain {plain_ms:.3f} ms ({stats.epochs} "
+              f"epochs, {stats.tasks_executed} tasks)")
+        print(f"[kernels]   {st['narrow_epochs']} narrow epochs (one CTA), "
+              f"{st['wide_epochs']} wide; {st['grid_barriers']} grid "
+              f"barriers ({st['search_barriers']} of a deep reclamation "
+              f"search) + {st['group_barriers']} group barriers = "
+              f"{n_barriers} x {barrier_us:.3f} us")
+        if (name, d) == ("fib", "masked"):
+            row.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       bound_ms=b, bound_by=by, floor_ms=floor)
+        else:
+            row[f"{name}_{d}_ms"] = ms
+            row[f"{name}_{d}_call_ms"] = call_ms
+            row[f"{name}_{d}_bound_ms"] = b
+    return row
 
 
 # ---------------------------------------------------------------- phase 3
@@ -569,7 +653,7 @@ INVARIANT = ("epochs", "tasks_executed", "total_forks", "peak_tv_slots",
              "ranges_coalesced")
 
 
-def _run(case, dispatch, device, tag="path", **kw):
+def _run(case, dispatch, device, tag="path", walls=None, **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -577,6 +661,8 @@ def _run(case, dispatch, device, tag="path", **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if walls is not None:
+        walls[case.name, dispatch] = wall * 1e3
     heap = {k: v.cpu().numpy() for k, v in heap.items()}
     value = value.cpu().numpy()
     print(f"[{tag}] {case.name:9s} {dispatch:9s} {device:4s} "
@@ -704,12 +790,12 @@ def phase_resident(cases, host_runs):
 
     torch.cuda.synchronize()
     epoch_megakernel.reset_launches()
-    runs = {}
+    runs, walls = {}, {}
     for case, correct in cases:
         for d in ("masked", "gather"):
             runs[case.name, d] = r = _run(
-                case, d, "cuda", tag="resident", engine_cls=DeviceEngine,
-                megakernel=True)
+                case, d, "cuda", tag="resident", walls=walls,
+                engine_cls=DeviceEngine, megakernel=True)
             if not correct(r[0], r[1]):
                 fail(f"resident {case.name} {d}: result differs from the "
                      "reference")
@@ -724,6 +810,9 @@ def phase_resident(cases, host_runs):
           f"{launches}")
     if launches["epoch_chunk"] <= 0:
         fail("kernel epoch_chunk was not launched on the resident path")
+    for (name, d), ms in walls.items():
+        print(f"[resident] {name:9s} {d:6s} wall {ms:.1f} ms (one-CTA "
+              f"kernel: {ONE_CTA_RESIDENT_WALL_MS[name, d]} ms)")
     # the plain resident loop on the card and on the CPU, for comparison
     for case, _ in cases:
         for d in ("masked", "gather"):
@@ -1572,10 +1661,14 @@ def main() -> int:
     phase_profile("fib HostEngine masked",
                   lambda: fib_case.run(dispatch="masked", device="cuda"))
     launches.update(phase_resident(cases, host_runs))
-    phase_profile("fib DeviceEngine(megakernel=True) masked",
-                  lambda: fib_case.run(engine_cls=DeviceEngine,
-                                       dispatch="masked", device="cuda",
-                                       megakernel=True))
+    for case, _ in cases:
+        busy, wall, _ = phase_profile(
+            f"{case.name} DeviceEngine(megakernel=True) masked",
+            lambda: case.run(engine_cls=DeviceEngine, dispatch="masked",
+                             device="cuda", megakernel=True))
+        print(f"[profile] {case.name} resident busy share "
+              f"{100 * busy / wall:.1f}% (one-CTA kernel: "
+              f"{ONE_CTA_RESIDENT_BUSY.get(case.name, 'not measured')})")
     svc_launches, wave = phase_service(cases, host_runs)
     launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
 
@@ -1604,10 +1697,9 @@ def main() -> int:
     keys = ("name", "route", "design", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("copy_ms", "clear_ms", "cuda_core_ms", "hymba_ms", "hymba_cuda_core_ms",
-             "hymba_bound_ms")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
+        {**{k: r[k] for k in keys}, **{k: v for k, v in r.items()
+                                       if k not in keys}} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

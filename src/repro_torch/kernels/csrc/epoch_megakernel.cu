@@ -21,11 +21,44 @@
 // effects.  A task body runs against a "sink": CountSink counts its forks,
 // ApplySink commits its effects, StageSink records a map element's writes.
 //
-// Grid: one CTA of 1024 threads, looping over lanes in strides — the
-// Pallas kernel's single program instance (DESIGN.md §12).  Lanes
-// interact every epoch through the fork scan and the push, and one block
-// makes every phase boundary a __syncthreads().  A cooperative multi-CTA
-// grid is later work.
+// Grid: one persistent cooperative grid (cudaLaunchCooperativeKernel, so
+// every CTA is resident) of G CTAs of 1024 threads, G = SMs x the CTAs an
+// SM holds (the occupancy API; computed once per device), where the Pallas
+// kernel had one program instance because TPU grid steps run in order
+// (DESIGN.md §12).  Each epoch begins at a barrier of the whole grid after
+// CTA 0's thread 0 has popped the next range; every CTA then reads the
+// popped count and takes the same route.  A range of n lanes runs on the
+// first ge = min(G, ceil(n / 1024)) CTAs, each owning a contiguous block of
+// it, and the others wait at the next epoch's barrier: a narrow epoch (n <=
+// 1024; fib has many) runs on CTA 0 alone with __syncthreads, at the cost
+// of one grid barrier.  A wide
+// epoch crosses the group's barriers:
+//   A: pass A writes per-lane counts, scanned within the CTA, and one
+//      total per CTA -> barrier -> each CTA scans the ge CTA totals in one
+//      warp for its base, so the lane-order fork scan needs no pass of its
+//      own;
+//   B: pass B writes the TV and each CTA scans its lanes' map domains ->
+//      barrier;
+//   C: pass C applies the staged emits and heap writes while reclamation
+//      (which reads only `epoch`) searches down for the last valid slot in
+//      windows of 1024 slots, one per CTA, with a grid-wide atomicMax ->
+//      barrier (one more per further round; one round is enough for a
+//      forking epoch, whose last child is the last valid slot, and a
+//      forkless one whose window misses, as bfs's last epoch of a few
+//      lanes does above the emptied TV, hands the rest of the search to
+//      the whole grid at the next epoch's start);
+//   then CTA 0 pushes and counts, and sums the CTAs' map elements.
+// Map payloads (mergesort) run at the next epoch's start, after its grid
+// barrier, so that every CTA takes part whatever the lanes of the epoch
+// that scheduled them (the last merges are one lane and 2^18 elements):
+// each CTA finds its elements' lanes by the same CTA-total scheme, stage
+// -> grid barrier -> apply -> grid barrier.  So a wide epoch crosses four
+// barriers (one the grid's), and a map launch that fires two more.
+// The barriers count up on words of a caller scratch that the launch
+// clears with cudaMemsetAsync on the stream (so K-chunk re-entry and a
+// captured graph start clean); the per-epoch control words and the
+// reclamation words are kept by epoch parity, so CTA 0 never overwrites
+// one that a slower CTA has still to read.
 //
 // Bits.  The kernel must produce the bits of the plain loop
 // (kernels/ref.py::epoch_chunk_ref over the torch resident body):
@@ -39,6 +72,12 @@
 //     applied in pass C, after a barrier, so that a join lane reading its
 //     children's values, or bfs reading the `dist` it min-writes, sees the
 //     snapshot.
+//   * Across CTAs: each CTA owns a contiguous block of the range, so its
+//     base (the forks of the CTAs before it) plus its own scan is the
+//     lane-order scan.  Passes A and B of every CTA end before any pass C
+//     begins (a barrier), and pass A before any pass B: the TV rows pass B
+//     writes are each lane's own and fresh slots, which no lane reads in
+//     the epoch, and values and heap change only in pass C.
 //   * Forks past the capacity are dropped (the plain loop's sink row);
 //     the overflow fails the region and zeroes its stack pointer.  A push
 //     onto a full stack clips to the top row and flags failed_stack.
@@ -46,7 +85,8 @@
 //     valid slot lies at or above next_free + forks (the allocator hands
 //     out slots above every valid one; the CPU tests assert it after every
 //     epoch), so the search for last_valid starts there and walks down.
-//   * Map payloads run after the push and see the heap after the commit.
+//   * Map payloads run after the push (at the next epoch's start, before
+//     its pass A) and see the heap after the commit.
 //     A launch whose scheduled lanes all have empty domains runs and counts
 //     nothing; otherwise its live elements (lane, element < domain) are
 //     laid out by an in-order prefix over the lanes' domains, each element
@@ -58,15 +98,25 @@
 // What bounds it on this card: latency, not bytes or operations.  The
 // bytes a chunk must move are about 24-48 bytes per task and per fork
 // (RunStats-derived bound in PERF.md: tens of microseconds for the
-// full-size runs), but one SM walks every lane of every epoch with a few
-// block barriers per 1024 lanes, and each epoch's phases are serial.  The
-// design buys one launch per chunk (no host in the loop) at that price.
+// full-size runs).  A wide epoch's lanes spread over every SM, so what
+// bounds a chunk is serial: the grid barriers (one an epoch, about four
+// more a wide one, each a round trip of every CTA to one L2 word), CTA 0's
+// one-thread pop and push, and the narrow epochs on one CTA.
+// chip_smoke.py times an empty cooperative kernel of N barriers
+// (trees_grid_sync_bench) to price that floor.
+//
+// Atomics: heap add/min/max keep their atomics (heap_apply) across CTAs as
+// they did across threads: int add/min/max and float min/max are
+// order-independent; float add is not, and no app with a device table
+// uses it.
 //
 // C interface (bound with ctypes): trees_epoch_chunk launches on the given
 // stream, allocates nothing (the caller passes the carry, the scratch and
 // the chunk bound as device pointers), does not synchronise, and returns
-// cudaGetLastError().  A fault found on the device (a map stage too small)
-// is written to the carry's `fault` word and ends the chunk.
+// the cooperative launch's error or cudaGetLastError(): a refused launch
+// is an error, with no single-CTA fallback.  A fault found on the device
+// (a map stage too small) is written to the carry's `fault` word and ends
+// the chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,7 +151,7 @@ enum Ptr {
   P_MAP_LAUNCHES, P_MAP_ELEMENTS, P_MAP_LANES, P_HOLE_LANES, P_FAULT,
   P_LIMIT, P_LANE_CNT, P_LANE_EXCL, P_LANE_FLAGS, P_EMIT_STAGE, P_WR_IDX,
   P_WR_VAL, P_WR_META, P_MAP_ARGI, P_MAP_ARGF, P_MAP_PRE, P_ST_IDX,
-  P_ST_VAL, P_ST_META, P_HEAP0, P_COUNT = P_HEAP0 + kMaxHeap
+  P_ST_VAL, P_ST_META, P_COOP, P_STATS, P_HEAP0, P_COUNT = P_HEAP0 + kMaxHeap
 };
 enum Int {
   I_CAPACITY, I_DEPTH, I_GATHER, I_N_SPAN, I_SPAN0,
@@ -109,7 +159,7 @@ enum Int {
   I_HEAP_DTYPE0 = I_HEAP_LEN0 + kMaxHeap, I_N_MAPS = I_HEAP_DTYPE0 + kMaxHeap,
   I_MAP0,  // per map: max_domain, n_widths, widths[kMaxMapW]
   I_N_ARG_I = I_MAP0 + kMaxMaps * (2 + kMaxMapW), I_N_ARG_F, I_VALUE_WIDTH,
-  I_COUNT
+  I_GRID, I_COOP_WORDS, I_COUNT
 };
 
 struct Params {
@@ -127,7 +177,10 @@ struct Params {
   int* wr_idx; uint32_t* wr_val; int* wr_meta;
   int* map_argi; float* map_argf; long long* map_pre;
   int* st_idx; uint32_t* st_val; int* st_meta;
+  unsigned long long* coop;  // the grid's barriers and totals
+  long long* stats;          // optional: epochs and barriers, or null
   uint32_t* heap[kMaxHeap];
+  int grid;                  // CTAs of the cooperative launch
   int capacity, depth, gather, n_span;
   int span_w[kMaxSpan];
   long long stage_cap;
@@ -506,19 +559,171 @@ struct MsortApp {
   }
 };
 
+// ---- the grid and its barriers ---------------------------------------------
+// The cooperative scratch (caller memory, cleared on the stream before each
+// launch), in uint64 words:
+//   [0]                 two uint32 barrier counters: the grid's, the group's
+//   [1, 21)             Ctl ctl[2]: the popped range and the pending map
+//                       launches, by epoch parity
+//   [21, 23)            int last[2][2]: reclamation's last valid slot, by
+//                       epoch parity and round parity
+//   [23, 23 + 10 G)     CtaRec cta[G]: each CTA's totals of one epoch
+struct Ctl {
+  int go, live, cen, start, count, nf;
+  unsigned gen1;  // the group counter's value when the epoch starts
+  // the previous epoch's map launches, run at this epoch's start: a bit
+  // per launch that fired, that epoch's lanes and group, the elements
+  int fired, map_nl, map_ge;
+  // 1 + the slot where the previous epoch's reclamation search goes on
+  // over the whole grid (0: it ended)
+  int search;
+  int pad;
+  unsigned long long map_el[kMaxMaps];
+};
+struct CtaRec {
+  unsigned tot;  // fork count of the CTA's lanes
+  int act;       // active lanes
+  int join;      // some lane joined
+  int pad;
+  unsigned long long el[kMaxMaps];  // live map elements, per map launch
+  int rows[kMaxMaps];               // lanes that scheduled the launch
+  int dmax[kMaxMaps];               // their largest domain
+};
+static_assert(sizeof(Ctl) == 80 && sizeof(CtaRec) == 80, "scratch layout");
+constexpr int kCoopHeader = 1 + 2 * (int)sizeof(Ctl) / 8 + 2;
+constexpr int kCtaWords = (int)sizeof(CtaRec) / 8;
+constexpr int kMaxGrid = 1024;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* a) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(a)
+               : "memory");
+  return v;
+}
+
+// Barrier over `n` co-resident CTAs on the counter *bar, which only grows:
+// `target` (thread 0's copy) is the count at which all n have arrived.
+// Release before the arrival, acquire after the wait, as
+// cooperative_groups' grid sync does, so every write made before the
+// barrier by any of the n CTAs is seen after it.  The comparison is
+// wrap-safe: the counter never runs more than n ahead of a waiter.  A wait
+// of about 2^35 cycles (seconds) means a CTA will never arrive: the kernel
+// traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void bar_sync(unsigned* bar, unsigned& target,
+                                         unsigned n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    target += n;
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    while ((int)(ld_acquire(bar) - target) < 0) {
+      if (clock64() - t0 > (1ll << 35)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The largest v of the block, to every thread.  Every thread must call it.
+__device__ __forceinline__ int block_max(int v, int* s_warp) {
+  v = __reduce_max_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = __reduce_max_sync(kFull, s_warp[threadIdx.x & 31]);  // kWarps == 32
+  __syncthreads();  // s_warp is reused by the next call
+  return v;
+}
+
+// The carry's scalars, held by CTA 0 in shared memory for the whole chunk
+// (only its thread 0 pops, pushes and counts) and written back at the end:
+// a read-modify-write of each in device memory, every epoch, would put a
+// dozen dependent round trips to L2 on the chunk's serial path.
+struct Scalars {
+  long long job_tasks, job_forks, map_elements, map_lanes, hole_lanes;
+  int sp, next_free, n_epochs, job_epochs, job_peak, map_launches, fault;
+  int limit;
+  bool failed, failed_stack;
+
+  __device__ void load(const Params& p) {
+    job_tasks = p.job_tasks[0]; job_forks = p.job_forks[0];
+    map_elements = p.map_elements[0]; map_lanes = p.map_lanes[0];
+    hole_lanes = p.hole_lanes[0];
+    sp = p.sp[0]; next_free = p.next_free[0]; n_epochs = p.n_epochs[0];
+    job_epochs = p.job_epochs[0]; job_peak = p.job_peak[0];
+    map_launches = p.map_launches[0]; fault = p.fault[0];
+    limit = p.limit[0];
+    failed = p.failed[0]; failed_stack = p.failed_stack[0];
+  }
+  __device__ void store(const Params& p) const {
+    p.job_tasks[0] = job_tasks; p.job_forks[0] = job_forks;
+    p.map_elements[0] = map_elements; p.map_lanes[0] = map_lanes;
+    p.hole_lanes[0] = hole_lanes;
+    p.sp[0] = sp; p.next_free[0] = next_free; p.n_epochs[0] = n_epochs;
+    p.job_epochs[0] = job_epochs; p.job_peak[0] = job_peak;
+    p.map_launches[0] = map_launches; p.fault[0] = fault;
+    p.failed[0] = failed; p.failed_stack[0] = failed_stack;
+  }
+};
+
+// Pop the next epoch's range (solo: one region) into ctl[e & 1] and reset
+// its reclamation words.  One thread (CTA 0's thread 0).
+__device__ __forceinline__ void pop(const Params& p, const Scalars& car,
+                                    Ctl* ctl, int* last, int e,
+                                    unsigned gen1) {
+  Ctl& c = ctl[e & 1];
+  const int sp = car.sp;
+  const bool live = sp > 0;
+  const int top = clampi(sp - 1, 0, p.depth - 1);
+  c.go = live && (car.n_epochs < car.limit);
+  c.live = live;
+  c.cen = live ? p.jstack[top] : 0;
+  c.start = live ? p.rstack[2 * top] : 0;
+  c.count = live ? p.rstack[2 * top + 1] : 0;
+  c.nf = car.next_free;
+  c.gen1 = gen1;
+  last[2 * (e & 1)] = -1;
+  last[2 * (e & 1) + 1] = -1;
+}
+
 // ---- the chunk ---------------------------------------------------------------
+// Every CTA runs the epoch loop; CTA 0's thread 0 pops and pushes.  Each
+// epoch starts at a barrier of the whole grid, after which every CTA reads
+// the popped range and computes the same group: the first ge = min(G,
+// ceil(lanes / kThreads)) CTAs, each owning a contiguous block of the
+// range's lanes.  The others go straight to the next epoch's barrier.  The
+// group's phase boundaries are barriers of the group (a __syncthreads when
+// ge == 1: a narrow epoch runs on CTA 0 alone, as one CTA ran every epoch
+// before).
 template <class App>
 __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p) {
   __shared__ unsigned s_warp32[kWarps];
   __shared__ unsigned long long s_warp64[kWarps];
-  __shared__ int s_go, s_live, s_cen, s_start, s_count, s_nf, s_last;
-  __shared__ int s_dmax, s_fault;
+  __shared__ int s_wmax[kWarps];
+  __shared__ unsigned long long s_elbase[kMaxGrid];  // each CTA's first element
+  __shared__ unsigned s_base, s_total;
+  __shared__ int s_nact, s_join, s_last[2];  // s_last: by round parity
+  __shared__ unsigned long long s_mel[kMaxMaps];  // CTA 0: map launch totals
+  __shared__ int s_mrows[kMaxMaps], s_mdmax[kMaxMaps];
+  __shared__ Scalars car;  // CTA 0's
 
   const int C = p.capacity;
   const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const unsigned G = gridDim.x;
+  unsigned* const bar = reinterpret_cast<unsigned*>(p.coop);
+  Ctl* const ctl = reinterpret_cast<Ctl*>(p.coop + 1);
+  int* const last = reinterpret_cast<int*>(p.coop + 1 + 2 * sizeof(Ctl) / 8);
+  CtaRec* const cta = reinterpret_cast<CtaRec*>(p.coop + kCoopHeader);
+  unsigned gen0 = 0, gen1 = 0;  // barrier targets (thread 0's are used)
+  long long n_narrow = 0, n_wide = 0, n_grid = 0, n_group = 0, n_search = 0;
 
-  // the sink rows stay zero (the plain loop zeroes them after each epoch)
-  if (tid == 0) {
+  if (b == 0 && tid == 0) {
+    // the sink rows stay zero (the plain loop zeroes them after each
+    // epoch); written once, before the first barrier
     p.task[C] = 0;
     p.epoch[C] = 0;
     p.child_base[C] = 0;
@@ -527,37 +732,146 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
     for (int k = 0; k < App::kArgF; ++k) p.argf[C * App::kArgF + k] = 0.f;
     for (int w = 0; w < App::kValW; ++w) p.value[C * App::kValW + w] = 0u;
     for (int v = 0; v < p.n_heap; ++v) p.heap[v][p.heap_len[v]] = 0u;
+    car.load(p);
+    pop(p, car, ctl, last, 0, 0u);
   }
 
-  for (;;) {
-    if (tid == 0) {
-      s_go = (p.sp[0] > 0) && (p.n_epochs[0] < p.limit[0]);
-      // pop (solo: one region)
-      const int sp = p.sp[0];
-      const bool live = sp > 0;
-      const int top = clampi(sp - 1, 0, p.depth - 1);
-      s_live = live;
-      s_cen = live ? p.jstack[top] : 0;
-      s_start = live ? p.rstack[2 * top] : 0;
-      s_count = live ? p.rstack[2 * top + 1] : 0;
-      s_nf = p.next_free[0];
-      s_last = -1;
-      s_fault = 0;
-    }
-    __syncthreads();
-    if (!s_go) break;
-    const int cen = s_cen, start = s_start, nf = s_nf;
-    // lanes of the popped range (the step's window never exceeds the TV)
-    const int nl = clampi(s_count, 0, C);
+  for (int e = 0;; ++e) {
+    bar_sync(bar, gen0, G);  // ctl[e & 1] is written
+    ++n_grid;
+    const Ctl* const cc = ctl + (e & 1);
 
-    // ---- pass A: frontier, fork counts, their exclusive scan in lane order
-    unsigned total = 0;
-    int n_active = 0;
-    for (int b0 = 0; b0 < nl; b0 += kThreads) {
+    // ---- the previous epoch's reclamation search, where its first window
+    // found no valid slot and it forked nothing: the rest of the TV below,
+    // over the whole grid, then next_free (the ranges' pass B needs it)
+    int nf_cap = 0x7fffffff;
+    const int search = __ldcg(&cc->search);
+    if (search > 0) {
+      const long long top = search - 1;
+      int* const words = last + 2 * ((e - 1) & 1);
+      int lv;
+      for (int q = 0;; ++q) {
+        int* const word = words + ((q + 1) & 1);  // round 0 used words[0]
+        const long long s = top - ((long long)q * G + b) * kThreads - tid;
+        const bool valid = s >= 0 && p.epoch[s] > 0;
+        const int m = __reduce_max_sync(kFull, valid ? (int)s : -1);
+        if ((tid & 31) == 0 && m >= 0) atomicMax(word, m);
+        bar_sync(bar, gen0, G);
+        ++n_grid;
+        ++n_search;
+        lv = __ldcg(word);
+        if (lv >= 0 || top - (long long)(q + 1) * G * kThreads < 0) break;
+      }
+      nf_cap = lv + 1;
+      if (b == 0 && tid == 0) {
+        car.next_free = min(car.next_free, nf_cap);
+        car.job_peak = max(car.job_peak, car.next_free);
+      }
+    }
+
+    // ---- the previous epoch's map payloads (after its commit and push),
+    // one launch per (type, site), their elements spread over the grid
+    // whatever that epoch's lanes: stage every element against the
+    // pre-payload heap -> grid barrier -> apply -> grid barrier
+    const int fired = App::kMapLaunches > 0 ? __ldcg(&cc->fired) : 0;
+    if (fired) {
+      const int mnl = __ldcg(&cc->map_nl), mge = __ldcg(&cc->map_ge);
+      const int mper = (mnl + mge - 1) / mge;
+      for (int g = 0; g < App::kMapLaunches; ++g) {
+        if (!(fired & (1 << g))) continue;
+        const int mid = App::map_id(g);
+        const unsigned long long el = __ldcg(&cc->map_el[g]);
+        const int gm = (int)min((unsigned long long)G,
+                                (el + kThreads - 1) / kThreads);
+        const long long stride = (long long)gm * kThreads;
+        if (b < gm) {
+          if (tid < 32) {  // the first element of each CTA's lanes
+            unsigned long long run = 0;
+            for (int q0 = 0; q0 < mge; q0 += 32) {
+              const int q = q0 + tid;
+              const unsigned long long x =
+                  q < mge ? __ldcg(&cta[q].el[g]) : 0ull;
+              unsigned long long incl = x;
+#pragma unroll
+              for (int d = 1; d < 32; d <<= 1) {
+                const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+                if (tid >= d) incl += y;
+              }
+              if (q < mge) s_elbase[q] = run + incl - x;
+              run += __shfl_sync(kFull, incl, 31);
+            }
+          }
+          __syncthreads();
+          // element f: the CTA whose elements hold it, then that CTA's
+          // last lane with map_pre <= f
+          const long long* pre = p.map_pre + (long long)g * C;
+          for (long long f = (long long)b * kThreads + tid;
+               f < (long long)el; f += stride) {
+            int c0 = 0, c1 = mge - 1;
+            while (c0 < c1) {
+              const int m = (c0 + c1 + 1) >> 1;
+              if (s_elbase[m] <= (unsigned long long)f) c0 = m; else c1 = m - 1;
+            }
+            const long long fl = f - (long long)s_elbase[c0];
+            int a = min(mnl, c0 * mper), z = min(mnl, a + mper) - 1;
+            while (a < z) {
+              const int m = (a + z + 1) >> 1;
+              if (pre[m] <= fl) a = m; else z = m - 1;
+            }
+            const long long row = (long long)g * C + a;
+            StageSink<App> ss{p, f};
+            App::map_payload(
+                mid, p.map_argi + row * App::kArgI,
+                p.map_argf + row * (App::kArgF > 0 ? App::kArgF : 1),
+                (int)(fl - pre[a]), p, ss);
+          }
+        }
+        bar_sync(bar, gen0, G);  // every element is staged
+        ++n_grid;
+        if (b < gm) {
+          for (long long f = (long long)b * kThreads + tid;
+               f < (long long)el; f += stride) {
+            for (int k = 0; k < App::kMapWrites; ++k) {
+              const long long at = (long long)k * p.stage_cap + f;
+              const int meta = p.st_meta[at];
+              if (meta >= 0) heap_apply(p, meta, p.st_idx[at], p.st_val[at]);
+            }
+          }
+        }
+        bar_sync(bar, gen0, G);  // the heap is written
+        ++n_grid;
+      }
+    }
+    if (!__ldcg(&cc->go)) break;
+    const int live = __ldcg(&cc->live), cen = __ldcg(&cc->cen);
+    const int start = __ldcg(&cc->start), count = __ldcg(&cc->count);
+    const int nf = min(__ldcg(&cc->nf), nf_cap);
+    // lanes of the popped range (the step's window never exceeds the TV)
+    const int nl = clampi(count, 0, C);
+    const int ge = (int)min((unsigned)max(1, (nl + kThreads - 1) / kThreads), G);
+    if (b >= ge) continue;
+    gen1 = __ldcg(&cc->gen1);
+    auto group_sync = [&]() {
+      if (ge == 1) {
+        __syncthreads();
+      } else {
+        bar_sync(bar + 1, gen1, (unsigned)ge);
+        ++n_group;
+      }
+    };
+    if (ge == 1) ++n_narrow; else ++n_wide;
+    const int per = (nl + ge - 1) / ge;
+    const int lo = min(nl, b * per), hi = min(nl, lo + per);
+
+    // ---- pass A: frontier, fork counts, their scan in lane order within
+    // this CTA's block
+    unsigned run = 0;
+    int act_n = 0;
+    for (int b0 = lo; b0 < hi; b0 += kThreads) {
       const int l = b0 + tid;
       unsigned cnt = 0;
       int act = 0;
-      if (l < nl) {
+      if (l < hi) {
         const int slot = start + l;
         const bool in_tv = p.gather ? (slot >= 0 && slot < C) : true;
         const int cidx = clampi(slot, 0, C - 1);
@@ -580,30 +894,105 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
       }
       unsigned tot;
       const unsigned ex = block_excl_scan<unsigned>(cnt, s_warp32, &tot);
-      if (l < nl) p.lane_excl[l] = (int)(total + ex);
-      total += tot;
-      n_active += __syncthreads_count(act);
+      if (l < hi) p.lane_excl[l] = (int)(run + ex);
+      run += tot;
+      act_n += __syncthreads_count(act);
     }
+    if (tid == 0) {
+      cta[b].tot = run;
+      cta[b].act = act_n;
+      s_last[0] = s_last[1] = -1;
+    }
+    group_sync();
+
+    // ---- this CTA's base (the group's earlier CTAs' forks), the fork
+    // total and the active lanes, from the CTA totals (a narrow epoch has
+    // them already)
+    if (ge == 1) {
+      if (tid == 0) {
+        s_base = 0;
+        s_total = run;
+        s_nact = act_n;
+      }
+    } else if (tid < 32) {
+      unsigned before = 0, total = 0;
+      int nact = 0;
+      for (int q0 = 0; q0 < ge; q0 += 32) {
+        const int q = q0 + tid;
+        const unsigned t = q < ge ? __ldcg(&cta[q].tot) : 0u;
+        before += __reduce_add_sync(kFull, q < b ? t : 0u);
+        total += __reduce_add_sync(kFull, t);
+        nact += __reduce_add_sync(kFull, q < ge ? __ldcg(&cta[q].act) : 0);
+      }
+      if (tid == 0) {
+        s_base = before;
+        s_total = total;
+        s_nact = nact;
+      }
+    }
+    __syncthreads();
+    const unsigned base = (unsigned)nf + s_base, total = s_total;
 
     // ---- pass B: children, joins, child pointers, TMS; stage the rest
     int my_join = 0;
-    for (int l = tid; l < nl; l += kThreads) {
+    for (int l = lo + tid; l < hi; l += kThreads) {
       const int flags = p.lane_flags[l];
       const int t = (flags >> kTypeShift) - 1;
       if (!(flags & kActive) || t < 0) continue;
       const int cidx = clampi(start + l, 0, C - 1);
       TaskIn<App> in;
       in.load(p, cidx);
-      ApplySink<App> as(p, cidx, l, cen,
-                        (unsigned)nf + (unsigned)p.lane_excl[l]);
+      ApplySink<App> as(p, cidx, l, cen, base + (unsigned)p.lane_excl[l]);
       App::task(t, in, p, as);
       p.lane_flags[l] = as.finish(flags, p.lane_cnt[l]);
       my_join |= as.joined;
     }
     const int any_join = __syncthreads_or(my_join);
+    if (tid == 0) {
+      cta[b].join = any_join;
+      s_join = any_join;
+    }
+    // the map domains of this CTA's lanes, scanned in lane order, one map
+    // launch at a time (map_pre is CTA-relative)
+    for (int g = 0; g < App::kMapLaunches; ++g) {
+      const int mid = App::map_id(g);
+      const int maxd = p.max_domain[mid];
+      unsigned long long el = 0;
+      int n_rows = 0, my_dmax = 0;
+      for (int b0 = lo; b0 < hi; b0 += kThreads) {
+        const int l = b0 + tid;
+        int on = 0;
+        unsigned long long dom = 0;
+        if (l < hi && (p.lane_flags[l] & (kMapBit << g))) {
+          on = 1;
+          const long long row = (long long)g * C + l;
+          const int d = App::map_domain(mid, p.map_argi + row * App::kArgI);
+          dom = (unsigned long long)clampi(d, 0, maxd);
+          my_dmax = max(my_dmax, (int)dom);
+        }
+        unsigned long long tot;
+        const unsigned long long ex =
+            block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
+        if (l < hi) p.map_pre[(long long)g * C + l] = (long long)(el + ex);
+        el += tot;
+        n_rows += __syncthreads_count(on);
+      }
+      const int dmax = block_max(my_dmax, s_wmax);
+      if (tid == 0) {
+        cta[b].el[g] = el;
+        cta[b].rows[g] = n_rows;
+        cta[b].dmax[g] = dmax;
+        if (ge == 1) {
+          s_mel[g] = el;
+          s_mrows[g] = n_rows;
+          s_mdmax[g] = dmax;
+        }
+      }
+    }
+    group_sync();  // the TV is written; pass B's reads are done
 
-    // ---- pass C: staged emits and heap writes
-    for (int l = tid; l < nl; l += kThreads) {
+    // ---- pass C: staged emits and heap writes of this CTA's lanes
+    for (int l = lo + tid; l < hi; l += kThreads) {
       const int flags = p.lane_flags[l];
       if (!(flags & kActive) || (flags >> kTypeShift) == 0) continue;
       const int cidx = clampi(start + l, 0, C - 1);
@@ -619,134 +1008,192 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         if (meta >= 0) heap_apply(p, meta, p.wr_idx[at], p.wr_val[at]);
       }
     }
-    __syncthreads();
 
-    // ---- reclamation: last valid slot, searched down from nf + forks - 1
+    // ---- reclamation (beside pass C: it reads only `epoch`, which pass B
+    // wrote): the last valid slot, searched down from nf + forks - 1 in
+    // windows of kThreads slots, one per CTA and round
     const int nft = (int)((unsigned)nf + total);  // int32, as the JAX TV
-    const int hi = (nft >= 1 && nft <= C) ? nft - 1 : C - 1;
-    for (int top = hi; top >= 0; top -= kThreads) {
-      const int s = top - tid;
+    const int hi_slot = (nft >= 1 && nft <= C) ? nft - 1 : C - 1;
+    int lv;
+    bool deep = false;  // the search goes on at the next epoch's start
+    for (int r = 0;; ++r) {
+      int* const word =
+          ge == 1 ? s_last + (r & 1) : last + 2 * (e & 1) + (r & 1);
+      const long long s =
+          (long long)hi_slot - ((long long)r * ge + b) * kThreads - tid;
       const bool valid = s >= 0 && p.epoch[s] > 0;
-      if (valid) atomicMax(&s_last, s);
-      if (__syncthreads_or(valid)) break;
+      const int m = __reduce_max_sync(kFull, valid ? (int)s : -1);
+      if ((tid & 31) == 0 && m >= 0) atomicMax(word, m);
+      group_sync();
+      lv = ge == 1 ? *word : __ldcg(word);
+      if (lv >= 0 || (long long)hi_slot - (long long)(r + 1) * ge * kThreads < 0) {
+        break;
+      }
+      // a forking epoch's last child is the last valid slot; a forkless
+      // one (bfs's last, with few lanes) may search the whole TV: the grid
+      // does that at the next epoch's start
+      if (total == 0) {
+        deep = true;
+        break;
+      }
     }
-    __syncthreads();
-    const int new_nf = min(nft, s_last + 1);
+    // with a deep search pending, next_free stays nft = nf until it ends
+    // (and job_peak, which new_nf <= nf cannot raise, waits for it)
+    const int new_nf = deep ? nft : min(nft, lv + 1);
 
-    // ---- push and counters (one thread)
-    if (tid == 0) {
-      p.next_free[0] = new_nf;
-      const bool live = s_live;
-      int sp = p.sp[0] - (live ? 1 : 0);
-      bool failed = p.failed[0] || (live && nft > C);
-      const bool ok = live && !failed;
-      const int forks = (int)total;
-      bool of = false;
-      if (ok && any_join) {  // the join continuation, below
-        of |= sp >= p.depth;
-        const int ssp = clampi(sp, 0, p.depth - 1);
-        p.jstack[ssp] = cen;
-        p.rstack[2 * ssp] = start;
-        p.rstack[2 * ssp + 1] = s_count;
-        ++sp;
-      }
-      if (ok && forks > 0) {  // this epoch's forked range, on top
-        of |= sp >= p.depth;
-        const int ssp = clampi(sp, 0, p.depth - 1);
-        p.jstack[ssp] = cen + 1;
-        p.rstack[2 * ssp] = new_nf - forks;
-        p.rstack[2 * ssp + 1] = forks;
-        ++sp;
-      }
-      failed = failed || of;
-      p.failed_stack[0] = p.failed_stack[0] || of;
-      p.failed[0] = failed;
-      p.sp[0] = failed ? 0 : sp;
-      p.job_peak[0] = max(p.job_peak[0], new_nf);
-      const long long key = p.gather ? n_active : (live ? s_count : 0);
-      p.hole_lanes[0] += C - rung(p.span_w, p.n_span, key);
-      p.n_epochs[0] += 1;
-      p.job_epochs[0] += live ? 1 : 0;
-      p.job_tasks[0] += n_active;
-      p.job_forks[0] += forks;
-    }
-
-    // ---- map payloads, after the commit, one launch per (type, site)
-    for (int g = 0; g < App::kMapLaunches; ++g) {
-      // s_dmax was last read before the barrier that ended launch g - 1
-      if (tid == 0) s_dmax = 0;
-      const int mid = App::map_id(g);
-      const int maxd = p.max_domain[mid];
-      unsigned long long el = 0;
-      int n_rows = 0;
-      int my_dmax = 0;
-      for (int b0 = 0; b0 < nl; b0 += kThreads) {
-        const int l = b0 + tid;
-        int on = 0;
-        unsigned long long dom = 0;
-        if (l < nl && (p.lane_flags[l] & (kMapBit << g))) {
-          on = 1;
-          const long long row = (long long)g * C + l;
-          const int d = App::map_domain(mid, p.map_argi + row * App::kArgI);
-          dom = (unsigned long long)clampi(d, 0, maxd);
-          my_dmax = max(my_dmax, (int)dom);
-        }
-        unsigned long long tot;
-        const unsigned long long ex =
-            block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
-        if (l < nl) p.map_pre[l] = (long long)(el + ex);
-        el += tot;
-        n_rows += __syncthreads_count(on);
-      }
-      if (my_dmax > 0) atomicMax(&s_dmax, my_dmax);
-      __syncthreads();
-      const int dmax = s_dmax;
-      const bool fired = dmax > 0;
-      if (tid == 0) {
-        p.map_elements[0] += (long long)el;
-        if (fired) {
-          p.map_launches[0] += 1;
-          p.map_lanes[0] += (long long)rung(p.span_w, p.n_span, n_rows) *
-                            rung(p.map_w[mid], p.n_map_w[mid], dmax);
-          if ((long long)el > p.stage_cap) {
-            p.fault[0] = kFaultStage;
-            s_fault = 1;
+    // ---- push, counters and the map launches' totals (CTA 0); the
+    // payloads run at the next epoch's start, where every CTA takes part
+    if (b == 0) {
+      if (ge > 1 && tid < 32) {
+        int j = 0;
+        for (int q = tid; q < ge; q += 32) j |= __ldcg(&cta[q].join);
+        j = __reduce_or_sync(kFull, j);
+        if (tid == 0) s_join = j;
+        for (int g = 0; g < App::kMapLaunches; ++g) {
+          unsigned long long el = 0;
+          int rows = 0, dmax = 0;
+          for (int q0 = 0; q0 < ge; q0 += 32) {
+            const int q = q0 + tid;
+            unsigned long long x = q < ge ? __ldcg(&cta[q].el[g]) : 0ull;
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+            el += x;
+            rows += __reduce_add_sync(kFull, q < ge ? __ldcg(&cta[q].rows[g]) : 0);
+            dmax = max(dmax, __reduce_max_sync(
+                                 kFull, q < ge ? __ldcg(&cta[q].dmax[g]) : 0));
+          }
+          if (tid == 0) {
+            s_mel[g] = el;
+            s_mrows[g] = rows;
+            s_mdmax[g] = dmax;
           }
         }
       }
       __syncthreads();
-      if (s_fault) return;
-      if (!fired) continue;
-      // each live element (lane, e < domain) into the stage
-      for (long long f = tid; f < (long long)el; f += kThreads) {
-        int a = 0, b = nl - 1;  // last lane with map_pre <= f
-        while (a < b) {
-          const int m = (a + b + 1) >> 1;
-          if (p.map_pre[m] <= f) a = m; else b = m - 1;
+      if (tid == 0) {
+        car.next_free = new_nf;
+        int sp = car.sp - (live ? 1 : 0);
+        bool failed = car.failed || (live && nft > C);
+        const bool ok = live && !failed;
+        const int forks = (int)total;
+        bool of = false;
+        if (ok && s_join) {  // the join continuation, below
+          of |= sp >= p.depth;
+          const int ssp = clampi(sp, 0, p.depth - 1);
+          p.jstack[ssp] = cen;
+          p.rstack[2 * ssp] = start;
+          p.rstack[2 * ssp + 1] = count;
+          ++sp;
         }
-        const long long row = (long long)g * C + a;
-        StageSink<App> ss{p, f};
-        App::map_payload(mid, p.map_argi + row * App::kArgI,
-                         p.map_argf + row * (App::kArgF > 0 ? App::kArgF : 1),
-                         (int)(f - p.map_pre[a]), p, ss);
-      }
-      __syncthreads();
-      for (long long f = tid; f < (long long)el; f += kThreads) {
-        for (int k = 0; k < App::kMapWrites; ++k) {
-          const long long at = (long long)k * p.stage_cap + f;
-          const int meta = p.st_meta[at];
-          if (meta >= 0) heap_apply(p, meta, p.st_idx[at], p.st_val[at]);
+        if (ok && forks > 0) {  // this epoch's forked range, on top
+          of |= sp >= p.depth;
+          const int ssp = clampi(sp, 0, p.depth - 1);
+          p.jstack[ssp] = cen + 1;
+          p.rstack[2 * ssp] = new_nf - forks;
+          p.rstack[2 * ssp + 1] = forks;
+          ++sp;
+        }
+        failed = failed || of;
+        car.failed_stack = car.failed_stack || of;
+        car.failed = failed;
+        car.sp = failed ? 0 : sp;
+        if (!deep) car.job_peak = max(car.job_peak, new_nf);
+        const long long key = p.gather ? s_nact : (live ? count : 0);
+        car.hole_lanes += C - rung(p.span_w, p.n_span, key);
+        car.n_epochs += 1;
+        car.job_epochs += live ? 1 : 0;
+        car.job_tasks += s_nact;
+        car.job_forks += forks;
+        // a launch fires when some scheduled lane has a domain; a stage
+        // too small for its elements is a fault and ends the chunk before
+        // this or any later launch runs
+        Ctl& nx = ctl[(e + 1) & 1];
+        int fire = 0;
+        bool fault = false;
+        for (int g = 0; g < App::kMapLaunches && !fault; ++g) {
+          const int mid = App::map_id(g);
+          car.map_elements += (long long)s_mel[g];
+          if (s_mdmax[g] > 0) {
+            car.map_launches += 1;
+            car.map_lanes += (long long)rung(p.span_w, p.n_span, s_mrows[g]) *
+                             rung(p.map_w[mid], p.n_map_w[mid], s_mdmax[g]);
+            if ((long long)s_mel[g] > p.stage_cap) {
+              car.fault = kFaultStage;
+              fault = true;
+            } else {
+              fire |= 1 << g;
+              nx.map_el[g] = s_mel[g];
+            }
+          }
+        }
+        nx.fired = fire;
+        nx.map_nl = nl;
+        nx.map_ge = ge;
+        nx.search = deep ? hi_slot - ge * kThreads + 1 : 0;
+        if (fault) {
+          nx.go = 0;
+        } else {
+          pop(p, car, ctl, last, e + 1, gen1);
         }
       }
-      __syncthreads();
     }
-    __syncthreads();
+  }
+  if (b == 0 && tid == 0) car.store(p);
+  if (b == 0 && tid == 0 && p.stats) {
+    p.stats[0] += n_narrow;
+    p.stats[1] += n_wide;
+    p.stats[2] += n_grid;
+    p.stats[3] += n_group;
+    p.stats[4] += n_search;
   }
 }
 
+// An empty cooperative kernel that crosses n grid barriers: the barrier's
+// own cost, the serial floor of the chunk's design.
+__global__ void __launch_bounds__(kThreads, 1) grid_sync_bench(unsigned* bar,
+                                                               int n) {
+  unsigned target = 0;
+  for (int i = 0; i < n; ++i) bar_sync(bar, target, gridDim.x);
+}
+
+// CTAs of the cooperative grid of epoch_chunk_kernel<App> on the current
+// device: SMs x the CTAs an SM holds, computed once per device; a negative
+// CUDA error where the device cannot launch cooperatively.
 template <class App>
-int launch(const Params& p, cudaStream_t s) {
-  epoch_chunk_kernel<App><<<1, kThreads, 0, s>>>(p);
+int grid_size() {
+  static int cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  int sms = 0, coop = 0, per = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, epoch_chunk_kernel<App>, kThreads, 0);
+  }
+  if (e != cudaSuccess) return -(int)e;
+  if (!coop || per < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  const int g = min(sms * per, kMaxGrid);
+  if (dev < kMaxDevices) cache[dev] = g;
+  return g;
+}
+
+template <class App>
+int launch(const Params& p, long long coop_words, cudaStream_t s) {
+  if (p.grid < 1 || p.grid > kMaxGrid ||
+      coop_words < kCoopHeader + (long long)kCtaWords * p.grid) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaMemsetAsync(p.coop, 0, 8 * (size_t)coop_words, s);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {const_cast<Params*>(&p)};
+  e = cudaLaunchCooperativeKernel((const void*)epoch_chunk_kernel<App>,
+                                  dim3(p.grid), dim3(kThreads), args, 0, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -762,6 +1209,39 @@ extern "C" {
 
 int trees_epoch_ptr_count() { return P_COUNT; }
 int trees_epoch_int_count() { return I_COUNT; }
+
+// CTAs of the cooperative grid of device table `app` on the current device
+// (SMs x the CTAs an SM holds, cached per device); a negative CUDA error
+// where the device cannot launch it.
+int trees_epoch_grid(int app) {
+  switch (app) {
+    case 0: return grid_size<FibApp>();
+    case 1: return grid_size<BfsApp>();
+    case 2: return grid_size<MsortApp>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// uint64 words of cooperative scratch a grid of `grid` CTAs takes.
+long long trees_epoch_coop_words(int grid) {
+  return kCoopHeader + (long long)kCtaWords * grid;
+}
+
+// n grid barriers of `grid` CTAs in one cooperative launch (the barrier's
+// cost); scratch: one uint64 word, any contents (cleared here).
+int trees_grid_sync_bench(int grid, int n, unsigned long long* scratch,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (grid < 1 || grid > kMaxGrid || n < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, 8, s);
+  if (e != cudaSuccess) return (int)e;
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch);
+  void* args[] = {&bar, &n};
+  e = cudaLaunchCooperativeKernel((const void*)grid_sync_bench, dim3(grid),
+                                  dim3(kThreads), args, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 // out[0..6] = kTypes, kArgI, kArgF, kValW, kWrites, kMapLaunches,
 // kMapWrites of device table `app` (0 fib, 1 bfs, 2 mergesort); returns
@@ -823,6 +1303,9 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
   p.st_idx = (int*)ptrs[P_ST_IDX];
   p.st_val = (uint32_t*)ptrs[P_ST_VAL];
   p.st_meta = (int*)ptrs[P_ST_META];
+  p.coop = (unsigned long long*)ptrs[P_COOP];
+  p.stats = (long long*)ptrs[P_STATS];
+  p.grid = (int)ints[I_GRID];
   for (int v = 0; v < kMaxHeap; ++v) p.heap[v] = (uint32_t*)ptrs[P_HEAP0 + v];
   p.capacity = (int)ints[I_CAPACITY];
   p.depth = (int)ints[I_DEPTH];
@@ -854,13 +1337,13 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
   switch (app) {
     case 0:
       if (!shape_ok<FibApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<FibApp>(p, s);
+      return launch<FibApp>(p, ints[I_COOP_WORDS], s);
     case 1:
       if (!shape_ok<BfsApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<BfsApp>(p, s);
+      return launch<BfsApp>(p, ints[I_COOP_WORDS], s);
     case 2:
       if (!shape_ok<MsortApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<MsortApp>(p, s);
+      return launch<MsortApp>(p, ints[I_COOP_WORDS], s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,7 +21,8 @@
 // At 2^21 lanes the first two move 16.8 MB and 18.9 MB, about 5 and 6
 // microseconds at 3.35 TB/s; segmented_fork_scan at 2^23 lanes moves
 // 100.7 MB, about 30 microseconds.  The arithmetic (one add, n_types
-// ballots, or a 32-step shuffle sum per lane) is far below the card's rate.
+// ballots, or a select and an add per segment of the group and lane) is far
+// below the card's rate.
 //
 // The Pallas kernels carry a running sum from one grid step to the next in
 // SMEM, which is race-free only because TPU grid steps run in order on one
@@ -51,28 +52,39 @@
 // scratch and all, never reads a stale word.  8 B/lane moved; two device
 // operations (the memset, the scan).
 //
-// type_rank and segmented_fork_scan: reduce-then-scan, three launches on
-// one stream:
-//   1. each block reduces its 1024-lane tile to one total per type or
-//      segment;
-//   2. one block per row scans the tile totals into tile offsets and
-//      writes the grand total (per type or segment);
-//   3. each block scans its tile again (warp shuffles / ballots, then the
-//      warp totals) and adds its tile offset.
-// The input is read twice (13 or 20 B/lane moved against the 9 or 12 of
-// the bound); the look-back is their next design.
+// segmented_fork_scan: the same single pass, one status word per (tile,
+// segment), so the input is read once.  A block of 128 threads takes a
+// 2048-lane tile from its group's counter and loads counts and ids once, in
+// 16-byte vectors laid out as fork_scan's.  Each thread sums every segment of the
+// group over its 16 lanes in registers (W running sums, W the group's width
+// rounded up to a power of two: the wave's tenants, 4, take W = 4); the
+// warp reduces them with one redux each, the block over its four warps
+// in shared memory.  Warp 0 publishes W packed (status, value) words and
+// looks back over windows of 32 predecessors (fewer above W = 8): lane q
+// reads segment q % W's words, min(W, 8) of them, and each segment stops
+// at its own nearest inclusive word.  The offsets are then written from
+// registers: a warp scan per vector and segment, the lanes within a vector
+// in order.
+// 12 B/lane moved; two device operations (the memset, the scan).
 //
-// Groups: type_rank and segmented_fork_scan keep one shared-memory counter
-// per type or segment, so a block handles a group of at most kTypeGroup
-// types or kSegGroup segments; blockIdx.y (with a grid-stride loop past
-// 65535 groups) walks the groups, so any n_types or n_segs >= 1 works.
-// Each group reads the tile again.
+// type_rank: reduce-then-scan, three launches on one stream:
+//   1. each block reduces its 1024-lane tile to one total per type;
+//   2. one block per type scans the tile totals into tile offsets and
+//      writes the type's count;
+//   3. each block scans its tile again (ballots, then the warp totals) and
+//      adds its tile offset.
+// The input is read twice (13 B/lane moved against the bound's 9); the
+// look-back is its next design.
+//
+// Groups: a pass keeps W <= kSegGroup = 32 segment sums a thread, and
+// type_rank one shared-memory counter per type for kTypeGroup = 8 types;
+// blockIdx.y (with a grid-stride loop past 65535 groups) walks the groups
+// (segmented_fork_scan gives each its own tile counter and status words),
+// so any n_types or n_segs >= 1 works.  Each group reads the tile again; up to 32 segments
+// the scan is one pass.
 //
 // Segments need not be contiguous (the gather and compacted dispatches
-// permute lanes), so within a warp __match_any_sync finds the lanes of the
-// same segment and a 32-step shuffle sums the lower ones among them; the
-// warp sums per segment go through shared memory and the tile offsets
-// through the scanned scratch rows, as for type_rank.
+// permute lanes): a lane's segment only picks which running sum it adds to.
 //
 // Ranks and offsets are stable by construction: lanes are visited in
 // increasing lane order, and the commit's bit-identity depends on it.  All
@@ -91,10 +103,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 4;                    // chunks of kThreads lanes per tile
 constexpr int kTile = kThreads * kItems;     // 1024 lanes per block
 constexpr int kTypeGroup = 8;               // types per block (type_rank)
-constexpr int kSegGroup = 32;               // segments per block (seg scan)
 constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kSegGroup == 32, "one warp lane per segment of a group");
 
 // Inclusive scan of one value per thread across the block.  Every thread
 // of the block must call it.  *total receives the block total.
@@ -133,6 +143,15 @@ constexpr int kScanWarpLanes = 32 * 4 * kScanVecs;  // 1024 lanes a warp
 constexpr int kScanTile = kScanWarps * kScanWarpLanes;  // 4096 a block
 constexpr unsigned long long kAggregate = 1ull << 32;  // status words:
 constexpr unsigned long long kInclusive = 2ull << 32;  // (status << 32) | sum
+// segmented_fork_scan: 128 threads of 4 int4 vectors each, 2048 lanes a
+// tile (8 vectors a thread, as fork_scan, ran slower at 2^23 lanes: 96
+// registers a thread held five blocks an SM)
+constexpr int kSegGroup = 32;  // segments a pass takes
+constexpr int kSegThreads = 128;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegVecs = 4;
+constexpr int kSegWarpLanes = 32 * 4 * kSegVecs;
+constexpr int kSegTile = kSegWarps * kSegWarpLanes;
 
 __device__ __forceinline__ void store_status(unsigned long long* p,
                                              unsigned long long v) {
@@ -271,7 +290,7 @@ fork_scan_lookback(const int* __restrict__ counts, int* __restrict__ offs,
   }
 }
 
-// Pass 2 of type_rank and segmented_fork_scan: block r scans row r of rows[rows, nb] in place
+// Pass 2 of type_rank: block r scans row r of rows[rows, nb] in place
 // into exclusive tile offsets and writes the row total to totals[r].
 __global__ void scan_rows(unsigned* __restrict__ rows, int nb,
                           int* __restrict__ totals) {
@@ -404,138 +423,241 @@ __global__ void type_rank_tiles(const int* __restrict__ types,
   }
 }
 
-// Sum of v over the lanes of this warp below this lane that carry the same
-// key; *peers receives the mask of the lanes with this lane's key.  Every
-// lane of the warp must call it (the shuffles read every lane).
-__device__ __forceinline__ unsigned peer_exclusive_sum(int key, unsigned v,
-                                                       unsigned* peers) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned same = __match_any_sync(kFull, key);
-  const unsigned below = same & ((1u << lane) - 1u);
-  unsigned s = 0;
+// ------------------------------ segmented_fork_scan: decoupled look-back
+// A lane's key within the segment group [g0, g0 + width): its segment's
+// index in the group, kOtherGroup (a valid id of another group) or
+// kOutOfRange (an id outside [0, n_segs), or a lane past the end).
+constexpr int kOtherGroup = -1;
+constexpr int kOutOfRange = -2;
+
+__device__ __forceinline__ int seg_group_key(int sv, int g0, int width,
+                                             int n_segs) {
+  if ((unsigned)sv - (unsigned)g0 < (unsigned)width) return sv - g0;
+  return (unsigned)sv < (unsigned)n_segs ? kOtherGroup : kOutOfRange;
+}
+
+// The exclusive prefix, for each segment k < W of the group, of everything
+// before tile `tile`.  A window covers kWin = 32 / W x min(W, 8)
+// predecessors (32 up to W = 8): lane q, segment k = q % W, reads words i <
+// min(W, 8) of segment k at predecessor distance d = i * 32 / W + q / W,
+// waiting until all have published.  Each segment stops at its nearest
+// inclusive word (the least d, by a shuffle min over its lanes); its words
+// up to that one are summed by a shuffle butterfly.  Warp-wide; every lane
+// of segment k receives segment k's sum.
+template <int W>
+__device__ __forceinline__ unsigned seg_look_back(
+    const unsigned long long* status, int tile) {
+  constexpr int kRows = 32 / W;  // lanes per segment
+  constexpr int kWords = W < 8 ? W : 8;
+  constexpr int kWin = kRows * kWords;
+  const int lane = (int)(threadIdx.x & 31u);
+  const int k = lane % W, j = lane / W;
+  unsigned excl = 0;
+  bool done = false;
+  for (int last = tile - 1;; last -= kWin) {
+    unsigned long long w[kWords];
 #pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const unsigned x = __shfl_sync(kFull, v, k);
-    if (below & (1u << k)) s += x;
-  }
-  *peers = same;
-  return s;
-}
-
-// Lane i's key within the segment group [g0, g0 + width): its segment's
-// index in the group, or -1 (outside the group, or past the end).  *sv
-// receives the lane's segment id (0 past the end), *c its count (0 when
-// the key is -1).
-__device__ __forceinline__ int seg_key(const int* __restrict__ counts,
-                                       const int* __restrict__ seg,
-                                       long long i, int n, int g0, int width,
-                                       int* sv, unsigned* c) {
-  *c = 0u;
-  *sv = 0;
-  if (i >= n) return -1;
-  *sv = seg[i];
-  if (*sv < g0 || *sv >= g0 + width) return -1;
-  *c = (unsigned)counts[i];
-  return *sv - g0;
-}
-
-// Pass 1 of segmented_fork_scan: per-tile, per-segment sums into
-// sums[segment * nb + tile], one group of kSegGroup segments per loop
-// trip.  The highest lane of each same-segment set in a warp adds the
-// set's sum to a shared counter.
-__global__ void seg_scan_reduce(const int* __restrict__ counts,
-                                const int* __restrict__ seg,
-                                unsigned* __restrict__ sums, int n,
-                                int n_segs, int nb) {
-  __shared__ unsigned s_tot[kSegGroup];
-  const int lane = (int)(threadIdx.x & 31u);
-  const int n_groups = (n_segs + kSegGroup - 1) / kSegGroup;
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
-    const int g0 = g * kSegGroup;
-    const int width = min(kSegGroup, n_segs - g0);
-    if (threadIdx.x < kSegGroup) s_tot[threadIdx.x] = 0u;
-    __syncthreads();
-    for (int k = 0; k < kItems; ++k) {
-      const long long i = base + k * kThreads + threadIdx.x;
-      int sv;
-      unsigned c, peers;
-      const int key = seg_key(counts, seg, i, n, g0, width, &sv, &c);
-      const unsigned excl = peer_exclusive_sum(key, c, &peers);
-      if (key >= 0 && 31 - __clz(peers) == lane) {
-        atomicAdd(&s_tot[key], excl + c);
-      }
+    for (int i = 0; i < kWords; ++i) {
+      const int idx = last - (i * kRows + j);
+      w[i] = idx >= 0 ? load_status(status + (long long)idx * W + k)
+                      : kInclusive;
     }
-    __syncthreads();
-    if ((int)threadIdx.x < width) {
-      sums[(long long)(g0 + threadIdx.x) * nb + blockIdx.x] =
-          s_tot[threadIdx.x];
-    }
-    __syncthreads();  // s_tot is zeroed again by the next group
-  }
-}
-
-// Pass 3 of segmented_fork_scan: offset = tile offset of the lane's
-// segment + same-segment counts in earlier chunks of the tile + in earlier
-// warps of this chunk + in earlier lanes of this warp.  Each lane is
-// written once: by the group of its segment, or, if its id lies outside
-// [0, n_segs), with 0 by group 0.
-__global__ void seg_scan_tiles(const int* __restrict__ counts,
-                               const int* __restrict__ seg,
-                               const unsigned* __restrict__ tile_offs,
-                               int* __restrict__ offs, int n, int n_segs,
-                               int nb) {
-  __shared__ unsigned s_warp[kWarps][kSegGroup];
-  __shared__ unsigned s_carry[kSegGroup];
-  const int lane = (int)(threadIdx.x & 31u);
-  const unsigned warp = threadIdx.x >> 5;
-  const int n_groups = (n_segs + kSegGroup - 1) / kSegGroup;
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
-    const int g0 = g * kSegGroup;
-    const int width = min(kSegGroup, n_segs - g0);
-    if ((int)threadIdx.x < width) {
-      s_carry[threadIdx.x] =
-          tile_offs[(long long)(g0 + threadIdx.x) * nb + blockIdx.x];
-    }
-    for (int k = 0; k < kItems; ++k) {
-      const long long i = base + k * kThreads + threadIdx.x;
-      s_warp[warp][lane] = 0u;  // this chunk's per-warp segment sums
-      __syncthreads();
-      int sv;
-      unsigned c, peers;
-      const int key = seg_key(counts, seg, i, n, g0, width, &sv, &c);
-      const unsigned excl = peer_exclusive_sum(key, c, &peers);
-      if (key >= 0 && 31 - __clz(peers) == lane) {
-        s_warp[warp][key] = excl + c;
-      }
-      __syncthreads();
-      if (i < n) {
-        if (key >= 0) {
-          unsigned off = s_carry[key] + excl;
-          for (unsigned w = 0; w < warp; ++w) off += s_warp[w][key];
-          offs[i] = (int)off;
-        } else if (g == 0 && (sv < 0 || sv >= n_segs)) {
-          offs[i] = 0;
+    for (;;) {
+      bool pending = false;
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) pending |= (w[i] >> 32) == 0;
+      if (!__any_sync(kFull, pending)) break;
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        if ((w[i] >> 32) == 0) {
+          w[i] = load_status(status + (long long)(last - (i * kRows + j)) * W + k);
         }
       }
-      __syncthreads();
-      if ((int)threadIdx.x < width) {
-        unsigned s = 0;
-        for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
-        s_carry[threadIdx.x] += s;
-      }
-      __syncthreads();
     }
+    int dmin = kWin;  // the nearest inclusive word of segment k
+#pragma unroll
+    for (int i = kWords - 1; i >= 0; --i) {
+      if ((w[i] >> 32) == 2) dmin = i * kRows + j;
+    }
+#pragma unroll
+    for (int o = W; o < 32; o <<= 1) {
+      dmin = min(dmin, __shfl_xor_sync(kFull, dmin, o));
+    }
+    unsigned v = 0;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      if (i * kRows + j <= dmin) v += (unsigned)w[i];
+    }
+#pragma unroll
+    for (int o = W; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+    if (!done) excl += v;
+    done = done || dmin < kWin;
+    if (__all_sync(kFull, done)) return excl;
   }
+}
+
+// One segment group per loop trip: each block takes a tile of kSegTile
+// lanes of group g from the group's tile counter, loads counts and ids once
+// (16-byte vectors, laid out as fork_scan's), sums each segment over its
+// lanes in registers, reduces the sums across the warp (redux) and the
+// warps (shared memory), publishes one status word per segment, looks back,
+// and writes each lane's offset from the registers: a warp scan per vector
+// and segment gives the lanes before it in the warp, the lanes within the
+// vector follow in order.  W is the group's width rounded up to a power of
+// two.  scratch[g]: group g's tile counter; scratch[n_groups + (g * n_tiles
+// + t) * W + k]: tile t's word of segment g0 + k.  All zero at the launch.
+template <int W>
+__global__ void __launch_bounds__(kSegThreads)
+seg_scan_lookback(const int* __restrict__ counts, const int* __restrict__ seg,
+                  int* __restrict__ offs, int* __restrict__ totals,
+                  unsigned long long* __restrict__ scratch, int n, int n_segs,
+                  int n_tiles, int n_groups, int vec) {
+  __shared__ unsigned warp_tot[kSegWarps][W];
+  __shared__ unsigned s_excl[W];
+  __shared__ unsigned s_tile;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kSegGroup;
+    const int width = min(kSegGroup, n_segs - g0);
+    unsigned long long* status =
+        scratch + n_groups + (long long)g * n_tiles * W;
+    if (threadIdx.x == 0) {
+      s_tile = atomicAdd(reinterpret_cast<unsigned*>(scratch + g), 1u);
+    }
+    __syncthreads();
+    const int tile = (int)s_tile;
+    const long long base =
+        (long long)tile * kSegTile + warp * kSegWarpLanes + 4 * lane;
+    unsigned c[kSegVecs][4];
+    int key[kSegVecs][4];
+#pragma unroll
+    for (int j = 0; j < kSegVecs; ++j) {
+      const long long i = base + 128 * j;
+      int sv[4];
+      if (vec && i + 4 <= n) {
+        const int4 q = *reinterpret_cast<const int4*>(counts + i);
+        const int4 r = *reinterpret_cast<const int4*>(seg + i);
+        c[j][0] = q.x; c[j][1] = q.y; c[j][2] = q.z; c[j][3] = q.w;
+        sv[0] = r.x; sv[1] = r.y; sv[2] = r.z; sv[3] = r.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          c[j][e] = i + e < n ? counts[i + e] : 0u;
+          sv[e] = i + e < n ? seg[i + e] : -1;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        key[j][e] = seg_group_key(sv[e], g0, width, n_segs);
+        if (key[j][e] < 0) c[j][e] = 0u;
+      }
+    }
+    // each segment's sum over this thread's lanes, then over the warp
+#pragma unroll
+    for (int kk = 0; kk < W; ++kk) {
+      unsigned t = 0;
+#pragma unroll
+      for (int j = 0; j < kSegVecs; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t += key[j][e] == kk ? c[j][e] : 0u;
+      }
+      t = __reduce_add_sync(kFull, t);
+      if (lane == 0) warp_tot[warp][kk] = t;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      unsigned agg = 0;
+      if (lane < (unsigned)W) {  // warp_tot becomes exclusive over warps
+#pragma unroll
+        for (int w = 0; w < kSegWarps; ++w) {
+          const unsigned t = warp_tot[w][lane];
+          warp_tot[w][lane] = agg;
+          agg += t;
+        }
+      }
+      unsigned excl = 0;
+      if (tile == 0) {
+        if (lane < (unsigned)W) store_status(status + lane, kInclusive | agg);
+      } else {
+        unsigned long long* own = status + (long long)tile * W;
+        if (lane < (unsigned)W) store_status(own + lane, kAggregate | agg);
+        excl = seg_look_back<W>(status, tile);
+        if (lane < (unsigned)W) {
+          store_status(own + lane, kInclusive | (excl + agg));
+        }
+      }
+      if (lane < (unsigned)W) {
+        s_excl[lane] = excl;
+        if (tile == n_tiles - 1 && (int)lane < width) {
+          totals[g0 + lane] = (int)(excl + agg);
+        }
+      }
+    }
+    __syncthreads();
+    unsigned run[W];
+#pragma unroll
+    for (int kk = 0; kk < W; ++kk) run[kk] = s_excl[kk] + warp_tot[warp][kk];
+#pragma unroll
+    for (int j = 0; j < kSegVecs; ++j) {
+      const long long i = base + 128 * j;
+      unsigned pre[W];
+#pragma unroll
+      for (int kk = 0; kk < W; ++kk) {
+        unsigned t = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t += key[j][e] == kk ? c[j][e] : 0u;
+        const unsigned incl = warp_inclusive_scan(t);
+        pre[kk] = run[kk] + incl - t;
+        run[kk] += __shfl_sync(kFull, incl, 31);
+      }
+      unsigned o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[e] = 0u;
+#pragma unroll
+        for (int kk = 0; kk < W; ++kk) {
+          if (key[j][e] == kk) {
+            o[e] = pre[kk];
+            pre[kk] += c[j][e];
+          }
+        }
+      }
+      if (n_groups == 1 && vec && i + 4 <= n) {  // every lane is this group's
+        *reinterpret_cast<int4*>(offs + i) =
+            make_int4((int)o[0], (int)o[1], (int)o[2], (int)o[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = key[j][e];
+          if (i + e < n && (kk >= 0 || (g == 0 && kk == kOutOfRange))) {
+            offs[i + e] = (int)o[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // s_tile, warp_tot and s_excl serve the next group
+  }
+}
+
+// Tiles of segmented_fork_scan, and the width it runs a group of n_segs
+// at: min(n_segs, kSegGroup) rounded up to a power of two.
+int seg_scan_tiles(int n) {
+  const long long tiles = ((long long)n + kSegTile - 1) / kSegTile;
+  return (int)(tiles > 1 ? tiles : 1);
+}
+int seg_scan_width(int n_segs) {
+  int w = 1;
+  while (w < n_segs && w < kSegGroup) w <<= 1;
+  return w;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lanes a block of type_rank and segmented_fork_scan takes (their scratch
-// holds one uint32 per tile and type or segment).
+// Lanes a block of type_rank takes (its scratch holds one uint32 per tile
+// and type).
 int trees_tile_lanes() { return kTile; }
 
 // uint64 words of scratch trees_fork_scan takes for n lanes: the tile
@@ -562,26 +684,49 @@ int trees_fork_scan(const int* counts, int* offs, int* total,
   return (int)cudaGetLastError();
 }
 
+// uint64 words of scratch trees_segmented_fork_scan takes for n lanes and
+// n_segs segments: one tile counter per group of kSegGroup segments and one
+// status word per (group, tile, segment of the group's width).
+long long trees_segmented_fork_scan_scratch_words(int n, int n_segs) {
+  if (n_segs < 1) return 0;
+  const long long groups = (n_segs + kSegGroup - 1) / kSegGroup;
+  return groups + groups * seg_scan_tiles(n) * (long long)seg_scan_width(n_segs);
+}
+
 // offs[i] = sum of counts[k] over k < i with seg[k] == seg[i] (0 where
 // seg[i] lies outside [0, n_segs)); totals[s] = sum of counts over segment
-// s.  n_segs >= 1; scratch: n_segs * max(1, nb) uint32.
+// s.  n_segs >= 1; scratch: at least
+// trees_segmented_fork_scan_scratch_words(n, n_segs) uint64, 8-byte
+// aligned, any contents (cleared here, on the stream, before the scan).
 int trees_segmented_fork_scan(const int* counts, const int* seg, int* offs,
-                              int* totals, unsigned* scratch, int n,
-                              int n_segs, void* stream) {
+                              int* totals, unsigned long long* scratch,
+                              long long scratch_words, int n, int n_segs,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_segs < 1) return (int)cudaErrorInvalidValue;
-  const int nb = (n + kTile - 1) / kTile;
+  if (n_segs < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  const long long words = trees_segmented_fork_scan_scratch_words(n, n_segs);
+  if (scratch_words < words) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(*scratch) * words, s);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = seg_scan_tiles(n);
   const int groups = (n_segs + kSegGroup - 1) / kSegGroup;
-  const dim3 grid(nb, groups < kMaxGridY ? groups : kMaxGridY);
-  if (nb > 0) {
-    seg_scan_reduce<<<grid, kThreads, 0, s>>>(counts, seg, scratch, n,
-                                              n_segs, nb);
+  const dim3 grid(tiles, groups < kMaxGridY ? groups : kMaxGridY);
+  const int vec = reinterpret_cast<unsigned long long>(counts) % 16 == 0 &&
+                  reinterpret_cast<unsigned long long>(seg) % 16 == 0 &&
+                  reinterpret_cast<unsigned long long>(offs) % 16 == 0;
+#define TREES_SEG(W)                                                        \
+  seg_scan_lookback<W><<<grid, kSegThreads, 0, s>>>(                        \
+      counts, seg, offs, totals, scratch, n, n_segs, tiles, groups, vec);   \
+  break;
+  switch (seg_scan_width(n_segs)) {
+    case 1: TREES_SEG(1)
+    case 2: TREES_SEG(2)
+    case 4: TREES_SEG(4)
+    case 8: TREES_SEG(8)
+    case 16: TREES_SEG(16)
+    default: TREES_SEG(32)
   }
-  scan_rows<<<n_segs, kThreads, 0, s>>>(scratch, nb, totals);
-  if (nb > 0) {
-    seg_scan_tiles<<<grid, kThreads, 0, s>>>(counts, seg, scratch, offs, n,
-                                             n_segs, nb);
-  }
+#undef TREES_SEG
   return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,19 @@ chunk bound read on the device.  The CUDA C++ lives in
 ``csrc/epoch_megakernel.cu``; its header says what bounds the kernel and
 how it keeps the plain loop's bits.
 
+The launch is cooperative: one persistent grid of :func:`grid` CTAs (the
+card's SMs times the CTAs an SM holds), all resident, with grid barriers
+on words of a scratch (:func:`coop_scratch_words`) that the launch clears
+on the stream.  Each epoch starts at a barrier of the whole grid; a popped
+range wider than one CTA is split into contiguous blocks over the first
+CTAs, which cross about four barriers of their own, and a narrower one
+runs on CTA 0 alone; map payloads run at the next epoch's start over the
+whole grid (two grid barriers a launch).  What bounds it is that
+serial chain of barriers and CTA 0's one-thread pop and push, not bytes:
+``chip_smoke.py`` times the barrier (:func:`grid_sync_bench`) and counts
+the chunk's barriers (``launch(..., stats=)``).  A refused cooperative
+launch raises; there is no single-CTA fallback.
+
 The Pallas kernel runs whatever traced body it is given.  A CUDA kernel
 cannot run a Python task body, so the kernel holds the program-independent
 phases and each supported program's task bodies are ``__device__``
@@ -48,10 +61,18 @@ _PTRS = (
     "map_launches", "map_elements", "map_lanes", "hole_lanes", "fault",
     "limit", "lane_cnt", "lane_excl", "lane_flags", "emit_stage", "wr_idx",
     "wr_val", "wr_meta", "map_argi", "map_argf", "map_pre", "st_idx",
-    "st_val", "st_meta",
+    "st_val", "st_meta", "coop", "stats",
 ) + tuple(f"heap{v}" for v in range(MAX_HEAP))
 _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
-           + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 3)
+           + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5)
+# the cooperative scratch (csrc: kCoopHeader, kCtaWords, kMaxGrid): the
+# barrier counters, the popped range with the pending map launches and the
+# reclamation words by epoch parity, then one record of totals per CTA
+COOP_HEADER_WORDS, COOP_CTA_WORDS, MAX_GRID = 23, 10, 1024
+# stats a launch may add to: narrow epochs, wide epochs, grid barriers,
+# group barriers, and the grid barriers of deep reclamation searches
+STATS = ("narrow_epochs", "wide_epochs", "grid_barriers", "group_barriers",
+         "search_barriers")
 
 LAUNCHES: Dict[str, int] = {"epoch_chunk": 0}
 
@@ -63,6 +84,13 @@ _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
 def reset_launches() -> None:
     LAUNCHES["epoch_chunk"] = 0
+
+
+def coop_scratch_words(grid: int) -> int:
+    """uint64 words of cooperative scratch a grid of ``grid`` CTAs takes."""
+    if not 1 <= grid <= MAX_GRID:
+        raise ValueError(f"epoch_chunk: a grid of {grid} CTAs (1..{MAX_GRID})")
+    return COOP_HEADER_WORDS + COOP_CTA_WORDS * grid
 
 
 def build(ptxas_info: bool = False) -> Tuple[pathlib.Path, str]:
@@ -185,6 +213,12 @@ def _load() -> ctypes.CDLL:
             lib.trees_epoch_app_info.restype = i
             lib.trees_epoch_ptr_count.restype = i
             lib.trees_epoch_int_count.restype = i
+            lib.trees_epoch_grid.argtypes = [i]
+            lib.trees_epoch_grid.restype = i
+            lib.trees_epoch_coop_words.argtypes = [i]
+            lib.trees_epoch_coop_words.restype = ctypes.c_longlong
+            lib.trees_grid_sync_bench.argtypes = [i, i, p, p]
+            lib.trees_grid_sync_bench.restype = i
             if (lib.trees_epoch_ptr_count() != len(_PTRS)
                     or lib.trees_epoch_int_count() != _N_INTS):
                 raise RuntimeError(
@@ -193,6 +227,34 @@ def _load() -> ctypes.CDLL:
                 )
             _lib = lib
         return _lib
+
+
+def grid(app_id: int, device=None) -> int:
+    """CTAs of the cooperative grid of device table ``app_id`` on
+    ``device``: SMs x the CTAs an SM holds (builds the library)."""
+    with torch.cuda.device(device):
+        g = _load().trees_epoch_grid(app_id)
+    if g < 1:
+        raise RuntimeError(
+            f"epoch_chunk: no cooperative grid on this device (error {-g})")
+    return g
+
+
+def grid_sync_bench(n: int, grid_ctas: int, device=None) -> None:
+    """Launch an empty cooperative kernel of ``grid_ctas`` CTAs that
+    crosses ``n`` grid barriers, on the current stream (the barrier's
+    cost, for ``chip_smoke.py``)."""
+    lib = _load()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    scratch = torch.empty((1,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_grid_sync_bench(
+            grid_ctas, n, ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"grid_sync_bench: CUDA launch failed with "
+                           f"error {err}")
 
 
 def app_info(app_id: int) -> Dict[str, int]:
@@ -218,13 +280,17 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
         raise ValueError(f"epoch_chunk: {name} is not contiguous")
 
 
-def launch(program, carry, limit, *, gather: bool):
-    """One chunk of ``carry`` on the card: a single kernel launch.
+def launch(program, carry, limit, *, gather: bool,
+           stats: Optional[torch.Tensor] = None):
+    """One chunk of ``carry`` on the card: a memset of the cooperative
+    scratch and one cooperative kernel launch.
 
     ``carry`` is a solo ``ResidentCarry`` on a CUDA device; ``limit`` an
     int or an ``i32`` tensor (the epoch bound, read on the device).
-    Updates the carry in place and returns it; raises if the program has
-    no device table, the carry does not fit it, or the launch fails.
+    ``stats``, if given, is an ``i64[5]`` on the carry's device to which
+    the kernel adds the chunk's :data:`STATS`.  Updates the carry in place
+    and returns it; raises if the program has no device table, the carry
+    does not fit it, or the launch fails.
     """
     from ..core.engine import _map_width_ladder, _span_width_ladder
 
@@ -289,10 +355,16 @@ def launch(program, carry, limit, *, gather: bool):
         wr_meta=empty(info["writes"] * C),
         map_argi=empty(info["map_launches"] * C * A),
         map_argf=empty(info["map_launches"] * C * Af, torch.float32),
-        map_pre=empty(C, i64),
+        map_pre=empty(info["map_launches"] * C, i64),
         st_idx=empty(info["map_writes"] * S), st_val=empty(info["map_writes"] * S),
         st_meta=empty(info["map_writes"] * S),
     )
+    G = grid(table.app_id, dev)
+    coop_words = coop_scratch_words(G)
+    scratch["coop"] = empty(coop_words, i64)
+    if stats is not None:
+        _check("stats", stats, i64, (len(STATS),), dev)
+        scratch["stats"] = stats
     if isinstance(limit, torch.Tensor):
         lim = limit.to(device=dev, dtype=i32).reshape(1)
     else:
@@ -338,7 +410,7 @@ def launch(program, carry, limit, *, gather: bool):
             ints += list(w) + [0] * (MAX_MAP_WIDTHS - len(w))
         else:
             ints += [0] * (2 + MAX_MAP_WIDTHS)
-    ints += [A, Af, VW]
+    ints += [A, Af, VW, G, coop_words]
     assert len(ints) == _N_INTS
     ints_c = (ctypes.c_int64 * _N_INTS)(*ints)
     with torch.cuda.device(dev):
@@ -348,7 +420,8 @@ def launch(program, carry, limit, *, gather: bool):
             ctypes.c_void_p(stream),
         )
     if err != 0:
-        raise RuntimeError(f"epoch_chunk: CUDA launch failed with error {err}")
+        raise RuntimeError(f"epoch_chunk: the cooperative launch of {G} "
+                           f"CTAs failed with CUDA error {err}")
     LAUNCHES["epoch_chunk"] += 1
     return carry
 

@@ -5,9 +5,9 @@ TPU kernels of the same names in ``repro/kernels/fork_compact.py``; the
 CUDA C++ lives in ``csrc/fork_compact.cu`` (its header says what bounds
 them and what the TPU's sequential-grid carry became on the card).
 
-``fork_scan`` is one pass with a decoupled look-back (one memset of its
-scratch and one launch); the other two reduce, scan the tile sums and scan
-again (three launches).
+``fork_scan`` and ``segmented_fork_scan`` are one pass with a decoupled
+look-back (one memset of their scratch and one launch); ``type_rank``
+reduces, scans the tile sums and scans again (three launches).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``kernels/nvcc.py``) and loaded with
@@ -38,8 +38,28 @@ LAUNCHES: Dict[str, int] = {
     "fork_scan": 0, "segmented_fork_scan": 0, "type_rank": 0,
 }
 
+# segmented_fork_scan's tiles and segment groups (kSegTile, kSegGroup in
+# SOURCE)
+SEG_TILE = 2048
+SEG_GROUP = 32
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+
+def seg_scan_scratch_words(n: int, n_segs: int) -> int:
+    """uint64 words of scratch ``segmented_fork_scan`` takes for ``n`` lanes
+    and ``n_segs`` segments: a tile counter per group of ``SEG_GROUP``
+    segments and one status word per (group, tile, segment of the group's
+    width, ``min(n_segs, SEG_GROUP)`` rounded up to a power of two)."""
+    if n_segs < 1:
+        raise ValueError(f"segmented_fork_scan: n_segs={n_segs} < 1")
+    groups = -(-n_segs // SEG_GROUP)
+    tiles = max(1, -(-n // SEG_TILE))
+    width = 1
+    while width < min(n_segs, SEG_GROUP):
+        width *= 2
+    return groups + groups * tiles * width
 
 
 def reset_launches() -> None:
@@ -66,8 +86,12 @@ def _load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.trees_fork_scan.argtypes = [p, p, p, p, i, p]
             lib.trees_fork_scan.restype = i
-            lib.trees_segmented_fork_scan.argtypes = [p, p, p, p, p, i, i, p]
+            lib.trees_segmented_fork_scan.argtypes = [
+                p, p, p, p, p, ctypes.c_longlong, i, i, p]
             lib.trees_segmented_fork_scan.restype = i
+            lib.trees_segmented_fork_scan_scratch_words.argtypes = [i, i]
+            lib.trees_segmented_fork_scan_scratch_words.restype = (
+                ctypes.c_longlong)
             lib.trees_type_rank.argtypes = [p, p, p, p, p, i, i, p]
             lib.trees_type_rank.restype = i
             lib.trees_tile_lanes.argtypes = []
@@ -133,6 +157,10 @@ def segmented_fork_scan(counts: torch.Tensor, seg: torch.Tensor,
     ``seg[k] == seg[i]``; lanes of a segment need not be contiguous, and
     ids outside ``[0, n_segs)`` add nothing and read 0.  Returns
     ``(offsets i32[C], totals i32[n_segs])``, sums wrapping like int32.
+    The scratch (tile counters and status words, sized by
+    :func:`seg_scan_scratch_words`) comes from ``torch.empty``; the launch
+    sequence clears it on the stream, so the call may be captured in a
+    CUDA graph and replayed.
     """
     _check_lanes("segmented_fork_scan", counts, (torch.int32,))
     _check_lanes("segmented_fork_scan", seg, (torch.int32,))
@@ -143,16 +171,15 @@ def segmented_fork_scan(counts: torch.Tensor, seg: torch.Tensor,
         raise ValueError(f"segmented_fork_scan: n_segs={n_segs} < 1")
     lib = _load()
     n = counts.shape[0]
-    nb = -(-n // lib.trees_tile_lanes())
     offs = torch.empty_like(counts)
     totals = torch.empty((n_segs,), dtype=torch.int32, device=counts.device)
-    scratch = torch.empty((n_segs * max(nb, 1),), dtype=torch.int32,
-                          device=counts.device)
+    words = seg_scan_scratch_words(n, n_segs)
+    scratch = torch.empty((words,), dtype=torch.int64, device=counts.device)
     with torch.cuda.device(counts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trees_segmented_fork_scan(
             _ptr(counts), _ptr(seg), _ptr(offs), _ptr(totals), _ptr(scratch),
-            n, n_segs, ctypes.c_void_p(stream),
+            words, n, n_segs, ctypes.c_void_p(stream),
         )
     _raise_on(err, "segmented_fork_scan")
     LAUNCHES["segmented_fork_scan"] += 1

@@ -16,6 +16,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.engine import resolve_device
 from .attention import apply_attn, apply_attn_decode, init_attn
 from .common import ModelConfig, Params, Value
 from .layers import (
@@ -85,11 +86,12 @@ class Model(nn.Module):
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
-    """Random weights drawn on ``device`` from ``torch.Generator(seed)``,
-    under the reference's init rule (``common.Params``), one tensor at a
-    time and stored in their final dtypes."""
+    """Random weights drawn on ``device`` (None: CUDA, raising where it is
+    absent) from ``torch.Generator(seed)``, under the reference's init rule
+    (``common.Params``), one tensor at a time and stored in their final
+    dtypes."""
     check_supported(cfg)
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pb = Params(cfg, gen)
@@ -245,8 +247,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Ragged decode cache for all layers: ``lengths`` i32[batch]; for
     attention ``k``, ``v`` of shape (L, batch, Hkv, max_len, hd); for the
     SSM ``ssm_conv`` (L, batch, K-1, di+2N) in ``dtype`` and ``ssm_state``
-    (L, batch, nh, P, N) float32."""
+    (L, batch, nh, P, N) float32, on ``device`` (None: CUDA, raising where
+    it is absent)."""
     check_supported(cfg)
+    device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     L = cfg.n_layers
     cache = {

@@ -23,6 +23,7 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.engine import resolve_device
 from ..kernels import ops
 from .common import ModelConfig, ParamScope
 
@@ -112,6 +113,9 @@ def apply_ssm(p: Mapping, prefix: str, cfg: ModelConfig, u: torch.Tensor,
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
                    device=None) -> Dict[str, torch.Tensor]:
+    """One SSM layer group's cache on ``device`` (None: CUDA, raising where
+    it is absent): the conv window in ``dtype``, the state in float32."""
+    device = resolve_device(device)
     s, di, nh, N, P, K = _dims(cfg)
     return dict(
         conv=torch.zeros((batch, K - 1, di + 2 * N), dtype=dtype,

@@ -169,8 +169,12 @@ def test_engine_on_cuda_matches_cpu(cuda_device, name, dispatch):
     assert (launches["type_rank"] > 0) == (dispatch != "masked")
 
 
-@pytest.mark.parametrize("n", (1, 7, 1024, 1025, 5000, 2**16 + 3))
-@pytest.mark.parametrize("n_segs", (1, 3, 8, 33))
+# segmented_fork_scan takes tiles of 2048 lanes and groups of 32 segments:
+# lengths on either side of one and two tile boundaries, J up to one group
+# and one past it
+@pytest.mark.parametrize("n", (1, 7, 1024, 1025, 2047, 2048, 2049, 4095,
+                               4096, 4097, 5000, 2**16 + 3))
+@pytest.mark.parametrize("n_segs", (1, 3, 4, 8, 32, 33))
 def test_segmented_scan_matches_plain(cuda_device, n, n_segs):
     rng = np.random.RandomState(n + n_segs)
     counts = rng.randint(0, 5, n).astype(np.int32)
@@ -186,6 +190,47 @@ def test_segmented_scan_matches_plain(cuda_device, n, n_segs):
         r_offs, r_totals = ref.segmented_fork_scan_ref(c, s, n_segs)
         assert torch.equal(offs, r_offs) and torch.equal(totals, r_totals)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n_segs", (4, 33))
+def test_segmented_scan_graph_replay(cuda_device, n_segs):
+    """Three calls captured in one CUDA graph, replayed with new counts and
+    ids written in place before each replay: every replay is exact, so no
+    call reads a status word an earlier call or replay left."""
+    rng = np.random.RandomState(7 + n_segs)
+    n = 2**20 + 5
+    counts = torch.empty((n,), dtype=torch.int32, device=cuda_device)
+    seg = torch.empty((n,), dtype=torch.int32, device=cuda_device)
+    counts.copy_(torch.as_tensor(rng.randint(0, 4, n).astype(np.int32)))
+    seg.copy_(torch.as_tensor(rng.randint(0, n_segs, n).astype(np.int32)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fork_compact.segmented_fork_scan(counts, seg, n_segs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fork_compact.segmented_fork_scan(counts, seg, n_segs)
+                for _ in range(3)]
+    for rep in range(3):
+        counts.copy_(torch.as_tensor(
+            rng.randint(0, 4 + rep, n).astype(np.int32)))
+        seg.copy_(torch.as_tensor(
+            rng.randint(-1, n_segs + 1, n).astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        r_offs, r_totals = ref.segmented_fork_scan_ref(counts, seg, n_segs)
+        for offs, totals in outs:
+            assert torch.equal(offs, r_offs)
+            assert torch.equal(totals, r_totals)
+
+
+def test_segmented_scan_scratch_matches_the_library(cuda_device):
+    lib = fork_compact._load()
+    for n in (0, 1, 4095, 4096, 4097, 2**23):
+        for n_segs in (1, 2, 3, 4, 5, 31, 32, 33, 64, 65, 1000):
+            assert lib.trees_segmented_fork_scan_scratch_words(n, n_segs) \
+                == fork_compact.seg_scan_scratch_words(n, n_segs)
 
 
 def test_segmented_scan_wraps_like_int32(cuda_device):
@@ -343,6 +388,18 @@ def test_server_on_cuda_matches_cpu(cuda_device):
                 srv.epochs * cfg.n_layers
             assert fork_compact.LAUNCHES["fork_scan"] > 0
     assert out["cuda"] == out["cpu"]
+
+
+def test_server_serves_with_no_device_given(cuda_device):
+    """The natural call, ``EpochServer(cfg, init_model(cfg))``: the model,
+    the cache and the server all take CUDA by default."""
+    cfg = configs.get_reduced("granite_3_8b")
+    srv = EpochServer(cfg, init_model(cfg), n_slots=2, max_len=32)
+    assert srv.device.type == "cuda"
+    srv.submit(Request(prompt=np.arange(3, 8, dtype=np.int32),
+                       max_new_tokens=4))
+    done = srv.run_to_completion()
+    assert len(done) == 1 and len(done[0].output) == 4
 
 
 # Bt, S, H, P, N: the reduced configs' shapes, hymba's heads, ragged S;

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.apps import all_cases, bfs, fib, mergesort
+from repro_torch.apps.registry import AppCase
 from repro_torch.core import DeviceEngine, EngineError, EpochLoop, Program
 from repro_torch.core.program import HeapVar, TaskType
 from repro_torch.kernels import epoch_megakernel as mk
@@ -183,6 +184,19 @@ def test_program_without_a_table_is_refused():
         mk.launch(odd, _fresh(case, eng), 8, gather=False)
 
 
+def test_coop_scratch_words():
+    """The cooperative scratch: a 23-word header (the barrier counters,
+    the popped range with the pending map launches and the reclamation
+    words, by epoch parity) and a 10-word record of totals per CTA, for 1
+    to MAX_GRID CTAs."""
+    assert mk.coop_scratch_words(1) == 33
+    assert mk.coop_scratch_words(132) == 23 + 10 * 132
+    assert mk.coop_scratch_words(mk.MAX_GRID) == 23 + 10 * mk.MAX_GRID
+    for bad in (0, mk.MAX_GRID + 1):
+        with pytest.raises(ValueError, match="grid"):
+            mk.coop_scratch_words(bad)
+
+
 # ------------------------------------------------------------------ on a card
 @pytest.fixture
 def cuda_device():
@@ -207,6 +221,118 @@ def test_kernel_matches_plain_loop(cuda_device, name, dispatch):
         for f in dataclasses.fields(s_got):
             np.testing.assert_array_equal(getattr(s_got, f.name),
                                           getattr(s_want, f.name))
+
+
+def _wide_case(name):
+    """Each app at a size whose widest ranges span tens of CTAs."""
+    if name == "fib":
+        return AppCase("fib", fib.PROGRAM, fib.initial(24), capacity=2**19)
+    if name == "bfs":
+        n = 2**14
+        adj_off, adj = bfs.random_graph(n, avg_degree=4, seed=0)
+        return AppCase("bfs", bfs.make_program(n, len(adj)), bfs.initial(0),
+                       bfs.heap_init(adj_off, adj, n), capacity=2**19)
+    n = 2**14
+    return AppCase("mergesort", mergesort.make_program(n),
+                   mergesort.initial(n),
+                   dict(inp=mergesort.random_input(n, seed=0)),
+                   capacity=2**16)
+
+
+def _chunk_stats(case, carry, dispatch):
+    """One unbounded chunk of ``carry`` with the kernel's epoch and
+    barrier counts."""
+    stats = torch.zeros(len(mk.STATS), dtype=torch.int64,
+                        device=carry.state.task.device)
+    mk.launch(case.program, carry, 1 << 16, gather=dispatch == "gather",
+              stats=stats)
+    return dict(zip(mk.STATS, stats.tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", APPS)
+def test_kernel_matches_plain_loop_across_ctas(cuda_device, name, dispatch,
+                                               K):
+    """Ranges split over many CTAs of the cooperative grid, exact against
+    the plain loop; K = 1 and 4 re-enter the kernel every few epochs, each
+    launch from freshly cleared barrier words."""
+    case = _wide_case(name)
+    kw = dict(capacity=case.capacity, dispatch=dispatch, device="cuda")
+    kern = DeviceEngine(case.program, megakernel=True, **kw)
+    plain = DeviceEngine(case.program, **kw)
+    fresh = _fresh(case, kern)
+    got, s_got, _ = _run_chunks(kern, fresh.clone(), K)
+    want, s_want, _ = _run_chunks(plain, fresh.clone(), K)
+    assert not s_got.failed.any() and not s_got.sp.any()
+    assert_carries_equal(got, want)
+    for f in dataclasses.fields(s_got):
+        np.testing.assert_array_equal(getattr(s_got, f.name),
+                                      getattr(s_want, f.name))
+    again = fresh.clone()
+    st = _chunk_stats(case, again, dispatch)
+    assert_carries_equal(again, want)
+    E = s_got.n_epochs
+    assert st["wide_epochs"] > 0 and st["narrow_epochs"] + st["wide_epochs"] == E
+    # one an epoch, one that finds nothing to pop, two a map launch, one a
+    # round of a deep reclamation search
+    assert st["grid_barriers"] == (E + 1 + 2 * int(again.map_launches)
+                                   + st["search_barriers"])
+    assert st["group_barriers"] >= 3 * st["wide_epochs"]
+
+
+@pytest.mark.cuda
+def test_narrow_chunk_stays_on_one_cta(cuda_device):
+    """A run whose ranges all fit one CTA crosses one grid barrier an
+    epoch and no group barrier, and is exact."""
+    case = AppCase("fib", fib.PROGRAM, fib.initial(12), capacity=2**10)
+    kern = DeviceEngine(case.program, capacity=case.capacity,
+                        megakernel=True, device="cuda")
+    plain = DeviceEngine(case.program, capacity=case.capacity,
+                         device="cuda")
+    fresh = _fresh(case, kern)
+    want, s_want, _ = _run_chunks(plain, fresh.clone(), None)
+    got = fresh.clone()
+    st = _chunk_stats(case, got, "masked")
+    assert_carries_equal(got, want)
+    assert st == {"narrow_epochs": s_want.n_epochs, "wide_epochs": 0,
+                  "grid_barriers": s_want.n_epochs + 1, "group_barriers": 0,
+                  "search_barriers": 0}
+
+
+@pytest.mark.cuda
+def test_back_to_back_chunks_on_one_stream(cuda_device):
+    """Chunks of two carries enqueued back to back with no synchronisation
+    between them, each then run to the end: every launch clears its own
+    barrier words, so none reads a word the other left."""
+    runs = []
+    for name in ("fib", "mergesort"):
+        case = _wide_case(name)
+        kw = dict(capacity=case.capacity, device="cuda")
+        kern = DeviceEngine(case.program, megakernel=True, **kw)
+        plain = DeviceEngine(case.program, **kw)
+        fresh = _fresh(case, kern)
+        want, _, _ = _run_chunks(plain, fresh.clone(), None)
+        runs.append((kern, fresh.clone(), want))
+    for limit in (7, 19, 1 << 16):
+        for kern, carry, _ in runs:
+            kern.loop.run_chunk(carry, limit, 1)
+    torch.cuda.synchronize()
+    for _, carry, want in runs:
+        assert_carries_equal(carry, want)
+
+
+@pytest.mark.cuda
+def test_grid_covers_every_sm(cuda_device):
+    """The cooperative grid holds at least one CTA per SM, and the
+    library sizes its scratch as coop_scratch_words does."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lib = mk._load()
+    for table in mk.TABLES:
+        g = mk.grid(table.app_id, cuda_device)
+        assert sms <= g <= mk.MAX_GRID and g % sms == 0
+        assert lib.trees_epoch_coop_words(g) == mk.coop_scratch_words(g)
 
 
 @pytest.mark.cuda

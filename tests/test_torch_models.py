@@ -33,7 +33,7 @@ from repro.models import model as jmodel
 from repro.models.common import finalize as jfinalize
 from repro_torch import configs
 from repro_torch.core.convert import cache_from_numpy, params_from_numpy
-from repro_torch.models import model
+from repro_torch.models import model, ssm
 from repro_torch.models.common import finalize
 
 MAX_LEN = 32
@@ -176,9 +176,32 @@ def test_configs_match_the_reference():
             jconfigs.get_config("granite_3_8b"), jconfigs.SHAPES[s.name])
 
 
+# the model and cache builders called with no device, as a user calls them
+NO_DEVICE = {
+    "init_model": lambda cfg: model.init_model(cfg, seed=0),
+    "init_cache": lambda cfg: model.init_cache(cfg, 2, 8),
+    "init_ssm_cache": lambda cfg: ssm.init_ssm_cache(cfg, 2, torch.float32),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(NO_DEVICE))
+def test_builders_default_to_cuda(entry):
+    """With no device the builders take CUDA, as every other entry point
+    does, and raise where it is absent: nothing falls back to the CPU."""
+    cfg = configs.get_reduced("hymba_1_5b")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            NO_DEVICE[entry](cfg)
+        return
+    built = NO_DEVICE[entry](cfg)
+    tensors = ([built["embed/tok_embed"]] if entry == "init_model"
+               else list(built.values()))
+    assert all(t.device.type == "cuda" for t in tensors)
+
+
 def test_init_model_follows_the_reference_rule():
     cfg = configs.get_reduced("granite_3_8b")
-    m = model.init_model(cfg, seed=0)
+    m = model.init_model(cfg, seed=0, device="cpu")
     wq = torch.stack([p["attn/wq"] for p in m.layers]).float()
     assert wq.dtype == torch.float32 and m.layers[0]["attn/wq"].dtype == \
         torch.bfloat16
@@ -186,5 +209,5 @@ def test_init_model_follows_the_reference_rule():
     assert abs(float(m["embed/tok_embed"].float().std()) - 0.02) < 0.002
     assert m["final_norm/scale"].dtype == torch.float32
     assert m.layers[0]["norm1/scale"].dtype == torch.float32
-    again = model.init_model(cfg, seed=0)
+    again = model.init_model(cfg, seed=0, device="cpu")
     assert torch.equal(again.layers[1]["mlp/w_up"], m.layers[1]["mlp/w_up"])

@@ -117,3 +117,24 @@ def test_wrapper_takes_cuda_tensors_only():
     x = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         fork_compact.segmented_fork_scan(x, x, 1)
+
+
+@pytest.mark.parametrize("n,n_segs,words", (
+    (0, 1, 1 + 1),            # one tile even for no lanes
+    (2048, 1, 1 + 1),
+    (2049, 4, 1 + 2 * 4),     # the mixed4 wave's four tenants
+    (2**23, 4, 1 + 4096 * 4),
+    (5000, 3, 1 + 3 * 4),     # width rounded up to a power of two
+    (5000, 32, 1 + 3 * 32),
+    (5000, 33, 2 + 2 * 3 * 32),  # past one group: each group a pass
+))
+def test_seg_scan_scratch_words(n, n_segs, words):
+    """The single pass's scratch: a tile counter per group of 32 segments
+    and a status word per (group, 2048-lane tile, segment of the group's
+    width)."""
+    assert fork_compact.seg_scan_scratch_words(n, n_segs) == words
+
+
+def test_seg_scan_scratch_words_refuses_no_segments():
+    with pytest.raises(ValueError, match="n_segs"):
+        fork_compact.seg_scan_scratch_words(10, 0)

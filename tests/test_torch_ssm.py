@@ -354,7 +354,7 @@ def test_convert_carries_the_ssm_keys():
                else np.array([1, 5, 9], np.int32))
            for k, v in jcache.items()}
     cache = cache_from_numpy(cnp, tc, "cpu")
-    mine = model.init_cache(tc, 3, 24)
+    mine = model.init_cache(tc, 3, 24, device="cpu")
     assert cache.keys() == mine.keys() == set(jcache)
     for k, v in cache.items():
         assert v.dtype == mine[k].dtype and v.shape == mine[k].shape, k
