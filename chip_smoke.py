@@ -11,8 +11,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 src/repro_torch/kernels/build/ (ptxas report: each
                 kernel's registers, spills and shared memory);
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card, exactly: fork_scan, type_rank (1 to 24 types) and
-                lane_pack at every listed length; fork_scan also either
+                card, exactly: fork_scan, type_rank and type_pack (1 to
+                24 types) and lane_pack at every listed length; the three
+                type entries also either side of their 2048-lane tiles at
+                7, 32 and 33 types, random, no and all lanes active, on
+                views 4 (types) and 1 (active) bytes off, and in every call
+                of their timing graphs (type_rank at 2^21 lanes, the packs
+                there and at the mixed4 wave's 2^23 lanes and 7 types),
+                each entry's device operations counted by torch.profiler
+                (a memset and one launch; type_pack two); fork_scan also either
                 side of its 4096-lane tiles, on views 4 bytes off, and in
                 every call of the CUDA graph that times it, after the
                 replays; segmented_fork_scan at
@@ -75,7 +82,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 masked, compacted and gather; check each tenant against its
                 solo HostEngine run on the card and its numpy reference, the
                 dispatches against each other, and that segmented_fork_scan
-                was launched during the phase; then streaming admission (six
+                and type_rank (the compacted and gather waves' packs) were
+                launched during the phase; then streaming admission (six
                 fib jobs into four regions) and one preempt/resume of a bfs
                 tenant at a medium size, and one masked wave under
                 torch.profiler;
@@ -137,6 +145,14 @@ WIDE = 2**21  # the main path's widest fork_scan / type_rank shape
 FLEET_WIDE = 2**23  # the full-size mixed4 wave's epoch bucket
 N_SEGS = (1, 3, 4, 8, 32, 33)  # 32: one group of the single pass; 33: two
 N_TYPES = (1, 2, 4, 8, 9, 24)
+# type_rank's tiles are 2048 lanes and its groups 32 types: either side of
+# one and two tiles, at the mixed4 fleet's 7 types, one group and two
+TYPE_LENGTHS = (2047, 2048, 2049, 4095, 4096, 4097)
+TYPE_GROUPS = (7, 32, 33)
+FLEET_TYPES = 7  # the mixed4 wave's task types
+# device operations each type entry may take: a memset and one launch
+# (type_pack: and its scatter launch)
+TYPE_DEVICE_OPS = {"type_rank": 2, "lane_pack": 2, "type_pack": 3}
 # phase 7: the treewalk tenant's tree, and the medium streaming and
 # preemption runs (fib sizes and their region quota, bfs vertices)
 SERVICE_TREE = 2**16
@@ -269,6 +285,22 @@ def ptxas_kernels(log: str):
 
 
 # ---------------------------------------------------------------- phase 2
+def device_ops(fn):
+    """Names of the device operations (kernels, memsets, copies) one
+    ``fn()`` call puts on the card, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def phase_kernels(dev):
     from repro_torch.kernels import fork_compact, ops, ref
 
@@ -286,6 +318,27 @@ def phase_kernels(dev):
             if d != 0:
                 fail(f"{name} {what}: max |kernel - plain| = {d}")
 
+    def check_types(types, active, n_types, what, packs=True):
+        """type_rank, type_pack and (``packs``) lane_pack against their
+        plain versions (the three entries of the type_rank kernel)."""
+        rank, cnt = fork_compact.type_rank(types, active, n_types)
+        r_rank, r_cnt = ref.type_rank_ref(types, active, n_types)
+        check_equal("type_rank", rank, r_rank, what + " rank")
+        check_equal("type_rank", cnt, r_cnt, what + " counts")
+        perm, cnt = fork_compact.type_pack(types, active, n_types)
+        r_perm, r_cnt = ref.type_pack_ref(types, active, n_types)
+        check_equal("type_rank", perm, r_perm, what + " type_pack perm")
+        check_equal("type_rank", cnt, r_cnt, what + " type_pack counts")
+        if packs:
+            perm, n = ops.lane_pack(active)
+            r_perm, r_n = ref.lane_pack_ref(active)
+            check_equal("type_rank", perm, r_perm, what + " lane_pack perm")
+            check_equal("type_rank", n, r_n, what + " lane_pack count")
+
+    def mask(kind, P):
+        return {"random": rng.rand(P) < 0.6, "none": np.zeros(P, bool),
+                "all": np.ones(P, bool)}[kind]
+
     for P in LENGTHS:
         counts = torch.as_tensor(rng.randint(0, 4, P).astype(np.int32),
                                  device=dev)
@@ -297,20 +350,22 @@ def phase_kernels(dev):
             types = torch.as_tensor(
                 rng.randint(0, n_types, P).astype(np.int32), device=dev)
             for kind in ("random", "none", "all"):
-                act_np = {"random": rng.rand(P) < 0.6,
-                          "none": np.zeros(P, bool),
-                          "all": np.ones(P, bool)}[kind]
-                active = torch.as_tensor(act_np, device=dev)
-                rank, cnt = fork_compact.type_rank(types, active, n_types)
-                r_rank, r_cnt = ref.type_rank_ref(types, active, n_types)
-                what = f"P={P} n_types={n_types} {kind}"
-                check_equal("type_rank", rank, r_rank, what + " rank")
-                check_equal("type_rank", cnt, r_cnt, what + " counts")
-        active = torch.as_tensor(rng.rand(P) < 0.5, device=dev)
-        perm, n = ops.lane_pack(active)
-        r_perm, r_n = ref.lane_pack_ref(active)
-        check_equal("type_rank", perm, r_perm, f"P={P} lane_pack perm")
-        check_equal("type_rank", n, r_n, f"P={P} lane_pack count")
+                active = torch.as_tensor(mask(kind, P), device=dev)
+                check_types(types, active, n_types,
+                            f"P={P} n_types={n_types} {kind}",
+                            packs=n_types == 1)
+    for P in TYPE_LENGTHS:
+        for n_types in TYPE_GROUPS:
+            for off in (0, 1):  # 1: types 4 bytes, active 1 byte in
+                types = torch.as_tensor(
+                    rng.randint(0, n_types, P + off).astype(np.int32),
+                    device=dev)[off:]
+                for kind in ("random", "none", "all"):
+                    active = torch.as_tensor(mask(kind, P + off),
+                                             device=dev)[off:]
+                    check_types(types, active, n_types,
+                                f"P={P}+{off} n_types={n_types} {kind}",
+                                packs=n_types == TYPE_GROUPS[0])
     for P in LENGTHS + SEG_LENGTHS + (FLEET_WIDE,):
         counts = rng.randint(0, 4, P).astype(np.int32)
         counts[rng.rand(P) < 0.3] = 0
@@ -339,8 +394,12 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     print(f"[kernels] fork_scan exact at P in {list(SCAN_LENGTHS)}, aligned "
           "and 4 bytes off")
+    print(f"[kernels] type_rank, type_pack and lane_pack exact at P in "
+          f"{list(TYPE_LENGTHS)} for n_types {'/'.join(map(str, TYPE_GROUPS))}"
+          ", random/none/all masks, aligned and on views 4 (types) and 1 "
+          "(active) bytes off")
     print(f"[kernels] exact at P in {list(LENGTHS)}: fork_scan, "
-          f"type_rank (n_types {'/'.join(map(str, N_TYPES))}; "
+          f"type_rank and type_pack (n_types {'/'.join(map(str, N_TYPES))}; "
           f"random/none/all masks), lane_pack; segmented_fork_scan also "
           f"either side of its 2048-lane tiles and at P=2^23 (J "
           f"{'/'.join(map(str, N_SEGS))}; shuffled and out-of-range ids)")
@@ -393,16 +452,84 @@ def phase_kernels(dev):
           f"after 5 replays; a plain copy of its input takes "
           f"{rows[0]['copy_ms']:.5f} ms, clearing its {8 * words}-byte "
           f"scratch {rows[0]['clear_ms']:.5f} ms")
+    def types_replayed(entry, want):
+        def check(outs):
+            for i, got in enumerate(outs):
+                for part, a, b in zip(("first", "second"), got, want):
+                    check_equal("type_rank", a, b,
+                                f"{entry} graph call {i} {part} output")
+        return check
+
+    r_rank = ref.type_rank_ref(types, active, 2)
     b, by = bound_ms(9 * WIDE + 4 * 2, 2 * WIDE)
     rows.append(dict(
         name="type_rank", route="cuda",
-        design="reduce-then-scan: three launches, 1024-lane tiles",
+        design="single pass, decoupled look-back: one memset (scratch and "
+               "counts) and one launch, 2048-lane tiles from an atomic "
+               "counter, 16 lanes a thread in 16-byte vectors, one status "
+               "word per (tile, type), groups of 32 types; lane_pack (one "
+               "type, active alone) and type_pack (a count pass and a "
+               "scatter pass) write their packs from it",
         source="src/repro_torch/kernels/csrc/fork_compact.cu",
         replaces="src/repro/kernels/fork_compact.py:195",
         max_abs_err=err["type_rank"], bound_ms=b, bound_by=by,
         **timed(lambda: fork_compact.type_rank(types, active, 2),
-                lambda: ref.type_rank_ref(types, active, 2), None),
+                lambda: ref.type_rank_ref(types, active, 2), None,
+                check=types_replayed("type_rank", r_rank)),
     ))
+    # the packs, at the host path's widest shape (2 types) and the mixed4
+    # wave's epoch bucket (7 types); the library yardstick is a stable sort
+    # by (type, inactive last), which orders the active lanes as the pack
+    # does but keeps the inactive lanes in the tail where the pack has -1
+    packs = []
+    for P, n_types in ((WIDE, 2), (FLEET_WIDE, FLEET_TYPES)):
+        if P == WIDE:
+            p_types, p_active = types, active
+        else:
+            p_types = torch.as_tensor(
+                rng.randint(0, n_types, P).astype(np.int32), device=dev)
+            p_active = torch.as_tensor(rng.rand(P) < 0.6, device=dev)
+        key = torch.where(p_active, p_types, n_types)
+        inactive = (~p_active).to(torch.uint8)
+        for entry, per_lane, kernel, plain, library in (
+            ("lane_pack", 5,
+             lambda a=p_active: fork_compact.lane_pack(a),
+             lambda a=p_active: ref.lane_pack_ref(a),
+             lambda k=inactive: torch.sort(k, stable=True)),
+            ("type_pack", 9,
+             lambda t=p_types, a=p_active, k=n_types:
+                 fork_compact.type_pack(t, a, k),
+             lambda t=p_types, a=p_active, k=n_types:
+                 ref.type_pack_ref(t, a, k),
+             lambda k=key: torch.sort(k, stable=True)),
+        ):
+            b, by = bound_ms(per_lane * P + 4 * n_types, 2 * P)
+            packs.append(dict(
+                entry=entry, P=P, n_types=n_types, bound_ms=b, bound_by=by,
+                **timed(kernel, plain, library,
+                        check=types_replayed(entry, plain())),
+            ))
+    rows[-1]["packs"] = packs
+    rows[-1]["device_ops"] = {}
+    for entry, fn in (
+            ("type_rank", lambda: fork_compact.type_rank(types, active, 2)),
+            ("lane_pack", lambda: fork_compact.lane_pack(active)),
+            ("type_pack", lambda: fork_compact.type_pack(types, active, 2))):
+        names = device_ops(fn)
+        rows[-1]["device_ops"][entry] = len(names)
+        print(f"[kernels] {entry}: {len(names)} device operations "
+              f"{names}")
+        if not 0 < len(names) <= TYPE_DEVICE_OPS[entry]:
+            fail(f"{entry} took {len(names)} device operations, at most "
+                 f"{TYPE_DEVICE_OPS[entry]} expected")
+    print("[kernels] type_rank, lane_pack and type_pack exact in all 20 "
+          "calls of each timing graph after 5 replays")
+    for pk in packs:
+        print(f"[kernels] {pk['entry']} P={pk['P']} n_types={pk['n_types']}"
+              f": device {pk['ms']:.5f} ms (eager call {pk['call_ms']:.5f} "
+              f"ms), bound {pk['bound_ms']:.5f} ms ({pk['bound_by']}), "
+              f"plain {pk['plain_ms']:.5f} ms, stable sort "
+              f"{pk['library_ms']:.5f} ms")
     counts = torch.as_tensor(rng.randint(0, 3, FLEET_WIDE).astype(np.int32),
                              device=dev)
     seg = torch.as_tensor(rng.randint(0, 4, FLEET_WIDE).astype(np.int32),
@@ -941,9 +1068,9 @@ def phase_service(cases, runs):
     torch.cuda.synchronize()
     launches = dict(fork_compact.LAUNCHES)
     print(f"[service] kernel launches during the service waves: {launches}")
-    if launches["segmented_fork_scan"] <= 0:
-        fail("kernel segmented_fork_scan was not launched on the service "
-             "path")
+    for k in ("segmented_fork_scan", "type_rank"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the service path")
 
     # streaming: six fib jobs through four regions; the two queued jobs
     # seat mid-flight in the regions of the two short jobs
@@ -1671,6 +1798,10 @@ def main() -> int:
               f"{ONE_CTA_RESIDENT_BUSY.get(case.name, 'not measured')})")
     svc_launches, wave = phase_service(cases, host_runs)
     launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
+    # type_rank's count: the host path's launches and the service waves'
+    type_rank_paths = {"host": launches["type_rank"],
+                       "service": svc_launches["type_rank"]}
+    launches["type_rank"] += svc_launches["type_rank"]
 
     def masked_wave():
         svc, _, _ = run_wave(wave, "masked")
@@ -1687,6 +1818,8 @@ def main() -> int:
     launches["ssd_scan"] = ssm_launches["ssd_scan"]
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "type_rank":
+            r["launches_by_path"] = type_rank_paths
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,9 +24,9 @@ Two engines configure it:
 
 PyTorch runs eagerly, so the step builders of the JAX reference are plain
 methods here (no jit caches).  The scans on the path run the port's CUDA
-kernels on the card (``kernels/ops.py``): fork-slot allocation and the
-compaction offsets go through ``fork_scan``, the compaction rank and the
-gather pack through ``type_rank``.
+kernels on the card (``kernels/ops.py``): fork-slot allocation goes
+through ``fork_scan``; the compaction's permutation and the gather pack
+are written by the ``type_rank`` kernel (``type_pack``, ``lane_pack``).
 
 Resident counters are native int64 tensors where the JAX carry keeps exact
 i32 hi/lo pairs (it runs without x64); decoded, they are the same numbers.

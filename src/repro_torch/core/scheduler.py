@@ -9,7 +9,7 @@
     popped NDRange to a power-of-two bucket and runs every task type
     full-width, masked.  ``compacted`` is the §5.4 contiguity principle:
     active lanes are scattered into dense per-type ranges (the ``type_rank``
-    + ``fork_scan`` kernels) and each type launches as one dense slice sized
+    kernel's ``type_pack``) and each type launches as one dense slice sized
     to its own population.  ``gather`` packs every scheduled lane into one
     dense frontier (``kernels.ops.lane_pack``).
   * :class:`MuxPopPolicy` — which tenants' stacks pop into one fused

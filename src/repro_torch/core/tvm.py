@@ -25,7 +25,8 @@ only gathers, so every read still sees the pre-epoch snapshot).
 
 **Kernels.**  Fork allocation and the compaction pass call
 ``kernels/ops.py``: the ``fork_scan``, ``segmented_fork_scan`` and
-``type_rank`` CUDA kernels on the card, their plain versions on the CPU.
+``type_rank`` CUDA kernels on the card (the compaction's permutation is
+``type_rank``'s ``type_pack``), their plain versions on the CPU.
 (The JAX ``HostEngine`` and ``EpochMultiplexer`` allocate fork slots with
 ``jnp.cumsum`` or the jnp segmented reference unless given a hook; the
 port routes them through its own kernels — the same functions, so the
@@ -224,24 +225,14 @@ def compact_types(program: Program, state: TVMState, idx, active):
     """Compaction stage: scatter active lanes into contiguous per-type ranges.
 
     Each active lane gets ``dest = type_start[type] + rank`` where ``rank``
-    is its stable within-type rank (the ``type_rank`` kernel) and
-    ``type_start`` the exclusive prefix sum of the per-type populations
-    (the ``fork_scan`` kernel).  Returns ``(perm, counts)``:
-    ``perm[d]`` is the lane position of the d-th compacted lane (-1 beyond
-    the active population), ``counts`` the per-type populations.
+    is its stable within-type rank and ``type_start`` the exclusive prefix
+    sum of the per-type populations; on the card the ``type_rank`` kernel
+    writes the permutation itself (``kops.type_pack``).  Returns ``(perm,
+    counts)``: ``perm[d]`` is the lane position of the d-th compacted lane
+    (-1 beyond the active population), ``counts`` the per-type populations.
     """
-    P = idx.shape[0]
-    n_types = len(program.tasks)
     types = state.task[idx.clamp(0, state.capacity - 1)]
-    rank, counts = kops.type_rank(types, active, n_types)
-    type_start, _ = kops.fork_offsets(counts)
-    dest = type_start[types.clamp(0, n_types - 1)] + rank
-    # tvm.py drops inactive lanes at index P (mode="drop"): sink entry P here
-    perm = torch.full((P + 1,), -1, dtype=_I32, device=idx.device)
-    perm[torch.where(active, dest, P)] = torch.arange(
-        P, dtype=_I32, device=idx.device
-    )
-    return perm[:P], counts
+    return kops.type_pack(types, active, len(program.tasks))
 
 
 def _scatter_effects(ctx, pos, P: int):

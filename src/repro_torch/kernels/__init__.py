@@ -9,5 +9,6 @@ from . import (  # noqa: F401
     ops, ref, ssd_scan,
 )
 from .ops import (  # noqa: F401
-    attention, fork_offsets, gqa_decode, lane_pack, ssd, type_rank,
+    attention, fork_offsets, gqa_decode, lane_pack, ssd, type_pack,
+    type_rank,
 )

@@ -11,12 +11,16 @@
 //     allocation (one nextFreeCore per tenant region).
 //   * trees_type_rank  <- type_rank (_type_rank_kernel): the stable rank of
 //     each active lane among the active lanes of its type (-1 if inactive)
-//     + per-type counts.  The compacted dispatch's permutation, and, with
-//     one type, the gather dispatch's frontier pack.
+//     + per-type counts.  Two specialisations of it write the packs its
+//     callers build from the rank: trees_lane_pack (one type, active
+//     alone: the gather dispatch's frontier pack) and trees_type_pack
+//     (the compacted dispatch's permutation, perm[type_start + rank] =
+//     lane).
 //
 // What bounds them on this card: memory.  fork_scan must read 4 bytes and
 // write 4 bytes per lane (8 B/lane); type_rank reads an i32 type and a u8
-// active flag and writes an i32 rank (9 B/lane); segmented_fork_scan reads
+// active flag and writes an i32 rank (9 B/lane; lane_pack reads the flag
+// and writes the i32 permutation, 5 B/lane); segmented_fork_scan reads
 // an i32 count and an i32 segment id and writes an i32 offset (12 B/lane).
 // At 2^21 lanes the first two move 16.8 MB and 18.9 MB, about 5 and 6
 // microseconds at 3.35 TB/s; segmented_fork_scan at 2^23 lanes moves
@@ -67,21 +71,60 @@
 // in order.
 // 12 B/lane moved; two device operations (the memset, the scan).
 //
-// type_rank: reduce-then-scan, three launches on one stream:
-//   1. each block reduces its 1024-lane tile to one total per type;
-//   2. one block per type scans the tile totals into tile offsets and
-//      writes the type's count;
-//   3. each block scans its tile again (ballots, then the warp totals) and
-//      adds its tile offset.
-// The input is read twice (13 B/lane moved against the bound's 9); the
-// look-back is its next design.
+// type_rank: the same single pass, one status word per (tile, type).  Its
+// old design reduced 1024-lane tiles, scanned the tile totals in one block
+// per type and scanned the tiles again: three launches, 13 B/lane moved
+// against the bound's 9, 18.6 % of the bound at 2^21 lanes.  Now a block
+// of 128 threads takes a 2048-lane tile from its group's counter; each
+// thread holds 16 contiguous lanes, one 16-byte vector of active flags and
+// four of types.  One pass over its lanes gives each lane its same-type
+// lanes before it in the thread and the thread its count of each type:
+// running counts four to a word in 8-bit fields.  Widened to 16-bit
+// fields, two types to a word (a tile's counts fit), a warp scan of W / 2
+// words gives every thread its same-type lanes in earlier threads.  Warp 0
+// publishes W words and looks back as segmented_fork_scan does; each
+// thread keeps its W bases in its own column of shared memory, and a
+// lane's rank is its type's base plus its running count.  The ranks go
+// through shared memory (16-byte chunks, swizzled), so each warp stores
+// 512 contiguous bytes.  9 B/lane moved; two device operations.
 //
-// Groups: a pass keeps W <= kSegGroup = 32 segment sums a thread, and
-// type_rank one shared-memory counter per type for kTypeGroup = 8 types;
-// blockIdx.y (with a grid-stride loop past 65535 groups) walks the groups
-// (segmented_fork_scan gives each its own tile counter and status words),
-// so any n_types or n_segs >= 1 works.  Each group reads the tile again; up to 32 segments
-// the scan is one pass.
+// Its callers used to turn the rank into a pack with six to eleven torch
+// ops on the card (a zeros vector of types, fork_offsets of the counts, a
+// gather, an add, a full, a where, an arange, an index-put); the pack is
+// now written by the kernel.  A tile's packed lanes are its lanes in type
+// order; they are staged in shared memory, and each type's run is written
+// to its contiguous destination.  With one type group the tiles also
+// write perm's -1 tail, [packed lanes, n), each its own unpacked lanes,
+// counted from the end, so the permutation is written once and no memset
+// clears it first.
+//   * lane_pack is the one-type pass that reads active alone and writes
+//     perm[rank] = lane for each active lane: 5 B/lane, its bound.
+//   * type_pack needs type_start, the scan of counts that only the last
+//     tile knows, so it is two launches: the pass publishes the per-type
+//     tile prefixes and the counts and writes no lane; a second pass over
+//     the same tiles (from blockIdx: it waits on nothing) recounts its
+//     lanes, reads its tile's prefix back from the predecessor's inclusive
+//     words, scans counts in its warp 0 for type_start, and writes
+//     perm[type_start + rank] = lane.  5 + 5 bytes read and 4 written a
+//     lane against the bound's 9.
+// Their status words are stored complemented, so the scratch and the
+// counts (and, past one type group, the permutation) share one buffer and
+// one cudaMemsetAsync to all ones (status "unpublished", tile counters at
+// ~0, perm -1): type_rank and lane_pack are two device operations,
+// type_pack three.
+//
+// Tile shapes tried at 2^21 and 2^23 lanes: 4096-lane tiles (256 threads)
+// and look-back windows of 64 and 128 predecessors changed the times by a
+// tenth or less, and so did a resident grid that walks the tiles; staging
+// the stores, the running counts (in place of comparing a lane with each
+// earlier one) and writing the -1 tail from the tiles each gained.
+//
+// Groups: a pass keeps W <= kSegGroup = 32 segment or type sums a thread;
+// blockIdx.y (with a grid-stride loop past 65535 groups) walks the groups,
+// each with its own tile counter and status words, so any n_types or
+// n_segs >= 1 works.  Each group reads the tile again; up to 32 segments
+// or types (every app, and the 7 types of the mixed4 fleet) the scan is one
+// pass.
 //
 // Segments need not be contiguous (the gather and compacted dispatches
 // permute lanes): a lane's segment only picks which running sum it adds to.
@@ -98,42 +141,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;                    // chunks of kThreads lanes per tile
-constexpr int kTile = kThreads * kItems;     // 1024 lanes per block
-constexpr int kTypeGroup = 8;               // types per block (type_rank)
 constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Inclusive scan of one value per thread across the block.  Every thread
-// of the block must call it.  *total receives the block total.
-__device__ __forceinline__ unsigned block_inclusive_scan(
-    unsigned v, unsigned* warp_tot, unsigned* total) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    unsigned y = __shfl_up_sync(kFull, v, d);
-    if (lane >= (unsigned)d) v += y;
-  }
-  if (lane == 31u) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned w = lane < (unsigned)kWarps ? warp_tot[lane] : 0u;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      unsigned y = __shfl_up_sync(kFull, w, d);
-      if (lane >= (unsigned)d) w += y;
-    }
-    if (lane < (unsigned)kWarps) warp_tot[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  const unsigned before = warp ? warp_tot[warp - 1] : 0u;
-  *total = warp_tot[kWarps - 1];
-  __syncthreads();  // warp_tot is reused by the caller's next call
-  return v + before;
-}
 
 // ------------------------------------------- fork_scan: decoupled look-back
 constexpr int kScanThreads = 128;
@@ -167,6 +176,15 @@ __device__ __forceinline__ unsigned long long load_status(
                : "l"(p)
                : "memory");
   return v;
+}
+
+// A status word as published: complemented where kOnes (type_rank's
+// scratch is cleared to all ones, with the outputs it shares a memset with).
+template <bool kOnes>
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  const unsigned long long w = load_status(p);
+  return kOnes ? ~w : w;
 }
 
 __device__ __forceinline__ unsigned warp_inclusive_scan(unsigned v) {
@@ -290,139 +308,6 @@ fork_scan_lookback(const int* __restrict__ counts, int* __restrict__ offs,
   }
 }
 
-// Pass 2 of type_rank: block r scans row r of rows[rows, nb] in place
-// into exclusive tile offsets and writes the row total to totals[r].
-__global__ void scan_rows(unsigned* __restrict__ rows, int nb,
-                          int* __restrict__ totals) {
-  __shared__ unsigned warp_tot[kWarps];
-  unsigned* row = rows + (long long)blockIdx.x * nb;
-  unsigned carry = 0;
-  for (int b0 = 0; b0 < nb; b0 += kThreads) {
-    const int b = b0 + threadIdx.x;
-    const unsigned v = b < nb ? row[b] : 0u;
-    unsigned tot;
-    const unsigned incl = block_inclusive_scan(v, warp_tot, &tot);
-    if (b < nb) row[b] = carry + incl - v;
-    carry += tot;
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = (int)carry;
-}
-
-// Pass 1 of type_rank: per-tile, per-type active counts into
-// counts[type * nb + tile], one group of kTypeGroup types per loop trip.
-// Lanes whose type lies outside [0, n_types) count nothing.
-__global__ void type_rank_reduce(const int* __restrict__ types,
-                                 const unsigned char* __restrict__ active,
-                                 unsigned* __restrict__ counts, int n,
-                                 int n_types, int nb) {
-  __shared__ unsigned s_cnt[kTypeGroup];
-  const int n_groups = (n_types + kTypeGroup - 1) / kTypeGroup;
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
-    const int g0 = g * kTypeGroup;
-    const int width = min(kTypeGroup, n_types - g0);
-    if (threadIdx.x < kTypeGroup) s_cnt[threadIdx.x] = 0u;
-    __syncthreads();
-    unsigned warp_cnt[kTypeGroup];
-#pragma unroll
-    for (int j = 0; j < kTypeGroup; ++j) warp_cnt[j] = 0u;
-    for (int k = 0; k < kItems; ++k) {
-      const long long i = base + k * kThreads + threadIdx.x;
-      int t = -1;
-      if (i < n && active[i]) {
-        const int tv = types[i];
-        if (tv >= g0 && tv < g0 + width) t = tv - g0;
-      }
-#pragma unroll
-      for (int j = 0; j < kTypeGroup; ++j) {
-        if (j < width) warp_cnt[j] += __popc(__ballot_sync(kFull, t == j));
-      }
-    }
-    if ((threadIdx.x & 31u) == 0) {
-#pragma unroll
-      for (int j = 0; j < kTypeGroup; ++j) {
-        if (j < width) atomicAdd(&s_cnt[j], warp_cnt[j]);
-      }
-    }
-    __syncthreads();
-    if ((int)threadIdx.x < width) {
-      counts[(long long)(g0 + threadIdx.x) * nb + blockIdx.x] =
-          s_cnt[threadIdx.x];
-    }
-    __syncthreads();  // s_cnt is zeroed again by the next group
-  }
-}
-
-// Pass 3 of type_rank: rank = tile offset of the lane's type + same-type
-// active lanes in earlier chunks of the tile + in earlier warps of this
-// chunk + in earlier lanes of this warp (popc of the ballot under the
-// lane's less-than mask).  Each lane is written once: by the group of its
-// type, or, if it is inactive (-1) or active with a type outside
-// [0, n_types) (0, as in the Pallas kernel), by group 0.
-__global__ void type_rank_tiles(const int* __restrict__ types,
-                                const unsigned char* __restrict__ active,
-                                const unsigned* __restrict__ tile_offs,
-                                int* __restrict__ rank, int n, int n_types,
-                                int nb) {
-  __shared__ unsigned s_warp[kWarps][kTypeGroup];
-  __shared__ unsigned s_carry[kTypeGroup];
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned warp = threadIdx.x >> 5;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  const int n_groups = (n_types + kTypeGroup - 1) / kTypeGroup;
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
-    const int g0 = g * kTypeGroup;
-    const int width = min(kTypeGroup, n_types - g0);
-    if (threadIdx.x < kTypeGroup) {
-      s_carry[threadIdx.x] =
-          (int)threadIdx.x < width
-              ? tile_offs[(long long)(g0 + threadIdx.x) * nb + blockIdx.x]
-              : 0u;
-    }
-    __syncthreads();
-    for (int k = 0; k < kItems; ++k) {
-      const long long i = base + k * kThreads + threadIdx.x;
-      bool act = false;
-      int tv = -1;  // the lane's type
-      int t = -1;   // its index in this group, -1 outside the group
-      if (i < n) {
-        act = active[i] != 0;
-        if (act) {
-          tv = types[i];
-          if (tv >= g0 && tv < g0 + width) t = tv - g0;
-        }
-      }
-      unsigned within = 0;
-#pragma unroll
-      for (int j = 0; j < kTypeGroup; ++j) {
-        if (j < width) {
-          const unsigned b = __ballot_sync(kFull, t == j);
-          if (t == j) within = __popc(b & lt_mask);
-          if (lane == 0) s_warp[warp][j] = __popc(b);
-        }
-      }
-      __syncthreads();
-      if (i < n) {
-        if (t >= 0) {
-          unsigned off = s_carry[t] + within;
-          for (unsigned w = 0; w < warp; ++w) off += s_warp[w][t];
-          rank[i] = (int)off;
-        } else if (g == 0 && (!act || tv < 0 || tv >= n_types)) {
-          rank[i] = act ? 0 : -1;
-        }
-      }
-      __syncthreads();
-      if ((int)threadIdx.x < width) {
-        unsigned s = 0;
-        for (int w = 0; w < kWarps; ++w) s += s_warp[w][threadIdx.x];
-        s_carry[threadIdx.x] += s;
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // ------------------------------ segmented_fork_scan: decoupled look-back
 // A lane's key within the segment group [g0, g0 + width): its segment's
 // index in the group, kOtherGroup (a valid id of another group) or
@@ -443,8 +328,10 @@ __device__ __forceinline__ int seg_group_key(int sv, int g0, int width,
 // waiting until all have published.  Each segment stops at its nearest
 // inclusive word (the least d, by a shuffle min over its lanes); its words
 // up to that one are summed by a shuffle butterfly.  Warp-wide; every lane
-// of segment k receives segment k's sum.
-template <int W>
+// of segment k receives segment k's sum.  kOnes: the words are stored
+// complemented (a scratch cleared to all ones reads as unpublished), as
+// type_rank keeps them.
+template <int W, bool kOnes = false>
 __device__ __forceinline__ unsigned seg_look_back(
     const unsigned long long* status, int tile) {
   constexpr int kRows = 32 / W;  // lanes per segment
@@ -459,7 +346,7 @@ __device__ __forceinline__ unsigned seg_look_back(
 #pragma unroll
     for (int i = 0; i < kWords; ++i) {
       const int idx = last - (i * kRows + j);
-      w[i] = idx >= 0 ? load_status(status + (long long)idx * W + k)
+      w[i] = idx >= 0 ? load_word<kOnes>(status + (long long)idx * W + k)
                       : kInclusive;
     }
     for (;;) {
@@ -470,7 +357,8 @@ __device__ __forceinline__ unsigned seg_look_back(
 #pragma unroll
       for (int i = 0; i < kWords; ++i) {
         if ((w[i] >> 32) == 0) {
-          w[i] = load_status(status + (long long)(last - (i * kRows + j)) * W + k);
+          w[i] = load_word<kOnes>(
+              status + (long long)(last - (i * kRows + j)) * W + k);
         }
       }
     }
@@ -640,25 +528,336 @@ seg_scan_lookback(const int* __restrict__ counts, const int* __restrict__ seg,
   }
 }
 
-// Tiles of segmented_fork_scan, and the width it runs a group of n_segs
-// at: min(n_segs, kSegGroup) rounded up to a power of two.
-int seg_scan_tiles(int n) {
-  const long long tiles = ((long long)n + kSegTile - 1) / kSegTile;
+// Tiles of `tile` lanes over n lanes (at least one, so the totals are
+// written for n = 0), and the width a pass runs a group of k segments or
+// types at: min(k, kSegGroup) rounded up to a power of two.
+int group_tiles(int n, int tile) {
+  const long long tiles = ((long long)n + tile - 1) / tile;
   return (int)(tiles > 1 ? tiles : 1);
 }
-int seg_scan_width(int n_segs) {
+int group_width(int k) {
   int w = 1;
-  while (w < n_segs && w < kSegGroup) w <<= 1;
+  while (w < k && w < kSegGroup) w <<= 1;
   return w;
 }
+
+// uint64 words of look-back scratch for n lanes in tiles of `tile` and k
+// segments or types: a tile counter per group of kSegGroup and a status
+// word per (group, tile, member of the group's width).
+long long lookback_words(int n, int tile, int k) {
+  if (k < 1) return 0;
+  const long long groups = (k + kSegGroup - 1) / kSegGroup;
+  return groups + groups * group_tiles(n, tile) * (long long)group_width(k);
+}
+
+
+// ------------------------------------------ type_rank: decoupled look-back
+// A block of kRankThreads threads takes a tile of kRankTile lanes; thread
+// t holds lanes [tile * kRankTile + 16 t, + 16): one 16-byte vector of
+// active flags and four of types.
+constexpr int kRankThreads = 128;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kRankLanes = 16;
+constexpr int kRankTile = kRankThreads * kRankLanes;  // 2048 lanes
+constexpr int kTypeGroup = kSegGroup;  // types a pass takes
+// What a launch writes for each lane: its rank (type_rank), nothing (the
+// first pass of type_pack: counts and status words only), perm[rank] =
+// lane for one type (lane_pack), perm[type_start + rank] = lane (the second
+// pass of type_pack, which reads the first's status words back).
+enum RankMode { kModeRank, kModeCount, kModeLanePack, kModeScatter };
+// A lane's key within the type group [g0, g0 + width): its type's index in
+// the group, or one of these.
+constexpr int kKeyOther = -1;       // active, a valid type of another group
+constexpr int kKeyOutOfRange = -2;  // active, a type outside [0, n_types)
+constexpr int kKeyInactive = -3;    // inactive, or a lane past the end
+
+// The keys of a thread's 16 lanes from i0 on.  kTypes: read the types (else
+// every active lane is type 0: lane_pack reads active alone).
+template <bool kTypes>
+__device__ __forceinline__ void load_keys(const int* __restrict__ types,
+                                          const unsigned char* __restrict__ active,
+                                          long long i0, int n, int vec, int g0,
+                                          int width, int n_types,
+                                          int (&key)[kRankLanes]) {
+  unsigned a[4];
+  int tv[kRankLanes];
+  if (vec && i0 + kRankLanes <= n) {
+    const uint4 q = *reinterpret_cast<const uint4*>(active + i0);
+    a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
+    if constexpr (kTypes) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int4 r = *reinterpret_cast<const int4*>(types + i0 + 4 * j);
+        tv[4 * j] = r.x; tv[4 * j + 1] = r.y;
+        tv[4 * j + 2] = r.z; tv[4 * j + 3] = r.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[j] = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long i = i0 + 4 * j + e;
+        if (i < n && active[i]) a[j] |= 1u << (8 * e);
+      }
+    }
+    if constexpr (kTypes) {
+#pragma unroll
+      for (int e = 0; e < kRankLanes; ++e) {
+        tv[e] = i0 + e < n ? types[i0 + e] : 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kRankLanes; ++e) {
+    const bool act = ((a[e / 4] >> (8 * (e % 4))) & 0xffu) != 0u;
+    int k = 0;
+    if constexpr (kTypes) k = seg_group_key(tv[e], g0, width, n_types);
+    key[e] = act ? k : kKeyInactive;
+  }
+}
+
+// The swizzled slot of 16-byte chunk c of a tile staged in shared memory:
+// rows of eight chunks (128 bytes), a chunk's column XOR its row, so that
+// eight threads writing chunks 4t + j, or reading eight consecutive
+// chunks, meet eight different bank groups.
+__device__ __forceinline__ int stage_chunk(int c) {
+  return (c & ~7) | ((c ^ (c >> 3)) & 7);
+}
+
+// One type group per loop trip.  Each thread counts its lanes per type of
+// the group in registers (running counts, 8-bit fields), the warp scans
+// them two types to a word (16-bit fields), the block adds its warps'
+// totals in shared memory.  Warp 0 publishes W status words
+// (complemented: the scratch is cleared to all ones) and looks back
+// (seg_look_back), or, in the scatter pass, reads the tile's prefix back
+// from its predecessor's inclusive words and adds each type's start (an
+// exclusive scan of counts).  Each thread then keeps its W bases in its
+// own column of shared memory, and a lane's rank is its type's base plus
+// its running count.  W is the group's width rounded up to a power of two.
+// scratch[g]: group g's tile counter (all ones at the launch: the first
+// atomicAdd returns ~0); scratch[n_groups + (g * n_tiles + t) * W + k]:
+// tile t's word of type g0 + k.
+template <int W, int kMode>
+__global__ void __launch_bounds__(kRankThreads)
+type_rank_lookback(const int* __restrict__ types,
+                   const unsigned char* __restrict__ active,
+                   int* __restrict__ out, int* __restrict__ counts,
+                   unsigned long long* __restrict__ scratch, int n,
+                   int n_types, int n_tiles, int n_groups, int vec) {
+  constexpr int NQ = (W + 3) / 4;  // a thread's running counts: 8-bit fields
+  constexpr int NW = (W + 1) / 2;  // its counts in the scans: 16-bit fields
+  constexpr bool kPack = kMode == kModeLanePack || kMode == kModeScatter;
+  constexpr int kBase = W > 1 && kMode != kModeCount ? W : 1;
+  constexpr int kStage = kMode == kModeCount ? 4 : kRankTile;
+  __shared__ unsigned s_wtot[kRankWarps][NW];
+  __shared__ unsigned s_base[kBase][kRankThreads];
+  __shared__ unsigned s_excl[W];   // the type's first rank (pack: dest) in the tile
+  __shared__ unsigned s_tbase[W + 1];  // pack: the type's first tile position
+  __shared__ __align__(16) int s_stage[kStage];  // ranks, or packed lanes
+  __shared__ unsigned s_tile, s_before;  // pack: packed lanes in earlier tiles
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned warp = threadIdx.x >> 5;
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    const int g0 = g * kTypeGroup;
+    const int width = min(kTypeGroup, n_types - g0);
+    unsigned long long* status =
+        scratch + n_groups + (long long)g * n_tiles * W;
+    int tile = blockIdx.x;
+    if constexpr (kMode != kModeScatter) {
+      if (threadIdx.x == 0) {
+        s_tile = atomicAdd(reinterpret_cast<unsigned*>(scratch + g), 1u) + 1u;
+      }
+      __syncthreads();
+      tile = (int)s_tile;
+    }
+    const long long i0 =
+        (long long)tile * kRankTile + (long long)threadIdx.x * kRankLanes;
+    int key[kRankLanes];
+    load_keys<kMode != kModeLanePack>(types, active, i0, n, vec, g0, width,
+                                      n_types, key);
+    // each lane's same-type lanes before it in this thread, and the
+    // thread's count of each type: one running count per type, four to a
+    // word in 8-bit fields (a thread holds 16 lanes); a lane outside the
+    // group (key < 0) hits no word
+    unsigned quad[NQ];
+#pragma unroll
+    for (int w = 0; w < NQ; ++w) quad[w] = 0u;
+    unsigned r[kRankLanes];
+#pragma unroll
+    for (int e = 0; e < kRankLanes; ++e) {
+      const int k = key[e];
+      const unsigned sh = (unsigned)(k & 3) << 3;
+      unsigned cur = 0;
+#pragma unroll
+      for (int w = 0; w < NQ; ++w) {
+        const bool hit = (k >> 2) == w;
+        cur = hit ? quad[w] : cur;
+        quad[w] += hit ? 1u << sh : 0u;
+      }
+      r[e] = (cur >> sh) & 0xffu;
+    }
+    unsigned cnt[NW];  // the same counts, two to a word in 16-bit fields
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      cnt[w] = __byte_perm(quad[w >> 1], 0u, (w & 1) ? 0x4342u : 0x4140u);
+    }
+    unsigned wex[NW];  // same-type lanes in earlier threads of the warp
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned incl = warp_inclusive_scan(cnt[w]);
+      wex[w] = incl - cnt[w];
+      if (lane == 31u) s_wtot[warp][w] = incl;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      unsigned run = 0;  // s_wtot becomes exclusive over warps
+      if (lane < (unsigned)NW) {
+#pragma unroll
+        for (int wp = 0; wp < kRankWarps; ++wp) {
+          const unsigned t = s_wtot[wp][lane];
+          s_wtot[wp][lane] = run;
+          run += t;
+        }
+      }
+      const unsigned agg =
+          (__shfl_sync(kFull, run, (lane >> 1) % NW) >> ((lane & 1u) << 4)) &
+          0xffffu;
+      unsigned prior = 0;  // the type's lanes in earlier tiles
+      unsigned excl = 0;
+      if constexpr (kMode == kModeScatter) {
+        if (tile > 0 && lane < (unsigned)W) {
+          excl = (unsigned)~load_status(status + (long long)(tile - 1) * W +
+                                        lane);
+        }
+        prior = excl;
+        unsigned run_c = 0;  // counts before type g0 + lane
+        for (int c0 = 0; c0 < g0 + width; c0 += 32) {
+          const int j = c0 + (int)lane;
+          const unsigned v = j < g0 + width ? (unsigned)counts[j] : 0u;
+          const unsigned incl = warp_inclusive_scan(v);
+          if (c0 == g0) excl += run_c + incl - v;
+          run_c += __shfl_sync(kFull, incl, 31);
+        }
+      } else if (tile == 0) {
+        if (lane < (unsigned)W) store_status(status + lane, ~(kInclusive | agg));
+      } else {
+        unsigned long long* own = status + (long long)tile * W;
+        if (lane < (unsigned)W) store_status(own + lane, ~(kAggregate | agg));
+        excl = seg_look_back<W, true>(status, tile);
+        if (lane < (unsigned)W) {
+          store_status(own + lane, ~(kInclusive | (excl + agg)));
+        }
+      }
+      if constexpr (kMode != kModeScatter) prior = excl;
+      if (lane < (unsigned)W) {
+        s_excl[lane] = excl;
+        if (kMode != kModeScatter && tile == n_tiles - 1 &&
+            (int)lane < width) {
+          counts[g0 + lane] = (int)(excl + agg);
+        }
+      }
+      if constexpr (kPack) {  // the tile's lanes in type order
+        const unsigned a = lane < (unsigned)W ? agg : 0u;
+        const unsigned incl = warp_inclusive_scan(a);
+        if (lane < (unsigned)W) s_tbase[lane] = incl - a;
+        if (lane == 31u) s_tbase[W] = incl;
+        const unsigned before =
+            __reduce_add_sync(kFull, lane < (unsigned)W ? prior : 0u);
+        if (lane == 0u) s_before = before;
+      }
+    }
+    __syncthreads();
+    if constexpr (kMode != kModeCount) {
+      // this thread's first rank of each type: the tile's prefix (a pack:
+      // the type's first position in the tile), the earlier warps', the
+      // earlier threads' of this warp
+      unsigned base0 = 0;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const unsigned wb = s_wtot[warp][k >> 1] + wex[k >> 1];
+        const unsigned b = (kPack ? s_tbase[k] : s_excl[k]) +
+                           ((wb >> ((k & 1) << 4)) & 0xffffu);
+        if constexpr (W == 1) {
+          base0 = b;
+        } else {
+          s_base[k][threadIdx.x] = b;
+        }
+      }
+      int o[kRankLanes];
+#pragma unroll
+      for (int e = 0; e < kRankLanes; ++e) {
+        const int k = key[e];
+        unsigned b = base0;
+        if constexpr (W > 1) {
+          if (k >= 0) b = s_base[k][threadIdx.x];
+        }
+        o[e] = k >= 0 ? (int)(b + r[e]) : (k == kKeyOutOfRange ? 0 : -1);
+      }
+      if constexpr (kMode == kModeRank) {
+        if (n_groups == 1 && vec &&
+            (long long)(tile + 1) * kRankTile <= n) {
+          // through shared memory, so that each warp store is 512
+          // contiguous bytes; 16-byte chunks swizzled, no bank conflicts
+          int4* st = reinterpret_cast<int4*>(s_stage);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[stage_chunk(4 * threadIdx.x + j)] =
+                make_int4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+          }
+          __syncthreads();
+          int4* dst = reinterpret_cast<int4*>(out + (long long)tile * kRankTile);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = j * kRankThreads + threadIdx.x;
+            dst[c] = st[stage_chunk(c)];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < kRankLanes; ++e) {
+            const int k = key[e];
+            if (i0 + e < n && (k >= 0 || (g == 0 && k != kKeyOther))) {
+              out[i0 + e] = o[e];
+            }
+          }
+        }
+      } else {
+        // a pack: o is the lane's position in the tile's type-ordered
+        // list; stage the list, then write each type's run of it to its
+        // contiguous destination from s_excl on
+#pragma unroll
+        for (int e = 0; e < kRankLanes; ++e) {
+          if (key[e] >= 0) s_stage[o[e]] = (int)(i0 + e);
+        }
+        __syncthreads();
+        for (int k = 0; k < W; ++k) {
+          const int t0 = (int)s_tbase[k], len = (int)s_tbase[k + 1] - t0;
+          int* dst = out + s_excl[k];
+          for (int j = threadIdx.x; j < len; j += kRankThreads) {
+            dst[j] = s_stage[t0 + j];
+          }
+        }
+        if (n_groups == 1) {
+          // perm's -1 tail, [packed lanes, n), split among the tiles from
+          // the end: this tile's unpacked lanes go below the earlier
+          // tiles' (so no memset writes the permutation first)
+          const long long lanes_before = (long long)tile * kRankTile;
+          const int un = (int)min((long long)kRankTile, n - lanes_before) -
+                         (int)s_tbase[W];
+          int* dst = out + (n - (lanes_before - s_before) - un);
+          for (int j = threadIdx.x; j < un; j += kRankThreads) dst[j] = -1;
+        }
+      }
+    }
+    __syncthreads();  // the shared words serve the next group
+  }
+}
+
 
 }  // namespace
 
 extern "C" {
-
-// Lanes a block of type_rank takes (its scratch holds one uint32 per tile
-// and type).
-int trees_tile_lanes() { return kTile; }
 
 // uint64 words of scratch trees_fork_scan takes for n lanes: the tile
 // counter and one status word per tile.
@@ -688,9 +887,7 @@ int trees_fork_scan(const int* counts, int* offs, int* total,
 // n_segs segments: one tile counter per group of kSegGroup segments and one
 // status word per (group, tile, segment of the group's width).
 long long trees_segmented_fork_scan_scratch_words(int n, int n_segs) {
-  if (n_segs < 1) return 0;
-  const long long groups = (n_segs + kSegGroup - 1) / kSegGroup;
-  return groups + groups * seg_scan_tiles(n) * (long long)seg_scan_width(n_segs);
+  return lookback_words(n, kSegTile, n_segs);
 }
 
 // offs[i] = sum of counts[k] over k < i with seg[k] == seg[i] (0 where
@@ -708,7 +905,7 @@ int trees_segmented_fork_scan(const int* counts, const int* seg, int* offs,
   if (scratch_words < words) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(scratch, 0, sizeof(*scratch) * words, s);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = seg_scan_tiles(n);
+  const int tiles = group_tiles(n, kSegTile);
   const int groups = (n_segs + kSegGroup - 1) / kSegGroup;
   const dim3 grid(tiles, groups < kMaxGridY ? groups : kMaxGridY);
   const int vec = reinterpret_cast<unsigned long long>(counts) % 16 == 0 &&
@@ -718,7 +915,7 @@ int trees_segmented_fork_scan(const int* counts, const int* seg, int* offs,
   seg_scan_lookback<W><<<grid, kSegThreads, 0, s>>>(                        \
       counts, seg, offs, totals, scratch, n, n_segs, tiles, groups, vec);   \
   break;
-  switch (seg_scan_width(n_segs)) {
+  switch (group_width(n_segs)) {
     case 1: TREES_SEG(1)
     case 2: TREES_SEG(2)
     case 4: TREES_SEG(4)
@@ -730,27 +927,118 @@ int trees_segmented_fork_scan(const int* counts, const int* seg, int* offs,
   return (int)cudaGetLastError();
 }
 
-// rank[i] = stable rank of active lane i among active lanes of its type,
-// -1 for an inactive lane; counts[t] = active lanes of type t.
-// n_types >= 1; scratch: n_types * max(1, nb) uint32.
-int trees_type_rank(const int* types, const unsigned char* active,
-                    int* rank, int* counts, unsigned* scratch, int n,
-                    int n_types, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_types < 1) return (int)cudaErrorInvalidValue;
-  const int nb = (n + kTile - 1) / kTile;
+// uint64 words of scratch type_rank, lane_pack and type_pack take for n
+// lanes and n_types types: one tile counter per group of kTypeGroup types
+// and one status word per (group, tile, type of the group's width).
+long long trees_type_rank_scratch_words(int n, int n_types) {
+  return lookback_words(n, kRankTile, n_types);
+}
+
+// uint64 words of the work buffer of the three type entries: the scratch,
+// then the counts (n_types int32, rounded up to whole words), then, for
+// lane_pack (n_types = 1) and type_pack, the permutation (n int32).  One
+// memset sets the scratch and the counts to ones (unpublished status
+// words, tile counters at ~0), and the permutation to -1 past one type
+// group (within one, the tiles write all of it).
+long long trees_type_rank_work_words(int n, int n_types, int with_perm) {
+  if (n_types < 1 || n < 0) return 0;
+  return trees_type_rank_scratch_words(n, n_types) + (n_types + 1) / 2 +
+         (with_perm ? ((long long)n + 1) / 2 : 0);
+}
+
+}  // extern "C"
+
+namespace {
+
+// Clear the work buffer and run pass kMode (then, for type_pack, the
+// scatter pass) over the type groups at the group width.
+int launch_type_rank(int mode, const int* types, const unsigned char* active,
+                     int* rank, unsigned long long* work, long long work_words,
+                     int n, int n_types, cudaStream_t s) {
+  const int with_perm = mode != kModeRank;
+  const long long need = trees_type_rank_work_words(n, n_types, with_perm);
+  if (n_types < 1 || n < 0 || work_words < need) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long words = trees_type_rank_scratch_words(n, n_types);
+  const int tiles = group_tiles(n, kRankTile);
   const int groups = (n_types + kTypeGroup - 1) / kTypeGroup;
-  const dim3 grid(nb, groups < kMaxGridY ? groups : kMaxGridY);
-  if (nb > 0) {
-    type_rank_reduce<<<grid, kThreads, 0, s>>>(types, active, scratch, n,
-                                               n_types, nb);
+  // one group: the tiles write all of perm, its -1 tail too
+  const long long clear = groups == 1 ? words + (n_types + 1) / 2 : need;
+  cudaError_t e = cudaMemsetAsync(work, 0xFF, sizeof(*work) * clear, s);
+  if (e != cudaSuccess) return (int)e;
+  int* counts = reinterpret_cast<int*>(work + words);
+  int* perm = reinterpret_cast<int*>(work + words + (n_types + 1) / 2);
+  const dim3 grid(tiles, groups < kMaxGridY ? groups : kMaxGridY);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const int vec = aligned(active) && (mode == kModeLanePack || aligned(types)) &&
+                  (mode != kModeRank || aligned(rank));
+  if (mode == kModeLanePack) {
+    type_rank_lookback<1, kModeLanePack><<<grid, kRankThreads, 0, s>>>(
+        nullptr, active, perm, counts, work, n, 1, tiles, groups, vec);
+    return (int)cudaGetLastError();
   }
-  scan_rows<<<n_types, kThreads, 0, s>>>(scratch, nb, counts);
-  if (nb > 0) {
-    type_rank_tiles<<<grid, kThreads, 0, s>>>(types, active, scratch, rank,
-                                              n, n_types, nb);
+#define TREES_RANK(W)                                                        \
+  if (mode == kModeRank) {                                                   \
+    type_rank_lookback<W, kModeRank><<<grid, kRankThreads, 0, s>>>(          \
+        types, active, rank, counts, work, n, n_types, tiles, groups, vec);  \
+  } else {                                                                   \
+    type_rank_lookback<W, kModeCount><<<grid, kRankThreads, 0, s>>>(         \
+        types, active, perm, counts, work, n, n_types, tiles, groups, vec);  \
+    type_rank_lookback<W, kModeScatter><<<grid, kRankThreads, 0, s>>>(       \
+        types, active, perm, counts, work, n, n_types, tiles, groups, vec);  \
+  }                                                                          \
+  break;
+  switch (group_width(n_types)) {
+    case 1: TREES_RANK(1)
+    case 2: TREES_RANK(2)
+    case 4: TREES_RANK(4)
+    case 8: TREES_RANK(8)
+    case 16: TREES_RANK(16)
+    default: TREES_RANK(32)
   }
+#undef TREES_RANK
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// rank[i] = stable rank of active lane i among the active lanes of its
+// type, -1 for an inactive lane, 0 for an active lane whose type lies
+// outside [0, n_types); counts (in work, after the scratch) = active lanes
+// of each type.  work: trees_type_rank_work_words(n, n_types, 0) uint64,
+// any contents (cleared here, on the stream, before the scan).
+int trees_type_rank(const int* types, const unsigned char* active, int* rank,
+                    unsigned long long* work, long long work_words, int n,
+                    int n_types, void* stream) {
+  return launch_type_rank(kModeRank, types, active, rank, work, work_words, n,
+                          n_types, static_cast<cudaStream_t>(stream));
+}
+
+// The frontier pack: perm[d] = the d-th active lane, -1 for d >= count;
+// count = the active lanes.  work: trees_type_rank_work_words(n, 1, 1)
+// uint64 holding the scratch, count and perm.
+int trees_lane_pack(const unsigned char* active, unsigned long long* work,
+                    long long work_words, int n, void* stream) {
+  return launch_type_rank(kModeLanePack, nullptr, active, nullptr, work,
+                          work_words, n, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The compaction pack: perm[type_start[t] + rank] = lane for each active
+// lane of type t in [0, n_types), -1 past the active lanes; type_start is
+// the exclusive scan of counts.  work: trees_type_rank_work_words(n,
+// n_types, 1) uint64 holding the scratch, counts and perm.  A memset and
+// two launches: the first publishes each tile's per-type prefix and the
+// counts, the second reads them back and scatters.
+int trees_type_pack(const int* types, const unsigned char* active,
+                    unsigned long long* work, long long work_words, int n,
+                    int n_types, void* stream) {
+  return launch_type_rank(kModeCount, types, active, nullptr, work, work_words,
+                          n, n_types, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

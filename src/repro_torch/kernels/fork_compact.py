@@ -4,10 +4,12 @@
 TPU kernels of the same names in ``repro/kernels/fork_compact.py``; the
 CUDA C++ lives in ``csrc/fork_compact.cu`` (its header says what bounds
 them and what the TPU's sequential-grid carry became on the card).
+``lane_pack`` and ``type_pack`` are ``type_rank`` writing the packs its
+callers build from the rank (the gather dispatch's frontier, the compacted
+dispatch's permutation), so they count as its launches.
 
-``fork_scan`` and ``segmented_fork_scan`` are one pass with a decoupled
-look-back (one memset of their scratch and one launch); ``type_rank``
-reduces, scans the tile sums and scans again (three launches).
+All three scans are one pass with a decoupled look-back: a memset of their
+scratch and one launch (``type_pack`` adds a second, scattering launch).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``kernels/nvcc.py``) and loaded with
@@ -39,27 +41,64 @@ LAUNCHES: Dict[str, int] = {
 }
 
 # segmented_fork_scan's tiles and segment groups (kSegTile, kSegGroup in
-# SOURCE)
+# SOURCE); type_rank's tiles (kRankTile; its groups are SEG_GROUP types)
 SEG_TILE = 2048
 SEG_GROUP = 32
+TYPE_TILE = 2048
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def seg_scan_scratch_words(n: int, n_segs: int) -> int:
-    """uint64 words of scratch ``segmented_fork_scan`` takes for ``n`` lanes
-    and ``n_segs`` segments: a tile counter per group of ``SEG_GROUP``
-    segments and one status word per (group, tile, segment of the group's
-    width, ``min(n_segs, SEG_GROUP)`` rounded up to a power of two)."""
-    if n_segs < 1:
-        raise ValueError(f"segmented_fork_scan: n_segs={n_segs} < 1")
-    groups = -(-n_segs // SEG_GROUP)
-    tiles = max(1, -(-n // SEG_TILE))
+def _lookback_words(n: int, k: int, tile: int) -> int:
+    """uint64 words of look-back scratch for ``n`` lanes in tiles of
+    ``tile`` and ``k`` segments or types: a tile counter per group of
+    ``SEG_GROUP`` and one status word per (group, tile, member of the
+    group's width, ``min(k, SEG_GROUP)`` rounded up to a power of two)."""
+    groups = -(-k // SEG_GROUP)
+    tiles = max(1, -(-n // tile))
     width = 1
-    while width < min(n_segs, SEG_GROUP):
+    while width < min(k, SEG_GROUP):
         width *= 2
     return groups + groups * tiles * width
+
+
+def seg_scan_scratch_words(n: int, n_segs: int) -> int:
+    """uint64 words of scratch ``segmented_fork_scan`` takes for ``n`` lanes
+    and ``n_segs`` segments (tiles of ``SEG_TILE``)."""
+    if n_segs < 1:
+        raise ValueError(f"segmented_fork_scan: n_segs={n_segs} < 1")
+    return _lookback_words(n, n_segs, SEG_TILE)
+
+
+def type_rank_scratch_words(n: int, n_types: int) -> int:
+    """uint64 words of scratch ``type_rank``, ``lane_pack`` and
+    ``type_pack`` take for ``n`` lanes and ``n_types`` types (tiles of
+    ``TYPE_TILE``)."""
+    if n_types < 1:
+        raise ValueError(f"type_rank: n_types={n_types} < 1")
+    return _lookback_words(n, n_types, TYPE_TILE)
+
+
+def _type_work(n: int, n_types: int, device, with_perm: bool):
+    """The one buffer of a type entry: the scratch, the counts
+    (``n_types`` int32, whole words) and, for a pack, the permutation
+    (``n`` int32), laid out as ``trees_type_rank_work_words`` in SOURCE
+    says.  One memset on the card clears what the kernel does not write.
+    Returns ``(work, counts, perm)``, the last two int32 views into
+    ``work`` (``perm`` None without one)."""
+    words = type_rank_scratch_words(n, n_types)
+    cwords = (n_types + 1) // 2
+    pwords = (n + 1) // 2 if with_perm else 0
+    work = torch.empty((words + cwords + pwords,), dtype=torch.int64,
+                       device=device)
+    flat = work.view(torch.int32)
+    counts = flat[2 * words:2 * words + n_types]
+    perm = None
+    if with_perm:
+        start = 2 * (words + cwords)
+        perm = flat[start:start + n]
+    return work, counts, perm
 
 
 def reset_launches() -> None:
@@ -92,10 +131,15 @@ def _load() -> ctypes.CDLL:
             lib.trees_segmented_fork_scan_scratch_words.argtypes = [i, i]
             lib.trees_segmented_fork_scan_scratch_words.restype = (
                 ctypes.c_longlong)
-            lib.trees_type_rank.argtypes = [p, p, p, p, p, i, i, p]
+            ll = ctypes.c_longlong
+            lib.trees_type_rank.argtypes = [p, p, p, p, ll, i, i, p]
             lib.trees_type_rank.restype = i
-            lib.trees_tile_lanes.argtypes = []
-            lib.trees_tile_lanes.restype = i
+            lib.trees_lane_pack.argtypes = [p, p, ll, i, p]
+            lib.trees_lane_pack.restype = i
+            lib.trees_type_pack.argtypes = [p, p, p, ll, i, i, p]
+            lib.trees_type_pack.restype = i
+            lib.trees_type_rank_scratch_words.argtypes = [i, i]
+            lib.trees_type_rank_scratch_words.restype = ll
             lib.trees_fork_scan_scratch_words.argtypes = [i]
             lib.trees_fork_scan_scratch_words.restype = i
             _lib = lib
@@ -186,34 +230,86 @@ def segmented_fork_scan(counts: torch.Tensor, seg: torch.Tensor,
     return offs, totals
 
 
+def _check_types(name: str, types: torch.Tensor, active: torch.Tensor,
+                 n_types: int) -> None:
+    _check_lanes(name, types, (torch.int32,))
+    _check_lanes(name, active, (torch.bool, torch.uint8))
+    if active.shape[0] != types.shape[0]:
+        raise ValueError(f"{name}: types and active differ in length")
+    if n_types < 1:
+        raise ValueError(f"{name}: n_types={n_types} < 1")
+
+
 def type_rank(types: torch.Tensor, active: torch.Tensor, n_types: int):
     """Stable within-type rank of each active lane + per-type counts.
 
-    ``types`` is ``i32[C]``, ``active`` ``bool[C]`` (or ``u8[C]``), both on
-    the card; ``n_types >= 1`` (the kernel walks the types in groups of
-    eight).  Active lanes must carry a type in ``[0, n_types)``.  Returns
-    ``(rank i32[C], counts i32[n_types])``, rank -1 for inactive lanes.
+    ``types`` is ``i32[C]``, ``active`` ``bool[C]`` (or ``u8[C]``, nonzero
+    is active), both on the card; ``n_types >= 1``.  Returns ``(rank
+    i32[C], counts i32[n_types])``: rank -1 for an inactive lane, 0 for an
+    active lane whose type lies outside ``[0, n_types)``, sums wrapping
+    like int32.  One memset of the scratch (``counts`` shares it) and one
+    launch, so the call may be captured in a CUDA graph and replayed.
     """
-    _check_lanes("type_rank", types, (torch.int32,))
-    _check_lanes("type_rank", active, (torch.bool, torch.uint8))
-    if active.shape[0] != types.shape[0]:
-        raise ValueError("type_rank: types and active differ in length")
-    if n_types < 1:
-        raise ValueError(f"type_rank: n_types={n_types} < 1")
+    _check_types("type_rank", types, active, n_types)
     lib = _load()
     n = types.shape[0]
-    nb = -(-n // lib.trees_tile_lanes())
     rank = torch.empty_like(types)
-    counts = torch.empty((n_types,), dtype=torch.int32, device=types.device)
-    scratch = torch.empty((n_types * max(nb, 1),), dtype=torch.int32,
-                          device=types.device)
-    act = active.view(torch.uint8)  # bool is one byte: same storage
+    work, counts, _ = _type_work(n, n_types, types.device, False)
     with torch.cuda.device(types.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trees_type_rank(
-            _ptr(types), _ptr(act), _ptr(rank), _ptr(counts), _ptr(scratch),
-            n, n_types, ctypes.c_void_p(stream),
+            _ptr(types), _ptr(active), _ptr(rank), _ptr(work),
+            work.shape[0], n, n_types, ctypes.c_void_p(stream),
         )
     _raise_on(err, "type_rank")
     LAUNCHES["type_rank"] += 1
     return rank, counts
+
+
+def lane_pack(active: torch.Tensor):
+    """Stable frontier pack of the active lanes: ``type_rank`` with one
+    type, reading ``active`` alone.
+
+    ``active`` is ``bool[P]`` (or ``u8[P]``) on the card.  Returns ``(perm
+    i32[P], count i32[])``: ``perm[d]`` is the d-th active lane, -1 for
+    ``d >= count``.  One memset (of the scratch and the count) and one
+    launch, which writes all of ``perm``, its -1 tail too.
+    """
+    _check_lanes("lane_pack", active, (torch.bool, torch.uint8))
+    lib = _load()
+    n = active.shape[0]
+    work, counts, perm = _type_work(n, 1, active.device, True)
+    with torch.cuda.device(active.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_lane_pack(_ptr(active), _ptr(work), work.shape[0], n,
+                                  ctypes.c_void_p(stream))
+    _raise_on(err, "lane_pack")
+    LAUNCHES["type_rank"] += 1
+    return perm, counts[0]
+
+
+def type_pack(types: torch.Tensor, active: torch.Tensor, n_types: int):
+    """The compaction's permutation: active lanes grouped by type, stable.
+
+    Each active lane of type ``t`` goes to ``type_start[t] + rank``, with
+    ``rank`` its ``type_rank`` and ``type_start`` the exclusive scan of
+    the counts.  ``types`` ``i32[C]`` and ``active`` ``bool[C]`` (or
+    ``u8[C]``) on the card; active lanes must carry a type in ``[0,
+    n_types)`` (one outside is left out of ``perm``).  Returns ``(perm
+    i32[C], counts i32[n_types])``, ``perm`` -1 past the active lanes.
+    One memset and two launches (the pass, then the scatter that needs
+    every tile's counts; up to 32 types it writes all of ``perm``).
+    """
+    _check_types("type_pack", types, active, n_types)
+    lib = _load()
+    n = types.shape[0]
+    work, counts, perm = _type_work(n, n_types, types.device, True)
+    with torch.cuda.device(types.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.trees_type_pack(
+            _ptr(types), _ptr(active), _ptr(work), work.shape[0], n,
+            n_types, ctypes.c_void_p(stream),
+        )
+    _raise_on(err, "type_pack")
+    LAUNCHES["type_rank"] += 1
+    return perm, counts

@@ -53,18 +53,25 @@ def lane_pack(active: torch.Tensor):
 
     ``perm[d]`` is the lane position of the d-th scheduled lane (-1 beyond
     the scheduled population) and ``count`` the scheduled population.  On
-    the card it rides the ``type_rank`` kernel with a single type
-    (rank-among-active is exactly a one-type stable rank), then scatters
-    the rank into the permutation in torch.
+    the card the ``type_rank`` kernel's one-type pass writes the pack
+    itself, reading ``active`` alone (rank-among-active is exactly a
+    one-type stable rank, and the rank is the destination).
     """
     if active.device.type == "cpu":
         return ref.lane_pack_ref(active)
-    P = active.shape[0]
-    rank, counts = fork_compact.type_rank(
-        torch.zeros((P,), dtype=torch.int32, device=active.device),
-        active, 1,
-    )
-    return ref.rank_to_perm(rank, active), counts[0]
+    return fork_compact.lane_pack(active)
+
+
+def type_pack(types: torch.Tensor, active: torch.Tensor, n_types: int):
+    """The compaction stage's permutation: ``(perm i32[C], counts
+    i32[n_types])``, each active lane at ``type_start[type] + rank``.
+
+    On the card the ``type_rank`` kernel writes it (a pass and a scatter
+    launch); active lanes must carry a type in ``[0, n_types)``.
+    """
+    if types.device.type == "cpu":
+        return ref.type_pack_ref(types, active, n_types)
+    return fork_compact.type_pack(types, active, n_types)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

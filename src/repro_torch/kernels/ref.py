@@ -93,6 +93,29 @@ def lane_pack_ref(active: torch.Tensor):
     return rank_to_perm(rank, act), a.sum(dtype=_I32)
 
 
+def type_pack_ref(types: torch.Tensor, active: torch.Tensor, n_types: int):
+    """The compaction stage's permutation (plain ``type_pack``).
+
+    Each active lane gets ``dest = type_start[type] + rank``, ``rank`` its
+    stable within-type rank and ``type_start`` the exclusive prefix sum of
+    the per-type populations.  Returns ``(perm i32[C], counts
+    i32[n_types])``: ``perm[d]`` is the lane position of the d-th
+    compacted lane, -1 beyond the active population.  Active lanes must
+    carry a type in ``[0, n_types)``.
+    """
+    P = types.shape[0]
+    act = active.to(torch.bool)
+    rank, counts = type_rank_ref(types, act, n_types)
+    type_start, _ = fork_scan_ref(counts)
+    dest = type_start[types.clamp(0, n_types - 1)] + rank
+    # tvm.py drops inactive lanes at index P (mode="drop"): sink entry P here
+    perm = torch.full((P + 1,), -1, dtype=_I32, device=types.device)
+    perm[torch.where(act, dest, P)] = torch.arange(
+        P, dtype=_I32, device=types.device
+    )
+    return perm[:P], counts
+
+
 def epoch_chunk_ref(cond_fn, body_fn, carry, limit):
     """Plain version of the ``epoch_chunk`` kernel (``epoch_megakernel.py``).
 

@@ -258,6 +258,187 @@ def test_type_rank_past_eight_types(cuda_device, n, n_types):
         assert torch.equal(rank, r_rank) and torch.equal(cnt, r_cnt)
 
 
+def _type_entries(types, active, n_types):
+    """type_rank, lane_pack and type_pack on the card against their plain
+    versions, exactly."""
+    rank, cnt = fork_compact.type_rank(types, active, n_types)
+    r_rank, r_cnt = ref.type_rank_ref(types, active, n_types)
+    assert torch.equal(rank, r_rank) and torch.equal(cnt, r_cnt)
+    perm, c = fork_compact.lane_pack(active)
+    r_perm, r_c = ref.lane_pack_ref(active)
+    assert torch.equal(perm, r_perm) and int(c) == int(r_c)
+    perm, cnt = fork_compact.type_pack(types, active, n_types)
+    r_perm, r_cnt = ref.type_pack_ref(types, active, n_types)
+    assert torch.equal(perm, r_perm) and torch.equal(cnt, r_cnt)
+
+
+# type_rank takes tiles of 2048 lanes and groups of 32 types: lengths on
+# either side of one and two tiles, 7 types (the mixed4 fleet), one group
+# and one past it
+@pytest.mark.parametrize("n_types", (1, 2, 7, 32, 33))
+@pytest.mark.parametrize("n", (0, 2047, 2048, 2049, 4095, 4096, 4097,
+                               2**16 + 3))
+def test_type_entries_exact_across_tiles(cuda_device, n, n_types):
+    """Random, no and all lanes active; ``types`` views 4 bytes and
+    ``active`` views 1 byte into their storage take the scalar loads."""
+    rng = np.random.RandomState(n + 100 * n_types)
+    for offset in (0, 1):
+        tbase = torch.as_tensor(
+            rng.randint(0, n_types, n + offset).astype(np.int32),
+            device=cuda_device)
+        types = tbase[offset:]
+        for act in (rng.rand(n + offset) < 0.6, np.zeros(n + offset, bool),
+                    np.ones(n + offset, bool)):
+            active = torch.as_tensor(act, device=cuda_device)[offset:]
+            fork_compact.reset_launches()
+            _type_entries(types, active, n_types)
+            assert fork_compact.LAUNCHES["type_rank"] == 3
+    torch.cuda.synchronize()
+
+
+def test_type_rank_out_of_range_and_byte_flags(cuda_device):
+    """Active lanes with types -1 and n_types rank 0, as the Pallas kernel
+    ranks them (the plain version, like the JAX oracle, ranks them within
+    the clamped type); every other lane and the counts equal the plain
+    version.  Any nonzero byte of a ``u8`` mask is active."""
+    rng = np.random.RandomState(4)
+    n = 5000
+    for n_types in (3, 33):
+        types = torch.as_tensor(
+            rng.randint(-1, n_types + 1, n).astype(np.int32),
+            device=cuda_device)
+        active = torch.as_tensor(
+            rng.randint(0, 3, n).astype(np.uint8), device=cuda_device)
+        rank, cnt = fork_compact.type_rank(types, active, n_types)
+        r_rank, r_cnt = ref.type_rank_ref(types, active, n_types)
+        outside = (active != 0) & ((types < 0) | (types >= n_types))
+        assert bool(outside.any())
+        assert torch.equal(rank, torch.where(outside, 0, r_rank))
+        assert torch.equal(cnt, r_cnt)
+        perm, c = fork_compact.lane_pack(active)
+        r_perm, r_c = ref.lane_pack_ref(active)
+        assert torch.equal(perm, r_perm) and int(c) == int(r_c)
+
+
+@pytest.mark.parametrize("n_types", (7, 33))
+def test_type_entries_graph_replay(cuda_device, n_types):
+    """Each entry captured twice in one CUDA graph, replayed three times
+    with new types and flags written in place before each replay: every
+    call is exact after every replay, so none reads a status word, a tile
+    counter or a permutation entry that an earlier call left."""
+    rng = np.random.RandomState(8 + n_types)
+    n = 2**20 + 3
+    types = torch.empty((n,), dtype=torch.int32, device=cuda_device)
+    active = torch.empty((n,), dtype=torch.bool, device=cuda_device)
+
+    def refill(rep):
+        types.copy_(torch.as_tensor(
+            rng.randint(0, n_types, n).astype(np.int32)))
+        active.copy_(torch.as_tensor(rng.rand(n) < 0.3 + 0.2 * rep))
+
+    def calls():
+        return [(fork_compact.type_rank(types, active, n_types),
+                 fork_compact.lane_pack(active),
+                 fork_compact.type_pack(types, active, n_types))
+                for _ in range(2)]
+
+    refill(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for rep in range(3):
+        refill(rep)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (ref.type_rank_ref(types, active, n_types),
+                ref.lane_pack_ref(active),
+                ref.type_pack_ref(types, active, n_types))
+        for got in outs:
+            for (a, b), (ra, rb) in zip(got, want):
+                assert torch.equal(a, ra) and torch.equal(b, rb)
+
+
+def test_type_entries_back_to_back_n_types(cuda_device):
+    """Calls with different n_types in a row on one stream: each takes the
+    scratch the last one left (other widths, other groups)."""
+    rng = np.random.RandomState(9)
+    n = 2**18 + 5
+    active = torch.as_tensor(rng.rand(n) < 0.5, device=cuda_device)
+    inputs = [(torch.as_tensor(rng.randint(0, k, n).astype(np.int32),
+                               device=cuda_device), k)
+              for k in (1, 7, 33, 2, 32, 7)]
+    outs = [(fork_compact.type_rank(t, active, k),
+             fork_compact.type_pack(t, active, k)) for t, k in inputs]
+    for (t, k), (rc, pc) in zip(inputs, outs):
+        for (a, b), (ra, rb) in zip((rc, pc),
+                                    (ref.type_rank_ref(t, active, k),
+                                     ref.type_pack_ref(t, active, k))):
+            assert torch.equal(a, ra) and torch.equal(b, rb)
+
+
+def test_type_entries_device_operations(cuda_device):
+    """type_rank and lane_pack are a memset and one kernel on the card,
+    type_pack a memset and two (torch.profiler's device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 2**16
+    types = torch.zeros((n,), dtype=torch.int32, device=cuda_device)
+    active = torch.ones((n,), dtype=torch.bool, device=cuda_device)
+    want = {"type_rank": 2, "lane_pack": 2, "type_pack": 3}
+    calls = {"type_rank": lambda: fork_compact.type_rank(types, active, 7),
+             "lane_pack": lambda: fork_compact.lane_pack(active),
+             "type_pack": lambda: fork_compact.type_pack(types, active, 7)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops_on_card = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+        assert len(ops_on_card) == want[name], (
+            name, [e.name for e in ops_on_card])
+
+
+def test_type_rank_scratch_matches_the_library(cuda_device):
+    lib = fork_compact._load()
+    for n in (0, 1, 2047, 2048, 2049, 2**23):
+        for n_types in (1, 2, 3, 7, 8, 31, 32, 33, 64, 65, 1000):
+            assert lib.trees_type_rank_scratch_words(n, n_types) \
+                == fork_compact.type_rank_scratch_words(n, n_types)
+
+
+def test_type_wrappers_check_their_inputs(cuda_device):
+    x = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    for fn in (fork_compact.type_rank, fork_compact.type_pack):
+        with pytest.raises(ValueError, match="n_types"):
+            fn(x, x == 0, 0)
+        with pytest.raises(ValueError, match="length"):
+            fn(x, x[:4] == 0, 1)
+        with pytest.raises(TypeError):
+            fn(x.long(), x == 0, 1)
+        with pytest.raises(TypeError):
+            fn(x, x.float(), 1)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros(16, dtype=torch.int32, device=cuda_device)[::2],
+               x == 0, 1)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x.cpu(), x == 0, 1)
+    with pytest.raises(TypeError):
+        fork_compact.lane_pack(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fork_compact.lane_pack((x == 0)[::2])
+    with pytest.raises(ValueError, match="CUDA"):
+        fork_compact.lane_pack((x == 0).cpu())
+
+
 @pytest.mark.parametrize("dispatch", ("masked", "compacted", "gather"))
 def test_service_on_cuda_matches_cpu(cuda_device, dispatch):
     fleet = get_fleet("mixed4")
