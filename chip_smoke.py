@@ -65,6 +65,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 against the numpy references, the dispatches against each
                 other, the masked CUDA run against a masked CPU run, and
                 that fork_scan and type_rank were launched during the phase;
+  3b. apps    — the six remaining paper apps and naive mergesort at full
+                size (sssp on phase 3's graph with random_weights(seed=1),
+                nqueens(12), tsp(10), fft of 2^18 points, matmul 512 x 512
+                in blocks of 16, annealing of 16 bits x 256 chains x 200
+                steps, naive mergesort of 2^10): HostEngine masked,
+                compacted and gather and the plain resident DeviceEngine
+                masked and gather on CUDA; check each against its reference
+                (Dijkstra, the solution count, brute force, np.fft within
+                a relative L2 error of 1e-4, A @ B in float64 within 1e-5
+                of its largest value, the brute-force optimum as a floor,
+                np.sort), every run against the masked one (heaps, values,
+                the shared RunStats), the masked run against the CPU's
+                (exactly; fft's heap within 1e-5 of its largest value), each
+                capacity against the smallest power of two that fits, that
+                fork_scan and type_rank were launched during the phase and
+                that DeviceEngine(megakernel=True) refuses each program;
+                then the paper's yardsticks: bfs and sssp against the
+                worklist baselines, naive and map mergesort against
+                bitonic_sort, fft against torch.fft.fft, nqueens(7)'s
+                V1 / V_inf against the sequential oracle;
   4. profile  — one masked fib(28) HostEngine run under torch.profiler:
                 device busy time, its share of the wall time, the top ops;
   5. resident — drive DeviceEngine(megakernel=True) on CUDA on the same
@@ -800,18 +820,30 @@ def _run(case, dispatch, device, tag="path", walls=None, **kw):
     return heap, value, stats
 
 
-def _same(a, b, what):
+def _same(a, b, what, fields=INVARIANT, fft_bound=None):
+    """Heaps, values and the ``fields`` of ``RunStats`` of two runs,
+    exactly; with ``fft_bound``, fft's ``re``/``im`` heaps within that
+    share of their largest |value|.  Returns the largest such heap
+    difference."""
     ha, va, sa = a
     hb, vb, sb = b
     if not np.array_equal(va, vb):
         fail(f"{what}: TV values differ")
+    worst = 0.0
     for k in ha:
-        if not np.array_equal(ha[k], hb[k]):
+        if fft_bound is not None and k in ("re", "im"):
+            d = float(np.abs(ha[k] - hb[k]).max())
+            bound = fft_bound * float(np.abs(hb[k]).max())
+            if d > bound:
+                fail(f"{what}: heap[{k!r}] differs by {d} > {bound}")
+            worst = max(worst, d)
+        elif not np.array_equal(ha[k], hb[k]):
             fail(f"{what}: heap[{k!r}] differs")
     da, db = sa.as_dict(), sb.as_dict()
-    for k in INVARIANT:
+    for k in fields:
         if da[k] != db[k]:
             fail(f"{what}: stats[{k!r}] {da[k]} != {db[k]}")
+    return worst
 
 
 def path_cases():
@@ -829,8 +861,9 @@ def path_cases():
                  bfs.heap_init(adj_off, adj, n_bfs), capacity=2**22),
          lambda h, v: np.array_equal(
              h["dist"], bfs.bfs_reference(adj_off, adj, 0, n_bfs))),
-        (AppCase("mergesort", mergesort.make_program(n_ms),
-                 mergesort.initial(n_ms), dict(inp=inp), capacity=2**20),
+        (AppCase("mergesort", mergesort.make_program(n_ms, use_map=True),
+                 mergesort.initial(n_ms), dict(inp=inp),
+                 capacity=2**20),
          lambda h, v: np.array_equal(h["src"][:n_ms], np.sort(inp))),
     ]
 
@@ -869,6 +902,293 @@ def phase_path():
         _same(gpu, cpu, f"{case.name} masked cuda vs cpu")
     print("[path] all runs match their references, each other and the CPU")
     return launches, cases, runs
+
+
+# ----------------------------------------------------------- phase 3b, apps
+# The six remaining paper apps and naive mergesort at sizes the paper's
+# users run (§6.2-6.5), each also run on the CPU at that size (each CPU
+# run takes seconds on the H100 machine's host).  Capacities: the
+# smallest power of two that does not overflow, next_pow2(peak_tv_slots)
+# (a fork past the TV is checked against the post-fork cursor, which is
+# what peak_tv_slots records), found from the starting points 2^23
+# (sssp), 2^21 (nqueens, tsp), 2^20 (fft) and 2^16 (matmul, annealing,
+# naive mergesort); the phase fails if one is no longer the smallest.
+APP_CAPACITY = {"sssp": 2**21, "nqueens": 2**20, "tsp": 2**18,
+                "fft": 2**19, "matmul": 2**16, "annealing": 2**16,
+                "naive": 2**11}
+APP_FULL = {"sssp": 2**17, "nqueens": 12, "tsp": 10, "fft": 2**18,
+            "matmul": (512, 16), "annealing": (16, 256, 200),
+            "naive": 2**10}
+FFT_REF_RTOL = 1e-4   # relative L2 error of the fft against np.fft
+FFT_CPU_RTOL = 1e-5   # fft heap, card vs CPU, of the largest |CPU value|
+MATMUL_RTOL = 1e-5    # max |C - A@B| over max |A@B|, A@B in float64
+# the stats every run of one program shares, whatever its dispatch or
+# engine (lanes, dispatches, transfers and map lanes are the mode's own)
+APP_INVARIANT = ("epochs", "tasks_executed", "total_forks", "peak_tv_slots",
+                 "map_launches", "map_elements")
+
+
+def app_case(name, size):
+    """``(AppCase, check)`` of one app at ``size``; ``check(heap, value)``
+    returns ``(ok, detail)`` against the app's reference."""
+    from repro_torch.apps import (
+        annealing, fft, matmul, mergesort, nqueens, sssp, tsp,
+    )
+    from repro_torch.apps.registry import AppCase
+
+    cap = APP_CAPACITY[name]
+    if name == "sssp":
+        n = size
+        adj_off, adj = sssp.random_graph(n, avg_degree=4, seed=0)
+        wgt = sssp.random_weights(len(adj), seed=1)
+        case = AppCase("sssp", sssp.make_program(n, len(adj)),
+                       sssp.initial(0),
+                       sssp.heap_init(adj_off, adj, wgt, n), capacity=cap)
+
+        def check(h, v):
+            ref = sssp.sssp_reference(adj_off, adj, wgt, 0, n)
+            return (np.allclose(h["dist"], ref, rtol=1e-5),
+                    f"{int((ref < sssp.INF_F).sum())} of {n} reached")
+    elif name == "nqueens":
+        case = AppCase("nqueens", nqueens.make_program(size),
+                       nqueens.initial(), capacity=cap)
+
+        def check(h, v):
+            got = int(h["count"][0])
+            return got == nqueens.SOLUTIONS[size], f"{got} solutions"
+    elif name == "tsp":
+        dist = tsp.random_instance(size, seed=3)
+        case = AppCase("tsp", tsp.make_program(size), tsp.initial(),
+                       tsp.heap_init(dist), capacity=cap)
+
+        def check(h, v):
+            got, want = int(h["best"][0]), tsp.tsp_reference(dist)
+            return got == want, (f"best {got}, brute force {want}, greedy "
+                                 f"bound {tsp.greedy_bound(dist)}")
+    elif name == "fft":
+        xr, xi = fft.random_input(size, seed=0)
+        case = AppCase("fft", fft.make_program(size), fft.initial(size),
+                       dict(xr=xr, xi=xi), capacity=cap)
+
+        def check(h, v):
+            got = (h["re"][:size].astype(np.float64)
+                   + 1j * h["im"][:size].astype(np.float64))
+            want = fft.fft_reference(xr, xi)
+            err = np.linalg.norm(got - want) / np.linalg.norm(want)
+            return err <= FFT_REF_RTOL, f"relative L2 error {err:.3e}"
+    elif name == "matmul":
+        n, block = size
+        A, B = matmul.random_inputs(n, seed=0)
+        case = AppCase("matmul", matmul.make_program(n, block=block),
+                       matmul.initial(n), dict(A=A.ravel(), B=B.ravel()),
+                       capacity=cap)
+
+        def check(h, v):
+            want = A.astype(np.float64) @ B.astype(np.float64)
+            err = np.abs(h["C"].reshape(n, n) - want).max() / np.abs(
+                want).max()
+            return err <= MATMUL_RTOL, f"max error {err:.3e} of max |A@B|"
+    elif name == "annealing":
+        nb, chains, steps = size
+        Q = annealing.random_qubo(nb, seed=5)
+        case = AppCase("annealing",
+                       annealing.make_program(nb, n_steps=steps,
+                                              n_chains=chains),
+                       annealing.initial(), dict(Q=Q.ravel()), capacity=cap)
+
+        def check(h, v):
+            got, opt = int(h["best"][0]), annealing.brute_force_min(Q)
+            return got >= opt, f"best {got}, optimum {opt}"
+    else:
+        x = mergesort.random_input(size, seed=0)
+        case = AppCase("naive", mergesort.make_program(size, use_map=False),
+                       mergesort.initial(size), dict(inp=x), capacity=cap)
+
+        def check(h, v):
+            return np.array_equal(h["src"][:size], np.sort(x)), "sorted"
+    return case, check
+
+
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_apps(path_cases):
+    """The six remaining apps and naive mergesort on the card: every
+    HostEngine dispatch and the plain resident DeviceEngine, against the
+    references, each other and the CPU; then the paper's yardsticks."""
+    from repro_torch.apps import get_case
+    from repro_torch.core import DeviceEngine, EngineError
+    from repro_torch.kernels import fork_compact
+
+    # first use of each app's operations (the registry's small cases), so
+    # the first timed run is not charged for it
+    for name in APP_FULL:
+        get_case("mergesort" if name == "naive" else name).run(
+            dispatch="masked", device="cuda")
+    torch.cuda.synchronize()
+    fork_compact.reset_launches()
+    walls, runs, over_cap = {}, {}, []
+    for name in APP_FULL:
+        case, check = app_case(name, APP_FULL[name])
+        mask = runs[name, "masked"] = _run(case, "masked", "cuda",
+                                           tag="apps", walls=walls)
+        ok, detail = check(mask[0], mask[1])
+        print(f"[apps] {name}: {detail}")
+        if not ok:
+            fail(f"{name}: result differs from the reference ({detail})")
+        fb = FFT_CPU_RTOL if name == "fft" else None
+        for d in ("compacted", "gather"):
+            runs[name, d] = r = _run(case, d, "cuda", tag="apps",
+                                     walls=walls)
+            _same(r, mask, f"{name} {d} vs masked")
+        for d in ("masked", "gather"):
+            runs[name, "resident " + d] = r = _run(
+                case, d, "cuda", tag="apps-resident",
+                engine_cls=DeviceEngine)
+            _same(r, mask, f"{name} resident {d} vs masked",
+                  fields=APP_INVARIANT)
+        peak = mask[2].peak_tv_slots
+        smallest = 1 << max(0, (peak - 1).bit_length())
+        print(f"[apps] {name}: capacity {case.capacity}, peak_tv_slots "
+              f"{peak}, smallest capacity that does not overflow "
+              f"{smallest}")
+        if smallest != case.capacity:
+            over_cap.append((name, case.capacity, smallest))
+        try:
+            DeviceEngine(case.program, capacity=case.capacity,
+                         megakernel=True)
+        except EngineError as e:
+            print(f"[apps] {name}: megakernel=True refused ({e})")
+        else:
+            fail(f"{name}: DeviceEngine(megakernel=True) did not raise")
+        # the card against the CPU, at full size
+        cpu = _run(case, "masked", "cpu", tag="apps")
+        worst = _same(mask, cpu, f"{name} cuda vs cpu",
+                      fields=tuple(mask[2].as_dict()), fft_bound=fb)
+        if fb is not None:
+            top = max(float(np.abs(cpu[0][k]).max()) for k in ("re", "im"))
+            print(f"[apps] fft: heap max |card - CPU| {worst:.3e} = "
+                  f"{worst / top:.3e} of the largest |value| ({top:.1f}); "
+                  f"bound {fb:g}")
+        print(f"[apps] {name}: card == CPU")
+    torch.cuda.synchronize()
+    launches = {k: fork_compact.LAUNCHES[k] for k in ("fork_scan",
+                                                      "type_rank")}
+    print(f"[apps] kernel launches during the apps phase: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the apps path")
+    if over_cap:
+        fail(f"capacities are not the smallest that fit: {over_cap}")
+    app_yardsticks(path_cases, walls)
+    return launches
+
+
+def app_yardsticks(path_cases, walls):
+    """The paper's comparisons on the card (Figs. 6-9, §4.4), printed as
+    yardsticks: each TREES run's wall beside the native baseline's."""
+    from repro_torch.apps import bfs, fft, mergesort, nqueens, sssp
+    from repro_torch.apps.baselines import bitonic, worklist
+    from repro_torch.apps.registry import AppCase
+    from repro_torch.core import compare, run_oracle
+
+    # Figs. 7/8: bfs and sssp against the Lonestar-style worklists, on the
+    # bfs cell's graph (2^17 vertices)
+    bcase = path_cases[1][0]
+    h = bcase.heap_init
+    n = h["dist"].shape[0]
+    bfs_ms = _wall_ms(lambda: bcase.run(dispatch="masked", device="cuda"))
+    worklist.bfs_worklist(h["adj_off"], h["adj"], 0, n)  # warm
+    out = {}
+    wl_ms = _wall_ms(lambda: out.setdefault("bfs", worklist.bfs_worklist(
+        h["adj_off"], h["adj"], 0, n)))
+    if not np.array_equal(out["bfs"][0].cpu().numpy(),
+                          bfs.bfs_reference(h["adj_off"], h["adj"], 0, n)):
+        fail("bfs_worklist differs from the reference")
+    print(f"[yardstick] bfs n={n}: TREES masked {bfs_ms:.1f} ms, worklist "
+          f"{wl_ms:.1f} ms ({out['bfs'][1]} rounds), ratio "
+          f"{bfs_ms / wl_ms:.2f}")
+    scase, _ = app_case("sssp", APP_FULL["sssp"])
+    s = scase.heap_init
+    n = s["dist"].shape[0]
+    wl_ms = _wall_ms(lambda: out.setdefault("sssp", worklist.sssp_worklist(
+        s["adj_off"], s["adj"], s["wgt"], 0, n)))
+    ref = sssp.sssp_reference(s["adj_off"], s["adj"], s["wgt"], 0, n)
+    if not np.allclose(out["sssp"][0].cpu().numpy(), ref, rtol=1e-5):
+        fail("sssp_worklist differs from the reference")
+    print(f"[yardstick] sssp n={n}: TREES masked "
+          f"{walls['sssp', 'masked']:.1f} ms, worklist {wl_ms:.1f} ms "
+          f"({out['sssp'][1]} rounds), ratio "
+          f"{walls['sssp', 'masked'] / wl_ms:.2f}")
+    # Fig. 9: naive vs map mergesort vs bitonic at 2^10, map vs bitonic at
+    # 2^18 (phase 3's case)
+    n = APP_FULL["naive"]
+    x = mergesort.random_input(n, seed=0)
+    mcase = AppCase("mergesort", mergesort.make_program(n, use_map=True),
+                    mergesort.initial(n), dict(inp=x), capacity=2**12)
+    map_ms = _wall_ms(lambda: mcase.run(dispatch="masked", device="cuda"))
+    xt = torch.as_tensor(x, device="cuda")
+    bit_ms = call_ms(lambda: bitonic.bitonic_sort(xt), iters=10)
+    if not np.array_equal(bitonic.bitonic_sort(xt).cpu().numpy(),
+                          np.sort(x)):
+        fail("bitonic_sort differs from np.sort")
+    naive_ms = walls["naive", "masked"]
+    print(f"[yardstick] sort n={n}: naive {naive_ms:.1f} ms, map "
+          f"{map_ms:.1f} ms, bitonic {bit_ms:.3f} ms (naive/map "
+          f"{naive_ms / map_ms:.1f}, map/bitonic {map_ms / bit_ms:.0f})")
+    big = path_cases[2][0]
+    n = big.heap_init["inp"].shape[0]
+    map_ms = _wall_ms(lambda: big.run(dispatch="masked", device="cuda"))
+    xt = torch.as_tensor(big.heap_init["inp"], device="cuda")
+    bit_ms = call_ms(lambda: bitonic.bitonic_sort(xt), iters=10)
+    print(f"[yardstick] sort n={n}: map {map_ms:.1f} ms, bitonic "
+          f"{bit_ms:.3f} ms (map/bitonic {map_ms / bit_ms:.0f})")
+    # Fig. 6: fft against torch.fft.fft
+    n = APP_FULL["fft"]
+    xr, xi = fft.random_input(n, seed=0)
+    xc = torch.complex(torch.as_tensor(xr), torch.as_tensor(xi)).cuda()
+    lib_ms = call_ms(lambda: torch.fft.fft(xc), iters=20)
+    print(f"[yardstick] fft n={n}: TREES masked "
+          f"{walls['fft', 'masked']:.1f} ms, torch.fft.fft {lib_ms:.3f} ms "
+          f"(ratio {walls['fft', 'masked'] / lib_ms:.0f})")
+    # the ordered float add at matmul's payload size (8.4 M terms, 32 per
+    # C cell, in a seeded random order) against index_add_, which adds
+    # the same terms atomically in no fixed order
+    from repro_torch.core import tvm
+
+    n, block = APP_FULL["matmul"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cells = n * n
+    terms = cells * (n // block)
+    idx = torch.arange(cells, device="cuda", dtype=torch.int32).repeat(
+        n // block)[torch.randperm(terms, device="cuda", generator=gen)]
+    val = torch.randn(terms, device="cuda", generator=gen)
+    acc = torch.zeros(cells + 1, device="cuda")  # + the sink row
+    ordered_ms = call_ms(lambda: tvm._scatter_heap(acc, idx, val, "add"),
+                         iters=5)
+    atomic_ms = call_ms(lambda: acc.index_add_(0, idx, val), iters=5)
+    print(f"[yardstick] float add of {terms} terms into {cells} cells: "
+          f"ordered {ordered_ms:.3f} ms, index_add_ {atomic_ms:.3f} ms")
+    # §4.4: nqueens(7)'s V1 / V_inf against the sequential oracle
+    prog = nqueens.make_program(7)
+    _, _, ostats = run_oracle(prog, nqueens.initial(), capacity=1 << 14)
+    qcase = AppCase("nqueens7", prog, nqueens.initial(), capacity=1 << 14)
+    q_ms = _wall_ms(lambda: out.setdefault("q", qcase.run(
+        dispatch="masked", device="cuda")))
+    rep = compare(ostats, out["q"][2])
+    print(f"[yardstick] nqueens7 overhead: wall {q_ms:.1f} ms, "
+          f"T1={rep.t1_tasks} Tinf={rep.t_inf_epochs} "
+          f"parallelism={rep.parallelism:.1f} "
+          f"V1_lanes={rep.v1_lane_factor:.2f} "
+          f"Vinf_dispatches={rep.v_inf_dispatches} "
+          f"Vinf_transfers={rep.v_inf_transfers} "
+          f"utilization={rep.utilization:.3f} "
+          f"greedy_bound_P256={rep.greedy_bound(256):.0f}")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1784,6 +2104,7 @@ def main() -> int:
     rows += phase_attention(dev)
     rows.append(phase_ssd(dev))
     launches, cases, host_runs = phase_path()
+    app_launches = phase_apps(cases)
     fib_case = cases[0][0]
     phase_profile("fib HostEngine masked",
                   lambda: fib_case.run(dispatch="masked", device="cuda"))
@@ -1798,10 +2119,16 @@ def main() -> int:
               f"{ONE_CTA_RESIDENT_BUSY.get(case.name, 'not measured')})")
     svc_launches, wave = phase_service(cases, host_runs)
     launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
-    # type_rank's count: the host path's launches and the service waves'
+    # type_rank's count: the host path's launches, the apps' and the
+    # service waves'
     type_rank_paths = {"host": launches["type_rank"],
+                       "apps": app_launches["type_rank"],
                        "service": svc_launches["type_rank"]}
-    launches["type_rank"] += svc_launches["type_rank"]
+    launches["type_rank"] += (app_launches["type_rank"]
+                              + svc_launches["type_rank"])
+    fork_scan_paths = {"host": launches["fork_scan"],
+                       "apps": app_launches["fork_scan"]}
+    launches["fork_scan"] += app_launches["fork_scan"]
 
     def masked_wave():
         svc, _, _ = run_wave(wave, "masked")
@@ -1809,17 +2136,21 @@ def main() -> int:
 
     phase_profile("mixed4 JobService masked (global epochs)", masked_wave)
     serve_launches = phase_serve()
-    # fork_scan's count: the host path's launches and the server's
-    launches["fork_scan"] += serve_launches.pop("fork_scan")
+    # fork_scan's count: the host path's, the apps', the servers'
+    fork_scan_paths["serve"] = serve_launches.pop("fork_scan")
+    launches["fork_scan"] += fork_scan_paths["serve"]
     launches.update(flash_attention=serve_launches["flash_attention"],
                     decode_attention=serve_launches["decode_attention"])
     ssm_launches = phase_ssm_serve()
-    launches["fork_scan"] += ssm_launches["fork_scan"]
+    fork_scan_paths["ssm"] = ssm_launches["fork_scan"]
+    launches["fork_scan"] += fork_scan_paths["ssm"]
     launches["ssd_scan"] = ssm_launches["ssd_scan"]
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "type_rank":
             r["launches_by_path"] = type_rank_paths
+        if r["name"] == "fork_scan":
+            r["launches_by_path"] = fork_scan_paths
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,24 @@
-"""Task-parallel mergesort with ``map``-accelerated merges (paper §6.4,
-Fig. 9): the ``use_map=True`` variant of the JAX reference.
+"""Task-parallel mergesort, naive and ``map``-accelerated (paper §6.4,
+Fig. 9).
 
 Double-buffered merge: level ``depth`` reads buffer ``(depth+1) % 2`` and
 writes buffer ``depth % 2``; leaves sit at depth ``log2(n)``.  Each element's
 merged position is its own offset plus its rank in the sibling half (binary
-search, static log2 steps).  Each merge schedules **one data-parallel map**
-over its span; all merges of a level land in a single bulk payload launch
-(§4.2's point: map amortizes overhead over regular data parallelism).
+search, static log2 steps).
+
+Two variants, matching the paper's comparison exactly:
+  * ``naive`` — each merge **forks one task per element** (``n`` static
+    fork sites, ``place1``): the per-element placement pays full fork
+    overhead, which is why the paper's naive mergesort "performs
+    abysmally";
+  * ``map`` — each merge schedules **one data-parallel map** over its
+    span; all merges of a level land in a single bulk payload launch
+    (§4.2's point: map amortizes overhead over regular data parallelism).
 
 The map payload runs on ``[P, D]`` broadcasts (lanes x elements): its
-``argi`` columns are ``[P, 1]`` and ``eid`` is ``[1, D]``.
+``argi`` columns are ``[P, 1]`` and ``eid`` is ``[1, D]``.  The map body
+keeps the qualname ``make_program.<locals>._place``: the ``epoch_chunk``
+kernel's device table for the map variant is found by it.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ def _rank_in_other(ctx, v, other_lo, half, from_left, log_max):
     return lo
 
 
-def make_program(n: int) -> Program:
+def make_program(n: int, use_map: bool) -> Program:
     if n <= 0 or n & (n - 1):
         raise ValueError("mergesort needs a power-of-two n")
     log_n = int(math.log2(n))
@@ -62,28 +71,45 @@ def make_program(n: int) -> Program:
 
     def _merge(ctx):
         lo, span, depth = ctx.argi(0), ctx.argi(1), ctx.argi(2)
-        ctx.map("place", argi=(lo, span, depth))
+        if use_map:
+            ctx.map("place", argi=(lo, span, depth))
+        else:
+            # fork one placement task per element (static sites = n)
+            for i in range(n):
+                ctx.fork("place1", argi=(lo, span, depth, i), where=i < span)
 
-    def _place(mctx):
-        lo, span, depth = mctx.argi(0), mctx.argi(1), mctx.argi(2)
-        i = mctx.eid
+    def _place_common(ctx, lo, span, depth, i):
         half = span // 2
         rbuf = _buf(depth + 1)  # read children's buffer
         wbuf = _buf(depth)
         from_left = i < half
         own_off = torch.where(from_left, i, i - half)
         other_lo = rbuf + torch.where(from_left, lo + half, lo)
-        v = mctx.read("src", rbuf + lo + i)
-        rank = _rank_in_other(mctx, v, other_lo, half, from_left, log_n)
-        mctx.write("src", wbuf + lo + own_off + rank, v)
+        v = ctx.read("src", rbuf + lo + i)
+        rank = _rank_in_other(ctx, v, other_lo, half, from_left, log_n)
+        ctx.write("src", wbuf + lo + own_off + rank, v)
+
+    def _place1(ctx):
+        _place_common(ctx, ctx.argi(0), ctx.argi(1), ctx.argi(2),
+                      ctx.argi(3))
+
+    def _place(mctx):
+        _place_common(mctx, mctx.argi(0), mctx.argi(1), mctx.argi(2),
+                      mctx.eid)
+
+    # MapCtx lacks fork/join, so _place_common uses only read/write/args
+    tasks = [TaskType("msort", _msort), TaskType("merge", _merge)]
+    maps = []
+    if use_map:
+        maps.append(MapType("place", _place, domain=lambda argi: argi[..., 1],
+                            max_domain=n))
+    else:
+        tasks.append(TaskType("place1", _place1))
 
     return Program(
-        name="mergesort_map",
-        tasks=(TaskType("msort", _msort), TaskType("merge", _merge)),
-        maps=(
-            MapType("place", _place, domain=lambda argi: argi[..., 1],
-                    max_domain=n),
-        ),
+        name=f"mergesort_{'map' if use_map else 'naive'}",
+        tasks=tuple(tasks),
+        maps=tuple(maps),
         n_arg_i=4,
         heap=(
             HeapVar("inp", (n,), torch.float32),
@@ -110,7 +136,7 @@ def case() -> AppCase:
     n = 32
     return AppCase(
         name="mergesort",
-        program=make_program(n),
+        program=make_program(n, use_map=True),
         initial=initial(n),
         heap_init=dict(inp=random_input(n, seed=5)),
         capacity=1 << 12,

@@ -50,7 +50,10 @@ def register_case(name: str):
 
 
 def _register_all() -> None:
-    from . import bfs, fib, mergesort, treewalk  # noqa: F401  (registration)
+    from . import (  # noqa: F401  (registration side effects)
+        annealing, bfs, fft, fib, matmul, mergesort, nqueens, sssp,
+        treewalk, tsp,
+    )
 
 
 def get_case(name: str) -> AppCase:

@@ -1,7 +1,8 @@
 # The TVM abstract machine and the TREES epoch-synchronized runtime, ported
 # to PyTorch: the host and resident engines (engine.py) over the scheduler
 # (phase-1 policy: stacks, coalescing, dispatch sizing) over the TVM
-# (phase-2/3 execution substrate, tvm.py).
+# (phase-2/3 execution substrate, tvm.py), with the sequential oracle
+# (interp.py) and the V1 / V_inf accounting (analysis.py) beside them.
 from .engine import (
     ChunkSummary,
     DeviceEngine,
@@ -11,7 +12,9 @@ from .engine import (
     MapLauncher,
     ResidentCarry,
 )
+from .interp import OracleStats, run_oracle
 from .program import HeapVar, InitialTask, MapType, Program, TaskType
+from .analysis import OverheadReport, compare
 from .scheduler import (
     COMPACTED,
     GATHER,
@@ -34,11 +37,15 @@ __all__ = [
     "EpochLoop",
     "HostEngine",
     "MapLauncher",
+    "OracleStats",
+    "run_oracle",
     "HeapVar",
     "InitialTask",
     "MapType",
     "Program",
     "TaskType",
+    "OverheadReport",
+    "compare",
     "COMPACTED",
     "GATHER",
     "MASKED",

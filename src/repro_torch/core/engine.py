@@ -37,10 +37,16 @@ regions and a ``tvm.JobArena``, whose commit allocates through the
 ``segmented_fork_scan`` kernel on the card.  Idle task types run masked
 (no per-type host sync to skip them; the same bits).
 
+Plug points, as in the JAX engine: ``fork_offsets_fn`` replaces
+``fork_scan`` in the commit, ``rank_fn`` the rank of the compaction pass
+(the permutation is then built from the ranks with torch operations),
+``pack_fn`` the gather pack (host pass, resident frontier and resident map
+rows).  Unset, each runs the port's kernel as above.
+
 Not ported yet: the fleet (``JobArena``) branch of the resident body, the
-sharded fleet chunk, ``dispatch="auto"``, the tracer, the controller, and
-the JAX engine's plug points for other scan implementations
-(``fork_offsets_fn``/``seg_offsets_fn``/``rank_fn``/``pack_fn``).
+sharded fleet chunk, ``dispatch="auto"``, the tracer, the controller and
+``seg_offsets_fn``.  ``donate`` has no meaning here: the state is updated
+in place.
 """
 from __future__ import annotations
 
@@ -340,11 +346,18 @@ class EpochLoop:
     resident chunk loop."""
 
     def __init__(self, program: Program, dispatch: Any = MASKED,
-                 megakernel: bool = False):
+                 megakernel: bool = False, *,
+                 rank_fn: Optional[Callable] = None,
+                 pack_fn: Optional[Callable] = None,
+                 fork_offsets_fn: Optional[Callable] = None):
         self.program = program
         self.policy: DispatchPolicy = resolve_policy(dispatch)
         self.task_names = [t.name for t in program.tasks]
         self.maps = MapLauncher(program)
+        # plug points (None: the port's kernels through kernels/ops.py)
+        self._rank_fn = rank_fn
+        self._pack_fn = pack_fn or kops.lane_pack
+        self._fork_offsets_fn = fork_offsets_fn
         # resident chunks on the card run as one epoch_chunk kernel launch
         # (kernels/epoch_megakernel.py) instead of the plain loop; the
         # same bits, one launch per chunk (DESIGN.md §12)
@@ -361,14 +374,16 @@ class EpochLoop:
         per_type, _ = tvm.trace_tasks(self.program, state, heap, idx, active)
         return tvm.commit_epoch(
             self.program, state, heap, idx, active, per_type, cen_l,
-            arena=arena,
+            arena=arena, fork_offsets_fn=self._fork_offsets_fn,
         )
 
     def compact_pass(self, state, start: int, count: int, cen, P: int):
         """Compaction pass: types -> ``(perm, per-type counts)`` (§5.4's
         extra dispatch + transfer, paid to make phase 2 lane-exact)."""
         idx, active, _ = _frontier_mask(state, start, count, cen, P)
-        return tvm.compact_types(self.program, state, idx, active)
+        return tvm.compact_types(self.program, state, idx, active,
+                                 rank_fn=self._rank_fn,
+                                 offsets_fn=self._fork_offsets_fn)
 
     def compacted_step(self, state, heap, start: int, count: int, cen,
                        perm, toffs, tcounts, buckets: Tuple[int, ...],
@@ -380,13 +395,13 @@ class EpochLoop:
         )
         return tvm.commit_epoch(
             self.program, state, heap, idx, active, per_type, cen,
-            arena=arena,
+            arena=arena, fork_offsets_fn=self._fork_offsets_fn,
         )
 
     def gather_pass(self, state, start: int, count: int, cen, P: int):
         """Frontier pack pass: active mask -> ``(perm, count)``."""
         _, active, _ = _frontier_mask(state, start, count, cen, P)
-        return kops.lane_pack(active)
+        return self._pack_fn(active)
 
     def gather_step(self, state, heap, start: int, perm, G: int,
                     arena=None):
@@ -406,7 +421,7 @@ class EpochLoop:
         per_type, _ = tvm.trace_tasks(self.program, state, heap, idx, valid)
         return tvm.commit_epoch(
             self.program, state, heap, idx, valid, per_type, cen_g,
-            arena=arena,
+            arena=arena, fork_offsets_fn=self._fork_offsets_fn,
         )
 
     # ------------------------------------------------- one host-driven epoch
@@ -480,9 +495,10 @@ class EpochLoop:
 
           * the step launches at the smallest :func:`_span_width_ladder`
             rung covering the popped range (masked) or the count of the
-            stable full-TV ``lane_pack`` of the epoch's active lanes
-            (gather; the ``type_rank`` kernel on the card); the skipped
-            lanes accrue in ``hole_lanes``;
+            stable full-TV pack of the epoch's active lanes (gather;
+            ``pack_fn``, by default ``lane_pack``: the ``type_rank``
+            kernel on the card); the skipped lanes accrue in
+            ``hole_lanes``;
           * the join continuation is pushed below this epoch's forked
             range (LIFO, paper §4.3.3); TV overflow or a full stack fails
             the region and zeroes its stack pointer;
@@ -516,7 +532,7 @@ class EpochLoop:
                 dom = torch.as_tensor(mt.domain(ml.argi)).to(_I32).clamp(
                     0, mt.max_domain)
                 live_dom = torch.where(ml.where, dom, 0)
-                lperm, lcount = kops.lane_pack(ml.where)
+                lperm, lcount = self._pack_fn(ml.where)
                 dmax, n_rows = torch.stack(
                     [live_dom.max(), lcount.to(_I32)]).tolist()
                 map_el = map_el + live_dom.sum(dtype=torch.int64)
@@ -552,7 +568,7 @@ class EpochLoop:
                     lanes < start[0] + count[0])
                 step_cen = torch.where(in_pop, cen[0], 0)
                 act = (step_cen > 0) & (state.epoch[:capacity] == step_cen)
-                perm, width_key = kops.lane_pack(act)
+                perm, width_key = self._pack_fn(act)
             else:
                 width_key = torch.where(live[0], count[0], 0)
             lo, ct, scen, key = torch.stack([
@@ -613,7 +629,7 @@ class EpochLoop:
             raise EngineError(
                 f"program {self.program.name!r} has no device task table "
                 "for the epoch_chunk kernel (tables exist for fib, bfs and "
-                "mergesort(map); the others are ROADMAP §2.3's follow-up)"
+                "mergesort(map); the others are ROADMAP §1 item 1)"
             )
         return table
 
@@ -692,6 +708,14 @@ class HostEngine:
 
     ``device=None`` means CUDA (and raises where CUDA is absent); pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+
+    Hooks, as in the JAX engine: ``fork_offsets_fn(counts) -> (excl,
+    total)`` replaces ``fork_scan`` in the commit (and, with ``rank_fn``,
+    the type offsets of the compaction pass); ``rank_fn(types, active,
+    n_types) -> (rank, counts)`` replaces the compaction's rank and
+    ``pack_fn(active) -> (perm, count)`` the gather pack;
+    ``stats_factory()`` makes the run's collector; ``coalesce`` goes to
+    the :class:`EpochScheduler`.
     """
 
     def __init__(
@@ -699,15 +723,29 @@ class HostEngine:
         program: Program,
         capacity: int = 1 << 14,
         collect_stats: bool = True,
+        fork_offsets_fn: Optional[Callable] = None,
         dispatch: Any = MASKED,
+        coalesce: bool = True,
+        rank_fn: Optional[Callable] = None,
+        pack_fn: Optional[Callable] = None,
+        stats_factory: Optional[Callable[[], StatsCollector]] = None,
         device=None,
     ):
         self.program = program
         self.capacity = capacity
         self.collect_stats = collect_stats
+        self.coalesce = coalesce
+        self._stats_factory = stats_factory
         self.device = resolve_device(device)
-        self.loop = EpochLoop(program, dispatch)
+        self.loop = EpochLoop(program, dispatch, rank_fn=rank_fn,
+                              pack_fn=pack_fn,
+                              fork_offsets_fn=fork_offsets_fn)
         self.policy = self.loop.policy
+
+    def _collector(self) -> StatsCollector:
+        if self._stats_factory is not None:
+            return self._stats_factory()
+        return RunStatsCollector() if self.collect_stats else NullStats()
 
     @staticmethod
     def _readback(summary: tvm.EpochSummary, state: tvm.TVMState):
@@ -743,9 +781,9 @@ class HostEngine:
             program.init_heap(self.device, **(heap_init or {}))
         )
         # phase-1 state owned by the CPU, exactly as in the paper (§5.2.2)
-        sched = EpochScheduler()
+        sched = EpochScheduler(coalesce=self.coalesce)
         sched.reset()
-        col = RunStatsCollector() if self.collect_stats else NullStats()
+        col = self._collector()
         n_epochs = 0
         while sched:  # termination predicate: host stacks drained
             if n_epochs >= max_epochs:
@@ -796,6 +834,7 @@ class DeviceEngine:
         program: Program,
         capacity: int = 1 << 12,
         stack_depth: int = 1 << 10,
+        fork_offsets_fn: Optional[Callable] = None,
         dispatch: Any = MASKED,
         megakernel: bool = False,
         device=None,
@@ -806,10 +845,15 @@ class DeviceEngine:
         if resolve_policy(dispatch).name not in ("masked", "gather"):
             raise ValueError(_COMPACTED_RESIDENT_MSG)
         self.device = resolve_device(device)
-        self.loop = EpochLoop(program, dispatch, megakernel=megakernel)
+        self.loop = EpochLoop(program, dispatch, megakernel=megakernel,
+                              fork_offsets_fn=fork_offsets_fn)
         self.policy = self.loop.policy
         if self.loop.megakernel and self.device.type == "cuda":
             self.loop.device_table()
+            if fork_offsets_fn is not None:
+                raise EngineError(
+                    "the epoch_chunk kernel allocates fork slots itself: "
+                    "fork_offsets_fn needs megakernel=False on the card")
 
     def initial_carry(self, initial: InitialTask,
                       heap_init: Optional[Dict[str, Any]] = None

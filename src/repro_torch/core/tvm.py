@@ -44,11 +44,12 @@ Task Vector (``torch.arange``, ``cumsum`` and ``sum`` name their dtype).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 from .primitives import EpochCtx, MapCtx
 from .program import InitialTask, Program, pack_args
 
@@ -221,18 +222,30 @@ def trace_tasks(program: Program, state: TVMState, heap, idx, active):
     ], cidx
 
 
-def compact_types(program: Program, state: TVMState, idx, active):
+def compact_types(program: Program, state: TVMState, idx, active,
+                  rank_fn: Optional[Callable] = None,
+                  offsets_fn: Optional[Callable] = None):
     """Compaction stage: scatter active lanes into contiguous per-type ranges.
 
     Each active lane gets ``dest = type_start[type] + rank`` where ``rank``
     is its stable within-type rank and ``type_start`` the exclusive prefix
-    sum of the per-type populations; on the card the ``type_rank`` kernel
-    writes the permutation itself (``kops.type_pack``).  Returns ``(perm,
-    counts)``: ``perm[d]`` is the lane position of the d-th compacted lane
-    (-1 beyond the active population), ``counts`` the per-type populations.
+    sum of the per-type populations; by default the ``type_rank`` kernel
+    writes the permutation itself on the card (``kops.type_pack``).  A
+    ``rank_fn(types, active, n_types) -> (rank, counts)`` replaces the
+    rank; the permutation is then built here, with ``type_start`` from
+    ``offsets_fn(counts) -> (excl, total)`` where one is given.  Returns
+    ``(perm, counts)``: ``perm[d]`` is the lane position of the d-th
+    compacted lane (-1 beyond the active population), ``counts`` the
+    per-type populations.
     """
+    n_types = len(program.tasks)
     types = state.task[idx.clamp(0, state.capacity - 1)]
-    return kops.type_pack(types, active, len(program.tasks))
+    if rank_fn is None:
+        return kops.type_pack(types, active, n_types)
+    rank, counts = rank_fn(types, active, n_types)
+    counts = counts.to(_I32)
+    type_start, _ = (offsets_fn or kref.fork_scan_ref)(counts)
+    return kref.type_perm(types, active, rank, type_start), counts
 
 
 def _scatter_effects(ctx, pos, P: int):
@@ -318,16 +331,54 @@ def trace_tasks_compacted(
     return per_type, idx, active
 
 
+def _ordered_add_(arr: torch.Tensor, idx: torch.Tensor,
+                  val: torch.Tensor) -> None:
+    """``arr[idx] += val`` with each row's terms added one at a time in
+    source order, starting from the old value — the CPU ``index_add_``'s
+    serial loop, whose rounding the JAX reference's CPU scatter shares.
+
+    A stable sort groups each row's terms in source order; the ``k``-th
+    term of every row is then added by one gather/add/store over rows that
+    are all distinct, ``k`` = 0, 1, ... up to the longest run.  Writes to
+    the sink row are skipped (nothing reads it).
+    """
+    sink = arr.shape[0] - 1
+    keep = torch.nonzero(idx != sink).flatten()
+    if keep.numel() == 0:
+        return
+    sidx, order = torch.sort(idx[keep], stable=True)
+    sval = val[keep[order]]
+    m = sidx.shape[0]
+    pos = torch.arange(m, device=idx.device)
+    first = torch.ones(m, dtype=torch.bool, device=idx.device)
+    first[1:] = sidx[1:] != sidx[:-1]
+    run_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = pos - run_start  # the term's place within its row's run
+    by_rank = torch.sort(rank, stable=True).indices
+    lo = 0
+    for c in torch.bincount(rank).tolist():
+        sel = by_rank[lo:lo + c]
+        rows = sidx[sel]
+        arr[rows] = arr[rows] + sval[sel]
+        lo += c
+
+
 def _scatter_heap(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                   op: str) -> None:
     """``arr[idx] (op)= val`` in place; ``idx`` points dropped lanes at the
     sink row.  ``min``/``max`` include the old value, like the JAX
-    ``.at[].min``/``.max``; int ``add`` is exact.  Float ``add`` on CUDA is
-    order-dependent (no app of this slice uses it)."""
+    ``.at[].min``/``.max``; int ``add`` is exact in any order.  Float
+    ``add`` sums each row's terms in source order from the old value on
+    every device: the CPU's ``index_add_`` runs a serial loop in that
+    order, while CUDA's adds atomically in an order that changes from run
+    to run, so on the card the terms go through :func:`_ordered_add_`."""
     if op == "set":
         arr.index_put_((idx,), val)
     elif op == "add":
-        arr.index_add_(0, idx, val)
+        if arr.is_floating_point() and arr.device.type != "cpu":
+            _ordered_add_(arr, idx, val)
+        else:
+            arr.index_add_(0, idx, val)
     else:
         full = idx.long().view((-1,) + (1,) * (val.dim() - 1)).expand_as(val)
         arr.scatter_reduce_(0, full, val, "amin" if op == "min" else "amax",
@@ -343,11 +394,13 @@ def commit_epoch(
     per_type,
     cen,
     arena: Optional[JobArena] = None,
+    fork_offsets_fn: Optional[Callable] = None,
 ) -> Tuple[TVMState, Dict[str, torch.Tensor], Any, List[MapLaunch]]:
     """Phase 3: prefix-sum fork allocation + TMS (epoch-number) update.
 
     Fork slots come from ``kernels.ops.fork_offsets`` (the ``fork_scan``
-    kernel on CUDA), or with ``arena`` from ``ops.segmented_fork_offsets``
+    kernel on CUDA) or ``fork_offsets_fn(counts) -> (excl, total)`` where
+    one is given, or with ``arena`` from ``ops.segmented_fork_offsets``
     over each lane's region (the ``segmented_fork_scan`` kernel on CUDA);
     the summary is then a :class:`MuxEpochSummary`.  ``cen`` is an int, an
     ``i32[]`` or a per-lane ``i32[P]`` epoch number.
@@ -362,14 +415,15 @@ def commit_epoch(
     # ---- per-lane fork counts (disjoint across types) -------------------
     lane_count = torch.zeros((P,), dtype=_I32, device=dev)
     for mask_t, eff in per_type:
-        cnt = torch.zeros((P,), dtype=_I32, device=dev)
-        for f in eff.forks:
-            cnt = cnt + f.where.to(_I32)
-        lane_count = lane_count + torch.where(mask_t, cnt, 0)
+        if eff.forks:
+            cnt = torch.stack([f.where for f in eff.forks]).sum(
+                0, dtype=_I32)
+            lane_count = lane_count + torch.where(mask_t, cnt, 0)
 
     lane_cap = None  # per-lane scatter bound (arena mode only)
     if arena is None:
-        lane_excl, total_forks = kops.fork_offsets(lane_count)
+        offsets = fork_offsets_fn or kops.fork_offsets
+        lane_excl, total_forks = offsets(lane_count)
         lane_base = state.next_free + lane_excl
         overflow = (state.next_free + total_forks) > C
     else:
@@ -391,27 +445,36 @@ def commit_epoch(
     s = state
 
     for mask_t, eff in per_type:
-        # -------- forks: scatter children at contiguous prefix-sum slots;
+        # -------- forks: scatter children at contiguous prefix-sum slots,
+        # site k of a lane at lane_base + (its fired sites before k);
         # slots past capacity (overflow) drop to the sink like mode="drop",
-        # and under an arena so do slots past the lane's region end
-        within = torch.zeros((P,), dtype=_I32, device=dev)
-        for f in eff.forks:
-            fire = mask_t & f.where
-            raw = lane_base + within
+        # and under an arena so do slots past the lane's region end.  The
+        # fired slots are distinct, so the type's sites scatter at once
+        # ([S, P], site-major) with the bits of one scatter per site.
+        if eff.forks:
+            S = len(eff.forks)
+            fire = mask_t & torch.stack([f.where for f in eff.forks])
+            fired = fire.to(_I32)
+            raw = lane_base + (torch.cumsum(fired, 0, dtype=_I32) - fired)
             if lane_cap is None:
-                slots = torch.where(fire & (raw < C), raw, drop)
+                fire = fire & (raw < C)
             else:
                 fire = fire & (raw < lane_cap)
-                slots = torch.where(fire, raw, drop)
-            s.task[slots] = f.task
-            s.argi[slots] = f.argi
-            s.argf[slots] = f.argf
-            s.epoch[slots] = cen + 1
+            slots = torch.where(fire, raw, drop).reshape(-1)
+            s.task[slots] = torch.stack(
+                [f.task.expand(P) for f in eff.forks]).reshape(-1)
+            s.argi[slots] = torch.stack([f.argi for f in eff.forks]).reshape(
+                S * P, -1)
+            s.argf[slots] = torch.stack([f.argf for f in eff.forks]).reshape(
+                S * P, -1)
+            child_cen = cen + 1  # an int, an i32[] or a per-lane i32[P]
+            if torch.is_tensor(child_cen) and child_cen.dim() == 1:
+                child_cen = child_cen.expand(S, P).reshape(-1)
+            s.epoch[slots] = child_cen
             # children's child_base=0 lands before the parents' child_base
             # below (tvm.py:534 before :552); keep that order
             s.child_base[slots] = 0
             s.child_count[slots] = 0
-            within = within + fire.to(_I32)
 
         # -------- join: replace own entry; epoch number stays CEN
         jw = torch.zeros((P,), dtype=torch.bool, device=dev)

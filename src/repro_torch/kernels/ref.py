@@ -103,17 +103,27 @@ def type_pack_ref(types: torch.Tensor, active: torch.Tensor, n_types: int):
     compacted lane, -1 beyond the active population.  Active lanes must
     carry a type in ``[0, n_types)``.
     """
-    P = types.shape[0]
     act = active.to(torch.bool)
     rank, counts = type_rank_ref(types, act, n_types)
     type_start, _ = fork_scan_ref(counts)
+    return type_perm(types, act, rank, type_start), counts
+
+
+def type_perm(types: torch.Tensor, active: torch.Tensor, rank: torch.Tensor,
+              type_start: torch.Tensor) -> torch.Tensor:
+    """Scatter each active lane to ``type_start[type] + rank``: the
+    compaction permutation from per-type ranks and offsets (``perm[d]`` the
+    lane position of the d-th compacted lane, -1 beyond the active
+    population)."""
+    P = types.shape[0]
+    n_types = type_start.shape[0]
     dest = type_start[types.clamp(0, n_types - 1)] + rank
     # tvm.py drops inactive lanes at index P (mode="drop"): sink entry P here
     perm = torch.full((P + 1,), -1, dtype=_I32, device=types.device)
-    perm[torch.where(act, dest, P)] = torch.arange(
+    perm[torch.where(active.to(torch.bool), dest, P)] = torch.arange(
         P, dtype=_I32, device=types.device
     )
-    return perm[:P], counts
+    return perm[:P]
 
 
 def epoch_chunk_ref(cond_fn, body_fn, carry, limit):

@@ -169,6 +169,84 @@ def test_engine_on_cuda_matches_cpu(cuda_device, name, dispatch):
     assert (launches["type_rank"] > 0) == (dispatch != "masked")
 
 
+# fft's heap, card against CPU: relative to the largest |CPU value| (CUDA's
+# cosf/sinf and the CPU's round a few twiddles one ulp apart)
+FFT_RTOL = 1e-5
+NEW_APPS = ("annealing", "fft", "matmul", "nqueens", "sssp", "tsp")
+
+
+@pytest.mark.parametrize("name", NEW_APPS)
+def test_new_apps_on_cuda_match_cpu(cuda_device, name):
+    from repro_torch.core import DeviceEngine, EngineError
+
+    case = all_cases()[name]
+    gh, gv, gs = case.run(dispatch="masked", device="cuda")
+    ch, cv, cs = case.run(dispatch="masked", device="cpu")
+    assert torch.equal(gv.cpu(), cv)
+    for k in ch:
+        if name == "fft" and k in ("re", "im"):
+            bound = FFT_RTOL * float(ch[k].abs().max())
+            assert float((gh[k].cpu() - ch[k]).abs().max()) <= bound, k
+        else:
+            assert torch.equal(gh[k].cpu(), ch[k]), k
+    assert gs.as_dict() == cs.as_dict()
+    with pytest.raises(EngineError, match="device task table"):
+        DeviceEngine(case.program, capacity=case.capacity, megakernel=True)
+
+
+def test_naive_mergesort_on_cuda_matches_cpu(cuda_device):
+    from repro_torch.apps import mergesort
+    from repro_torch.apps.registry import AppCase
+    from repro_torch.core import DeviceEngine, EngineError
+
+    n = 64
+    case = AppCase("naive", mergesort.make_program(n, use_map=False),
+                   mergesort.initial(n),
+                   dict(inp=mergesort.random_input(n, seed=5)),
+                   capacity=1 << 12)
+    for dispatch in ("masked", "compacted", "gather"):
+        gh, _, gs = case.run(dispatch=dispatch, device="cuda")
+        ch, _, cs = case.run(dispatch=dispatch, device="cpu")
+        assert torch.equal(gh["src"].cpu(), ch["src"])
+        assert gs.as_dict() == cs.as_dict()
+    with pytest.raises(EngineError, match="device task table"):
+        DeviceEngine(case.program, capacity=case.capacity, megakernel=True)
+
+
+def test_matmul_c_is_the_same_bits_every_run(cuda_device):
+    """16 float terms into each C cell in one payload: the ordered add
+    gives the CPU's bits on every run."""
+    from repro_torch.apps import matmul
+    from repro_torch.core import HostEngine
+
+    n, block = 64, 4
+    A, B = matmul.random_inputs(n, seed=9)
+    prog = matmul.make_program(n, block=block)
+    hi = dict(A=A.ravel(), B=B.ravel())
+    cpu = HostEngine(prog, capacity=1 << 13, device="cpu").run(
+        matmul.initial(n), heap_init=hi)[0]["C"]
+    for _ in range(5):
+        got = HostEngine(prog, capacity=1 << 13).run(
+            matmul.initial(n), heap_init=hi)[0]["C"]
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_float_add_scatter_is_ordered(cuda_device):
+    from repro_torch.core import tvm
+
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 1001, (1 << 20,), generator=g).to(torch.int32)
+    val = torch.randn(1 << 20, generator=g) * 100
+    base = torch.randn(1001, generator=g)
+    cpu = base.clone()
+    tvm._scatter_heap(cpu, idx, val, "add")
+    for _ in range(3):
+        dev = base.to(cuda_device)
+        tvm._scatter_heap(dev, idx.to(cuda_device), val.to(cuda_device),
+                          "add")
+        assert torch.equal(dev[:-1].cpu(), cpu[:-1])  # row 1000: the sink
+
+
 # segmented_fork_scan takes tiles of 2048 lanes and groups of 32 segments:
 # lengths on either side of one and two tile boundaries, J up to one group
 # and one past it

@@ -57,4 +57,4 @@ def test_mergesort_matches_jax(dispatch):
 
 def test_mergesort_rejects_non_power_of_two():
     with pytest.raises(ValueError, match="power-of-two"):
-        mergesort.make_program(24)
+        mergesort.make_program(24, use_map=True)

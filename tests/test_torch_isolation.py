@@ -1,6 +1,8 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(every module, the job service, the treewalk app and the LLM server, on
-an attention and an SSM model, among them, runs with both blocked), runs on the CPU only when asked, and its chip smoke script
+(every module, the job service, the treewalk app, the ten registry cases,
+the baselines, the oracle and its overhead report, and the LLM server, on
+an attention and an SSM model, among them, runs with both blocked), runs
+on the CPU only when asked, and its chip smoke script
 refuses to run without a card or without the repository beside it."""
 from __future__ import annotations
 
@@ -72,11 +74,29 @@ for n in (5, 9):
     ssm_srv.submit(Request(prompt=np.arange(3, 3 + n, dtype=np.int32),
                            max_new_tokens=3))
 assert [len(r.output) for r in ssm_srv.run_to_completion()] == [3, 3]
+from repro_torch.apps import all_cases, mergesort, nqueens, sssp
+from repro_torch.apps.baselines import bitonic, worklist
+from repro_torch.core import compare, run_oracle
+import torch
+assert len(all_cases()) == 10
+qheap, _, qstats = nqueens.case().run(device="cpu")
+assert int(qheap["count"][0]) == nqueens.SOLUTIONS[6]
+_, _, ostats = run_oracle(nqueens.make_program(6), nqueens.initial(),
+                          capacity=1 << 13)
+report = compare(ostats, qstats)
+adj_off, adj = sssp.random_graph(32, seed=7)
+wgt = sssp.random_weights(len(adj), seed=2)
+wl, _ = worklist.sssp_worklist(adj_off, adj, wgt, 0, 32, device="cpu")
+assert np.allclose(wl.numpy(), sssp.sssp_reference(adj_off, adj, wgt, 0, 32))
+x = mergesort.random_input(16, seed=1)
+assert (bitonic.bitonic_sort(torch.as_tensor(x)).numpy() == np.sort(x)).all()
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not leaked, leaked
 print("isolated", stats.epochs, "resident", rstats.epochs,
       "service", svc.stats().epochs, "served", srv.epochs,
       "ssm", ssm_srv.epochs)
+print("apps", len(all_cases()), "oracle", report.t1_tasks,
+      report.t_inf_epochs)
 '''
 
 
@@ -93,6 +113,7 @@ def test_port_imports_and_runs_without_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert "isolated 23 resident 23 service 23 served 4 ssm 3" in out.stdout
+    assert "apps 10 oracle 153 7" in out.stdout
 
 
 def test_default_device_is_cuda():

@@ -144,7 +144,8 @@ def test_device_tables_cover_the_registry_programs():
         assert t is not None
     assert mk.device_table(fib.PROGRAM).app_id == 0
     assert mk.device_table(bfs.make_program(100, 400)).app_id == 1
-    assert mk.device_table(mergesort.make_program(64)).app_id == 2
+    assert mk.device_table(
+        mergesort.make_program(64, use_map=True)).app_id == 2
 
 
 def _renamed(program: Program, **kw) -> Program:
@@ -167,7 +168,7 @@ def test_device_table_checks_more_than_the_name():
         HeapVar("dist", (10,), torch.float32),))) is None
     assert mk.device_table(_renamed(q, heap=q.heap[:2] + (
         HeapVar("dist", (11,), torch.int32),))) is None
-    m = mergesort.make_program(16)
+    m = mergesort.make_program(16, use_map=True)
     assert mk.device_table(_renamed(m, maps=())) is None
 
 
@@ -233,7 +234,7 @@ def _wide_case(name):
         return AppCase("bfs", bfs.make_program(n, len(adj)), bfs.initial(0),
                        bfs.heap_init(adj_off, adj, n), capacity=2**19)
     n = 2**14
-    return AppCase("mergesort", mergesort.make_program(n),
+    return AppCase("mergesort", mergesort.make_program(n, use_map=True),
                    mergesort.initial(n),
                    dict(inp=mergesort.random_input(n, seed=0)),
                    capacity=2**16)
@@ -392,7 +393,7 @@ def test_kernel_reports_a_map_stage_fault(cuda_device):
     # mergesort table allocates (n elements): the kernel must say so
     # rather than write a wrong heap
     n = 16
-    prog = mergesort.make_program(n)
+    prog = mergesort.make_program(n, use_map=True)
     eng = DeviceEngine(prog, capacity=64, megakernel=True, device="cuda")
     carry = eng.initial_carry(mergesort.initial(n),
                               dict(inp=mergesort.random_input(n, seed=1)))
