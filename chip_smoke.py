@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
                 (fork_compact.cu, epoch_megakernel.cu, flash_attention.cu,
                 decode_attention.cu, ssd_scan.cu: one nvcc each, in
-                parallel) into
+                parallel, each timed) into
                 src/repro_torch/kernels/build/ (ptxas report: each
-                kernel's registers, spills and shared memory);
+                kernel's registers, spills and shared memory, one
+                epoch_chunk instantiation per device table);
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card, exactly: fork_scan, type_rank and type_pack (1 to
                 24 types) and lane_pack at every listed length; the three
@@ -28,10 +29,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 and out-of-range ids, and in every call of its timing
                 graph; epoch_chunk against epoch_chunk_ref from
                 the same fresh carry, every carry tensor, for fib, bfs and
-                mergesort at full size and at the registry's small size,
-                masked and gather, in chunks of K = 1, 4 and unbounded,
-                then its cooperative grid, the cost of one grid barrier
-                (an empty cooperative kernel of 2000 barriers), and each
+                mergesort (phase 3's cases), treewalk post- and pre-order
+                (phase 7's tree), sssp, nqueens(12), tsp(10) and naive
+                mergesort of 2^10 (phase 3b's cases) at full size and at
+                the registry's small size, masked and gather, in chunks of
+                K = 1, 4 and unbounded against one plain run each, then
+                its cooperative grid, the cost of one grid barrier (an
+                empty cooperative kernel of 2000 barriers), and each
                 full-size masked chunk and fib's gather chunk timed beside
                 its bytes bound, its barrier floor (the barriers it
                 crossed x that cost) and its narrow and wide epochs;
@@ -70,8 +74,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 nqueens(12), tsp(10), fft of 2^18 points, matmul 512 x 512
                 in blocks of 16, annealing of 16 bits x 256 chains x 200
                 steps, naive mergesort of 2^10): HostEngine masked,
-                compacted and gather and the plain resident DeviceEngine
-                masked and gather on CUDA; check each against its reference
+                compacted and gather, the plain resident DeviceEngine
+                masked and gather and, but fft, matmul and annealing,
+                DeviceEngine(megakernel=True) masked and gather on CUDA,
+                each resident wall printed beside the plain one (treewalk
+                in both orders on phase 7's tree too); check each against
+                its reference
                 (Dijkstra, the solution count, brute force, np.fft within
                 a relative L2 error of 1e-4, A @ B in float64 within 1e-5
                 of its largest value, the brute-force optimum as a floor,
@@ -79,8 +87,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 the shared RunStats), the masked run against the CPU's
                 (exactly; fft's heap within 1e-5 of its largest value), each
                 capacity against the smallest power of two that fits, that
-                fork_scan and type_rank were launched during the phase and
-                that DeviceEngine(megakernel=True) refuses each program;
+                fork_scan, type_rank and epoch_chunk were launched during
+                the phase and that DeviceEngine(megakernel=True) refuses
+                fft, matmul and annealing;
                 then the paper's yardsticks: bfs and sssp against the
                 worklist baselines, naive and map mergesort against
                 bitonic_sort, fft against torch.fft.fft, nqueens(7)'s
@@ -139,6 +148,8 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -267,11 +278,17 @@ def phase_build():
     t0 = time.perf_counter()
     mods = (fork_compact, epoch_megakernel, flash_attention, decode_attention,
             ssd_scan)
+
+    def timed_build(m):
+        t = time.perf_counter()
+        path, log = m.build(ptxas_info=True)
+        return path, log, time.perf_counter() - t
+
     with ThreadPoolExecutor(len(mods)) as pool:
-        built = list(pool.map(lambda m: m.build(ptxas_info=True), mods))
+        built = list(pool.map(timed_build, mods))
     dt = time.perf_counter() - t0
-    for path, log in built:
-        print(f"[build] {path.name}")
+    for path, log, secs in built:
+        print(f"[build] {path.name} in {secs:.2f} s")
         for name, info in ptxas_kernels(log):
             print(f"[build]   {name}: {info}")
     print(f"[build] {len(mods)} libraries built in {dt:.2f} s (in parallel)")
@@ -590,8 +607,6 @@ def phase_kernels(dev):
 
 # ------------------------------------------------------- phase 2, epoch_chunk
 def _carry_tensors(carry):
-    import dataclasses
-
     out = {}
     for f in dataclasses.fields(carry):
         v = getattr(carry, f.name)
@@ -650,6 +665,73 @@ def _chunk_bound(program, stats):
     return bound_ms(n_bytes, stats.tasks_executed)
 
 
+# the programs of epoch_chunk's later device tables, held at the registry's
+# size and at full size: phase 3b's cells and treewalk on phase 7's tree
+CHUNK_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive")
+# the apps with no device table yet (ROADMAP §2 item 1a, slice B)
+SLICE_B = ("fft", "matmul", "annealing")
+
+
+@functools.lru_cache(maxsize=None)
+def service_tree():
+    """random_tree(SERVICE_TREE, seed=11), generated once for phases 2, 3b
+    and 7: (left, right, seconds it took)."""
+    from repro_torch.apps import treewalk
+
+    t0 = time.perf_counter()
+    left, right = treewalk.random_tree(SERVICE_TREE, seed=11)
+    return left, right, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def tree_case(order):
+    """``(AppCase, check)`` of treewalk in ``order`` on the service tree at
+    the least power of two at or above its solo peak (a masked HostEngine
+    probe at 2^20); ``check(heap, value)`` returns ``(ok, detail)``."""
+    from repro_torch.apps import treewalk
+    from repro_torch.apps.registry import AppCase
+
+    left, right, gen_s = service_tree()
+    n = left.shape[0]
+    name = "treewalk" if order == "post" else "treewalk_pre"
+    probe = AppCase(name, treewalk.make_program(n, order),
+                    treewalk.initial(), dict(left=left, right=right),
+                    capacity=2**20)
+    peak = _run(probe, "masked", "cuda", tag="tree")[2].peak_tv_slots
+    case = dataclasses.replace(probe, capacity=1 << (peak - 1).bit_length())
+    print(f"[tree] {name}: random_tree({n}) in {gen_s:.1f} s, solo peak "
+          f"{peak} slots, capacity {case.capacity}")
+    visit, clock = treewalk.treewalk_reference(left, right, order)
+
+    def check(h, v):
+        ok = (np.array_equal(h["visit_epoch"], visit)
+              and np.array_equal(h["visit_clock"], clock))
+        return ok, f"{order}-order stamps of {n} nodes"
+    return case, check
+
+
+def chunk_case(name, size):
+    """The AppCase phase 2 holds epoch_chunk to for a program of
+    CHUNK_APPS: ``size`` "full", or "small" (the registry's case; naive
+    mergesort at the registry mergesort's n, treewalk_pre on the registry
+    treewalk's tree)."""
+    from repro_torch.apps import get_case, mergesort, treewalk
+
+    if size == "full":
+        if name.startswith("treewalk"):
+            return tree_case("pre" if name == "treewalk_pre" else "post")[0]
+        return app_case(name, APP_FULL[name])[0]
+    if name == "treewalk_pre":
+        c = get_case("treewalk")
+        return dataclasses.replace(c, name=name, program=treewalk.make_program(
+            c.heap_init["left"].shape[0], "pre"))
+    if name == "naive":
+        c = get_case("mergesort")
+        return dataclasses.replace(c, name=name, program=mergesort.make_program(
+            c.heap_init["inp"].shape[0], use_map=False))
+    return get_case(name)
+
+
 def phase_chunks(dev):
     """epoch_chunk against epoch_chunk_ref on the card, every carry
     tensor, at full size and the registry's size, K in {1, 4, inf}."""
@@ -661,6 +743,8 @@ def phase_chunks(dev):
     timing = {}
     sizes = [(c, "full") for c, _ in path_cases()]
     sizes += [(get_case(c.name), "small") for c, _ in path_cases()]
+    sizes += [(chunk_case(name, size), size) for size in ("small", "full")
+              for name in CHUNK_APPS]
     for case, size in sizes:
         for d in ("masked", "gather"):
             kw = dict(capacity=case.capacity, dispatch=d, device="cuda")
@@ -668,9 +752,12 @@ def phase_chunks(dev):
             plain = DeviceEngine(case.program, **kw)
             fresh = kern.initial_carry(case.initial,
                                        dict(case.heap_init) or None)
+            # one plain run: its final carry is the same at every K
+            # (tests/test_torch_megakernel.py::
+            # test_chunk_cadence_gives_one_carry)
+            want, _, _ = run_chunks(plain, fresh.clone(), None)
             for K in (1, 4, None):
                 got, s_got, reads = run_chunks(kern, fresh.clone(), K)
-                want, s_want, _ = run_chunks(plain, fresh.clone(), K)
                 torch.cuda.synchronize()
                 if reads != (1 if K is None else -(-s_got.n_epochs // K)):
                     fail(f"epoch_chunk {case.name} {size} {d} K={K}: "
@@ -682,7 +769,7 @@ def phase_chunks(dev):
                     fail(f"epoch_chunk {case.name} {size} {d} K={K}: "
                          f"max |kernel - plain| = {e}, sp={s_got.sp}, "
                          f"failed={s_got.failed}")
-            print(f"[kernels] epoch_chunk {case.name:9s} {size:5s} {d:6s} "
+            print(f"[kernels] epoch_chunk {case.name:12s} {size:5s} {d:6s} "
                   f"capacity={case.capacity} epochs={s_got.n_epochs}: "
                   f"exact at K=1, 4, inf (readbacks = ceil(epochs / K))")
             if size == "full" and (d == "masked" or case.name == "fib"):
@@ -711,9 +798,12 @@ def phase_chunks(dev):
     # the grid, and the barrier's own cost: an empty cooperative kernel of
     # N grid barriers against one of none
     G = epoch_megakernel.grid(0, dev)
+    grids = [epoch_megakernel.grid(t.app_id, dev)
+             for t in epoch_megakernel.TABLES]
     print(f"[kernels] epoch_chunk grid: {G} CTAs x 1024 threads "
           f"({torch.cuda.get_device_properties(dev).multi_processor_count} "
-          f"SMs; cooperative launch)")
+          f"SMs; cooperative launch); the {len(grids)} tables' grids "
+          f"{grids}")
     def bench_ms(n, iters=5):
         epoch_megakernel.grid_sync_bench(n, G, dev)
         torch.cuda.synchronize()
@@ -761,7 +851,9 @@ def phase_chunks(dev):
     for (name, d), (case, kern, plain, fresh) in timing.items():
         ms, out = chunk_ms(kern, fresh)
         call_ms, _ = chunk_ms(kern, fresh, device=False)
-        plain_ms, _ = chunk_ms(plain, fresh)
+        # the later tables' plain walls are phase 3b's (naive's plain run
+        # takes seconds)
+        plain_ms = None if name in CHUNK_APPS else chunk_ms(plain, fresh)[0]
         stats = kern.stats(kern.loop.chunk_summary(out))
         b, by = _chunk_bound(case.program, stats)
         st = torch.zeros(len(epoch_megakernel.STATS), dtype=torch.int64,
@@ -774,11 +866,12 @@ def phase_chunks(dev):
         st = dict(zip(epoch_megakernel.STATS, st.tolist()))
         n_barriers = st["grid_barriers"] + st["group_barriers"]
         floor = n_barriers * barrier_us * 1e-3
+        plain_s = "" if plain_ms is None else f", plain {plain_ms:.3f} ms"
         print(f"[kernels] epoch_chunk {name}({case.capacity}) {d}, one "
               f"chunk: device {ms:.3f} ms (with the host's enqueue "
               f"{call_ms:.3f} ms), bound {b:.5f} ms ({by}), barrier floor "
-              f"{floor:.3f} ms, plain {plain_ms:.3f} ms ({stats.epochs} "
-              f"epochs, {stats.tasks_executed} tasks)")
+              f"{floor:.3f} ms{plain_s} ({stats.epochs} epochs, "
+              f"{stats.tasks_executed} tasks, {stats.total_forks} forks)")
         print(f"[kernels]   {st['narrow_epochs']} narrow epochs (one CTA), "
               f"{st['wide_epochs']} wide; {st['grid_barriers']} grid "
               f"barriers ({st['search_barriers']} of a deep reclamation "
@@ -786,11 +879,13 @@ def phase_chunks(dev):
               f"{n_barriers} x {barrier_us:.3f} us")
         if (name, d) == ("fib", "masked"):
             row.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                       bound_ms=b, bound_by=by, floor_ms=floor)
+                       bound_ms=b, bound_by=by, floor_ms=floor, stats=st)
         else:
             row[f"{name}_{d}_ms"] = ms
             row[f"{name}_{d}_call_ms"] = call_ms
             row[f"{name}_{d}_bound_ms"] = b
+            row[f"{name}_{d}_floor_ms"] = floor
+            row[f"{name}_{d}_stats"] = st
     return row
 
 
@@ -800,7 +895,8 @@ INVARIANT = ("epochs", "tasks_executed", "total_forks", "peak_tv_slots",
              "ranges_coalesced")
 
 
-def _run(case, dispatch, device, tag="path", walls=None, **kw):
+def _run(case, dispatch, device, tag="path", walls=None, wall_key=None,
+         **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -809,7 +905,7 @@ def _run(case, dispatch, device, tag="path", walls=None, **kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if walls is not None:
-        walls[case.name, dispatch] = wall * 1e3
+        walls[wall_key or (case.name, dispatch)] = wall * 1e3
     heap = {k: v.cpu().numpy() for k, v in heap.items()}
     value = value.cpu().numpy()
     print(f"[{tag}] {case.name:9s} {dispatch:9s} {device:4s} "
@@ -1017,13 +1113,53 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _resident_runs(name, case, check, mask, walls, runs):
+    """The plain resident DeviceEngine and DeviceEngine(megakernel=True),
+    masked and gather, against the masked HostEngine run ``mask`` (heaps,
+    values, APP_INVARIANT) and the app's reference; fft, matmul and
+    annealing have no device table and must be refused."""
+    from repro_torch.core import DeviceEngine, EngineError
+
+    for d in ("masked", "gather"):
+        runs[name, "resident " + d] = r = _run(
+            case, d, "cuda", tag="apps-resident", walls=walls,
+            wall_key=(name, "resident " + d), engine_cls=DeviceEngine)
+        _same(r, mask, f"{name} resident {d} vs masked",
+              fields=APP_INVARIANT)
+    if name in SLICE_B:
+        try:
+            DeviceEngine(case.program, capacity=case.capacity,
+                         megakernel=True)
+        except EngineError as e:
+            print(f"[apps] {name}: megakernel=True refused ({e})")
+        else:
+            fail(f"{name}: DeviceEngine(megakernel=True) did not raise")
+        return
+    for d in ("masked", "gather"):
+        key = (name, "megakernel " + d)
+        runs[key] = r = _run(case, d, "cuda", tag="apps-megakernel",
+                             walls=walls, wall_key=key,
+                             engine_cls=DeviceEngine, megakernel=True)
+        _same(r, mask, f"{name} megakernel {d} vs masked",
+              fields=APP_INVARIANT)
+        ok, detail = check(r[0], r[1])
+        if not ok:
+            fail(f"{name} megakernel {d}: result differs from the "
+                 f"reference ({detail})")
+        print(f"[apps] {name} {d}: megakernel wall "
+              f"{walls[key]:.1f} ms, plain resident "
+              f"{walls[name, 'resident ' + d]:.1f} ms")
+
+
 def phase_apps(path_cases):
     """The six remaining apps and naive mergesort on the card: every
-    HostEngine dispatch and the plain resident DeviceEngine, against the
-    references, each other and the CPU; then the paper's yardsticks."""
+    HostEngine dispatch, the plain resident DeviceEngine and (but fft,
+    matmul and annealing) DeviceEngine(megakernel=True), against the
+    references, each other and the CPU; treewalk in both orders on phase
+    7's tree on the masked HostEngine and both resident engines; then the
+    paper's yardsticks."""
     from repro_torch.apps import get_case
-    from repro_torch.core import DeviceEngine, EngineError
-    from repro_torch.kernels import fork_compact
+    from repro_torch.kernels import epoch_megakernel, fork_compact
 
     # first use of each app's operations (the registry's small cases), so
     # the first timed run is not charged for it
@@ -1032,6 +1168,7 @@ def phase_apps(path_cases):
             dispatch="masked", device="cuda")
     torch.cuda.synchronize()
     fork_compact.reset_launches()
+    epoch_megakernel.reset_launches()
     walls, runs, over_cap = {}, {}, []
     for name in APP_FULL:
         case, check = app_case(name, APP_FULL[name])
@@ -1046,12 +1183,7 @@ def phase_apps(path_cases):
             runs[name, d] = r = _run(case, d, "cuda", tag="apps",
                                      walls=walls)
             _same(r, mask, f"{name} {d} vs masked")
-        for d in ("masked", "gather"):
-            runs[name, "resident " + d] = r = _run(
-                case, d, "cuda", tag="apps-resident",
-                engine_cls=DeviceEngine)
-            _same(r, mask, f"{name} resident {d} vs masked",
-                  fields=APP_INVARIANT)
+        _resident_runs(name, case, check, mask, walls, runs)
         peak = mask[2].peak_tv_slots
         smallest = 1 << max(0, (peak - 1).bit_length())
         print(f"[apps] {name}: capacity {case.capacity}, peak_tv_slots "
@@ -1059,13 +1191,6 @@ def phase_apps(path_cases):
               f"{smallest}")
         if smallest != case.capacity:
             over_cap.append((name, case.capacity, smallest))
-        try:
-            DeviceEngine(case.program, capacity=case.capacity,
-                         megakernel=True)
-        except EngineError as e:
-            print(f"[apps] {name}: megakernel=True refused ({e})")
-        else:
-            fail(f"{name}: DeviceEngine(megakernel=True) did not raise")
         # the card against the CPU, at full size
         cpu = _run(case, "masked", "cpu", tag="apps")
         worst = _same(mask, cpu, f"{name} cuda vs cpu",
@@ -1076,9 +1201,17 @@ def phase_apps(path_cases):
                   f"{worst / top:.3e} of the largest |value| ({top:.1f}); "
                   f"bound {fb:g}")
         print(f"[apps] {name}: card == CPU")
+    for order in ("post", "pre"):
+        case, check = tree_case(order)
+        mask = _run(case, "masked", "cuda", tag="apps", walls=walls)
+        ok, detail = check(mask[0], mask[1])
+        if not ok:
+            fail(f"{case.name}: result differs from the reference")
+        _resident_runs(case.name, case, check, mask, walls, runs)
     torch.cuda.synchronize()
     launches = {k: fork_compact.LAUNCHES[k] for k in ("fork_scan",
                                                       "type_rank")}
+    launches["epoch_chunk"] = epoch_megakernel.LAUNCHES["epoch_chunk"]
     print(f"[apps] kernel launches during the apps phase: {launches}")
     for k, n in launches.items():
         if n <= 0:
@@ -1307,28 +1440,10 @@ def service_cases(cases, runs):
     """The full-size mixed4 wave, in the registry's order: phase 3's fib,
     bfs and mergesort cases with their capacities as quotas, and treewalk
     post-order on random_tree(2^16, seed=11) at the least power of two at
-    or above its solo peak (its solo runs go into ``runs``)."""
-    import dataclasses
-
-    from repro_torch.apps import treewalk
-    from repro_torch.apps.registry import AppCase
-
-    n = SERVICE_TREE
-    t0 = time.perf_counter()
-    left, right = treewalk.random_tree(n, seed=11)
-    gen_s = time.perf_counter() - t0
-    probe = AppCase("treewalk", treewalk.make_program(n, "post"),
-                    treewalk.initial(), dict(left=left, right=right),
-                    capacity=2**20)
-    peak = _run(probe, "masked", "cuda", tag="service")[2].peak_tv_slots
-    tw = dataclasses.replace(probe, capacity=1 << (peak - 1).bit_length())
-    print(f"[service] treewalk: random_tree({n}) in {gen_s:.1f} s, solo "
-          f"peak {peak} slots, quota {tw.capacity}")
-    visit, clock = treewalk.treewalk_reference(left, right)
+    or above its solo peak (tree_case; its solo runs go into ``runs``)."""
+    tw, check = tree_case("post")
     correct = {c.name: ok for c, ok in cases}
-    correct["treewalk"] = lambda h, v: (
-        np.array_equal(h["visit_epoch"], visit)
-        and np.array_equal(h["visit_clock"], clock))
+    correct["treewalk"] = lambda h, v: check(h, v)[0]
     for d in ("masked", "compacted", "gather"):
         runs["treewalk", d] = r = _run(tw, d, "cuda", tag="service")
         if not correct["treewalk"](r[0], r[1]):
@@ -2109,6 +2224,10 @@ def main() -> int:
     phase_profile("fib HostEngine masked",
                   lambda: fib_case.run(dispatch="masked", device="cuda"))
     launches.update(phase_resident(cases, host_runs))
+    # epoch_chunk's count: the resident path's launches and the apps'
+    chunk_paths = {"resident": launches["epoch_chunk"],
+                   "apps": app_launches["epoch_chunk"]}
+    launches["epoch_chunk"] += app_launches["epoch_chunk"]
     for case, _ in cases:
         busy, wall, _ = phase_profile(
             f"{case.name} DeviceEngine(megakernel=True) masked",
@@ -2151,6 +2270,8 @@ def main() -> int:
             r["launches_by_path"] = type_rank_paths
         if r["name"] == "fork_scan":
             r["launches_by_path"] = fork_scan_paths
+        if r["name"] == "epoch_chunk":
+            r["launches_by_path"] = chunk_paths
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -628,8 +628,10 @@ class EpochLoop:
         if table is None:
             raise EngineError(
                 f"program {self.program.name!r} has no device task table "
-                "for the epoch_chunk kernel (tables exist for fib, bfs and "
-                "mergesort(map); the others are ROADMAP §1 item 1)"
+                "for the epoch_chunk kernel (tables exist for fib, bfs, "
+                "mergesort (map and naive), treewalk (post and pre), sssp, "
+                "nqueens and tsp; fft, matmul and annealing are ROADMAP §2 "
+                "item 1a slice B)"
             )
         return table
 
@@ -823,8 +825,9 @@ class DeviceEngine:
     ``device=None`` means CUDA (and raises where CUDA is absent); pass
     ``device="cpu"`` to run the plain loop on the CPU.  ``megakernel=True``
     runs each chunk on the card as one launch of the ``epoch_chunk``
-    kernel, which holds a device task table for fib, bfs and
-    mergesort(map); on the card any other program raises
+    kernel, which holds a device task table for fib, bfs, mergesort (map
+    and naive), treewalk (post and pre), sssp, nqueens and tsp; on the
+    card any other program (fft, matmul, annealing) raises
     :class:`EngineError` (there is no fallback), and on the CPU the flag
     runs the plain loop, as the JAX package's ``"auto"`` does off the TPU.
     """

@@ -17,9 +17,14 @@
 //   reclamation -> LIFO push (join continuation below the forked range) ->
 //   counters -> map payloads,
 // and each app's task bodies are __device__ functions (FibApp, BfsApp,
-// MsortApp below), written from src/repro_torch/apps/*.py with the same
-// effects.  A task body runs against a "sink": CountSink counts its forks,
-// ApplySink commits its effects, StageSink records a map element's writes.
+// MsortApp, TreePostApp, TreePreApp, SsspApp, NQueensApp, TspApp and
+// NaiveMsortApp below: fib, bfs, mergesort in its map and naive variants,
+// treewalk in post- and pre-order, sssp, nqueens and tsp), written from
+// src/repro_torch/apps/*.py with the same effects.  A constant a task body
+// captured from its make_program and no heap shape gives (nqueens' and tsp's
+// n) comes in the launch's `consts`.  A task body runs against a "sink":
+// CountSink counts its forks, ApplySink commits its effects, StageSink
+// records a map element's writes.
 //
 // Grid: one persistent cooperative grid (cudaLaunchCooperativeKernel, so
 // every CTA is resident) of G CTAs of 1024 threads, G = SMs x the CTAs an
@@ -106,9 +111,9 @@
 // (trees_grid_sync_bench) to price that floor.
 //
 // Atomics: heap add/min/max keep their atomics (heap_apply) across CTAs as
-// they did across threads: int add/min/max and float min/max are
-// order-independent; float add is not, and no app with a device table
-// uses it.
+// they did across threads: int add/min/max and float min/max (sssp's
+// dist, a compare-and-swap loop) are order-independent; float add is not,
+// and no app with a device table uses it.
 //
 // C interface (bound with ctypes): trees_epoch_chunk launches on the given
 // stream, allocates nothing (the caller passes the carry, the scratch and
@@ -130,6 +135,7 @@ constexpr int kMaxSpan = 8;
 constexpr int kMaxMaps = 4;
 constexpr int kMaxMapW = 40;
 constexpr int kMaxHeap = 8;
+constexpr int kMaxConsts = 4;
 
 enum Op { kSet = 0, kAdd = 1, kMin = 2, kMax = 3 };
 enum Dtype { kI32 = 0, kF32 = 1 };
@@ -159,7 +165,7 @@ enum Int {
   I_HEAP_DTYPE0 = I_HEAP_LEN0 + kMaxHeap, I_N_MAPS = I_HEAP_DTYPE0 + kMaxHeap,
   I_MAP0,  // per map: max_domain, n_widths, widths[kMaxMapW]
   I_N_ARG_I = I_MAP0 + kMaxMaps * (2 + kMaxMapW), I_N_ARG_F, I_VALUE_WIDTH,
-  I_GRID, I_COOP_WORDS, I_COUNT
+  I_GRID, I_COOP_WORDS, I_CONST0, I_COUNT = I_CONST0 + kMaxConsts
 };
 
 struct Params {
@@ -191,6 +197,7 @@ struct Params {
   int max_domain[kMaxMaps];
   int n_map_w[kMaxMaps];
   int map_w[kMaxMaps][kMaxMapW];
+  int consts[kMaxConsts];  // the app's constants (DeviceTable.consts)
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -205,6 +212,22 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 __device__ __forceinline__ int floormod(int a, int b) {
   return a - floordiv(a, b) * b;
+}
+
+// torch's int32 shifts: by a negative amount or one of 32 or more, << gives
+// 0 and >> the sign; within range << wraps (1 << 31 is INT_MIN)
+__device__ __forceinline__ int shl(int a, int b) {
+  return (unsigned)b < 32u ? (int)((uint32_t)a << b) : 0;
+}
+__device__ __forceinline__ int sar(int a, int b) {
+  return a >> ((unsigned)b < 32u ? b : 31);
+}
+// int32 + and * that wrap, as torch's do
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((uint32_t)a * (uint32_t)b);
 }
 
 // smallest rung >= key (searchsorted left), clipped to the top rung
@@ -427,12 +450,27 @@ struct StageSink {
 };
 
 // ---- the device task tables ------------------------------------------------
+// An App holds kTypes task bodies over kArgI int and kArgF float arguments,
+// a value of kValW words, kWrites heap write sites per task, kHeap heap
+// variables and kMapLaunches map launches of kMapWrites write sites each;
+// consts_ok checks the launch's constants on the host.  AppDefaults gives
+// the apps without maps or constants their (empty) map hooks.
+struct AppDefaults {
+  static constexpr int kMapLaunches = 0, kMapWrites = 0;
+  static bool consts_ok(const long long*) { return true; }
+  __device__ static int map_id(int) { return 0; }
+  __device__ static int map_domain(int, const int*) { return 0; }
+  template <class S>
+  __device__ static void map_payload(int, const int*, const float*, int,
+                                     const Params&, S&) {}
+};
+
 // fib (src/repro_torch/apps/fib.py): fib forks fib(n-1), fib(n-2) and joins
 // fibsum unless n < 2, where it emits n; fibsum emits the sum of its two
 // children's values.
-struct FibApp {
+struct FibApp : AppDefaults {
   static constexpr int kTypes = 2, kArgI = 1, kArgF = 0, kValW = 1;
-  static constexpr int kWrites = 0, kMapLaunches = 0, kMapWrites = 0;
+  static constexpr int kWrites = 0, kHeap = 0;
 
   template <class S>
   __device__ static void task(int type, const TaskIn<FibApp>& in,
@@ -453,19 +491,14 @@ struct FibApp {
       s.emit(&v, true);
     }
   }
-  __device__ static int map_id(int) { return 0; }
-  __device__ static int map_domain(int, const int*) { return 0; }
-  template <class S>
-  __device__ static void map_payload(int, const int*, const float*, int,
-                                     const Params&, S&) {}
 };
 
 // bfs (src/repro_torch/apps/bfs.py): visit(v, d, chunk) claims v with a
 // min-write of d on dist and forks up to CHUNK = 8 unvisited neighbours,
 // plus the next chunk of its edge list.
-struct BfsApp {
+struct BfsApp : AppDefaults {
   static constexpr int kTypes = 1, kArgI = 3, kArgF = 0, kValW = 1;
-  static constexpr int kWrites = 1, kMapLaunches = 0, kMapWrites = 0;
+  static constexpr int kWrites = 1, kHeap = 3;
   static constexpr int kChunk = 8;
   enum { kAdjOff = 0, kAdj = 1, kDist = 2 };
 
@@ -490,54 +523,44 @@ struct BfsApp {
     const int a[3] = {v, d, chunk + 1};
     s.fork(0, a, nullptr, live && (base + kChunk < deg));
   }
-  __device__ static int map_id(int) { return 0; }
-  __device__ static int map_domain(int, const int*) { return 0; }
-  template <class S>
-  __device__ static void map_payload(int, const int*, const float*, int,
-                                     const Params&, S&) {}
 };
 
-// mergesort, map variant (src/repro_torch/apps/mergesort.py): msort splits
-// until span 1 (a leaf copies its input element into its level's buffer),
-// joins merge, and merge schedules one `place` map over its span; place
-// writes each element at its own offset plus its rank in the sibling half
-// (a binary search of log2(n) steps; left elements win ties).
-struct MsortApp {
-  static constexpr int kTypes = 2, kArgI = 4, kArgF = 0, kValW = 1;
-  static constexpr int kWrites = 1, kMapLaunches = 1, kMapWrites = 1;
+// mergesort (src/repro_torch/apps/mergesort.py), both variants: msort
+// splits until span 1 (a leaf copies its input element into its level's
+// buffer) and joins merge; the merge places each element of its span at
+// its own offset plus its rank in the sibling half (a binary search of
+// log2(n) steps; left elements win ties).  Level `depth` reads buffer
+// (depth + 1) % 2 and writes buffer depth % 2 of `src` (2n floats).
+struct MsortBase : AppDefaults {
+  static constexpr int kArgI = 4, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 1, kHeap = 2;
   enum { kInp = 0, kSrc = 1 };
 
   __device__ static int buf(const Params& p, int depth) {
     return floormod(depth, 2) * p.heap_len[kInp];
   }
 
+  // msort(lo, span, depth)
   template <class S>
-  __device__ static void task(int type, const TaskIn<MsortApp>& in,
-                              const Params& p, S& s) {
-    const int lo = in.argi[0], span = in.argi[1], depth = in.argi[2];
-    if (type == 0) {
-      const bool leaf = span == 1;
-      s.write(0, kSrc, buf(p, depth) + lo,
-              __float_as_uint(heap_f32(p, kInp, lo)), kSet, leaf);
-      const int half = floordiv(span, 2);
-      const int a0[4] = {lo, half, depth + 1, 0};
-      s.fork(0, a0, nullptr, !leaf);
-      const int a1[4] = {lo + half, half, depth + 1, 0};
-      s.fork(0, a1, nullptr, !leaf);
-      const int j[4] = {lo, span, depth, 0};
-      s.join(1, j, nullptr, !leaf);
-    } else {
-      const int m[4] = {lo, span, depth, 0};
-      s.map(0, m, nullptr, true);
-    }
+  __device__ static void split(int lo, int span, int depth, const Params& p,
+                               S& s) {
+    const bool leaf = span == 1;
+    s.write(0, kSrc, buf(p, depth) + lo,
+            __float_as_uint(heap_f32(p, kInp, lo)), kSet, leaf);
+    const int half = floordiv(span, 2);
+    const int a0[4] = {lo, half, depth + 1, 0};
+    s.fork(0, a0, nullptr, !leaf);
+    const int a1[4] = {lo + half, half, depth + 1, 0};
+    s.fork(0, a1, nullptr, !leaf);
+    const int j[4] = {lo, span, depth, 0};
+    s.join(1, j, nullptr, !leaf);
   }
-  __device__ static int map_id(int) { return 0; }
-  __device__ static int map_domain(int, const int* ai) { return ai[1]; }
 
+  // the placement of element i of a merge: the map payload `place` and
+  // naive's `place1` task alike (_place_common)
   template <class S>
-  __device__ static void map_payload(int, const int* ai, const float*, int i,
-                                     const Params& p, S& s) {
-    const int lo = ai[0], span = ai[1], depth = ai[2];
+  __device__ static void place(int lo, int span, int depth, int i,
+                               const Params& p, S& s) {
     const int n = p.heap_len[kInp];
     const int log_n = 31 - __clz(n);
     const int half = floordiv(span, 2);
@@ -556,6 +579,219 @@ struct MsortApp {
       if (go_right) a = mid + 1; else b = mid;
     }
     s.write(0, kSrc, wbuf + lo + own_off + a, __float_as_uint(v), kSet, true);
+  }
+};
+
+// the map variant: merge schedules one `place` map over its span
+struct MsortApp : MsortBase {
+  static constexpr int kTypes = 2;
+  static constexpr int kMapLaunches = 1, kMapWrites = 1;
+
+  template <class S>
+  __device__ static void task(int type, const TaskIn<MsortApp>& in,
+                              const Params& p, S& s) {
+    const int lo = in.argi[0], span = in.argi[1], depth = in.argi[2];
+    if (type == 0) {
+      split(lo, span, depth, p, s);
+    } else {
+      const int m[4] = {lo, span, depth, 0};
+      s.map(0, m, nullptr, true);
+    }
+  }
+  __device__ static int map_id(int) { return 0; }
+  __device__ static int map_domain(int, const int* ai) { return ai[1]; }
+
+  template <class S>
+  __device__ static void map_payload(int, const int* ai, const float*, int i,
+                                     const Params& p, S& s) {
+    place(ai[0], ai[1], ai[2], i, p, s);
+  }
+};
+
+// the naive variant: merge forks place1(lo, span, depth, i) at n static
+// sites, i = 0..n-1, where i < span, in site order (allocation order); the
+// sites past the span never fire, so the loop stops at min(n, span) and is
+// not unrolled (n = 1024 at the chip size)
+struct NaiveMsortApp : MsortBase {
+  static constexpr int kTypes = 3;
+
+  template <class S>
+  __device__ static void task(int type, const TaskIn<NaiveMsortApp>& in,
+                              const Params& p, S& s) {
+    const int lo = in.argi[0], span = in.argi[1], depth = in.argi[2];
+    if (type == 0) {
+      split(lo, span, depth, p, s);
+    } else if (type == 1) {
+      const int sites = min(p.heap_len[kInp], span);
+#pragma unroll 1
+      for (int i = 0; i < sites; ++i) {
+        const int a[4] = {lo, span, depth, i};
+        s.fork(2, a, nullptr, true);
+      }
+    } else {
+      place(lo, span, depth, in.argi[3], p, s);
+    }
+  }
+};
+
+// treewalk (src/repro_torch/apps/treewalk.py) over heap left, right (child
+// indices, -1 = NULL), visit_epoch and visit_clock: a visit adds 1 to the
+// clock and stamps its node with the clock as it stood before the epoch.
+// A read at node -1 clips to row 0, as every heap read does.
+struct TreeBase : AppDefaults {
+  static constexpr int kArgI = 1, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 2, kHeap = 4;
+  enum { kLeft = 0, kRight = 1, kVisit = 2, kClock = 3 };
+
+  template <class S>
+  __device__ static void visit(int node, const Params& p, S& s, bool where) {
+    s.write(0, kClock, 0, 1u, kAdd, where);
+    s.write(1, kVisit, node, (uint32_t)heap_i32(p, kClock, 0), kSet, where);
+  }
+  template <class S>
+  __device__ static void fork_children(int node, const Params& p, S& s,
+                                       bool where) {
+    const int l[1] = {heap_i32(p, kLeft, node)};
+    s.fork(0, l, nullptr, where);
+    const int r[1] = {heap_i32(p, kRight, node)};
+    s.fork(0, r, nullptr, where);
+  }
+};
+
+// post-order: walk(node) forks walk on both children and joins
+// visit_after(node), which visits; a NULL node does nothing
+struct TreePostApp : TreeBase {
+  static constexpr int kTypes = 2;
+
+  template <class S>
+  __device__ static void task(int type, const TaskIn<TreePostApp>& in,
+                              const Params& p, S& s) {
+    const int node = in.argi[0];
+    if (type == 0) {
+      fork_children(node, p, s, node >= 0);
+      s.join(1, in.argi, nullptr, node >= 0);
+    } else {
+      visit(node, p, s, true);
+    }
+  }
+};
+
+// pre-order: walk(node) visits, then forks walk on both children
+struct TreePreApp : TreeBase {
+  static constexpr int kTypes = 1;
+
+  template <class S>
+  __device__ static void task(int, const TaskIn<TreePreApp>& in,
+                              const Params& p, S& s) {
+    const int node = in.argi[0];
+    visit(node, p, s, node >= 0);
+    fork_children(node, p, s, node >= 0);
+  }
+};
+
+// sssp (src/repro_torch/apps/sssp.py): relax(v, chunk; d) claims v with a
+// float min-write of d on dist and forks relax(u, 0; d + w) for up to
+// CHUNK = 8 neighbours u the new distance improves, plus the next chunk of
+// its edge list.  d is the TV's float argument; d + w is one float32 add.
+struct SsspApp : AppDefaults {
+  static constexpr int kTypes = 1, kArgI = 2, kArgF = 1, kValW = 1;
+  static constexpr int kWrites = 1, kHeap = 4;
+  static constexpr int kChunk = 8;
+  enum { kAdjOff = 0, kAdj = 1, kWgt = 2, kDist = 3 };
+
+  template <class S>
+  __device__ static void task(int, const TaskIn<SsspApp>& in, const Params& p,
+                              S& s) {
+    const int v = in.argi[0], chunk = in.argi[1];
+    const float d = in.argf[0];
+    const int off = heap_i32(p, kAdjOff, v);
+    const int deg = heap_i32(p, kAdjOff, v + 1) - off;
+    const bool first = chunk == 0;
+    const bool improve = d < heap_f32(p, kDist, v);
+    const bool live = !first || improve;
+    s.write(0, kDist, v, __float_as_uint(d), kMin, first && improve);
+    const int base = chunk * kChunk;
+    for (int i = 0; i < kChunk; ++i) {
+      const int e = base + i;
+      const int u = heap_i32(p, kAdj, off + e);
+      const float nd = __fadd_rn(d, heap_f32(p, kWgt, off + e));
+      const bool stale = heap_f32(p, kDist, u) <= nd;
+      const int a[2] = {u, 0};
+      s.fork(0, a, &nd, live && (e < deg) && !stale);
+    }
+    const int a[2] = {v, chunk + 1};
+    s.fork(0, a, &d, live && (base + kChunk < deg));
+  }
+};
+
+// nqueens (src/repro_torch/apps/nqueens.py): place(row, cols, d1, d2)
+// counts a full board (row == n) with an int add into count[0], else forks
+// one child per column c that no queen attacks, at n static sites.  n is
+// consts[0] (make_program's closure), at most 16, so every shift amount of
+// a row in [0, n] is below 32.
+struct NQueensApp : AppDefaults {
+  static constexpr int kTypes = 1, kArgI = 4, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 1, kHeap = 1;
+  static constexpr int kMaxN = 16;
+  enum { kCount = 0 };
+
+  static bool consts_ok(const long long* ints) {
+    return ints[I_CONST0] >= 1 && ints[I_CONST0] <= kMaxN;
+  }
+
+  template <class S>
+  __device__ static void task(int, const TaskIn<NQueensApp>& in,
+                              const Params& p, S& s) {
+    const int n = p.consts[0];
+    const int row = in.argi[0], cols = in.argi[1], d1 = in.argi[2],
+              d2 = in.argi[3];
+    const bool done = row == n;
+    s.write(0, kCount, 0, 1u, kAdd, done);
+#pragma unroll 1
+    for (int c = 0; c < n; ++c) {
+      const int s1 = wadd(row, c), s2 = wadd(wadd(row, -c), n - 1);
+      const bool attacked =
+          ((sar(cols, c) | sar(d1, s1) | sar(d2, s2)) & 1) == 1;
+      const int a[4] = {wadd(row, 1), cols | shl(1, c), d1 | shl(1, s1),
+                        d2 | shl(1, s2)};
+      s.fork(0, a, nullptr, !done && !attacked);
+    }
+  }
+};
+
+// tsp (src/repro_torch/apps/tsp.py): extend(cur, visited, cost) closes a
+// full tour with an int min-write of its cost on best[0], else forks one
+// child per unvisited city c whose cost stays below best[0] as it stood
+// before the epoch (passes A and B read the same bound), at n - 1 static
+// sites.  n is consts[0] = sqrt(len(dist)), at most 31, so (1 << n) - 1
+// fits in int32.
+struct TspApp : AppDefaults {
+  static constexpr int kTypes = 1, kArgI = 3, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 1, kHeap = 2;
+  static constexpr int kMaxN = 31;
+  enum { kDist = 0, kBest = 1 };
+
+  static bool consts_ok(const long long* ints) {
+    const long long n = ints[I_CONST0];
+    return n >= 1 && n <= kMaxN && ints[I_HEAP_LEN0 + kDist] == n * n;
+  }
+
+  template <class S>
+  __device__ static void task(int, const TaskIn<TspApp>& in, const Params& p,
+                              S& s) {
+    const int n = p.consts[0];
+    const int cur = in.argi[0], visited = in.argi[1], cost = in.argi[2];
+    const bool all_visited = visited == (int)((1u << n) - 1u);
+    const int back = heap_i32(p, kDist, wmul(cur, n));
+    s.write(0, kBest, 0, (uint32_t)wadd(cost, back), kMin, all_visited);
+    const int bound = heap_i32(p, kBest, 0);
+#pragma unroll 1
+    for (int c = 1; c < n; ++c) {
+      const bool seen = (sar(visited, c) & 1) == 1;
+      const int nc = wadd(cost, heap_i32(p, kDist, wadd(wmul(cur, n), c)));
+      const int a[3] = {c, visited | shl(1, c), nc};
+      s.fork(0, a, nullptr, !all_visited && !seen && nc < bound);
+    }
   }
 };
 
@@ -1200,7 +1436,26 @@ int launch(const Params& p, long long coop_words, cudaStream_t s) {
 template <class App>
 bool shape_ok(const long long* ints) {
   return ints[I_N_ARG_I] == App::kArgI && ints[I_N_ARG_F] == App::kArgF &&
-         ints[I_VALUE_WIDTH] == App::kValW;
+         ints[I_VALUE_WIDTH] == App::kValW && ints[I_N_HEAP] == App::kHeap &&
+         App::consts_ok(ints);
+}
+
+// f(App{}) for device table `app`, in the order of TABLES in
+// epoch_megakernel.py; `unknown` for any other
+template <class F>
+int with_app(int app, int unknown, F f) {
+  switch (app) {
+    case 0: return f(FibApp{});
+    case 1: return f(BfsApp{});
+    case 2: return f(MsortApp{});
+    case 3: return f(TreePostApp{});
+    case 4: return f(TreePreApp{});
+    case 5: return f(SsspApp{});
+    case 6: return f(NQueensApp{});
+    case 7: return f(TspApp{});
+    case 8: return f(NaiveMsortApp{});
+    default: return unknown;
+  }
 }
 
 }  // namespace
@@ -1214,12 +1469,9 @@ int trees_epoch_int_count() { return I_COUNT; }
 // (SMs x the CTAs an SM holds, cached per device); a negative CUDA error
 // where the device cannot launch it.
 int trees_epoch_grid(int app) {
-  switch (app) {
-    case 0: return grid_size<FibApp>();
-    case 1: return grid_size<BfsApp>();
-    case 2: return grid_size<MsortApp>();
-    default: return -(int)cudaErrorInvalidValue;
-  }
+  return with_app(app, -(int)cudaErrorInvalidValue, [](auto a) {
+    return grid_size<decltype(a)>();
+  });
 }
 
 // uint64 words of cooperative scratch a grid of `grid` CTAs takes.
@@ -1244,20 +1496,16 @@ int trees_grid_sync_bench(int grid, int n, unsigned long long* scratch,
 }
 
 // out[0..6] = kTypes, kArgI, kArgF, kValW, kWrites, kMapLaunches,
-// kMapWrites of device table `app` (0 fib, 1 bfs, 2 mergesort); returns
-// 0, or cudaErrorInvalidValue for an unknown app.
+// kMapWrites of device table `app` (TABLES' order in epoch_megakernel.py);
+// returns 0, or cudaErrorInvalidValue for an unknown app.
 int trees_epoch_app_info(int app, int* out) {
-#define TREES_INFO(A)                                                    \
-  out[0] = A::kTypes; out[1] = A::kArgI; out[2] = A::kArgF;              \
-  out[3] = A::kValW; out[4] = A::kWrites; out[5] = A::kMapLaunches;      \
-  out[6] = A::kMapWrites; return 0;
-  switch (app) {
-    case 0: { TREES_INFO(FibApp) }
-    case 1: { TREES_INFO(BfsApp) }
-    case 2: { TREES_INFO(MsortApp) }
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TREES_INFO
+  return with_app(app, (int)cudaErrorInvalidValue, [out](auto a) {
+    using A = decltype(a);
+    const int v[7] = {A::kTypes, A::kArgI, A::kArgF, A::kValW, A::kWrites,
+                      A::kMapLaunches, A::kMapWrites};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    return 0;
+  });
 }
 
 // One chunk of device table `app` over the carry in `ptrs` (layout: enum
@@ -1333,20 +1581,13 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
     }
     for (int i = 0; i < kMaxMapW; ++i) p.map_w[m][i] = (int)mi[2 + i];
   }
+  for (int i = 0; i < kMaxConsts; ++i) p.consts[i] = (int)ints[I_CONST0 + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (app) {
-    case 0:
-      if (!shape_ok<FibApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<FibApp>(p, ints[I_COOP_WORDS], s);
-    case 1:
-      if (!shape_ok<BfsApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<BfsApp>(p, ints[I_COOP_WORDS], s);
-    case 2:
-      if (!shape_ok<MsortApp>(ints)) return (int)cudaErrorInvalidValue;
-      return launch<MsortApp>(p, ints[I_COOP_WORDS], s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_app(app, (int)cudaErrorInvalidValue, [&](auto a) {
+    using A = decltype(a);
+    if (!shape_ok<A>(ints)) return (int)cudaErrorInvalidValue;
+    return launch<A>(p, ints[I_COOP_WORDS], s);
+  });
 }
 
 }  // extern "C"

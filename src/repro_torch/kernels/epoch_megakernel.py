@@ -27,8 +27,12 @@ phases and each supported program's task bodies are ``__device__``
 functions in the source: its *device task table*.  :func:`device_table`
 maps a :class:`~repro_torch.core.program.Program` to its table by checking
 the task names and functions, argument and value widths, the heap
-variables (names, dtypes, shapes) and the maps — not only the program's
-name.  Tables exist for fib, bfs and mergesort (map variant).
+variables (names, dtypes, shapes), the maps and the constants a body
+captured from its ``make_program`` (``inspect.getclosurevars``: treewalk's
+``order``, nqueens' and tsp's ``n``, which the launch hands the kernel in
+its ``consts``) — not only the program's name.  Tables exist for fib,
+bfs, mergesort (map and naive variants), treewalk (post- and pre-order),
+sssp, nqueens and tsp; fft, matmul and annealing have none.
 
 :func:`epoch_chunk` dispatches on the carry's device: on the CPU it runs
 the plain loop ``ref.epoch_chunk_ref`` (as the JAX package's ``"auto"``
@@ -41,6 +45,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import inspect
+import numbers
 import pathlib
 import threading
 from typing import Callable, Dict, Optional, Tuple
@@ -53,7 +59,7 @@ SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
           / "epoch_megakernel.cu")
 
 # the argument layout of trees_epoch_chunk (enum Ptr / enum Int in SOURCE)
-MAX_SPAN, MAX_MAPS, MAX_MAP_WIDTHS, MAX_HEAP = 8, 4, 40, 8
+MAX_SPAN, MAX_MAPS, MAX_MAP_WIDTHS, MAX_HEAP, MAX_CONSTS = 8, 4, 40, 8, 4
 _PTRS = (
     "task", "argi", "argf", "epoch", "value", "child_base", "child_count",
     "next_free", "jstack", "rstack", "sp", "failed", "failed_stack",
@@ -64,7 +70,7 @@ _PTRS = (
     "st_val", "st_meta", "coop", "stats",
 ) + tuple(f"heap{v}" for v in range(MAX_HEAP))
 _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
-           + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5)
+           + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5 + MAX_CONSTS)
 # the cooperative scratch (csrc: kCoopHeader, kCtaWords, kMaxGrid): the
 # barrier counters, the popped range with the pending map launches and the
 # reclamation words by epoch parity, then one record of totals per CTA
@@ -108,9 +114,11 @@ class DeviceTable:
     ``tasks``/``maps`` are ``(name, module, qualname)`` of the Python
     functions the ``__device__`` bodies were written from; ``heap`` the
     heap variables' ``(name, dtype)`` in program order; ``shapes_ok``
-    checks the heap shapes and map domains against each other; ``stage``
-    bounds the live map elements of one epoch (the payload stage the
-    wrapper allocates; the kernel reports a fault beyond it).
+    checks the heap shapes, map domains and captured constants against
+    each other and the kernel's limits; ``stage`` bounds the live map
+    elements of one epoch (the payload stage the wrapper allocates; the
+    kernel reports a fault beyond it); ``consts`` gives the constants the
+    bodies read from the launch (at most ``MAX_CONSTS``).
     """
 
     app_id: int                  # the device table's index in SOURCE
@@ -122,54 +130,162 @@ class DeviceTable:
     value_dtype: torch.dtype
     heap: Tuple[Tuple[str, torch.dtype], ...]
     shapes_ok: Callable
-    stage: Callable
+    stage: Callable = lambda program: 0
+    consts: Callable = lambda program: ()
+
+
+def _shapes(program):
+    return {hv.name: tuple(hv.shape) for hv in program.heap}
+
+
+def _captured(program, task: str, name: str):
+    """The value task ``task``'s function captured as ``name`` from the
+    ``make_program`` call that made it (None if it captured no such
+    name)."""
+    fn = program.tasks[program.task_id(task)].fn
+    return inspect.getclosurevars(fn).nonlocals.get(name)
+
+
+def _captured_int(program, task: str, name: str) -> Optional[int]:
+    v = _captured(program, task, name)
+    return int(v) if isinstance(v, numbers.Integral) else None
 
 
 def _bfs_shapes(program) -> bool:
-    sh = {hv.name: tuple(hv.shape) for hv in program.heap}
+    sh = _shapes(program)
     n = sh["dist"][0]
     return sh["adj_off"] == (n + 1,) and len(sh["adj"]) == 1
 
 
-def _msort_shapes(program) -> bool:
-    sh = {hv.name: tuple(hv.shape) for hv in program.heap}
+def _sssp_shapes(program) -> bool:
+    sh = _shapes(program)
+    n = sh["dist"][0]
+    return sh["adj_off"] == (n + 1,) and sh["wgt"] == sh["adj"]
+
+
+def _msort_shapes(program, use_map: bool) -> bool:
+    # naive: the kernel's merge forks at one site per element of inp, so
+    # the n the merge body captured must be inp's length
+    sh = _shapes(program)
     n = sh["inp"][0]
     return (n > 0 and n & (n - 1) == 0 and sh["src"] == (2 * n,)
-            and program.maps[0].max_domain == n)
+            and (program.maps[0].max_domain == n if use_map
+                 else _captured(program, "merge", "n") == n))
+
+
+def _tree_shapes(order: str):
+    def ok(program) -> bool:
+        sh = _shapes(program)
+        n = sh["left"][0]
+        return (sh["right"] == sh["visit_epoch"] == (n,)
+                and sh["visit_clock"] == (1,)
+                and _captured(program, "walk", "order") == order)
+    return ok
+
+
+# the largest n whose shift amounts (nqueens: up to 2n - 1) stay below 32
+# and whose full tour mask (tsp: (1 << n) - 1) fits in int32
+NQUEENS_MAX_N, TSP_MAX_N = 16, 31
+
+
+def _nqueens_shapes(program) -> bool:
+    n = _captured_int(program, "place", "n")
+    return (n is not None and 1 <= n <= NQUEENS_MAX_N
+            and _shapes(program)["count"] == (1,))
+
+
+def _tsp_shapes(program) -> bool:
+    # n twice: the closure's, which the kernel reads, and sqrt(len(dist))
+    n, sh = _captured_int(program, "extend", "n"), _shapes(program)
+    return (n is not None and 1 <= n <= TSP_MAX_N
+            and sh["dist"] == (n * n,) and sh["best"] == (1,))
 
 
 _APPS = "repro_torch.apps."
+_I32, _F32 = torch.int32, torch.float32
+_MSORT_TASKS = (
+    ("msort", _APPS + "mergesort", "make_program.<locals>._msort"),
+    ("merge", _APPS + "mergesort", "make_program.<locals>._merge"),
+)
+_MSORT_HEAP = (("inp", _F32), ("src", _F32))
+_WALK = ("walk", _APPS + "treewalk", "make_program.<locals>._walk")
+_TREE_HEAP = (("left", _I32), ("right", _I32), ("visit_epoch", _I32),
+              ("visit_clock", _I32))
+# app_id is the index of the table's App in the source's with_app
 TABLES: Tuple[DeviceTable, ...] = (
     DeviceTable(
         app_id=0,
         tasks=(("fib", _APPS + "fib", "_fib"),
                ("fibsum", _APPS + "fib", "_fibsum")),
         maps=(), n_arg_i=1, n_arg_f=0, value_width=1,
-        value_dtype=torch.int32, heap=(),
-        shapes_ok=lambda program: True, stage=lambda program: 0,
+        value_dtype=_I32, heap=(),
+        shapes_ok=lambda program: True,
     ),
     DeviceTable(
         app_id=1,
         tasks=(("visit", _APPS + "bfs", "make_program.<locals>._visit"),),
-        maps=(), n_arg_i=3, n_arg_f=0, value_width=1,
-        value_dtype=torch.int32,
-        heap=(("adj_off", torch.int32), ("adj", torch.int32),
-              ("dist", torch.int32)),
-        shapes_ok=_bfs_shapes, stage=lambda program: 0,
+        maps=(), n_arg_i=3, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("adj_off", _I32), ("adj", _I32), ("dist", _I32)),
+        shapes_ok=_bfs_shapes,
     ),
     DeviceTable(
         app_id=2,
-        tasks=(("msort", _APPS + "mergesort", "make_program.<locals>._msort"),
-               ("merge", _APPS + "mergesort",
-                "make_program.<locals>._merge")),
+        tasks=_MSORT_TASKS,
         maps=(("place", _APPS + "mergesort",
                "make_program.<locals>._place"),),
-        n_arg_i=4, n_arg_f=0, value_width=1, value_dtype=torch.int32,
-        heap=(("inp", torch.float32), ("src", torch.float32)),
-        shapes_ok=_msort_shapes,
+        n_arg_i=4, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=_MSORT_HEAP,
+        shapes_ok=lambda program: _msort_shapes(program, use_map=True),
         # the merges of one epoch share a level and cover [0, n) at most
         # once, so an epoch's live map elements are at most n = max_domain
         stage=lambda program: program.maps[0].max_domain,
+    ),
+    DeviceTable(
+        app_id=3,
+        tasks=(_WALK, ("visit_after", _APPS + "treewalk",
+                       "make_program.<locals>._visit_after")),
+        maps=(), n_arg_i=1, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=_TREE_HEAP, shapes_ok=_tree_shapes("post"),
+    ),
+    DeviceTable(
+        app_id=4,
+        tasks=(_WALK,),
+        maps=(), n_arg_i=1, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=_TREE_HEAP, shapes_ok=_tree_shapes("pre"),
+    ),
+    DeviceTable(
+        app_id=5,
+        tasks=(("relax", _APPS + "sssp", "make_program.<locals>._relax"),),
+        maps=(), n_arg_i=2, n_arg_f=1, value_width=1, value_dtype=_I32,
+        heap=(("adj_off", _I32), ("adj", _I32), ("wgt", _F32),
+              ("dist", _F32)),
+        shapes_ok=_sssp_shapes,
+    ),
+    DeviceTable(
+        app_id=6,
+        tasks=(("place", _APPS + "nqueens",
+                "make_program.<locals>._place"),),
+        maps=(), n_arg_i=4, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("count", _I32),),
+        shapes_ok=_nqueens_shapes,
+        consts=lambda program: (_captured_int(program, "place", "n"),),
+    ),
+    DeviceTable(
+        app_id=7,
+        tasks=(("extend", _APPS + "tsp", "make_program.<locals>._extend"),),
+        maps=(), n_arg_i=3, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("dist", _I32), ("best", _I32)),
+        shapes_ok=_tsp_shapes,
+        consts=lambda program: (_captured_int(program, "extend", "n"),),
+    ),
+    DeviceTable(
+        app_id=8,
+        tasks=_MSORT_TASKS + (
+            ("place1", _APPS + "mergesort",
+             "make_program.<locals>._place1"),),
+        maps=(), n_arg_i=4, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=_MSORT_HEAP,
+        shapes_ok=lambda program: _msort_shapes(program, use_map=False),
     ),
 )
 
@@ -410,7 +526,11 @@ def launch(program, carry, limit, *, gather: bool,
             ints += list(w) + [0] * (MAX_MAP_WIDTHS - len(w))
         else:
             ints += [0] * (2 + MAX_MAP_WIDTHS)
-    ints += [A, Af, VW, G, coop_words]
+    consts = [int(c) for c in table.consts(program)]
+    if len(consts) > MAX_CONSTS:
+        raise ValueError("epoch_chunk: the table has too many constants")
+    ints += [A, Af, VW, G, coop_words] + consts
+    ints += [0] * (MAX_CONSTS - len(consts))
     assert len(ints) == _N_INTS
     ints_c = (ctypes.c_int64 * _N_INTS)(*ints)
     with torch.cuda.device(dev):

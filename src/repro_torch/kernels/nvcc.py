@@ -7,6 +7,12 @@ interface, at first use, into ``build/`` beside this file (listed in
 ``.gitignore``), and loads it with ``ctypes``.  The library's name carries
 a hash of the source and the flags, so an edited ``.cu`` file builds anew.
 Nothing here compiles at import time.
+
+    python3 src/repro_torch/kernels/nvcc.py SOURCE [SOURCE ...]
+
+times one build of each source with these flags, in turn, and prints
+``ptxas``'s report of each kernel (registers, spills): two versions of a
+source side by side in one call.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
+import time
 from typing import Tuple
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -66,3 +74,32 @@ def build(source: pathlib.Path,
         )
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out, proc.stdout + proc.stderr
+
+
+def main(argv=None) -> int:
+    sources = sys.argv[1:] if argv is None else argv
+    if not sources:
+        print(__doc__)
+        return 2
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for src in sources:
+        out = BUILD_DIR / f"timed_{os.getpid()}.so"
+        cmd = [nvcc_path(), "-Xptxas", "-v", *NVCC_FLAGS, "-o", str(out), src]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        out.unlink(missing_ok=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            print(f"[nvcc] {src}: failed ({proc.returncode})\n{log}")
+            return 1
+        print(f"[nvcc] {src}: built in {secs:.2f} s")
+        for line in log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill")):
+                print(f"[nvcc]   {line.strip()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,19 +20,40 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.apps import all_cases, bfs, fib, mergesort
+from repro_torch.apps import (
+    bfs, fib, get_case, mergesort, nqueens, sssp, treewalk, tsp,
+)
 from repro_torch.apps.registry import AppCase
 from repro_torch.core import DeviceEngine, EngineError, EpochLoop, Program
 from repro_torch.core.program import HeapVar, TaskType
 from repro_torch.kernels import epoch_megakernel as mk
 
 APPS = ("bfs", "fib", "mergesort")
+# the later tables: the registry's treewalk (post-order), its tree walked
+# in pre-order, sssp, nqueens, tsp and naive mergesort of 64 floats
+MORE_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive")
+NO_TABLE = ("annealing", "fft", "matmul")
 DISPATCHES = ("masked", "gather")
 KS = (1, 4, None)  # None: one unbounded chunk
 
 
+def _case(name):
+    if name == "treewalk_pre":
+        case = get_case("treewalk")
+        n = case.heap_init["left"].shape[0]
+        return dataclasses.replace(
+            case, name=name, program=treewalk.make_program(n, "pre"))
+    if name == "naive":
+        n = 64
+        return AppCase(name, mergesort.make_program(n, use_map=False),
+                       mergesort.initial(n),
+                       dict(inp=mergesort.random_input(n, seed=5)),
+                       capacity=1 << 12)
+    return get_case(name)
+
+
 def _engine(name, dispatch, device, megakernel=False):
-    case = all_cases()[name]
+    case = _case(name)
     return case, DeviceEngine(case.program, capacity=case.capacity,
                               dispatch=dispatch, megakernel=megakernel,
                               device=device)
@@ -81,7 +102,7 @@ def assert_carries_equal(a, b):
 
 @pytest.mark.parametrize("K", KS)
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_chunk_cadence_gives_one_carry(name, dispatch, K):
     case, eng = _engine(name, dispatch, "cpu")
     whole, s_whole, one = _run_chunks(eng, _fresh(case, eng), None)
@@ -96,7 +117,7 @@ def test_chunk_cadence_gives_one_carry(name, dispatch, K):
 
 
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_no_valid_slot_at_or_above_next_free(name, dispatch):
     # the kernel searches for the last valid slot downward from
     # next_free + forks - 1; that is exact only if this holds after
@@ -114,7 +135,7 @@ def test_no_valid_slot_at_or_above_next_free(name, dispatch):
     assert epochs == int(carry.n_epochs) > 1
 
 
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_megakernel_flag_on_cpu_runs_the_plain_loop(name):
     for dispatch in DISPATCHES:
         case, _ = _engine(name, dispatch, "cpu")
@@ -139,13 +160,21 @@ def test_drained_carry_is_a_noop():
 
 
 def test_device_tables_cover_the_registry_programs():
-    for name in APPS:
-        t = mk.device_table(all_cases()[name].program)
-        assert t is not None
+    ids = {}
+    for name in APPS + MORE_APPS:
+        t = mk.device_table(_case(name).program)
+        assert t is not None, name
+        ids[name] = t.app_id
+    assert len(set(ids.values())) == len(ids)
+    assert sorted(ids.values()) == [t.app_id for t in mk.TABLES]
     assert mk.device_table(fib.PROGRAM).app_id == 0
     assert mk.device_table(bfs.make_program(100, 400)).app_id == 1
     assert mk.device_table(
         mergesort.make_program(64, use_map=True)).app_id == 2
+    # slice B: no table yet (its PR flips these)
+    assert mk.device_table(get_case("fft").program) is None
+    assert mk.device_table(get_case("matmul").program) is None
+    assert mk.device_table(get_case("annealing").program) is None
 
 
 def _renamed(program: Program, **kw) -> Program:
@@ -171,6 +200,41 @@ def test_device_table_checks_more_than_the_name():
     m = mergesort.make_program(16, use_map=True)
     assert mk.device_table(_renamed(m, maps=())) is None
 
+    # treewalk: the orders share `walk`'s qualname; the task tuple and the
+    # walk's captured `order` tell them apart
+    post, pre = (treewalk.make_program(9, o) for o in ("post", "pre"))
+    assert mk.device_table(post).app_id != mk.device_table(pre).app_id
+    assert mk.device_table(_renamed(post, tasks=post.tasks[:1])) is None
+    assert mk.device_table(_renamed(pre, tasks=pre.tasks + (
+        post.tasks[1],))) is None
+    # mergesort: naive and map variants are two tables; naive's merge
+    # forks one site per element of `inp`, so its n must be inp's length
+    naive = mergesort.make_program(16, use_map=False)
+    assert mk.device_table(naive).app_id != mk.device_table(m).app_id
+    assert mk.device_table(_renamed(naive, heap=(
+        HeapVar("inp", (32,), torch.float32),
+        HeapVar("src", (64,), torch.float32)))) is None
+    # nqueens: n lives only in the closure, and the launch passes it
+    for n in (6, 8):
+        q = nqueens.make_program(n)
+        assert mk.device_table(q).consts(q) == (n,)
+    assert mk.device_table(nqueens.make_program(16)) is not None
+    assert mk.device_table(nqueens.make_program(17)) is None
+    # tsp: the closure's n against sqrt(len(dist)), at most 31
+    t5 = tsp.make_program(5)
+    assert mk.device_table(t5).consts(t5) == (5,)
+    for bad in (24, 36):  # not a square; the square of another n
+        assert mk.device_table(_renamed(t5, heap=(
+            HeapVar("dist", (bad,), torch.int32), t5.heap[1]))) is None
+    assert mk.device_table(tsp.make_program(31)) is not None
+    assert mk.device_table(tsp.make_program(32)) is None
+    # sssp: the float heap and the float argument are part of the table
+    g = sssp.make_program(10, 40)
+    assert mk.device_table(g) is not None
+    assert mk.device_table(_renamed(g, heap=g.heap[:3] + (
+        HeapVar("dist", (10,), torch.int32),))) is None
+    assert mk.device_table(_renamed(g, n_arg_f=0)) is None
+
 
 def test_program_without_a_table_is_refused():
     odd = _renamed(fib.PROGRAM, tasks=(
@@ -183,6 +247,11 @@ def test_program_without_a_table_is_refused():
         mk.launch(case.program, _fresh(case, eng), 8, gather=False)
     with pytest.raises(ValueError, match="device task table"):
         mk.launch(odd, _fresh(case, eng), 8, gather=False)
+    for name in NO_TABLE:
+        loop = EpochLoop(get_case(name).program, "masked", megakernel=True)
+        with pytest.raises(EngineError, match="fft, matmul and annealing "
+                           "are ROADMAP §2 item 1a slice B"):
+            loop.device_table()
 
 
 def test_coop_scratch_words():
@@ -208,7 +277,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_kernel_matches_plain_loop(cuda_device, name, dispatch):
     case, plain = _engine(name, dispatch, "cuda")
     _, kern = _engine(name, dispatch, "cuda", megakernel=True)
@@ -225,19 +294,42 @@ def test_kernel_matches_plain_loop(cuda_device, name, dispatch):
 
 
 def _wide_case(name):
-    """Each app at a size whose widest ranges span tens of CTAs."""
+    """Each app at a size whose widest ranges span several CTAs (tens for
+    fib, bfs, mergesort and sssp), but naive mergesort of 2^8 floats,
+    whose ranges are at most 256 lanes: its merges fork 2^7 and 2^8
+    sites from one lane."""
+    n = 2**14
     if name == "fib":
         return AppCase("fib", fib.PROGRAM, fib.initial(24), capacity=2**19)
-    if name == "bfs":
-        n = 2**14
+    if name in ("bfs", "sssp"):
         adj_off, adj = bfs.random_graph(n, avg_degree=4, seed=0)
-        return AppCase("bfs", bfs.make_program(n, len(adj)), bfs.initial(0),
-                       bfs.heap_init(adj_off, adj, n), capacity=2**19)
-    n = 2**14
-    return AppCase("mergesort", mergesort.make_program(n, use_map=True),
+        if name == "bfs":
+            return AppCase("bfs", bfs.make_program(n, len(adj)),
+                           bfs.initial(0), bfs.heap_init(adj_off, adj, n),
+                           capacity=2**19)
+        wgt = sssp.random_weights(len(adj), seed=0)
+        return AppCase("sssp", sssp.make_program(n, len(adj)),
+                       sssp.initial(0),
+                       sssp.heap_init(adj_off, adj, wgt, n), capacity=2**19)
+    if name in ("treewalk", "treewalk_pre"):
+        left, right = treewalk.random_tree(n, seed=0)
+        order = "pre" if name == "treewalk_pre" else "post"
+        return AppCase(name, treewalk.make_program(n, order),
+                       treewalk.initial(), dict(left=left, right=right),
+                       capacity=2**17)
+    if name == "nqueens":
+        return AppCase("nqueens", nqueens.make_program(10),
+                       nqueens.initial(), capacity=2**16)
+    if name == "tsp":
+        dist = tsp.random_instance(8, seed=3)
+        return AppCase("tsp", tsp.make_program(8), tsp.initial(),
+                       tsp.heap_init(dist), capacity=2**14)
+    use_map = name == "mergesort"
+    n = n if use_map else 2**8
+    return AppCase(name, mergesort.make_program(n, use_map=use_map),
                    mergesort.initial(n),
                    dict(inp=mergesort.random_input(n, seed=0)),
-                   capacity=2**16)
+                   capacity=2**16 if use_map else 2**12)
 
 
 def _chunk_stats(case, carry, dispatch):
@@ -253,7 +345,7 @@ def _chunk_stats(case, carry, dispatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", KS)
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_kernel_matches_plain_loop_across_ctas(cuda_device, name, dispatch,
                                                K):
     """Ranges split over many CTAs of the cooperative grid, exact against
@@ -275,12 +367,37 @@ def test_kernel_matches_plain_loop_across_ctas(cuda_device, name, dispatch,
     st = _chunk_stats(case, again, dispatch)
     assert_carries_equal(again, want)
     E = s_got.n_epochs
-    assert st["wide_epochs"] > 0 and st["narrow_epochs"] + st["wide_epochs"] == E
+    assert (st["wide_epochs"] > 0) == (name != "naive")
+    assert st["narrow_epochs"] + st["wide_epochs"] == E
     # one an epoch, one that finds nothing to pop, two a map launch, one a
     # round of a deep reclamation search
     assert st["grid_barriers"] == (E + 1 + 2 * int(again.map_launches)
                                    + st["search_barriers"])
     assert st["group_barriers"] >= 3 * st["wide_epochs"]
+    if name in MORE_APPS:  # the app's own reference
+        assert _matches_reference(case, got)
+
+
+def _matches_reference(case, carry) -> bool:
+    h = {k: v[:-1].cpu().numpy() for k, v in carry.heap.items()}
+    if case.name.startswith("treewalk"):
+        order = "pre" if case.name == "treewalk_pre" else "post"
+        visit, clock = treewalk.treewalk_reference(
+            case.heap_init["left"], case.heap_init["right"], order)
+        return (np.array_equal(h["visit_epoch"], visit)
+                and np.array_equal(h["visit_clock"], clock))
+    if case.name == "sssp":
+        i = case.heap_init
+        n = i["dist"].shape[0]
+        ref = sssp.sssp_reference(i["adj_off"], i["adj"], i["wgt"], 0, n)
+        return np.allclose(h["dist"], ref, rtol=1e-5)
+    if case.name == "nqueens":
+        return int(h["count"][0]) == nqueens.SOLUTIONS[10]
+    if case.name == "tsp":
+        return int(h["best"][0]) == tsp.tsp_reference(
+            case.heap_init["dist"].reshape(8, 8))
+    n = case.heap_init["inp"].shape[0]
+    return np.array_equal(h["src"][:n], np.sort(case.heap_init["inp"]))
 
 
 @pytest.mark.cuda
@@ -338,9 +455,9 @@ def test_grid_covers_every_sm(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-@pytest.mark.parametrize("name", APPS)
+@pytest.mark.parametrize("name", APPS + MORE_APPS)
 def test_megakernel_engine_on_cuda_matches_cpu(cuda_device, name, dispatch):
-    case = all_cases()[name]
+    case = _case(name)
     gh, gv, gs = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
                           device="cuda", megakernel=True)
     ch, cv, cs = case.run(engine_cls=DeviceEngine, dispatch=dispatch,
@@ -373,7 +490,7 @@ def test_kernel_reads_a_device_limit(cuda_device):
 @pytest.mark.parametrize("limits", ({"capacity": 64}, {"stack_depth": 2}),
                          ids=("tv_overflow", "stack_overflow"))
 def test_kernel_matches_plain_loop_on_failure(cuda_device, limits):
-    case = all_cases()["fib"]
+    case = get_case("fib")
     for d in DISPATCHES:
         kw = dict(capacity=case.capacity, dispatch=d, device="cuda")
         kw.update(limits)
