@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
-                (fork_compact.cu, epoch_megakernel.cu, flash_attention.cu,
-                decode_attention.cu, ssd_scan.cu: one nvcc each, in
-                parallel, each timed) into
+                (fork_compact.cu, epoch_megakernel.cu, ordered_add.cu,
+                flash_attention.cu, decode_attention.cu, ssd_scan.cu: one
+                nvcc each, in parallel, each timed) into
                 src/repro_torch/kernels/build/ (ptxas report: each
                 kernel's registers, spills and shared memory, one
                 epoch_chunk instantiation per device table);
@@ -28,17 +28,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 and at 2^23 for 1, 3, 4, 8, 32 and 33 segments, shuffled
                 and out-of-range ids, and in every call of its timing
                 graph; epoch_chunk against epoch_chunk_ref from
-                the same fresh carry, every carry tensor, for fib, bfs and
-                mergesort (phase 3's cases), treewalk post- and pre-order
-                (phase 7's tree), sssp, nqueens(12), tsp(10) and naive
-                mergesort of 2^10 (phase 3b's cases) at full size and at
-                the registry's small size, masked and gather, in chunks of
-                K = 1, 4 and unbounded against one plain run each, then
-                its cooperative grid, the cost of one grid barrier (an
-                empty cooperative kernel of 2000 barriers), and each
-                full-size masked chunk and fib's gather chunk timed beside
-                its bytes bound, its barrier floor (the barriers it
-                crossed x that cost) and its narrow and wide epochs;
+                the same fresh carry, every carry tensor, for all eleven
+                programs: fib, bfs and mergesort (phase 3's cases),
+                treewalk post- and pre-order (phase 7's tree), sssp,
+                nqueens(12), tsp(10), naive mergesort of 2^10, fft of
+                2^18, matmul 512 x 512 in blocks of 16 and annealing of 16
+                bits x 256 chains x 200 steps (phase 3b's cases) at full
+                size and at the registry's small size, masked and gather,
+                in chunks of K = 1, 4 and unbounded against one plain run
+                each, then its cooperative grid, the cost of one grid
+                barrier (an empty cooperative kernel of 2000 barriers),
+                and each full-size masked chunk and fib's gather chunk
+                timed beside its bytes bound, its barrier floor (the
+                barriers it crossed x that cost) and its narrow and wide
+                epochs; ordered_add against ordered_add_ref at matmul's
+                payload (2^23 terms, 32 a cell over 2^18 cells, in a
+                random order), exactly, timed beside its plain version,
+                one stable torch.sort of the indices and index_add_ (which
+                adds the same terms atomically, in no fixed order: a
+                yardstick, not the same function);
                 flash_attention against mha_ref at the prefill shape
                 (16 x 32 q heads x 1024, 8 kv heads, D = 128, bf16, causal)
                 at ragged shapes (q_offset, window, group 1, 4 and yi-34b's
@@ -75,25 +83,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 in blocks of 16, annealing of 16 bits x 256 chains x 200
                 steps, naive mergesort of 2^10): HostEngine masked,
                 compacted and gather, the plain resident DeviceEngine
-                masked and gather and, but fft, matmul and annealing,
-                DeviceEngine(megakernel=True) masked and gather on CUDA,
-                each resident wall printed beside the plain one (treewalk
-                in both orders on phase 7's tree too); check each against
-                its reference
+                masked and gather and DeviceEngine(megakernel=True) masked
+                and gather on CUDA, each megakernel wall printed beside
+                the plain resident one (treewalk in both orders on phase
+                7's tree too); check each against its reference
                 (Dijkstra, the solution count, brute force, np.fft within
                 a relative L2 error of 1e-4, A @ B in float64 within 1e-5
                 of its largest value, the brute-force optimum as a floor,
                 np.sort), every run against the masked one (heaps, values,
                 the shared RunStats), the masked run against the CPU's
                 (exactly; fft's heap within 1e-5 of its largest value), each
-                capacity against the smallest power of two that fits, that
-                fork_scan, type_rank and epoch_chunk were launched during
-                the phase and that DeviceEngine(megakernel=True) refuses
-                fft, matmul and annealing;
-                then the paper's yardsticks: bfs and sssp against the
-                worklist baselines, naive and map mergesort against
-                bitonic_sort, fft against torch.fft.fft, nqueens(7)'s
-                V1 / V_inf against the sequential oracle;
+                capacity against the smallest power of two that fits, and
+                that fork_scan, type_rank, ordered_add (matmul's host and
+                plain resident runs) and epoch_chunk were launched during
+                the phase; then the paper's yardsticks: bfs and sssp
+                against the worklist baselines, naive and map mergesort
+                against bitonic_sort, fft (masked and megakernel) against
+                torch.fft.fft, nqueens(7)'s V1 / V_inf against the
+                sequential oracle;
   4. profile  — one masked fib(28) HostEngine run under torch.profiler:
                 device busy time, its share of the wall time, the top ops;
   5. resident — drive DeviceEngine(megakernel=True) on CUDA on the same
@@ -269,15 +276,15 @@ def phase_build():
 
     from repro_torch.kernels import (
         decode_attention, epoch_megakernel, flash_attention, fork_compact,
-        nvcc, ssd_scan,
+        nvcc, ordered_add, ssd_scan,
     )
 
     ver = subprocess.run([nvcc.nvcc_path(), "--version"],
                          capture_output=True, text=True, check=True)
     print("[build] nvcc:", ver.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    mods = (fork_compact, epoch_megakernel, flash_attention, decode_attention,
-            ssd_scan)
+    mods = (fork_compact, epoch_megakernel, ordered_add, flash_attention,
+            decode_attention, ssd_scan)
 
     def timed_build(m):
         t = time.perf_counter()
@@ -667,9 +674,8 @@ def _chunk_bound(program, stats):
 
 # the programs of epoch_chunk's later device tables, held at the registry's
 # size and at full size: phase 3b's cells and treewalk on phase 7's tree
-CHUNK_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive")
-# the apps with no device table yet (ROADMAP §2 item 1a, slice B)
-SLICE_B = ("fft", "matmul", "annealing")
+CHUNK_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive",
+              "fft", "matmul", "annealing")
 
 
 @functools.lru_cache(maxsize=None)
@@ -886,6 +892,71 @@ def phase_chunks(dev):
             row[f"{name}_{d}_bound_ms"] = b
             row[f"{name}_{d}_floor_ms"] = floor
             row[f"{name}_{d}_stats"] = st
+    return row
+
+
+# ------------------------------------------------------ phase 2, ordered_add
+def matmul_payload(dev):
+    """The ordered add's inputs at matmul's full-size payload: n^2 C cells
+    (and the sink row), n / block terms a cell, in a seeded random order."""
+    n, block = APP_FULL["matmul"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cells, per = n * n, n // block
+    idx = torch.arange(cells, device=dev, dtype=torch.int32).repeat(per)[
+        torch.randperm(cells * per, device=dev, generator=gen)]
+    val = torch.randn(cells * per, device=dev, generator=gen)
+    base = torch.randn(cells + 1, device=dev, generator=gen)
+    return base, idx, val
+
+
+def phase_ordered_add(dev):
+    """ordered_add against ordered_add_ref at matmul's payload, exactly,
+    then timed beside its plain version and two yardsticks."""
+    from repro_torch.kernels import ordered_add, ref
+
+    base, idx, val = matmul_payload(dev)
+    terms, cells = idx.shape[0], base.shape[0] - 1
+    want = ref.ordered_add_ref(base.clone(), idx, val)
+    err = 0.0
+    for _ in range(3):
+        got = ordered_add.ordered_add_(base.clone(), idx, val)
+        torch.cuda.synchronize()
+        e = float((got[:-1] - want[:-1]).abs().max())
+        err = max(err, e)
+        if not torch.equal(got[:-1], want[:-1]):
+            fail(f"ordered_add at matmul's payload: max |kernel - plain| "
+                 f"= {e}")
+    print(f"[kernels] ordered_add exact x3 against ordered_add_ref at "
+          f"{terms} terms into {cells} cells ({terms // cells} a cell)")
+    acc = base.clone()
+    row = dict(
+        name="ordered_add", route="cuda",
+        design="count (int atomics) -> fork_scan of the counts -> place "
+               "(atomic cursors) -> each cell's run sorted by source "
+               "position (one thread's insertion sort up to 32 terms, a "
+               "CTA's bitonic sort and merges beyond) and summed serially "
+               "from the old value; the device routines of "
+               "csrc/ordered_add.cuh, which epoch_chunk runs for matmul",
+        source="src/repro_torch/kernels/csrc/ordered_add.cu",
+        replaces="none: a port-only kernel for the float scatter-add that "
+                 "XLA lowers on the TPU (src/repro/core/tvm.py:688)",
+        max_abs_err=err, library_ms=None,
+        ms=cuda_ms(lambda: ordered_add.ordered_add_(acc, idx, val)),
+        call_ms=call_ms(lambda: ordered_add.ordered_add_(acc, idx, val),
+                        iters=20),
+        plain_ms=call_ms(lambda: ref.ordered_add_ref(acc, idx, val), iters=3),
+        stable_sort_ms=cuda_ms(lambda: torch.sort(idx, stable=True)),
+        index_add_ms=cuda_ms(lambda: acc.index_add_(0, idx, val)),
+        terms=terms, cells=cells,
+    )
+    # each term's index and value read once, each cell read and written
+    row["bound_ms"], row["bound_by"] = bound_ms(8 * terms + 8 * cells, terms)
+    print(f"[kernels] ordered_add {terms} terms: device {row['ms']:.4f} ms "
+          f"(eager call {row['call_ms']:.4f} ms), bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+          f"{row['plain_ms']:.3f} ms; yardsticks: one stable torch.sort of "
+          f"the indices {row['stable_sort_ms']:.4f} ms, index_add_ "
+          f"(unordered) {row['index_add_ms']:.4f} ms")
     return row
 
 
@@ -1116,9 +1187,8 @@ def _wall_ms(fn) -> float:
 def _resident_runs(name, case, check, mask, walls, runs):
     """The plain resident DeviceEngine and DeviceEngine(megakernel=True),
     masked and gather, against the masked HostEngine run ``mask`` (heaps,
-    values, APP_INVARIANT) and the app's reference; fft, matmul and
-    annealing have no device table and must be refused."""
-    from repro_torch.core import DeviceEngine, EngineError
+    values, APP_INVARIANT) and the app's reference."""
+    from repro_torch.core import DeviceEngine
 
     for d in ("masked", "gather"):
         runs[name, "resident " + d] = r = _run(
@@ -1126,15 +1196,6 @@ def _resident_runs(name, case, check, mask, walls, runs):
             wall_key=(name, "resident " + d), engine_cls=DeviceEngine)
         _same(r, mask, f"{name} resident {d} vs masked",
               fields=APP_INVARIANT)
-    if name in SLICE_B:
-        try:
-            DeviceEngine(case.program, capacity=case.capacity,
-                         megakernel=True)
-        except EngineError as e:
-            print(f"[apps] {name}: megakernel=True refused ({e})")
-        else:
-            fail(f"{name}: DeviceEngine(megakernel=True) did not raise")
-        return
     for d in ("masked", "gather"):
         key = (name, "megakernel " + d)
         runs[key] = r = _run(case, d, "cuda", tag="apps-megakernel",
@@ -1153,13 +1214,12 @@ def _resident_runs(name, case, check, mask, walls, runs):
 
 def phase_apps(path_cases):
     """The six remaining apps and naive mergesort on the card: every
-    HostEngine dispatch, the plain resident DeviceEngine and (but fft,
-    matmul and annealing) DeviceEngine(megakernel=True), against the
-    references, each other and the CPU; treewalk in both orders on phase
-    7's tree on the masked HostEngine and both resident engines; then the
-    paper's yardsticks."""
+    HostEngine dispatch, the plain resident DeviceEngine and
+    DeviceEngine(megakernel=True), against the references, each other and
+    the CPU; treewalk in both orders on phase 7's tree on the masked
+    HostEngine and both resident engines; then the paper's yardsticks."""
     from repro_torch.apps import get_case
-    from repro_torch.kernels import epoch_megakernel, fork_compact
+    from repro_torch.kernels import epoch_megakernel, fork_compact, ordered_add
 
     # first use of each app's operations (the registry's small cases), so
     # the first timed run is not charged for it
@@ -1169,6 +1229,7 @@ def phase_apps(path_cases):
     torch.cuda.synchronize()
     fork_compact.reset_launches()
     epoch_megakernel.reset_launches()
+    ordered_add.reset_launches()
     walls, runs, over_cap = {}, {}, []
     for name in APP_FULL:
         case, check = app_case(name, APP_FULL[name])
@@ -1212,6 +1273,7 @@ def phase_apps(path_cases):
     launches = {k: fork_compact.LAUNCHES[k] for k in ("fork_scan",
                                                       "type_rank")}
     launches["epoch_chunk"] = epoch_megakernel.LAUNCHES["epoch_chunk"]
+    launches["ordered_add"] = ordered_add.LAUNCHES["ordered_add"]
     print(f"[apps] kernel launches during the apps phase: {launches}")
     for k, n in launches.items():
         if n <= 0:
@@ -1286,27 +1348,11 @@ def app_yardsticks(path_cases, walls):
     xr, xi = fft.random_input(n, seed=0)
     xc = torch.complex(torch.as_tensor(xr), torch.as_tensor(xi)).cuda()
     lib_ms = call_ms(lambda: torch.fft.fft(xc), iters=20)
+    mk_ms = walls["fft", "megakernel masked"]
     print(f"[yardstick] fft n={n}: TREES masked "
-          f"{walls['fft', 'masked']:.1f} ms, torch.fft.fft {lib_ms:.3f} ms "
-          f"(ratio {walls['fft', 'masked'] / lib_ms:.0f})")
-    # the ordered float add at matmul's payload size (8.4 M terms, 32 per
-    # C cell, in a seeded random order) against index_add_, which adds
-    # the same terms atomically in no fixed order
-    from repro_torch.core import tvm
-
-    n, block = APP_FULL["matmul"]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cells = n * n
-    terms = cells * (n // block)
-    idx = torch.arange(cells, device="cuda", dtype=torch.int32).repeat(
-        n // block)[torch.randperm(terms, device="cuda", generator=gen)]
-    val = torch.randn(terms, device="cuda", generator=gen)
-    acc = torch.zeros(cells + 1, device="cuda")  # + the sink row
-    ordered_ms = call_ms(lambda: tvm._scatter_heap(acc, idx, val, "add"),
-                         iters=5)
-    atomic_ms = call_ms(lambda: acc.index_add_(0, idx, val), iters=5)
-    print(f"[yardstick] float add of {terms} terms into {cells} cells: "
-          f"ordered {ordered_ms:.3f} ms, index_add_ {atomic_ms:.3f} ms")
+          f"{walls['fft', 'masked']:.1f} ms, megakernel {mk_ms:.2f} ms, "
+          f"torch.fft.fft {lib_ms:.3f} ms (ratios "
+          f"{walls['fft', 'masked'] / lib_ms:.0f} and {mk_ms / lib_ms:.0f})")
     # §4.4: nqueens(7)'s V1 / V_inf against the sequential oracle
     prog = nqueens.make_program(7)
     _, _, ostats = run_oracle(prog, nqueens.initial(), capacity=1 << 14)
@@ -2216,6 +2262,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(dev)
     rows.append(phase_chunks(dev))
+    rows.append(phase_ordered_add(dev))
     rows += phase_attention(dev)
     rows.append(phase_ssd(dev))
     launches, cases, host_runs = phase_path()
@@ -2228,6 +2275,9 @@ def main() -> int:
     chunk_paths = {"resident": launches["epoch_chunk"],
                    "apps": app_launches["epoch_chunk"]}
     launches["epoch_chunk"] += app_launches["epoch_chunk"]
+    # the ordered add's: matmul's HostEngine and plain resident runs
+    launches["ordered_add"] = app_launches["ordered_add"]
+    ordered_paths = {"apps": app_launches["ordered_add"]}
     for case, _ in cases:
         busy, wall, _ = phase_profile(
             f"{case.name} DeviceEngine(megakernel=True) masked",
@@ -2272,6 +2322,8 @@ def main() -> int:
             r["launches_by_path"] = fork_scan_paths
         if r["name"] == "epoch_chunk":
             r["launches_by_path"] = chunk_paths
+        if r["name"] == "ordered_add":
+            r["launches_by_path"] = ordered_paths
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

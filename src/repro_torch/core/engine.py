@@ -628,10 +628,10 @@ class EpochLoop:
         if table is None:
             raise EngineError(
                 f"program {self.program.name!r} has no device task table "
-                "for the epoch_chunk kernel (tables exist for fib, bfs, "
-                "mergesort (map and naive), treewalk (post and pre), sssp, "
-                "nqueens and tsp; fft, matmul and annealing are ROADMAP §2 "
-                "item 1a slice B)"
+                "for the epoch_chunk kernel (the kernel holds one for each "
+                "program of the registry, checked by task bodies, widths, "
+                "heap and captured constants; what it still lacks is the "
+                "job service's fleet carry)"
             )
         return table
 
@@ -689,7 +689,8 @@ class EpochLoop:
         if fault:
             raise EngineError(
                 f"epoch_chunk kernel fault {fault} (1: an epoch's live map "
-                "elements exceeded the payload stage)"
+                "elements exceeded the payload stage; 2: a float add "
+                "outside the ordered add)"
             )
         return ChunkSummary(
             n_epochs=n_epochs,

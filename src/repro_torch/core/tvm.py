@@ -331,52 +331,20 @@ def trace_tasks_compacted(
     return per_type, idx, active
 
 
-def _ordered_add_(arr: torch.Tensor, idx: torch.Tensor,
-                  val: torch.Tensor) -> None:
-    """``arr[idx] += val`` with each row's terms added one at a time in
-    source order, starting from the old value — the CPU ``index_add_``'s
-    serial loop, whose rounding the JAX reference's CPU scatter shares.
-
-    A stable sort groups each row's terms in source order; the ``k``-th
-    term of every row is then added by one gather/add/store over rows that
-    are all distinct, ``k`` = 0, 1, ... up to the longest run.  Writes to
-    the sink row are skipped (nothing reads it).
-    """
-    sink = arr.shape[0] - 1
-    keep = torch.nonzero(idx != sink).flatten()
-    if keep.numel() == 0:
-        return
-    sidx, order = torch.sort(idx[keep], stable=True)
-    sval = val[keep[order]]
-    m = sidx.shape[0]
-    pos = torch.arange(m, device=idx.device)
-    first = torch.ones(m, dtype=torch.bool, device=idx.device)
-    first[1:] = sidx[1:] != sidx[:-1]
-    run_start = torch.cummax(torch.where(first, pos, 0), 0).values
-    rank = pos - run_start  # the term's place within its row's run
-    by_rank = torch.sort(rank, stable=True).indices
-    lo = 0
-    for c in torch.bincount(rank).tolist():
-        sel = by_rank[lo:lo + c]
-        rows = sidx[sel]
-        arr[rows] = arr[rows] + sval[sel]
-        lo += c
-
-
 def _scatter_heap(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                   op: str) -> None:
     """``arr[idx] (op)= val`` in place; ``idx`` points dropped lanes at the
     sink row.  ``min``/``max`` include the old value, like the JAX
     ``.at[].min``/``.max``; int ``add`` is exact in any order.  Float
     ``add`` sums each row's terms in source order from the old value on
-    every device: the CPU's ``index_add_`` runs a serial loop in that
-    order, while CUDA's adds atomically in an order that changes from run
-    to run, so on the card the terms go through :func:`_ordered_add_`."""
+    every device (``kops.ordered_add_``: the CPU's serial ``index_add_``,
+    the ``ordered_add`` kernel on the card, where ``index_add_`` adds
+    atomically in an order that changes from run to run)."""
     if op == "set":
         arr.index_put_((idx,), val)
     elif op == "add":
-        if arr.is_floating_point() and arr.device.type != "cpu":
-            _ordered_add_(arr, idx, val)
+        if arr.is_floating_point():
+            kops.ordered_add_(arr, idx, val)
         else:
             arr.index_add_(0, idx, val)
     else:

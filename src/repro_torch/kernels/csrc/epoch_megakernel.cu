@@ -17,12 +17,14 @@
 //   reclamation -> LIFO push (join continuation below the forked range) ->
 //   counters -> map payloads,
 // and each app's task bodies are __device__ functions (FibApp, BfsApp,
-// MsortApp, TreePostApp, TreePreApp, SsspApp, NQueensApp, TspApp and
-// NaiveMsortApp below: fib, bfs, mergesort in its map and naive variants,
-// treewalk in post- and pre-order, sssp, nqueens and tsp), written from
+// MsortApp, TreePostApp, TreePreApp, SsspApp, NQueensApp, TspApp,
+// NaiveMsortApp, AnnealingApp, FftApp and MatmulApp below: fib, bfs,
+// mergesort in its map and naive variants, treewalk in post- and pre-order,
+// sssp, nqueens, tsp, annealing, fft and matmul), written from
 // src/repro_torch/apps/*.py with the same effects.  A constant a task body
 // captured from its make_program and no heap shape gives (nqueens' and tsp's
-// n) comes in the launch's `consts`.  A task body runs against a "sink":
+// n, annealing's n_bits, n_steps and n_chains, matmul's n and block) comes
+// in the launch's `consts`.  A task body runs against a "sink":
 // CountSink counts its forks, ApplySink commits its effects, StageSink
 // records a map element's writes.
 //
@@ -53,7 +55,7 @@
 //      lanes does above the emptied TV, hands the rest of the search to
 //      the whole grid at the next epoch's start);
 //   then CTA 0 pushes and counts, and sums the CTAs' map elements.
-// Map payloads (mergesort) run at the next epoch's start, after its grid
+// Map payloads (mergesort, fft, matmul) run at the next epoch's start, after its grid
 // barrier, so that every CTA takes part whatever the lanes of the epoch
 // that scheduled them (the last merges are one lane and 2^18 elements):
 // each CTA finds its elements' lanes by the same CTA-total scheme, stage
@@ -99,6 +101,11 @@
 //     stage is applied after a barrier.  map_lanes adds the lane rung x
 //     domain rung of the JAX body.
 //   * Counters are int64 (the JAX carry's exact hi/lo pairs, decoded).
+//   * Float arithmetic in a task or map body is written with explicit
+//     rounding intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn, __dmul_rn, ...):
+//     nvcc contracts a * b + c into one FMA by default, and the plain loop
+//     rounds each torch operation on its own.  fft's twiddles are cosf /
+//     sinf, the functions torch's CUDA cos / sin call.
 //
 // What bounds it on this card: latency, not bytes or operations.  The
 // bytes a chunk must move are about 24-48 bytes per task and per fork
@@ -112,19 +119,30 @@
 //
 // Atomics: heap add/min/max keep their atomics (heap_apply) across CTAs as
 // they did across threads: int add/min/max and float min/max (sssp's
-// dist, a compare-and-swap loop) are order-independent; float add is not,
-// and no app with a device table uses it.
+// dist, a compare-and-swap loop) are order-independent.  Float add is not,
+// and takes no atomicAdd: a map payload's float add (matmul's C, n / block
+// terms a cell in one payload) goes through the ordered add of
+// ordered_add.cuh, inside the chunk: count -> grid barrier -> the counts'
+// scan over the CTAs' blocks of cells (two barriers) -> place -> barrier ->
+// each cell's run sorted by stage position and summed from the old value
+// in that order, which is run_map_payload's lane-major order and the CPU
+// index_add_'s.  Only a table that declares kOrderedMapAdd pays those four
+// barriers a payload (STATS' ordered_barriers).  A float add from a task
+// body (pass C), or from the map of a table without kOrderedMapAdd, is a
+// fault (kFaultFloatAdd) that ends the chunk; no table writes one.
 //
 // C interface (bound with ctypes): trees_epoch_chunk launches on the given
 // stream, allocates nothing (the caller passes the carry, the scratch and
 // the chunk bound as device pointers), does not synchronise, and returns
 // the cooperative launch's error or cudaGetLastError(): a refused launch
 // is an error, with no single-CTA fallback.  A fault found on the device
-// (a map stage too small) is written to the carry's `fault` word and ends
-// the chunk.
+// (a map stage too small, a float add outside the ordered path) is written
+// to the carry's `fault` word and ends the chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ordered_add.cuh"
 
 namespace {
 
@@ -148,6 +166,7 @@ constexpr int kMapBit = 4;  // kMapBit << g for map launch g (< 4)
 constexpr int kTypeShift = 8;
 
 constexpr int kFaultStage = 1;
+constexpr int kFaultFloatAdd = 2;
 
 // ---- the argument layout shared with epoch_megakernel.py -----------------
 enum Ptr {
@@ -157,7 +176,8 @@ enum Ptr {
   P_MAP_LAUNCHES, P_MAP_ELEMENTS, P_MAP_LANES, P_HOLE_LANES, P_FAULT,
   P_LIMIT, P_LANE_CNT, P_LANE_EXCL, P_LANE_FLAGS, P_EMIT_STAGE, P_WR_IDX,
   P_WR_VAL, P_WR_META, P_MAP_ARGI, P_MAP_ARGF, P_MAP_PRE, P_ST_IDX,
-  P_ST_VAL, P_ST_META, P_COOP, P_STATS, P_HEAP0, P_COUNT = P_HEAP0 + kMaxHeap
+  P_ST_VAL, P_ST_META, P_COOP, P_STATS, P_OA_CNT, P_OA_OFF, P_OA_LONG,
+  P_OA_RUN, P_OA_TOT, P_HEAP0, P_COUNT = P_HEAP0 + kMaxHeap
 };
 enum Int {
   I_CAPACITY, I_DEPTH, I_GATHER, I_N_SPAN, I_SPAN0,
@@ -185,6 +205,12 @@ struct Params {
   int* st_idx; uint32_t* st_val; int* st_meta;
   unsigned long long* coop;  // the grid's barriers and totals
   long long* stats;          // optional: epochs and barriers, or null
+  // the ordered float add's scratch (tables with kOrderedMapAdd): per cell
+  // of the added variable a count and a cursor, then the long-run count
+  // and its copy (oa_cnt, zero between uses); the counts' scan (oa_off);
+  // the long cells (oa_long); two stage-sized position buffers (oa_run);
+  // one total per CTA (oa_tot)
+  int* oa_cnt; int* oa_off; int* oa_long; int* oa_run; int* oa_tot;
   uint32_t* heap[kMaxHeap];
   int grid;                  // CTAs of the cooperative launch
   int capacity, depth, gather, n_span;
@@ -276,7 +302,9 @@ __device__ __forceinline__ float heap_f32(const Params& p, int var, int idx) {
   return __uint_as_float(p.heap[var][clampi(idx, 0, p.heap_len[var] - 1)]);
 }
 
-__device__ __forceinline__ void heap_apply(const Params& p, int meta, int idx, uint32_t bits) {
+// Apply one write; false for a float add, which has no order-free atomic
+// (the caller faults: only the ordered add may take it).
+__device__ __forceinline__ bool heap_apply(const Params& p, int meta, int idx, uint32_t bits) {
   const int var = meta >> 2;
   const int op = meta & 3;
   uint32_t* a = p.heap[var] + idx;
@@ -290,7 +318,7 @@ __device__ __forceinline__ void heap_apply(const Params& p, int meta, int idx, u
   } else {
     const float v = __uint_as_float(bits);
     if (op == kAdd) {
-      atomicAdd((float*)a, v);
+      return false;
     } else {
       uint32_t old = *a, assumed;
       do {
@@ -302,6 +330,7 @@ __device__ __forceinline__ void heap_apply(const Params& p, int meta, int idx, u
       } while (old != assumed);
     }
   }
+  return true;
 }
 
 // ---- one lane's view of its TV row, read before the epoch's writes --------
@@ -453,13 +482,17 @@ struct StageSink {
 // An App holds kTypes task bodies over kArgI int and kArgF float arguments,
 // a value of kValW words, kWrites heap write sites per task, kHeap heap
 // variables and kMapLaunches map launches of kMapWrites write sites each;
-// consts_ok checks the launch's constants on the host.  AppDefaults gives
-// the apps without maps or constants their (empty) map hooks.
+// consts_ok checks the launch's constants on the host.  kOrderedMapAdd
+// says the maps' float adds (into heap variable kOrderedVar only) go
+// through the ordered add.  AppDefaults gives the apps without maps or
+// constants their (empty) map hooks.
 struct AppDefaults {
   static constexpr int kMapLaunches = 0, kMapWrites = 0;
+  static constexpr bool kOrderedMapAdd = false;
+  static constexpr int kOrderedVar = 0;
   static bool consts_ok(const long long*) { return true; }
   __device__ static int map_id(int) { return 0; }
-  __device__ static int map_domain(int, const int*) { return 0; }
+  __device__ static int map_domain(int, const int*, const Params&) { return 0; }
   template <class S>
   __device__ static void map_payload(int, const int*, const float*, int,
                                      const Params&, S&) {}
@@ -599,7 +632,9 @@ struct MsortApp : MsortBase {
     }
   }
   __device__ static int map_id(int) { return 0; }
-  __device__ static int map_domain(int, const int* ai) { return ai[1]; }
+  __device__ static int map_domain(int, const int* ai, const Params&) {
+    return ai[1];
+  }
 
   template <class S>
   __device__ static void map_payload(int, const int* ai, const float*, int i,
@@ -795,6 +830,233 @@ struct TspApp : AppDefaults {
   }
 };
 
+// int32 - that wraps, as torch's does
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((uint32_t)a - (uint32_t)b);
+}
+
+// annealing (src/repro_torch/apps/annealing.py): seed forks
+// step(((cid * 26543 + 7) % 65536, 0, cid)) at n_chains static sites, in
+// site order; step(state, t, cid) hashes its proposal h, flips bit
+// h % n_bits of state, accepts by the integer Metropolis rule (dE < 0, or a
+// draw of (h >> 7) % 16 below the temperature), min-writes the kept energy
+// on best[0] and forks its successor while t + 1 < n_steps.  The energy
+// sums Q[i * n_bits + j] b_i b_j over i <= j in int32, which wraps and is
+// exact in any order: so the sum runs over the set bits' pairs only, and
+// the candidate's energy is the state's plus or minus the flipped bit's
+// row (its diagonal and its pairs with the other set bits).  n_bits,
+// n_steps and n_chains are consts[0..2] (the closures'), 1 <= n_bits <= 16.
+struct AnnealingApp : AppDefaults {
+  static constexpr int kTypes = 2, kArgI = 3, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 1, kHeap = 2;
+  static constexpr int kMaxBits = 16;
+  enum { kQ = 0, kBest = 1 };
+
+  static bool consts_ok(const long long* ints) {
+    const long long nb = ints[I_CONST0], ns = ints[I_CONST0 + 1],
+                    nc = ints[I_CONST0 + 2];
+    return nb >= 1 && nb <= kMaxBits && ns >= 1 && nc >= 0 &&
+           ints[I_HEAP_LEN0 + kQ] == nb * nb;
+  }
+
+  // sum of Q[i * nb + j] over the set bits i <= j of `bits`
+  __device__ static int energy(unsigned bits, int nb, const Params& p) {
+    int e = 0;
+#pragma unroll 1
+    for (unsigned a = bits; a; a &= a - 1) {
+      const int i = __ffs(a) - 1;
+#pragma unroll 1
+      for (unsigned c = a; c; c &= c - 1) {
+        e = wadd(e, heap_i32(p, kQ, i * nb + __ffs(c) - 1));
+      }
+    }
+    return e;
+  }
+
+  // Q's terms with bit f: the diagonal and f's pairs with `bits` (f clear)
+  __device__ static int row(unsigned bits, int f, int nb, const Params& p) {
+    int r = heap_i32(p, kQ, f * nb + f);
+#pragma unroll 1
+    for (unsigned c = bits; c; c &= c - 1) {
+      const int j = __ffs(c) - 1;
+      r = wadd(r, heap_i32(p, kQ, j < f ? j * nb + f : f * nb + j));
+    }
+    return r;
+  }
+
+  template <class S>
+  __device__ static void task(int type, const TaskIn<AnnealingApp>& in,
+                              const Params& p, S& s) {
+    const int nb = p.consts[0], ns = p.consts[1], nc = p.consts[2];
+    if (type == 0) {
+#pragma unroll 1
+      for (int cid = 0; cid < nc; ++cid) {
+        const int a[3] = {(int)(((long long)cid * 26543 + 7) % 65536), 0,
+                          cid};
+        s.fork(1, a, nullptr, true);
+      }
+      return;
+    }
+    const int state = in.argi[0], t = in.argi[1], cid = in.argi[2];
+    const int h = wadd(wadd(wadd(wmul(state, 31421), wmul(t, 6927)),
+                            wmul(cid, 97)), 13) & 0x7FFF;
+    const int flip = floormod(h, nb);
+    const int cand = state ^ shl(1, flip);
+    const unsigned bits = (unsigned)state & ((1u << nb) - 1u);
+    const unsigned fbit = 1u << flip;
+    const int e_cur = energy(bits, nb, p);
+    const int d_row = row(bits & ~fbit, flip, nb, p);
+    const int e_new = (bits & fbit) ? wsub(e_cur, d_row) : wadd(e_cur, d_row);
+    const int temp = max(wadd(floordiv(wmul(wsub(ns, t), 4), ns), 1), 1);
+    const int draw = floormod(sar(h, 7), 16);
+    const bool accept = wsub(e_new, e_cur) < 0 || draw < temp;
+    s.write(0, kBest, 0, (uint32_t)(accept ? e_new : e_cur), kMin, true);
+    const int a[3] = {accept ? cand : state, wadd(t, 1), cid};
+    s.fork(1, a, nullptr, wadd(t, 1) < ns);
+  }
+};
+
+// fft (src/repro_torch/apps/fft.py), radix-2 decimation in time over heap
+// xr, xi (n floats) and the double-buffered levels re, im (2n floats):
+// fft(base, stride, lo, span, depth) copies input element `base` into its
+// level's buffer at a leaf (span 1), else forks the even and odd halves and
+// joins combine(lo, span, depth), which schedules the map `butterfly` over
+// span / 2 elements.  Element k reads the pair (lo + k, lo + span/2 + k) of
+// level depth + 1 and writes both results to level depth.  Every float
+// operation rounds as torch's eager operations do: the angle is a float32
+// product by float32(-2 pi), then a division; tr and ti are two rounded
+// products, then a rounded sum.
+struct FftApp : AppDefaults {
+  static constexpr int kTypes = 2, kArgI = 5, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 2, kHeap = 4;
+  static constexpr int kMapLaunches = 1, kMapWrites = 4;
+  enum { kXr = 0, kXi = 1, kRe = 2, kIm = 3 };
+
+  __device__ static int buf(const Params& p, int depth) {
+    return floormod(depth, 2) * p.heap_len[kXr];
+  }
+
+  template <class S>
+  __device__ static void task(int type, const TaskIn<FftApp>& in,
+                              const Params& p, S& s) {
+    if (type == 1) {  // combine
+      const int m[5] = {in.argi[0], in.argi[1], in.argi[2], 0, 0};
+      s.map(0, m, nullptr, true);
+      return;
+    }
+    const int base = in.argi[0], stride = in.argi[1], lo = in.argi[2],
+              span = in.argi[3], depth = in.argi[4];
+    const bool leaf = span == 1;
+    const int at = wadd(buf(p, depth), lo);
+    s.write(0, kRe, at, __float_as_uint(heap_f32(p, kXr, base)), kSet, leaf);
+    s.write(1, kIm, at, __float_as_uint(heap_f32(p, kXi, base)), kSet, leaf);
+    const int half = floordiv(span, 2);
+    const int a0[5] = {base, wmul(2, stride), lo, half, wadd(depth, 1)};
+    s.fork(0, a0, nullptr, !leaf);
+    const int a1[5] = {wadd(base, stride), wmul(2, stride), wadd(lo, half),
+                       half, wadd(depth, 1)};
+    s.fork(0, a1, nullptr, !leaf);
+    const int j[5] = {lo, span, depth, 0, 0};
+    s.join(1, j, nullptr, !leaf);
+  }
+
+  __device__ static int map_id(int) { return 0; }
+  __device__ static int map_domain(int, const int* ai, const Params&) {
+    return floordiv(ai[1], 2);
+  }
+
+  template <class S>
+  __device__ static void map_payload(int, const int* ai, const float*, int k,
+                                     const Params& p, S& s) {
+    const int lo = ai[0], span = ai[1], depth = ai[2];
+    const int half = floordiv(span, 2);
+    const int r0 = buf(p, depth + 1) + lo + k, w0 = buf(p, depth) + lo + k;
+    const float er = heap_f32(p, kRe, r0), ei = heap_f32(p, kIm, r0);
+    const float orr = heap_f32(p, kRe, r0 + half);
+    const float oi = heap_f32(p, kIm, r0 + half);
+    const float ang = __fdiv_rn(__fmul_rn(-6.2831855f, (float)k), (float)span);
+    const float wr = cosf(ang), wi = sinf(ang);
+    const float tr = __fsub_rn(__fmul_rn(wr, orr), __fmul_rn(wi, oi));
+    const float ti = __fadd_rn(__fmul_rn(wr, oi), __fmul_rn(wi, orr));
+    s.write(0, kRe, w0, __float_as_uint(__fadd_rn(er, tr)), kSet, true);
+    s.write(1, kIm, w0, __float_as_uint(__fadd_rn(ei, ti)), kSet, true);
+    s.write(2, kRe, w0 + half, __float_as_uint(__fsub_rn(er, tr)), kSet, true);
+    s.write(3, kIm, w0 + half, __float_as_uint(__fsub_rn(ei, ti)), kSet, true);
+  }
+};
+
+// matmul (src/repro_torch/apps/matmul.py): mm(i0, j0, k0, size) forks its
+// eight octants at 8 static sites in (di, dj, dk) order until size ==
+// block, where it schedules the map block_mm over block^2 elements.
+// Element (r, c) computes its block product's cell as apps/matmul.py::_fma
+// chains it (a float64 product, exact, then a float64 add rounded to
+// float32; the first term's c is the float32 product a1 * b1) and adds it
+// to C[(i0 + r) n + j0 + c] with a float add, which the ordered add applies
+// in stage order: each C cell takes n / block terms in one payload.  n and
+// block are consts[0..1] (the closures').
+struct MatmulApp : AppDefaults {
+  static constexpr int kTypes = 1, kArgI = 4, kArgF = 0, kValW = 1;
+  static constexpr int kWrites = 0, kHeap = 3;
+  static constexpr int kMapLaunches = 1, kMapWrites = 1;
+  enum { kA = 0, kB = 1, kC = 2 };
+  static constexpr bool kOrderedMapAdd = true;
+  static constexpr int kOrderedVar = kC;
+
+  static bool consts_ok(const long long* ints) {
+    const long long n = ints[I_CONST0], block = ints[I_CONST0 + 1];
+    return block >= 2 && n >= block && n % block == 0 &&
+           ints[I_HEAP_LEN0 + kA] == n * n &&
+           ints[I_HEAP_LEN0 + kB] == n * n && ints[I_HEAP_LEN0 + kC] == n * n;
+  }
+
+  __device__ static float fma_like(float a, float b, float c) {
+    return __double2float_rn(
+        __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+  }
+
+  template <class S>
+  __device__ static void task(int, const TaskIn<MatmulApp>& in,
+                              const Params& p, S& s) {
+    const int block = p.consts[1];
+    const int i0 = in.argi[0], j0 = in.argi[1], k0 = in.argi[2],
+              size = in.argi[3];
+    const bool leaf = size == block;
+    const int m[4] = {i0, j0, k0, 0};
+    s.map(0, m, nullptr, leaf);
+    const int h = floordiv(size, 2);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int di = q >> 2, dj = (q >> 1) & 1, dk = q & 1;
+      const int a[4] = {wadd(i0, wmul(di, h)), wadd(j0, wmul(dj, h)),
+                        wadd(k0, wmul(dk, h)), h};
+      s.fork(0, a, nullptr, !leaf);
+    }
+  }
+
+  __device__ static int map_id(int) { return 0; }
+  __device__ static int map_domain(int, const int*, const Params& p) {
+    return p.consts[1] * p.consts[1];
+  }
+
+  template <class S>
+  __device__ static void map_payload(int, const int* ai, const float*, int e,
+                                     const Params& p, S& s) {
+    const int n = p.consts[0], block = p.consts[1];
+    const int i0 = ai[0], j0 = ai[1], k0 = ai[2];
+    const int r = floordiv(e, block), c = floormod(e, block);
+    const int arow = (i0 + r) * n + k0, bcol = k0 * n + j0 + c;
+    float acc = fma_like(heap_f32(p, kA, arow), heap_f32(p, kB, bcol),
+                         __fmul_rn(heap_f32(p, kA, arow + 1),
+                                   heap_f32(p, kB, bcol + n)));
+#pragma unroll 1
+    for (int kk = 2; kk < block; ++kk) {
+      acc = fma_like(heap_f32(p, kA, arow + kk),
+                     heap_f32(p, kB, bcol + kk * n), acc);
+    }
+    s.write(0, kC, (i0 + r) * n + j0 + c, __float_as_uint(acc), kAdd, true);
+  }
+};
+
 // ---- the grid and its barriers ---------------------------------------------
 // The cooperative scratch (caller memory, cleared on the stream before each
 // launch), in uint64 words:
@@ -813,7 +1075,9 @@ struct Ctl {
   // 1 + the slot where the previous epoch's reclamation search goes on
   // over the whole grid (0: it ended)
   int search;
-  int pad;
+  // nonzero once a float add met no ordered path in this epoch (its map
+  // payloads or its pass C): the chunk ends with kFaultFloatAdd
+  int fault;
   unsigned long long map_el[kMaxMaps];
 };
 struct CtaRec {
@@ -921,8 +1185,112 @@ __device__ __forceinline__ void pop(const Params& p, const Scalars& car,
   c.count = live ? p.rstack[2 * top + 1] : 0;
   c.nf = car.next_free;
   c.gen1 = gen1;
+  c.fault = 0;
   last[2 * (e & 1)] = -1;
   last[2 * (e & 1) + 1] = -1;
+}
+
+// ordered_add.cuh's view of one map write site's stage: the term at
+// stage position f and the cells of heap variable kOrderedVar
+struct StageTerms {
+  const uint32_t* val;
+  float* arr;
+  __device__ int width() const { return 1; }
+  __device__ float term(int f, int) const { return __uint_as_float(val[f]); }
+  __device__ float* dst(int cell, int) const { return arr + cell; }
+};
+
+// One map write site's float adds into heap variable App::kOrderedVar,
+// applied in stage order by every CTA of the grid (ordered_add.cuh's
+// phases, four grid barriers); the site's other writes are applied
+// directly.  Returns the barriers crossed; the caller's next barrier ends
+// the sum phase.
+template <class App>
+__device__ int ordered_site(const Params& p, int k, long long el,
+                            unsigned* bar, unsigned& gen0, int* fault,
+                            int* s_sort, unsigned* s_warp32,
+                            unsigned* s_obase) {
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const unsigned G = gridDim.x;
+  const long long gstride = (long long)G * kThreads;
+  const int cells = p.heap_len[App::kOrderedVar];
+  const int ometa = (App::kOrderedVar << 2) | kAdd;
+  int* const n_long = p.oa_cnt + 2LL * cells;  // then its copy
+  oadd::Scratch os;
+  os.cnt = p.oa_cnt;
+  os.cur = p.oa_cnt + cells;
+  os.off = p.oa_off;
+  os.run = p.oa_run;
+  os.run2 = p.oa_run + p.stage_cap;
+  os.n_long = n_long;
+  os.long_cells = p.oa_long;
+  const long long at0 = (long long)k * p.stage_cap;
+  // count the site's ordered terms; apply its other writes
+  for (long long f = (long long)b * kThreads + tid; f < el; f += gstride) {
+    const int meta = p.st_meta[at0 + f];
+    if (meta == ometa) {
+      oadd::count(os, p.st_idx[at0 + f]);
+    } else if (meta >= 0 &&
+               !heap_apply(p, meta, p.st_idx[at0 + f], p.st_val[at0 + f])) {
+      atomicOr(fault, 1);
+    }
+  }
+  bar_sync(bar, gen0, G);
+  // the counts' exclusive scan: CTA b's contiguous block of cells, its
+  // total, then its base from the earlier CTAs' totals
+  const int per = (int)((cells + (long long)G - 1) / G);
+  const int c_lo = min(cells, b * per), c_hi = min(cells, c_lo + per);
+  unsigned sum = 0;
+  for (int c = c_lo + tid; c < c_hi; c += kThreads) sum += (unsigned)p.oa_cnt[c];
+  sum = __reduce_add_sync(kFull, sum);
+  if ((tid & 31) == 0) atomicAdd(s_obase, sum);  // s_obase is zero here
+  __syncthreads();
+  if (tid == 0) {
+    p.oa_tot[b] = (int)*s_obase;
+    if (b == 0) {  // the long cells are all listed: keep their count
+      n_long[1] = __ldcg(n_long);
+      *n_long = 0;
+    }
+  }
+  bar_sync(bar, gen0, G);
+  if (tid < 32) {
+    unsigned before = 0;
+    for (int q0 = 0; q0 < b; q0 += 32) {
+      const int q = q0 + tid;
+      before += __reduce_add_sync(kFull, q < b ? (unsigned)__ldcg(&p.oa_tot[q]) : 0u);
+    }
+    if (tid == 0) *s_obase = before;
+  }
+  __syncthreads();
+  unsigned run = *s_obase;
+  for (int c0 = c_lo; c0 < c_hi; c0 += kThreads) {
+    const int c = c0 + tid;
+    const unsigned v = c < c_hi ? (unsigned)p.oa_cnt[c] : 0u;
+    unsigned tot;
+    const unsigned ex = block_excl_scan<unsigned>(v, s_warp32, &tot);
+    if (c < c_hi) p.oa_off[c] = (int)(run + ex);
+    run += tot;
+  }
+  bar_sync(bar, gen0, G);
+  if (tid == 0) *s_obase = 0;  // for the next site (read before the barrier)
+  // place each term's stage position in its cell's run
+  for (long long f = (long long)b * kThreads + tid; f < el; f += gstride) {
+    if (p.st_meta[at0 + f] == ometa) oadd::place(os, p.st_idx[at0 + f], (int)f);
+  }
+  bar_sync(bar, gen0, G);
+  // sum: a short run a thread, a long run a CTA
+  const StageTerms terms{p.st_val + at0,
+                         reinterpret_cast<float*>(p.heap[App::kOrderedVar])};
+  for (long long c = (long long)b * kThreads + tid; c < cells; c += gstride) {
+    const int n = p.oa_cnt[c];
+    if (n > 0 && n <= oadd::kShortRun) oadd::sum_short(os, (int)c, n, terms);
+  }
+  const int nl = __ldcg(n_long + 1);
+  for (int i = b; i < nl; i += (int)G) {
+    const int c = __ldcg(&p.oa_long[i]);
+    oadd::sum_long(os, c, __ldcg(&p.oa_cnt[c]), terms, s_sort);
+  }
+  return 4;
 }
 
 // ---- the chunk ---------------------------------------------------------------
@@ -945,6 +1313,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
   __shared__ unsigned long long s_mel[kMaxMaps];  // CTA 0: map launch totals
   __shared__ int s_mrows[kMaxMaps], s_mdmax[kMaxMaps];
   __shared__ Scalars car;  // CTA 0's
+  __shared__ unsigned s_obase;  // the ordered add's scan base
+  __shared__ int s_sort[App::kOrderedMapAdd ? oadd::kSortTile : 1];
 
   const int C = p.capacity;
   const int tid = threadIdx.x;
@@ -956,6 +1326,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
   CtaRec* const cta = reinterpret_cast<CtaRec*>(p.coop + kCoopHeader);
   unsigned gen0 = 0, gen1 = 0;  // barrier targets (thread 0's are used)
   long long n_narrow = 0, n_wide = 0, n_grid = 0, n_group = 0, n_search = 0;
+  long long n_ordered = 0;
+  if (tid == 0) s_obase = 0;
 
   if (b == 0 && tid == 0) {
     // the sink rows stay zero (the plain loop zeroes them after each
@@ -1064,18 +1436,40 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         }
         bar_sync(bar, gen0, G);  // every element is staged
         ++n_grid;
-        if (b < gm) {
+        int* const mfault = const_cast<int*>(&cc->fault);
+        if constexpr (App::kOrderedMapAdd) {
+          // site by site, each site's writes after the last's
+          for (int k = 0; k < App::kMapWrites; ++k) {
+            const int nb = ordered_site<App>(p, k, (long long)el, bar, gen0,
+                                             mfault, s_sort, s_warp32,
+                                             &s_obase);
+            n_grid += nb;
+            n_ordered += nb;
+            if (k + 1 < App::kMapWrites) {
+              bar_sync(bar, gen0, G);
+              ++n_grid;
+              ++n_ordered;
+            }
+          }
+        } else if (b < gm) {
           for (long long f = (long long)b * kThreads + tid;
                f < (long long)el; f += stride) {
             for (int k = 0; k < App::kMapWrites; ++k) {
               const long long at = (long long)k * p.stage_cap + f;
               const int meta = p.st_meta[at];
-              if (meta >= 0) heap_apply(p, meta, p.st_idx[at], p.st_val[at]);
+              if (meta >= 0 &&
+                  !heap_apply(p, meta, p.st_idx[at], p.st_val[at])) {
+                atomicOr(mfault, 1);
+              }
             }
           }
         }
         bar_sync(bar, gen0, G);  // the heap is written
         ++n_grid;
+      }
+      if (__ldcg(&cc->fault)) {  // every CTA reads it after the barrier
+        if (b == 0 && tid == 0) car.fault = kFaultFloatAdd;
+        break;
       }
     }
     if (!__ldcg(&cc->go)) break;
@@ -1202,7 +1596,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         if (l < hi && (p.lane_flags[l] & (kMapBit << g))) {
           on = 1;
           const long long row = (long long)g * C + l;
-          const int d = App::map_domain(mid, p.map_argi + row * App::kArgI);
+          const int d = App::map_domain(mid, p.map_argi + row * App::kArgI, p);
           dom = (unsigned long long)clampi(d, 0, maxd);
           my_dmax = max(my_dmax, (int)dom);
         }
@@ -1241,7 +1635,9 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
       for (int k = 0; k < App::kWrites; ++k) {
         const long long at = (long long)k * C + l;
         const int meta = p.wr_meta[at];
-        if (meta >= 0) heap_apply(p, meta, p.wr_idx[at], p.wr_val[at]);
+        if (meta >= 0 && !heap_apply(p, meta, p.wr_idx[at], p.wr_val[at])) {
+          atomicOr(const_cast<int*>(&cc->fault), 1);
+        }
       }
     }
 
@@ -1362,12 +1758,18 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
             }
           }
         }
+        if (!fault && __ldcg(&cc->fault)) {  // pass C met a float add
+          car.fault = kFaultFloatAdd;
+          fault = true;
+          fire = 0;
+        }
         nx.fired = fire;
         nx.map_nl = nl;
         nx.map_ge = ge;
         nx.search = deep ? hi_slot - ge * kThreads + 1 : 0;
         if (fault) {
           nx.go = 0;
+          nx.fault = 0;
         } else {
           pop(p, car, ctl, last, e + 1, gen1);
         }
@@ -1381,6 +1783,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
     p.stats[2] += n_grid;
     p.stats[3] += n_group;
     p.stats[4] += n_search;
+    p.stats[5] += n_ordered;
   }
 }
 
@@ -1454,6 +1857,9 @@ int with_app(int app, int unknown, F f) {
     case 6: return f(NQueensApp{});
     case 7: return f(TspApp{});
     case 8: return f(NaiveMsortApp{});
+    case 9: return f(AnnealingApp{});
+    case 10: return f(FftApp{});
+    case 11: return f(MatmulApp{});
     default: return unknown;
   }
 }
@@ -1495,15 +1901,18 @@ int trees_grid_sync_bench(int grid, int n, unsigned long long* scratch,
   return (int)cudaGetLastError();
 }
 
-// out[0..6] = kTypes, kArgI, kArgF, kValW, kWrites, kMapLaunches,
-// kMapWrites of device table `app` (TABLES' order in epoch_megakernel.py);
-// returns 0, or cudaErrorInvalidValue for an unknown app.
+// out[0..7] = kTypes, kArgI, kArgF, kValW, kWrites, kMapLaunches,
+// kMapWrites and the ordered add's heap variable (kOrderedVar, or -1 without
+// kOrderedMapAdd) of device table `app` (TABLES' order in
+// epoch_megakernel.py); returns 0, or cudaErrorInvalidValue for an unknown
+// app.
 int trees_epoch_app_info(int app, int* out) {
   return with_app(app, (int)cudaErrorInvalidValue, [out](auto a) {
     using A = decltype(a);
-    const int v[7] = {A::kTypes, A::kArgI, A::kArgF, A::kValW, A::kWrites,
-                      A::kMapLaunches, A::kMapWrites};
-    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    const int v[8] = {A::kTypes, A::kArgI, A::kArgF, A::kValW, A::kWrites,
+                      A::kMapLaunches, A::kMapWrites,
+                      A::kOrderedMapAdd ? A::kOrderedVar : -1};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
     return 0;
   });
 }
@@ -1553,6 +1962,11 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
   p.st_meta = (int*)ptrs[P_ST_META];
   p.coop = (unsigned long long*)ptrs[P_COOP];
   p.stats = (long long*)ptrs[P_STATS];
+  p.oa_cnt = (int*)ptrs[P_OA_CNT];
+  p.oa_off = (int*)ptrs[P_OA_OFF];
+  p.oa_long = (int*)ptrs[P_OA_LONG];
+  p.oa_run = (int*)ptrs[P_OA_RUN];
+  p.oa_tot = (int*)ptrs[P_OA_TOT];
   p.grid = (int)ints[I_GRID];
   for (int v = 0; v < kMaxHeap; ++v) p.heap[v] = (uint32_t*)ptrs[P_HEAP0 + v];
   p.capacity = (int)ints[I_CAPACITY];

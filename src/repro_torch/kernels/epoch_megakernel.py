@@ -29,10 +29,16 @@ maps a :class:`~repro_torch.core.program.Program` to its table by checking
 the task names and functions, argument and value widths, the heap
 variables (names, dtypes, shapes), the maps and the constants a body
 captured from its ``make_program`` (``inspect.getclosurevars``: treewalk's
-``order``, nqueens' and tsp's ``n``, which the launch hands the kernel in
-its ``consts``) — not only the program's name.  Tables exist for fib,
-bfs, mergesort (map and naive variants), treewalk (post- and pre-order),
-sssp, nqueens and tsp; fft, matmul and annealing have none.
+``order``, fft's ``n``, and the constants the launch hands the kernel in
+its ``consts``: nqueens' and tsp's ``n``, annealing's ``n_bits``,
+``n_steps`` and ``n_chains``, matmul's ``n`` and ``block``) — not only the
+program's name.  Every program of the registry has a table: fib, bfs,
+mergesort (map and naive variants), treewalk (post- and pre-order), sssp,
+nqueens, tsp, annealing, fft and matmul.  matmul's map adds floats into
+``C``: the kernel applies those in stage order with the ordered add of
+``csrc/ordered_add.cuh`` (the ``ordered_add`` kernel's algorithm), for
+which :func:`launch` allocates the ``oa_*`` scratch.  What the kernel does
+not run yet is a fleet carry (several regions of the job service).
 
 :func:`epoch_chunk` dispatches on the carry's device: on the CPU it runs
 the plain loop ``ref.epoch_chunk_ref`` (as the JAX package's ``"auto"``
@@ -67,7 +73,8 @@ _PTRS = (
     "map_launches", "map_elements", "map_lanes", "hole_lanes", "fault",
     "limit", "lane_cnt", "lane_excl", "lane_flags", "emit_stage", "wr_idx",
     "wr_val", "wr_meta", "map_argi", "map_argf", "map_pre", "st_idx",
-    "st_val", "st_meta", "coop", "stats",
+    "st_val", "st_meta", "coop", "stats", "oa_cnt", "oa_off", "oa_long",
+    "oa_run", "oa_tot",
 ) + tuple(f"heap{v}" for v in range(MAX_HEAP))
 _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
            + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5 + MAX_CONSTS)
@@ -76,9 +83,12 @@ _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
 # reclamation words by epoch parity, then one record of totals per CTA
 COOP_HEADER_WORDS, COOP_CTA_WORDS, MAX_GRID = 23, 10, 1024
 # stats a launch may add to: narrow epochs, wide epochs, grid barriers,
-# group barriers, and the grid barriers of deep reclamation searches
+# group barriers, and the grid barriers of deep reclamation searches and of
+# ordered float adds (both counted in grid_barriers too)
 STATS = ("narrow_epochs", "wide_epochs", "grid_barriers", "group_barriers",
-         "search_barriers")
+         "search_barriers", "ordered_barriers")
+# the ordered add's stage positions are int32, and its merges add two
+ORDERED_MAX_STAGE = 2**30
 
 LAUNCHES: Dict[str, int] = {"epoch_chunk": 0}
 
@@ -138,17 +148,25 @@ def _shapes(program):
     return {hv.name: tuple(hv.shape) for hv in program.heap}
 
 
-def _captured(program, task: str, name: str):
-    """The value task ``task``'s function captured as ``name`` from the
-    ``make_program`` call that made it (None if it captured no such
-    name)."""
-    fn = program.tasks[program.task_id(task)].fn
+def _closure(fn, name: str):
+    """The value ``fn`` captured as ``name`` from the ``make_program`` call
+    that made it (None if it captured no such name)."""
+    if not callable(fn):
+        return None
     return inspect.getclosurevars(fn).nonlocals.get(name)
 
 
-def _captured_int(program, task: str, name: str) -> Optional[int]:
-    v = _captured(program, task, name)
+def _captured(program, task: str, name: str):
+    """What task ``task``'s function captured as ``name``."""
+    return _closure(program.tasks[program.task_id(task)].fn, name)
+
+
+def _int(v) -> Optional[int]:
     return int(v) if isinstance(v, numbers.Integral) else None
+
+
+def _captured_int(program, task: str, name: str) -> Optional[int]:
+    return _int(_captured(program, task, name))
 
 
 def _bfs_shapes(program) -> bool:
@@ -199,6 +217,62 @@ def _tsp_shapes(program) -> bool:
     n, sh = _captured_int(program, "extend", "n"), _shapes(program)
     return (n is not None and 1 <= n <= TSP_MAX_N
             and sh["dist"] == (n * n,) and sh["best"] == (1,))
+
+
+# annealing's energy reads n_bits bits of the state (apps/annealing.py:
+# n_bits <= 16)
+ANNEALING_MAX_BITS = 16
+
+
+def _annealing_consts(program):
+    return (_captured_int(program, "step", "n_bits"),
+            _captured_int(program, "step", "n_steps"),
+            _captured_int(program, "seed", "n_chains"))
+
+
+def _annealing_shapes(program) -> bool:
+    nb, ns, nc = _annealing_consts(program)
+    sh = _shapes(program)
+    return (None not in (nb, ns, nc) and 1 <= nb <= ANNEALING_MAX_BITS
+            and ns >= 1 and 0 <= nc < 2**31 and sh["Q"] == (nb * nb,)
+            and sh["best"] == (1,))
+
+
+def _fft_n(program) -> Optional[int]:
+    # the fft body reads n through its level-buffer helper `_buf`
+    return _int(_closure(_captured(program, "fft", "_buf"), "n"))
+
+
+def _fft_shapes(program) -> bool:
+    n, sh = _fft_n(program), _shapes(program)
+    return (n is not None and n >= 2 and n & (n - 1) == 0
+            and sh["xr"] == sh["xi"] == (n,)
+            and sh["re"] == sh["im"] == (2 * n,)
+            and program.maps[0].max_domain == n // 2)
+
+
+def _matmul_consts(program):
+    fn = program.maps[0].fn
+    return _int(_closure(fn, "n")), _int(_closure(fn, "block"))
+
+
+def _matmul_stage(program) -> int:
+    # every leaf runs in one epoch: (n / block)^3 leaves of block^2
+    n, block = _matmul_consts(program)
+    return n**3 // block
+
+
+def _matmul_shapes(program) -> bool:
+    # n twice: the block product's closure, which the kernel reads, and
+    # sqrt(len(A)); block in both bodies
+    (n, block), sh = _matmul_consts(program), _shapes(program)
+    if None in (n, block) or block < 2 or n % block:
+        return False
+    nb = n // block
+    return (nb & (nb - 1) == 0
+            and _captured_int(program, "mm", "block") == block
+            and sh["A"] == sh["B"] == sh["C"] == (n * n,)
+            and program.maps[0].max_domain == block * block)
 
 
 _APPS = "repro_torch.apps."
@@ -287,6 +361,38 @@ TABLES: Tuple[DeviceTable, ...] = (
         heap=_MSORT_HEAP,
         shapes_ok=lambda program: _msort_shapes(program, use_map=False),
     ),
+    DeviceTable(
+        app_id=9,
+        tasks=(("seed", _APPS + "annealing", "make_program.<locals>._seed"),
+               ("step", _APPS + "annealing", "make_program.<locals>._step")),
+        maps=(), n_arg_i=3, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("Q", _I32), ("best", _I32)),
+        shapes_ok=_annealing_shapes,
+        consts=_annealing_consts,
+    ),
+    DeviceTable(
+        app_id=10,
+        tasks=(("fft", _APPS + "fft", "make_program.<locals>._fft"),
+               ("combine", _APPS + "fft", "make_program.<locals>._combine")),
+        maps=(("butterfly", _APPS + "fft",
+               "make_program.<locals>._butterfly"),),
+        n_arg_i=5, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("xr", _F32), ("xi", _F32), ("re", _F32), ("im", _F32)),
+        shapes_ok=_fft_shapes,
+        # the combines of one epoch share a level: n / 2 butterflies
+        stage=lambda program: program.maps[0].max_domain,
+    ),
+    DeviceTable(
+        app_id=11,
+        tasks=(("mm", _APPS + "matmul", "make_program.<locals>._mm"),),
+        maps=(("block_mm", _APPS + "matmul",
+               "make_program.<locals>._block_mm"),),
+        n_arg_i=4, n_arg_f=0, value_width=1, value_dtype=_I32,
+        heap=(("A", _F32), ("B", _F32), ("C", _F32)),
+        shapes_ok=_matmul_shapes,
+        stage=_matmul_stage,
+        consts=_matmul_consts,
+    ),
 )
 
 
@@ -374,12 +480,14 @@ def grid_sync_bench(n: int, grid_ctas: int, device=None) -> None:
 
 
 def app_info(app_id: int) -> Dict[str, int]:
-    """The compiled table's constants (builds the library)."""
-    out = (ctypes.c_int * 7)()
+    """The compiled table's constants (builds the library);
+    ``ordered_var`` is the heap variable its maps' float adds go to
+    through the ordered add, or -1."""
+    out = (ctypes.c_int * 8)()
     if _load().trees_epoch_app_info(app_id, out) != 0:
         raise ValueError(f"epoch_megakernel: no device table {app_id}")
     keys = ("types", "arg_i", "arg_f", "value_width", "writes",
-            "map_launches", "map_writes")
+            "map_launches", "map_writes", "ordered_var")
     return dict(zip(keys, out))
 
 
@@ -474,6 +582,21 @@ def launch(program, carry, limit, *, gather: bool,
         map_pre=empty(info["map_launches"] * C, i64),
         st_idx=empty(info["map_writes"] * S), st_val=empty(info["map_writes"] * S),
         st_meta=empty(info["map_writes"] * S),
+    )
+    # the ordered add's: counts, cursors and the long-run count (and its
+    # copy) cleared here, the kernel clearing them after each use; offsets
+    # and long cells per cell of the added variable; two position buffers
+    # of the stage's size; one total per CTA
+    N = 0
+    if info["ordered_var"] >= 0:
+        N = program.heap[info["ordered_var"]].shape[0]
+        if S >= ORDERED_MAX_STAGE:
+            raise ValueError(f"epoch_chunk: a stage of {S} elements "
+                             f"(the ordered add takes < {ORDERED_MAX_STAGE})")
+    scratch.update(
+        oa_cnt=torch.zeros((2 * N + 2,), dtype=i32, device=dev),
+        oa_off=empty(N), oa_long=empty(N), oa_run=empty(2 * S if N else 0),
+        oa_tot=empty(MAX_GRID if N else 0),
     )
     G = grid(table.app_id, dev)
     coop_words = coop_scratch_words(G)

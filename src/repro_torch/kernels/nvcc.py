@@ -1,12 +1,13 @@
 """Build a CUDA source of this package into a shared library with ``nvcc``.
 
 Each kernel module (``fork_compact.py``, ``epoch_megakernel.py``,
-``flash_attention.py``, ``decode_attention.py``, ``ssd_scan.py``) compiles
-its source under ``csrc/`` for ``sm_90a`` into a library with a plain C
-interface, at first use, into ``build/`` beside this file (listed in
-``.gitignore``), and loads it with ``ctypes``.  The library's name carries
-a hash of the source and the flags, so an edited ``.cu`` file builds anew.
-Nothing here compiles at import time.
+``ordered_add.py``, ``flash_attention.py``, ``decode_attention.py``,
+``ssd_scan.py``) compiles its source under ``csrc/`` for ``sm_90a`` into a
+library with a plain C interface, at first use, into ``build/`` beside
+this file (listed in ``.gitignore``), and loads it with ``ctypes``.  The
+library's name carries a hash of the source, the ``.cuh`` headers beside
+it and the flags, so an edited source or header builds anew.  Nothing here
+compiles at import time.
 
     python3 src/repro_torch/kernels/nvcc.py SOURCE [SOURCE ...]
 
@@ -45,8 +46,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the built library for ``source`` and the flags lives."""
+    """Where the built library for ``source`` and the flags lives (the
+    hash covers the headers beside it too, which a source may include)."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 

@@ -1,8 +1,9 @@
 """Public wrappers around the port's kernels, dispatched on the tensor.
 
 A CPU tensor takes the plain PyTorch version in ``ref.py``; a CUDA tensor
-launches the hand-written kernel (``fork_compact.py``, ``flash_attention.py``,
-``decode_attention.py``, ``ssd_scan.py``), which raises if it cannot build or launch — there
+launches the hand-written kernel (``fork_compact.py``, ``ordered_add.py``,
+``flash_attention.py``, ``decode_attention.py``, ``ssd_scan.py``), which
+raises if it cannot build or launch — there
 is no fallback from the card to the plain version.  The choice follows the
 tensor's device alone.
 """
@@ -12,7 +13,10 @@ from typing import Optional
 
 import torch
 
-from . import decode_attention, flash_attention, fork_compact, ref, ssd_scan
+from . import (
+    decode_attention, flash_attention, fork_compact, ordered_add, ref,
+    ssd_scan,
+)
 
 
 def fork_offsets(counts: torch.Tensor):
@@ -72,6 +76,18 @@ def type_pack(types: torch.Tensor, active: torch.Tensor, n_types: int):
     if types.device.type == "cpu":
         return ref.type_pack_ref(types, active, n_types)
     return fork_compact.type_pack(types, active, n_types)
+
+
+def ordered_add_(arr: torch.Tensor, idx: torch.Tensor,
+                 val: torch.Tensor) -> torch.Tensor:
+    """``arr[idx] += val`` in place, each row's terms added one at a time in
+    source order from the old value (a float heap's ``add``).  On the CPU
+    that is ``index_add_`` itself, a serial loop in source order; on the
+    card the ``ordered_add`` kernel gives the same bits (CUDA's
+    ``index_add_`` adds atomically, in no fixed order)."""
+    if arr.device.type == "cpu":
+        return arr.index_add_(0, idx, val)
+    return ordered_add.ordered_add_(arr, idx, val)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

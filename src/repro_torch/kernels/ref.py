@@ -126,6 +126,41 @@ def type_perm(types: torch.Tensor, active: torch.Tensor, rank: torch.Tensor,
     return perm[:P]
 
 
+def ordered_add_ref(arr: torch.Tensor, idx: torch.Tensor,
+                    val: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``ordered_add`` kernel: ``arr[idx] += val`` with
+    each row's terms added one at a time in source order, starting from
+    the old value — the CPU ``index_add_``'s serial loop, whose rounding
+    the JAX reference's CPU scatter shares.
+
+    A stable sort groups each row's terms in source order; the ``k``-th
+    term of every row is then added by one gather/add/store over rows that
+    are all distinct, ``k`` = 0, 1, ... up to the longest run (two host
+    reads: the kept terms and the run lengths).  Writes to the sink row
+    (the last) are skipped (nothing reads it).  Returns ``arr``.
+    """
+    sink = arr.shape[0] - 1
+    keep = torch.nonzero(idx != sink).flatten()
+    if keep.numel() == 0:
+        return arr
+    sidx, order = torch.sort(idx[keep], stable=True)
+    sval = val[keep[order]]
+    m = sidx.shape[0]
+    pos = torch.arange(m, device=idx.device)
+    first = torch.ones(m, dtype=torch.bool, device=idx.device)
+    first[1:] = sidx[1:] != sidx[:-1]
+    run_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = pos - run_start  # the term's place within its row's run
+    by_rank = torch.sort(rank, stable=True).indices
+    lo = 0
+    for c in torch.bincount(rank).tolist():
+        sel = by_rank[lo:lo + c]
+        rows = sidx[sel]
+        arr[rows] = arr[rows] + sval[sel]
+        lo += c
+    return arr
+
+
 def epoch_chunk_ref(cond_fn, body_fn, carry, limit):
     """Plain version of the ``epoch_chunk`` kernel (``epoch_megakernel.py``).
 

@@ -188,10 +188,9 @@ def test_generators_and_references_match_jax():
     assert tapps.nqueens.SOLUTIONS[7] == japps.nqueens.SOLUTIONS[7]
 
 
-def test_naive_program_has_no_device_table():
-    # the name is older than naive mergesort's device table: the naive and
-    # map programs now find tables of their own, and of the apps here only
-    # fft, matmul and annealing have none
+def test_every_registry_program_has_a_device_table():
+    # the naive and map mergesorts find tables of their own, and so does
+    # every app here
     assert mergesort.make_program(16, use_map=False).name == "mergesort_naive"
     assert mergesort.make_program(16, use_map=True).name == "mergesort_map"
     mapped = epoch_megakernel.device_table(
@@ -200,9 +199,12 @@ def test_naive_program_has_no_device_table():
         mergesort.make_program(16, use_map=False))
     assert mapped is not None and naive is not None
     assert naive.app_id != mapped.app_id
+    ids = {mapped.app_id, naive.app_id}
     for name in APPS:
         table = epoch_megakernel.device_table(get_case(name).program)
-        assert (table is None) == (name in ("annealing", "fft", "matmul"))
+        assert table is not None, name
+        ids.add(table.app_id)
+    assert len(ids) == len(APPS) + 2
 
 
 # ------------------------------------------------------- the references

@@ -76,6 +76,16 @@ def test_resident_matmul_adds_in_the_reference_order(jax_resident):
                     jax_resident(key, "gather"), "matmul")
 
 
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+@pytest.mark.parametrize("name", ("annealing", "fft", "matmul"))
+def test_megakernel_flag_matches_jax(jax_resident, name, dispatch):
+    """The programs of the last device tables under ``megakernel=True`` (on
+    the CPU: the plain loop, which the kernel is held to on the card)
+    against the cached JAX runs."""
+    got = _run_port(name, dispatch, megakernel=True)
+    assert_same_run(got, jax_resident(name, dispatch), name)
+
+
 @pytest.mark.parametrize("name", ("nqueens", "fft"))
 def test_megakernel_flag_runs_the_plain_loop_on_the_cpu(name):
     """On the CPU ``megakernel=True`` runs the plain loop (no device table
