@@ -41,7 +41,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 and each full-size masked chunk and fib's gather chunk
                 timed beside its bytes bound, its barrier floor (the
                 barriers it crossed x that cost) and its narrow and wide
-                epochs; ordered_add against ordered_add_ref at matmul's
+                epochs; the fleet epoch_chunk (a JobArena carry of J
+                regions, each through its tenant's table) against the
+                plain resident fleet loop, every carry tensor, on the
+                full-size mixed4 wave (phase 7's) and the registry's
+                mixed4 and fib_fleet, masked and gather, K = 1, 4 and
+                unbounded, the full-size chunk timed beside its bytes
+                bound, its grid barriers and the plain fleet loop's wall;
+                ordered_add against ordered_add_ref at matmul's
                 payload (2^23 terms, 32 a cell over 2^18 cells, in a
                 random order), exactly, timed beside its plain version,
                 one stable torch.sort of the indices and index_add_ (which
@@ -119,9 +126,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 solo HostEngine run on the card and its numpy reference, the
                 dispatches against each other, and that segmented_fork_scan
                 and type_rank (the compacted and gather waves' packs) were
-                launched during the phase; then streaming admission (six
-                fib jobs into four regions) and one preempt/resume of a bfs
-                tenant at a medium size, and one masked wave under
+                launched during the phase; then JobService(engine=
+                "device") on the same wave: the plain resident fleet loop
+                at K=4 and the fleet epoch_chunk at K = 1, 4 and unbounded,
+                masked and gather, each tenant against its solo run and the
+                host wave's tenant, global epochs, dispatches and walls
+                beside the host wave's, and epoch_chunk launched; then
+                streaming admission (six fib jobs into four regions) and
+                one preempt/resume of a bfs tenant at a medium size, on the
+                host engine and on the device engine's epoch_chunk at K=4,
+                and one masked host wave and one unbounded device wave under
                 torch.profiler;
   8. serve    — drive EpochServer on granite-3-8b at full width and depth
                 (40 layers, bf16, random weights from seed 0) with 16 slots
@@ -163,6 +177,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -617,9 +632,9 @@ def _carry_tensors(carry):
     out = {}
     for f in dataclasses.fields(carry):
         v = getattr(carry, f.name)
-        if f.name == "state":
+        if dataclasses.is_dataclass(v):  # the TVM state, a fleet's arena
             for g in dataclasses.fields(v):
-                out["state." + g.name] = getattr(v, g.name)
+                out[f"{f.name}.{g.name}"] = getattr(v, g.name)
         elif f.name == "heap":
             for k, t in v.items():
                 out["heap." + k] = t
@@ -848,7 +863,10 @@ def phase_chunks(dev):
         design=f"cooperative grid of {G} CTAs x 1024 threads: each epoch "
                "starts at a grid barrier; a range wider than one CTA splits "
                "into contiguous blocks over the first CTAs (about four group "
-               "barriers an epoch), a narrower one runs on CTA 0",
+               "barriers an epoch), a narrower one runs on CTA 0; a fleet "
+               "carry (the job service's) runs fleet_chunk_kernel, each "
+               "region through its tenant's table, every CTA in every "
+               "epoch (four grid barriers an epoch and more)",
         source="src/repro_torch/kernels/csrc/epoch_megakernel.cu",
         replaces="src/repro/kernels/epoch_megakernel.py:50",
         max_abs_err=err, library_ms=None, grid_ctas=G,
@@ -892,6 +910,147 @@ def phase_chunks(dev):
             row[f"{name}_{d}_bound_ms"] = b
             row[f"{name}_{d}_floor_ms"] = floor
             row[f"{name}_{d}_stats"] = st
+    return row
+
+
+# ------------------------------------------------- phase 2, fleet epoch_chunk
+def fleet_mux(members, dispatch, megakernel):
+    """A DeviceMultiplexer on the card over ``members`` ((AppCase, quota)
+    pairs, in slot order), its carry built."""
+    from repro_torch.service import DeviceMultiplexer, Job, JobHandle
+
+    handles = [JobHandle(i, Job(c.program, c.initial, dict(c.heap_init),
+                                quota=q, name=c.name))
+               for i, (c, q) in enumerate(members)]
+    mux = DeviceMultiplexer(handles, dispatch=dispatch, megakernel=megakernel,
+                            device="cuda")
+    mux._ensure_carry()
+    return mux
+
+
+def run_fleet_chunks(mux, carry, K, max_epochs=1 << 16):
+    """Chunks of K epochs (None: one) of a fleet carry through ``mux``'s
+    loop until it drains; (carry, last ChunkSummary, readbacks)."""
+    J, reads = len(mux.slots), 0
+    while True:
+        limit = max_epochs if K is None else min(
+            max_epochs, int(carry.n_epochs) + K)
+        carry = mux.loop.run_chunk(carry, limit, J)
+        s = mux.loop.chunk_summary(carry)
+        reads += 1
+        if not (s.sp > 0).any() or s.n_epochs >= max_epochs:
+            return carry, s, reads
+
+
+def fleet_members(size):
+    """The fleets phase 2 holds the fleet kernel to: the full-size mixed4
+    wave (phase 7's: phase 3's fib, bfs and mergesort, treewalk post-order
+    on phase 7's tree, each at its solo capacity) and the registry's
+    mixed4 and fib_fleet at their quotas."""
+    from repro_torch.apps import get_fleet
+
+    if size == "full":
+        by_name = {c.name: c for c, _ in path_cases()}
+        wave = [by_name["fib"], tree_case("post")[0], by_name["bfs"],
+                by_name["mergesort"]]
+        return [("mixed4", [(c, c.capacity) for c in wave])]
+    return [(f, get_fleet(f)) for f in ("mixed4", "fib_fleet")]
+
+
+def phase_fleet_chunks(dev, row):
+    """The fleet epoch_chunk against the plain resident fleet loop on the
+    card, every carry tensor: full-size mixed4 and the registry's mixed4
+    and fib_fleet, masked and gather, K in {1, 4, inf}; then the full-size
+    chunk's device time, barriers and bytes bound.  Adds to ``row``."""
+    from repro_torch.kernels import epoch_megakernel
+
+    err = 0.0
+    timing = {}
+    for size in ("small", "full"):
+        for fleet, members in fleet_members(size):
+            for d in ("masked", "gather"):
+                plain = fleet_mux(members, d, False)
+                kern = fleet_mux(members, d, True)
+                fresh = kern._carry.clone()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want, s_want, _ = run_fleet_chunks(plain, plain._carry, None)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                for K in (1, 4, None):
+                    got, s_got, reads = run_fleet_chunks(kern, fresh.clone(),
+                                                         K)
+                    torch.cuda.synchronize()
+                    what = f"fleet epoch_chunk {fleet} {size} {d} K={K}"
+                    if reads != (1 if K is None
+                                 else -(-s_got.n_epochs // K)):
+                        fail(f"{what}: {reads} readbacks for "
+                             f"{s_got.n_epochs} epochs")
+                    e = carry_err(got, want, what)
+                    err = max(err, e)
+                    if e != 0 or s_got.sp.any() or s_got.failed.any():
+                        fail(f"{what}: max |kernel - plain| = {e}, "
+                             f"sp={s_got.sp}, failed={s_got.failed}")
+                cap = sum(q for _, q in members)
+                print(f"[kernels] fleet epoch_chunk {fleet:9s} {size:5s} "
+                      f"{d:6s} capacity={cap} global epochs="
+                      f"{s_want.n_epochs} tasks={int(s_want.job_tasks.sum())}"
+                      f": exact at K=1, 4, inf; plain fleet loop "
+                      f"{plain_ms:.1f} ms")
+                if size == "full":
+                    timing[d] = (members, kern, fresh, s_want, plain_ms)
+    row["fleet_max_abs_err"] = err
+
+    def chunk_ms(mux, fresh, reps=3, device=True):
+        # as phase_chunks' chunk_ms: the card sleeps while the host
+        # enqueues, so the events hold the device's time alone
+        ts = []
+        for _ in range(reps):
+            c = fresh.clone()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if device:
+                torch.cuda._sleep(5_000_000)
+            a.record()
+            mux.loop.run_chunk(c, 1 << 16, len(mux.slots))
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[len(ts) // 2]
+
+    for d, (members, kern, fresh, s, plain_ms) in timing.items():
+        ms = chunk_ms(kern, fresh)
+        call_ms = chunk_ms(kern, fresh, device=False)
+        stats = types.SimpleNamespace(
+            tasks_executed=int(s.job_tasks.sum()),
+            total_forks=int(s.job_forks.sum()), map_elements=s.map_elements)
+        b, by = _chunk_bound(kern.program, stats)
+        st = torch.zeros(len(epoch_megakernel.STATS), dtype=torch.int64,
+                         device=dev)
+        again = fresh.clone()
+        epoch_megakernel.launch(kern.program, again, 1 << 16,
+                                gather=d == "gather", stats=st,
+                                tenants=kern.slots)
+        torch.cuda.synchronize()
+        st = dict(zip(epoch_megakernel.STATS, st.tolist()))
+        G = epoch_megakernel.fleet_grid(
+            epoch_megakernel.fleet_plan(kern.program, kern.slots).set_id, dev)
+        floor = st["grid_barriers"] * row["barrier_us"] * 1e-3
+        print(f"[kernels] fleet epoch_chunk mixed4 full {d}, one chunk "
+              f"({G} CTAs): device {ms:.3f} ms (with the host's enqueue "
+              f"{call_ms:.3f} ms), bound {b:.5f} ms ({by}), barrier floor "
+              f"{floor:.3f} ms ({st['grid_barriers']} grid barriers, "
+              f"{st['search_barriers']} of further reclamation rounds, "
+              f"{st['wide_epochs']} epochs), plain fleet loop "
+              f"{plain_ms:.1f} ms ({s.n_epochs} global epochs, "
+              f"{stats.tasks_executed} tasks, {stats.total_forks} forks)")
+        row[f"fleet_mixed4_{d}_ms"] = ms
+        row[f"fleet_mixed4_{d}_call_ms"] = call_ms
+        row[f"fleet_mixed4_{d}_plain_ms"] = plain_ms
+        row[f"fleet_mixed4_{d}_bound_ms"] = b
+        row[f"fleet_mixed4_{d}_floor_ms"] = floor
+        row[f"fleet_mixed4_{d}_stats"] = st
     return row
 
 
@@ -1500,6 +1659,8 @@ def service_cases(cases, runs):
 
 
 def run_wave(wave, dispatch, **kw):
+    """One JobService wave of ``wave`` on the card (``kw``: the engine,
+    chunk and megakernel of a device wave); (service, handles, wall s)."""
     from repro_torch.service import JobService
 
     svc = JobService(capacity=sum(c.capacity for c in wave),
@@ -1512,9 +1673,56 @@ def run_wave(wave, dispatch, **kw):
     return svc, handles, time.perf_counter() - t0
 
 
+# the device waves of phase 7: (megakernel, K) of each, masked and gather
+DEVICE_WAVES = ((False, 4), (True, 1), (True, 4), (True, None))
+
+
+def device_waves(wave, runs, tenants, host_stats):
+    """JobService(engine="device") on the full-size mixed4 wave: the plain
+    resident fleet loop at K=4 and the fleet epoch_chunk at K = 1, 4 and
+    inf, masked and gather; each tenant against its solo run on the card
+    and the host wave's tenant.  Returns the epoch_chunk launches."""
+    from repro_torch.kernels import epoch_megakernel
+
+    epoch_megakernel.reset_launches()
+    for d in ("masked", "gather"):
+        hs = host_stats[d]
+        for megakernel, K in DEVICE_WAVES:
+            label = (f"device {d} {'epoch_chunk' if megakernel else 'plain'}"
+                     f" K={'inf' if K is None else K}")
+            svc, handles, wall = run_wave(wave, d, engine="device", chunk=K,
+                                          megakernel=megakernel)
+            fs = svc.stats()
+            for c, h in zip(wave, handles):
+                if h.status.value != "done":
+                    fail(f"service {label} {c.name}: {h.status} {h.error}")
+                got = _tenant(h)
+                _same_tenant(got, runs[c.name, d],
+                             f"service {label} {c.name} vs its solo run")
+                _same_tenant(got, tenants[c.name, d],
+                             f"service {label} {c.name} vs the host wave")
+            want = 1 if K is None else -(-fs.epochs // K)
+            if fs.epochs != hs.epochs or fs.dispatches != want:
+                fail(f"service {label}: {fs.epochs} global epochs (host "
+                     f"wave {hs.epochs}), {fs.dispatches} dispatches "
+                     f"(ceil(epochs / K) = {want})")
+            print(f"[service] mixed4 {label:28s}: global epochs {fs.epochs} "
+                  f"(host wave {hs.epochs}), dispatches {fs.dispatches} / "
+                  f"transfers {fs.scalar_transfers} (host wave "
+                  f"{hs.dispatches} / {hs.scalar_transfers}), tasks "
+                  f"{fs.tasks_executed}, wall_ms={wall * 1e3:.1f}")
+    torch.cuda.synchronize()
+    n = epoch_megakernel.LAUNCHES["epoch_chunk"]
+    if n <= 0:
+        fail("kernel epoch_chunk was not launched on the service path")
+    print(f"[service] epoch_chunk launches during the device waves: {n}")
+    return n
+
+
 def phase_service(cases, runs):
-    """JobService(engine="host") on the card: the JobArena commit's
-    segmented_fork_scan path."""
+    """JobService on the card: engine="host" (the JobArena commit's
+    segmented_fork_scan path) and engine="device" (the plain resident
+    fleet loop and the fleet epoch_chunk)."""
     from repro_torch.apps import bfs, fib
     from repro_torch.apps.registry import AppCase
     from repro_torch.kernels import fork_compact
@@ -1524,6 +1732,7 @@ def phase_service(cases, runs):
     torch.cuda.synchronize()
     fork_compact.reset_launches()
     tenants = {}
+    host_stats = {}
     for d in ("masked", "compacted", "gather"):
         svc, handles, wall = run_wave(wave, d)
         fs = svc.stats()
@@ -1538,6 +1747,7 @@ def phase_service(cases, runs):
                 fail(f"service {d} {c.name}: differs from the reference")
             _same_tenant(got, tenants[c.name, "masked"],
                          f"service {c.name} {d} vs masked")
+        host_stats[d] = fs
         print(f"[service] mixed4 {d:9s} capacity={sum(c.capacity for c in wave)}"
               f": global epochs {fs.epochs} (solo {'+'.join(str(s.epochs) for s in solo)}"
               f" = {sum(s.epochs for s in solo)}), fleet dispatches "
@@ -1546,75 +1756,90 @@ def phase_service(cases, runs):
               f"{sum(s.scalar_transfers for s in solo)}), tasks "
               f"{fs.tasks_executed}, lanes {fs.lanes_launched}, wall_ms="
               f"{wall * 1e3:.1f}")
+    chunk_launches = device_waves(wave, runs, tenants, host_stats)
     torch.cuda.synchronize()
     launches = dict(fork_compact.LAUNCHES)
-    print(f"[service] kernel launches during the service waves: {launches}")
+    print(f"[service] kernel launches during the service waves (host and "
+          f"plain device waves): {launches}")
     for k in ("segmented_fork_scan", "type_rank"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the service path")
 
     # streaming: six fib jobs through four regions; the two queued jobs
-    # seat mid-flight in the regions of the two short jobs
+    # seat mid-flight in the regions of the two short jobs; on the host
+    # engine and on the device engine's fleet epoch_chunk at K=4
     q = MEDIUM_QUOTA
     ns = MEDIUM_FIBS
-    svc = JobService(capacity=4 * q, max_jobs=4, device="cuda")
-    hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=q, name=f"fib{n}")
-          for n in ns]
-    muxes, order = [], []
-    t0 = time.perf_counter()
-    for h in svc.completions():
-        if svc._mux not in muxes:
-            muxes.append(svc._mux)
-        order.append(h.job.name)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    first_done = min(h.finished_at for h in hs)
-    if len(muxes) != 1 or not all(h.started_at > first_done
-                                  for h in hs[4:]):
-        fail("streaming: the queued jobs were not seated mid-flight")
     solo = {}
-    for h, n in zip(hs, ns):
-        if n not in solo:
-            solo[n] = _run(AppCase(f"fib{n}", fib.PROGRAM, fib.initial(n),
-                                   capacity=q), "masked", "cuda",
-                           tag="service")
-        _same_tenant(_tenant(h), solo[n], f"streaming fib({n})")
-        if int(h.result.value[0, 0]) != fib.fib_reference(n):
-            fail(f"streaming fib({n}): wrong value")
-    print(f"[service] streaming: 6 fib jobs (n={ns}) through 4 regions of "
-          f"{q} slots in one wave, completion order {order}, "
-          f"{svc.stats().epochs} global epochs, wall_ms={wall * 1e3:.1f}")
+    for kw in ({}, dict(engine="device", chunk=4, megakernel=True)):
+        label = "device epoch_chunk K=4" if kw else "host"
+        svc = JobService(capacity=4 * q, max_jobs=4, device="cuda", **kw)
+        hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=q,
+                         name=f"fib{n}") for n in ns]
+        muxes, order = [], []
+        t0 = time.perf_counter()
+        for h in svc.completions():
+            if svc._mux not in muxes:
+                muxes.append(svc._mux)
+            order.append(h.job.name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first_done = min(h.finished_at for h in hs)
+        if len(muxes) != 1 or not all(h.started_at > first_done
+                                      for h in hs[4:]):
+            fail(f"streaming {label}: the queued jobs were not seated "
+                 "mid-flight")
+        for h, n in zip(hs, ns):
+            if n not in solo:
+                solo[n] = _run(AppCase(f"fib{n}", fib.PROGRAM,
+                                       fib.initial(n), capacity=q),
+                               "masked", "cuda", tag="service")
+            _same_tenant(_tenant(h), solo[n], f"streaming {label} fib({n})")
+            if int(h.result.value[0, 0]) != fib.fib_reference(n):
+                fail(f"streaming {label} fib({n}): wrong value")
+        fs = svc.stats()
+        print(f"[service] streaming {label}: 6 fib jobs (n={ns}) through 4 "
+              f"regions of {q} slots in one wave, completion order {order}, "
+              f"{fs.epochs} global epochs, {fs.dispatches} dispatches, "
+              f"wall_ms={wall * 1e3:.1f}")
 
-    # preempt/resume of a bfs tenant, against its uninterrupted solo run
+    # preempt/resume of a bfs tenant, against its uninterrupted solo run:
+    # after 4 host epochs, and after 2 device chunks of 4 epochs
     n = MEDIUM_BFS
     adj_off, adj = bfs.random_graph(n, avg_degree=4, seed=1)
     bcase = AppCase("bfs", bfs.make_program(n, len(adj)), bfs.initial(0),
                     bfs.heap_init(adj_off, adj, n), capacity=8 * n)
     fcase = AppCase("fib", fib.PROGRAM, fib.initial(22), capacity=2**17)
     b_solo = _run(bcase, "masked", "cuda", tag="service")
-    svc = JobService(capacity=bcase.capacity + fcase.capacity, device="cuda")
-    hb = svc.submit_case(bcase, quota=bcase.capacity)
-    hf = svc.submit_case(fcase, quota=fcase.capacity)
-    for _ in range(4):
-        svc._pump()
-    if not svc.preempt(hb):
-        fail("preempt: the bfs tenant could not be preempted")
-    svc.drain()
-    if hb.preemptions != 1 or hb.status.value != "done":
-        fail(f"preempt: bfs tenant {hb.status} after {hb.preemptions} "
-             "preemptions")
-    got = _tenant(hb)
-    _same_tenant(got, b_solo, "preempted bfs vs its uninterrupted run")
-    if not np.array_equal(got[0]["dist"],
-                          bfs.bfs_reference(adj_off, adj, 0, n)):
-        fail("preempted bfs: differs from the reference")
-    if int(hf.result.value[0, 0]) != fib.fib_reference(22):
-        fail("preempt: the fib neighbour's value is wrong")
-    print(f"[service] preempt/resume: bfs on {n} vertices preempted after "
-          "4 global epochs and resumed, equal to its uninterrupted run")
+    for kw, pumps in (({}, 4),
+                      (dict(engine="device", chunk=4, megakernel=True), 2)):
+        label = "device epoch_chunk K=4" if kw else "host"
+        svc = JobService(capacity=bcase.capacity + fcase.capacity,
+                         device="cuda", **kw)
+        hb = svc.submit_case(bcase, quota=bcase.capacity)
+        hf = svc.submit_case(fcase, quota=fcase.capacity)
+        for _ in range(pumps):
+            svc._pump()
+        if not svc.preempt(hb):
+            fail(f"preempt {label}: the bfs tenant could not be preempted")
+        svc.drain()
+        if hb.preemptions != 1 or hb.status.value != "done":
+            fail(f"preempt {label}: bfs tenant {hb.status} after "
+                 f"{hb.preemptions} preemptions")
+        got = _tenant(hb)
+        _same_tenant(got, b_solo, f"preempted bfs ({label}) vs its "
+                     "uninterrupted run")
+        if not np.array_equal(got[0]["dist"],
+                              bfs.bfs_reference(adj_off, adj, 0, n)):
+            fail(f"preempted bfs ({label}): differs from the reference")
+        if int(hf.result.value[0, 0]) != fib.fib_reference(22):
+            fail(f"preempt {label}: the fib neighbour's value is wrong")
+        print(f"[service] preempt/resume {label}: bfs on {n} vertices "
+              f"preempted after {pumps} pumps and resumed, equal to its "
+              "uninterrupted run")
     print("[service] every tenant matches its solo run on the card, its "
-          "numpy reference and the other dispatches")
-    return launches, wave
+          "numpy reference, the other dispatches and the host wave")
+    return launches, chunk_launches, wave
 
 
 # ------------------------------------------------------ phase 2, attention
@@ -2261,7 +2486,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(dev)
-    rows.append(phase_chunks(dev))
+    rows.append(phase_fleet_chunks(dev, phase_chunks(dev)))
     rows.append(phase_ordered_add(dev))
     rows += phase_attention(dev)
     rows.append(phase_ssd(dev))
@@ -2286,7 +2511,9 @@ def main() -> int:
         print(f"[profile] {case.name} resident busy share "
               f"{100 * busy / wall:.1f}% (one-CTA kernel: "
               f"{ONE_CTA_RESIDENT_BUSY.get(case.name, 'not measured')})")
-    svc_launches, wave = phase_service(cases, host_runs)
+    svc_launches, svc_chunks, wave = phase_service(cases, host_runs)
+    chunk_paths["service"] = svc_chunks
+    launches["epoch_chunk"] += svc_chunks
     launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
     # type_rank's count: the host path's launches, the apps' and the
     # service waves'
@@ -2304,6 +2531,17 @@ def main() -> int:
         return None, None, svc.stats()
 
     phase_profile("mixed4 JobService masked (global epochs)", masked_wave)
+
+    def device_wave():
+        svc, _, _ = run_wave(wave, "masked", engine="device",
+                             megakernel=True)
+        return None, None, svc.stats()
+
+    busy, wall, _ = phase_profile(
+        "mixed4 JobService(engine='device', megakernel=True) masked, one "
+        "chunk (global epochs)", device_wave)
+    print(f"[profile] mixed4 device wave busy share "
+          f"{100 * busy / wall:.1f}%")
     serve_launches = phase_serve()
     # fork_scan's count: the host path's, the apps', the servers'
     fork_scan_paths["serve"] = serve_launches.pop("fork_scan")

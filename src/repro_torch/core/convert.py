@@ -1,8 +1,8 @@
 """Carry state and weights between the JAX reference and the port.
 
 What crosses between the two implementations is the TVM state and the
-heap, the service's ``JobArena``, on the resident path the whole (solo)
-``ResidentCarry``, and on the serving path a model's weights and a decode
+heap, the service's ``JobArena``, on the resident path the whole
+``ResidentCarry`` (solo, or a fleet's with its arena), and on the serving path a model's weights and a decode
 cache.  These functions take the reference's ``TVMState`` leaves and heap
 dicts as numpy arrays (``{field name: ndarray}``, ``{heap var: ndarray}``)
 and turn them into the port's tensors — adding the trailing sink row every
@@ -95,16 +95,14 @@ def carry_from_numpy(leaves: Mapping[str, object], device) -> ResidentCarry:
 
     ``leaves`` maps each JAX ``ResidentCarry`` field to numpy: ``state``
     to its ``TVMState`` leaves, ``heap`` to the heap dict, ``arena`` to
-    ``None`` (solo carries only), every other field to its array.  TV and
+    ``None`` (solo) or the ``JobArena`` leaves (a fleet;
+    :func:`arena_from_numpy`), every other field to its array.  TV and
     heap arrays gain their sink rows, the hi/lo pairs are decoded to
     int64, and the port's own ``fault`` word starts at 0.
     """
-    if leaves.get("arena") is not None:
-        raise NotImplementedError(
-            "resident fleet (JobArena) carries are not ported: they come "
-            "with the device half of the service (ROADMAP item 7b); host "
-            "fleet state carries across with arena_from_numpy")
-    out = {"arena": None,
+    arena = leaves.get("arena")
+    out = {"arena": None if arena is None
+           else arena_from_numpy(arena, device),
            "state": state_from_numpy(leaves["state"], device),
            "heap": heap_from_numpy(leaves["heap"], device),
            "fault": torch.zeros((), dtype=torch.int32, device=device)}
@@ -121,7 +119,9 @@ def carry_from_numpy(leaves: Mapping[str, object], device) -> ResidentCarry:
 def carry_to_numpy(carry: ResidentCarry) -> Dict[str, object]:
     """The reference's carry layout (sink rows dropped, counters int64,
     ``fault`` left out)."""
-    out: Dict[str, object] = {"arena": None}
+    out: Dict[str, object] = {
+        "arena": None if carry.arena is None
+        else arena_to_numpy(carry.arena)}
     for name in CARRY_FIELDS:
         if name in ("arena", "fault"):
             continue

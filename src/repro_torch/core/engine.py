@@ -43,10 +43,18 @@ Plug points, as in the JAX engine: ``fork_offsets_fn`` replaces
 ``pack_fn`` the gather pack (host pass, resident frontier and resident map
 rows).  Unset, each runs the port's kernel as above.
 
-Not ported yet: the fleet (``JobArena``) branch of the resident body, the
-sharded fleet chunk, ``dispatch="auto"``, the tracer, the controller and
-``seg_offsets_fn``.  ``donate`` has no meaning here: the state is updated
-in place.
+The resident loop runs fleet carries too (a ``tvm.JobArena`` and one
+stack row per region, ``service/multiplexer.py``'s ``DeviceMultiplexer``):
+every live region's pop is fused into one per-lane CEN vector and
+committed with the segmented allocator, the region cursors riding the
+carry.  :meth:`EpochLoop.run_chunk` keeps one resident body per
+``(n_regions, capacity, depth)`` and counts each build in
+``EpochLoop.trace_count`` (the JAX loop's trace counter).
+
+Not ported yet: the sharded fleet chunk (``run_chunk_fleet``,
+``fleet_chunk_summaries``), ``dispatch="auto"``, the tracer, the
+controller and ``seg_offsets_fn``.  ``donate`` has no meaning here: the
+state is updated in place.
 """
 from __future__ import annotations
 
@@ -90,12 +98,6 @@ _COMPACTED_RESIDENT_MSG = (
     "time — gather packs into a fixed-shape in-loop frontier, but "
     "'compacted' sizes per-type launches from runtime populations (use a "
     "host-loop driver for compacted dispatch)"
-)
-
-_FLEET_RESIDENT_MSG = (
-    "the fleet (JobArena) branch of the resident loop is not ported yet: "
-    "it comes with the device half of the multi-tenant service (ROADMAP "
-    "item 7b)"
 )
 
 
@@ -188,7 +190,7 @@ class ResidentCarry:
 
     state: Any         # tvm.TVMState
     heap: Any          # Dict[str, torch.Tensor]
-    arena: Any         # JobArena (fleet, not ported) or None (solo)
+    arena: Any         # tvm.JobArena (fleet) or None (solo)
     jstack: Any        # i32[J, depth]
     rstack: Any        # i32[J, depth, 2]
     sp: Any            # i32[J]   per-region stack pointers
@@ -214,8 +216,8 @@ class ResidentCarry:
                 v = v.clone()
             elif isinstance(v, dict):
                 v = {k: t.clone() for k, t in v.items()}
-            elif isinstance(v, tvm.TVMState):
-                v = tvm.TVMState(**{
+            elif dataclasses.is_dataclass(v):  # TVMState, JobArena
+                v = type(v)(**{
                     g.name: getattr(v, g.name).clone()
                     for g in dataclasses.fields(v)
                 })
@@ -239,7 +241,8 @@ class ChunkSummary:
     Per-region stack pointers (``sp[j] == 0``: region ``j`` drained),
     failure flags, the per-region accumulators, map-launch volumes — what
     the host needs between chunks, without touching the bulk TV/heap
-    state.  ``arena_next`` is ``None`` (solo).
+    state.  ``arena_next`` holds the fleet's region cursors (``None``
+    solo).
     """
 
     n_epochs: int             # global epochs run so far (all chunks)
@@ -349,8 +352,12 @@ class EpochLoop:
                  megakernel: bool = False, *,
                  rank_fn: Optional[Callable] = None,
                  pack_fn: Optional[Callable] = None,
-                 fork_offsets_fn: Optional[Callable] = None):
+                 fork_offsets_fn: Optional[Callable] = None,
+                 tenants: Optional[List[Any]] = None):
         self.program = program
+        # a fused fleet's TenantSlot layout (service/multiplexer.py): the
+        # epoch_chunk kernel dispatches each region to its tenant's table
+        self.tenants = None if tenants is None else list(tenants)
         self.policy: DispatchPolicy = resolve_policy(dispatch)
         self.task_names = [t.name for t in program.tasks]
         self.maps = MapLauncher(program)
@@ -362,6 +369,10 @@ class EpochLoop:
         # (kernels/epoch_megakernel.py) instead of the plain loop; the
         # same bits, one launch per chunk (DESIGN.md §12)
         self.megakernel = bool(megakernel)
+        # resident bodies per (n_regions, capacity, depth), each build
+        # counted: the wave-template cache's zero-rebuild check reads it
+        self._resident_cache: Dict[Tuple[int, int, int], Callable] = {}
+        self.trace_count = 0
 
     # ------------------------------------------------------------ the steps
     # ``cen`` is an int or a per-lane ``i32[P]`` tensor (a fused frontier);
@@ -488,20 +499,28 @@ class EpochLoop:
 
     # --------------------------------------------------------- resident loop
     def resident_body(self, capacity: int, stack_depth: int):
-        """Body of the plain resident epoch loop (solo carries only).
+        """Body of the plain resident epoch loop, solo or fleet.
 
         Pop → step → commit → push → map payloads, with every scalar a host
         loop would read per epoch accrued in the :class:`ResidentCarry`:
 
+          * solo (``carry.arena is None``): the popped range is the step's
+            frontier; fleet (a ``tvm.JobArena``): every live region's pop
+            is fused into one per-lane CEN vector over the TV (lanes tagged
+            by ``arena.slot_job``), committed with the segmented per-region
+            allocator, the region cursors (``arena.next``) riding the
+            carry;
           * the step launches at the smallest :func:`_span_width_ladder`
-            rung covering the popped range (masked) or the count of the
-            stable full-TV pack of the epoch's active lanes (gather;
-            ``pack_fn``, by default ``lane_pack``: the ``type_rank``
-            kernel on the card); the skipped lanes accrue in
-            ``hole_lanes``;
+            rung covering the popped range (masked; a fleet's window
+            ``[st, st + W)`` covers the union span of its popped ranges,
+            ``st = clip(lo, 0, capacity - W)``) or the count of the stable
+            full-TV pack of the epoch's active lanes (gather; ``pack_fn``,
+            by default ``lane_pack``: the ``type_rank`` kernel on the
+            card); the skipped lanes accrue in ``hole_lanes``;
           * the join continuation is pushed below this epoch's forked
-            range (LIFO, paper §4.3.3); TV overflow or a full stack fails
-            the region and zeroes its stack pointer;
+            range (LIFO, paper §4.3.3), per region; TV (or region)
+            overflow or a full stack fails that region alone and zeroes its
+            stack pointer;
           * each map payload runs after the commit, over its scheduled
             lanes packed in slot order, at the lane rung × domain rung the
             JAX body launches (``map_lanes``); all-empty domains launch and
@@ -552,13 +571,7 @@ class EpochLoop:
                 map_ln = map_ln + L * D
             return heap, map_ct, map_el, map_ln
 
-        def body(carry: ResidentCarry) -> ResidentCarry:
-            if carry.arena is not None:
-                raise NotImplementedError(_FLEET_RESIDENT_MSG)
-            state, heap = carry.state, carry.heap
-            cen, start, count, live, sp = batched_device_pop(
-                carry.jstack, carry.rstack, carry.sp
-            )
+        def solo_step(state, heap, cen, start, count, live):
             if gather:
                 # gather packs over the full TV: the solo popped range
                 # becomes a per-lane CEN vector
@@ -577,22 +590,78 @@ class EpochLoop:
             ]).tolist()
             W = _rung(span_widths, key)
             if gather:
-                state, heap, summary, map_launches = self.gather_step(
-                    state, heap, 0, perm, W
-                )
+                out = self.gather_step(state, heap, 0, perm, W)
             else:
-                state, heap, summary, map_launches = self.masked_step(
-                    state, heap, lo, ct, scen, W
-                )
-            job_forks = summary.total_forks.reshape(1)
-            job_next = state.next_free.reshape(1)
-            failed = carry.failed | (live & summary.overflow)
+                out = self.masked_step(state, heap, lo, ct, scen, W)
+            state, heap, summary, map_launches = out
+            job = (summary.join_scheduled.reshape(1),
+                   summary.total_forks.reshape(1),
+                   state.next_free.reshape(1), summary.overflow.reshape(1),
+                   summary.n_active.reshape(1))
+            return state, heap, map_launches, W, job
+
+        def fleet_step(state, heap, arena, cen, start, count, live):
+            # fuse every live region's pop into one per-lane CEN vector
+            # over the TV; the step is then bucketed to the union span of
+            # the popped ranges (masked) or the pack count (gather)
+            J = arena.n_jobs
+            tag = arena.slot_job[:capacity]
+            jl = tag.clamp(0, J - 1).long()
+            lanes = torch.arange(capacity, dtype=_I32, device=state.device)
+            in_pop = ((tag < J) & live[jl] & (lanes >= start[jl])
+                      & (lanes < start[jl] + count[jl]))
+            step_cen = torch.where(in_pop, cen[jl], 0)
+            if gather:
+                act = (step_cen > 0) & (state.epoch[:capacity] == step_cen)
+                perm, width_key = self._pack_fn(act)
+                lo = torch.zeros((), dtype=_I32, device=state.device)
+            else:
+                span_lo = torch.where(live, start, capacity).min()
+                span_hi = torch.where(live, start + count, 0).max()
+                lo = span_lo.clamp(0, capacity)
+                width_key = (span_hi - lo).clamp(0, capacity)
+            lo, key = torch.stack([lo.to(_I32), width_key.to(_I32)]).tolist()
+            W = _rung(span_widths, key)
+            if gather:
+                out = self.gather_step(state, heap, 0, perm, W, arena)
+            else:
+                # the window stays inside the TV and, W covering the span,
+                # still holds every popped range
+                st = min(max(lo, 0), capacity - W)
+                out = self.masked_step(state, heap, st, W,
+                                       step_cen[st:st + W], W, arena)
+            state, heap, summary, map_launches = out
+            job = (summary.job_join, summary.job_forks, summary.job_next,
+                   summary.job_overflow, summary.job_active)
+            return state, heap, map_launches, W, job
+
+        def body(carry: ResidentCarry) -> ResidentCarry:
+            state, heap, arena = carry.state, carry.heap, carry.arena
+            cen, start, count, live, sp = batched_device_pop(
+                carry.jstack, carry.rstack, carry.sp
+            )
+            if arena is None:
+                state, heap, map_launches, W, job = solo_step(
+                    state, heap, cen, start, count, live)
+            else:
+                state, heap, map_launches, W, job = fleet_step(
+                    state, heap, arena, cen, start, count, live)
+            job_join, job_forks, job_next, job_over, job_active = job
+            if arena is None:
+                job_peak = torch.maximum(carry.job_peak, job_next)
+            else:
+                job_peak = torch.maximum(carry.job_peak,
+                                         job_next - arena.base)
+                # the region cursors ride the carry: the device-side
+                # counterpart of the host multiplexer's arena.next update
+                arena.next.copy_(job_next)
+            failed = carry.failed | (live & job_over)
             ok = live & ~failed
             # LIFO push order exactly as the host scheduler (§4.3.3): join
             # continuation below, this epoch's forked range on top
             jstack, rstack, sp, of1 = batched_device_push(
                 carry.jstack, carry.rstack, sp, cen, start, count,
-                ok & summary.join_scheduled, stack_depth,
+                ok & job_join, stack_depth,
             )
             jstack, rstack, sp, of2 = batched_device_push(
                 jstack, rstack, sp, cen + 1, job_next - job_forks,
@@ -604,14 +673,14 @@ class EpochLoop:
                                                     carry)
             _clear_sinks(state, heap)
             return ResidentCarry(
-                state=state, heap=heap, arena=None,
+                state=state, heap=heap, arena=arena,
                 jstack=jstack, rstack=rstack, sp=sp, failed=failed,
                 failed_stack=carry.failed_stack | of1 | of2,
                 n_epochs=carry.n_epochs + 1,
                 job_epochs=carry.job_epochs + live.to(_I32),
-                job_tasks=carry.job_tasks + summary.n_active.to(torch.int64),
+                job_tasks=carry.job_tasks + job_active.to(torch.int64),
                 job_forks=carry.job_forks + job_forks.to(torch.int64),
-                job_peak=torch.maximum(carry.job_peak, job_next),
+                job_peak=job_peak,
                 map_launches=map_ct, map_elements=map_el, map_lanes=map_ln,
                 hole_lanes=carry.hole_lanes + (capacity - W),
                 fault=carry.fault,
@@ -620,18 +689,23 @@ class EpochLoop:
         return body
 
     def device_table(self):
-        """The ``epoch_chunk`` kernel's device task table for this program;
-        raises :class:`EngineError` where there is none."""
+        """The ``epoch_chunk`` kernel's device task table for this program
+        (or, for a fused fleet, its per-region plan over the tenants'
+        tables); raises :class:`EngineError` where there is none."""
         from ..kernels import epoch_megakernel as mk
 
+        if self.tenants is not None:
+            try:
+                return mk.fleet_plan(self.program, self.tenants)
+            except ValueError as e:
+                raise EngineError(str(e)) from None
         table = mk.device_table(self.program)
         if table is None:
             raise EngineError(
                 f"program {self.program.name!r} has no device task table "
                 "for the epoch_chunk kernel (the kernel holds one for each "
                 "program of the registry, checked by task bodies, widths, "
-                "heap and captured constants; what it still lacks is the "
-                "job service's fleet carry)"
+                "heap and captured constants)"
             )
         return table
 
@@ -644,25 +718,40 @@ class EpochLoop:
         resident run (``limit`` = the epoch guard) run the same code, and
         on the card the same compiled kernel, which reads ``limit`` on the
         device.  A drained carry (or one already at ``limit``) comes back
-        unchanged.  The carry is updated in place and returned.
+        unchanged.  The carry is updated in place and returned.  The
+        resident body is built once per ``(n_regions, capacity, depth)``
+        and each build adds one to :attr:`trace_count`.
 
         With ``megakernel=True`` a carry on the card runs through the
         ``epoch_chunk`` kernel (one launch, no host read inside the
-        chunk); a carry on the CPU runs the plain loop either way.
+        chunk; a fleet carry dispatches each region to its tenant's
+        table); a carry on the CPU runs the plain loop either way.
         """
-        if n_regions != 1 or carry.arena is not None:
-            raise NotImplementedError(_FLEET_RESIDENT_MSG)
+        if carry.sp.shape != (n_regions,):
+            raise ValueError(
+                f"run_chunk: a carry of {tuple(carry.sp.shape)} stack "
+                f"pointers for n_regions={n_regions}")
         capacity = carry.state.capacity
         depth = carry.jstack.shape[1]
-        body = self.resident_body(capacity, depth)
+        key = (n_regions, capacity, depth)
+        body = self._resident_cache.get(key)
+        if body is None:
+            body = self._resident_cache[key] = self.resident_body(
+                capacity, depth)
+            self.trace_count += 1
         if self.megakernel:
             from ..kernels import epoch_megakernel as mk
 
             if carry.state.device.type == "cuda":
+                if (carry.arena is None) != (self.tenants is None):
+                    raise EngineError(
+                        "epoch_chunk: a fleet carry needs the loop's "
+                        "tenants (EpochLoop(tenants=...)), a solo carry "
+                        "none")
                 self.device_table()
             return mk.epoch_chunk(
                 _resident_cond, body, carry, limit, program=self.program,
-                gather=self.policy.name == "gather",
+                gather=self.policy.name == "gather", tenants=self.tenants,
             )
         return kref.epoch_chunk_ref(_resident_cond, body, carry, limit)
 
@@ -676,16 +765,19 @@ class EpochLoop:
         """The chunk-boundary readback: the control and accounting scalars
         gathered into one int64 tensor and brought back in one transfer.
         Raises if the ``epoch_chunk`` kernel reported a fault."""
+        fleet = carry.arena is not None
         parts = (carry.n_epochs, carry.sp, carry.failed, carry.failed_stack,
                  carry.job_epochs, carry.job_tasks, carry.job_forks,
-                 carry.job_peak, carry.map_launches, carry.map_elements,
+                 carry.job_peak) + ((carry.arena.next,) if fleet else ()) + (
+                 carry.map_launches, carry.map_elements,
                  carry.map_lanes, carry.hole_lanes, carry.fault)
         flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
         v = flat.cpu().numpy()
         J = carry.sp.shape[0]
+        n_per = 8 if fleet else 7
         n_epochs, rest = int(v[0]), v[1:]
-        per = [rest[i * J:(i + 1) * J] for i in range(7)]
-        (m_ct, m_el, m_ln, holes, fault) = (int(x) for x in rest[7 * J:])
+        per = [rest[i * J:(i + 1) * J] for i in range(n_per)]
+        (m_ct, m_el, m_ln, holes, fault) = (int(x) for x in rest[n_per * J:])
         if fault:
             raise EngineError(
                 f"epoch_chunk kernel fault {fault} (1: an epoch's live map "
@@ -702,7 +794,8 @@ class EpochLoop:
             job_forks=per[5],
             job_peak=per[6].astype(np.int32),
             map_launches=m_ct, map_elements=m_el, map_lanes=m_ln,
-            hole_lanes=holes, arena_next=None,
+            hole_lanes=holes,
+            arena_next=per[7].astype(np.int32) if fleet else None,
         )
 
 

@@ -478,3 +478,51 @@ def batched_device_push(jstack, rstack, sp, cen, start, count, pred,
     entry = torch.stack([start, count], dim=-1).to(_I32)
     rstack[rows, ssp] = torch.where(pred[:, None], entry, rstack[rows, ssp])
     return jstack, rstack, sp + pred.to(_I32), overflow
+
+
+def reseed_region_stacks(jstack, rstack, sp, j: int, cen: int = 1,
+                         start: int = 0, count: int = 1):
+    """Reset region ``j``'s stack row to a fresh seed, in place, leaving
+    every other region untouched.
+
+    The chunked resident driver (DESIGN.md §10) uses this between chunks
+    to admit a queued tenant into a freed region: the row is cleared and
+    seeded like one row of :func:`batched_device_stacks`, and the region's
+    stack pointer returns to 1, so the next chunk sees one more live
+    region.  Returns ``(jstack, rstack, sp)``.
+    """
+    jstack[j] = 0
+    rstack[j] = 0
+    jstack[j, 0] = cen
+    rstack[j, 0, 0] = start
+    rstack[j, 0, 1] = count
+    sp[j] = 1
+    return jstack, rstack, sp
+
+
+def load_region_stacks(jstack, rstack, sp, j: int, cens, ranges):
+    """Replace region ``j``'s stack row with a checkpointed stack image,
+    in place.
+
+    The multi-entry sibling of :func:`reseed_region_stacks`, used by the
+    preemption path (DESIGN.md §16): ``cens`` and ``ranges`` are the job's
+    ``sp`` entries, bottom to top (the layout
+    :meth:`EpochScheduler.export_stack` emits).  Returns ``(jstack,
+    rstack, sp)``.
+    """
+    cens = np.asarray(cens, np.int32).reshape(-1)
+    ranges = np.asarray(ranges, np.int32).reshape(-1, 2)
+    n = cens.shape[0]
+    depth = jstack.shape[1]
+    if n > depth:
+        raise ValueError(
+            f"checkpointed stack depth {n} exceeds this wave's "
+            f"stack_depth {depth}"
+        )
+    jstack[j] = 0
+    rstack[j] = 0
+    if n:
+        jstack[j, :n] = torch.as_tensor(cens, device=jstack.device)
+        rstack[j, :n] = torch.as_tensor(ranges, device=rstack.device)
+    sp[j] = n
+    return jstack, rstack, sp

@@ -1,5 +1,7 @@
 // Resident epoch megakernel for Hopper (sm_90a): one launch runs a whole
-// K-epoch chunk of the TREES resident loop.
+// K-epoch chunk of the TREES resident loop, over a solo carry
+// (epoch_chunk_kernel, below) or a job service fleet's
+// (fleet_chunk_kernel, "the fleet carry" further down).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/epoch_megakernel.py
 // (epoch_chunk / _epoch_chunk_pallas): `while cond(carry, limit):
@@ -152,7 +154,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSpan = 8;
 constexpr int kMaxMaps = 4;
 constexpr int kMaxMapW = 40;
-constexpr int kMaxHeap = 8;
+constexpr int kMaxHeap = 16;
+constexpr int kMaxJobs = 8;  // regions of a fleet carry
 constexpr int kMaxConsts = 4;
 
 enum Op { kSet = 0, kAdd = 1, kMin = 2, kMax = 3 };
@@ -177,7 +180,21 @@ enum Ptr {
   P_LIMIT, P_LANE_CNT, P_LANE_EXCL, P_LANE_FLAGS, P_EMIT_STAGE, P_WR_IDX,
   P_WR_VAL, P_WR_META, P_MAP_ARGI, P_MAP_ARGF, P_MAP_PRE, P_ST_IDX,
   P_ST_VAL, P_ST_META, P_COOP, P_STATS, P_OA_CNT, P_OA_OFF, P_OA_LONG,
-  P_OA_RUN, P_OA_TOT, P_HEAP0, P_COUNT = P_HEAP0 + kMaxHeap
+  P_OA_RUN, P_OA_TOT, P_ARENA_END, P_ARENA_NEXT, P_TENANTS, P_HEAP0,
+  P_COUNT = P_HEAP0 + kMaxHeap
+};
+// the fleet launch's layout (trees_fleet_chunk's `fleet`): per region its
+// table's place in the instantiated set, its offsets in the fused program
+// (task codes, map launches, heap variables, maps), its slot region and
+// its table's constants; then the owner region of each map launch
+enum RegionInt {
+  R_APP, R_TASK_OFF, R_MAP_G_OFF, R_HEAP_BASE, R_N_HEAP, R_MAP_OFF,
+  R_N_MAPS, R_BASE, R_SLOT_END, R_CONST0, R_COUNT = R_CONST0 + kMaxConsts
+};
+enum FleetInt {
+  F_SET, F_N_JOBS, F_N_LAUNCHES, F_REGION0,
+  F_MAP_OWNER0 = F_REGION0 + kMaxJobs * R_COUNT,
+  F_COUNT = F_MAP_OWNER0 + kMaxMaps
 };
 enum Int {
   I_CAPACITY, I_DEPTH, I_GATHER, I_N_SPAN, I_SPAN0,
@@ -211,6 +228,8 @@ struct Params {
   // the long cells (oa_long); two stage-sized position buffers (oa_run);
   // one total per CTA (oa_tot)
   int* oa_cnt; int* oa_off; int* oa_long; int* oa_run; int* oa_tot;
+  // a fleet carry's region cursors (JobArena end, next), i32[J]
+  int* arena_end; int* arena_next;
   uint32_t* heap[kMaxHeap];
   int grid;                  // CTAs of the cooperative launch
   int capacity, depth, gather, n_span;
@@ -224,6 +243,9 @@ struct Params {
   int n_map_w[kMaxMaps];
   int map_w[kMaxMaps][kMaxMapW];
   int consts[kMaxConsts];  // the app's constants (DeviceTable.consts)
+  // a fleet tenant's view (fleet kernel only): its task and map-launch
+  // offsets in the fused program, the fused TV's argument strides
+  int task_off, map_g_off, arg_si, arg_sf;
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -341,12 +363,16 @@ struct TaskIn {
   float argf[App::kArgF > 0 ? App::kArgF : 1];
   int child_base, child_count;
 
+  // a fleet reads its tenant's prefix of a row of the fused stride
+  template <bool Fleet = false>
   __device__ void load(const Params& p, int cidx) {
     slot = cidx;
+    const int si = Fleet ? p.arg_si : App::kArgI;
+    const int sf = Fleet ? p.arg_sf : App::kArgF;
 #pragma unroll
-    for (int k = 0; k < App::kArgI; ++k) argi[k] = p.argi[cidx * App::kArgI + k];
+    for (int k = 0; k < App::kArgI; ++k) argi[k] = p.argi[cidx * si + k];
 #pragma unroll
-    for (int k = 0; k < App::kArgF; ++k) argf[k] = p.argf[cidx * App::kArgF + k];
+    for (int k = 0; k < App::kArgF; ++k) argf[k] = p.argf[cidx * sf + k];
     child_base = p.child_base[cidx];
     child_count = p.child_count[cidx];
   }
@@ -370,12 +396,16 @@ struct CountSink {
 };
 
 // Pass B: commit one lane's effects.  Children and the lane's own TV row
-// are written here; emits, heap writes and map arguments are staged.
-template <class App>
+// are written here; emits, heap writes and map arguments are staged.  In a
+// fleet (Fleet) task codes and map launches shift by the tenant's offsets,
+// rows are as wide as the fused program's (the padding columns zero), and
+// children past the region's end drop.
+template <class App, bool Fleet = false>
 struct ApplySink {
   const Params& p;
   int cidx, l, cen;
   unsigned base, within = 0;
+  int end;  // children at or past it drop
   bool joined = false, emitted = false;
   int map_bits = 0;
   uint32_t val[App::kValW];
@@ -384,22 +414,33 @@ struct ApplySink {
   int w_meta[App::kWrites > 0 ? App::kWrites : 1];
 
   __device__ ApplySink(const Params& p_, int cidx_, int l_, int cen_,
-                       unsigned base_)
-      : p(p_), cidx(cidx_), l(l_), cen(cen_), base(base_) {
+                       unsigned base_, int end_)
+      : p(p_), cidx(cidx_), l(l_), cen(cen_), base(base_), end(end_) {
 #pragma unroll
     for (int k = 0; k < App::kWrites; ++k) w_meta[k] = -1;
+  }
+
+  // the TV row `row`'s task and arguments
+  __device__ void put_row(int row, int task, const int* ai, const float* af) {
+    const int si = Fleet ? p.arg_si : App::kArgI;
+    const int sf = Fleet ? p.arg_sf : App::kArgF;
+    p.task[row] = Fleet ? task + p.task_off : task;
+#pragma unroll
+    for (int k = 0; k < App::kArgI; ++k) p.argi[row * si + k] = ai[k];
+#pragma unroll
+    for (int k = 0; k < App::kArgF; ++k) p.argf[row * sf + k] = af[k];
+    if (Fleet) {
+      for (int k = App::kArgI; k < si; ++k) p.argi[row * si + k] = 0;
+      for (int k = App::kArgF; k < sf; ++k) p.argf[row * sf + k] = 0.f;
+    }
   }
 
   __device__ void fork(int task, const int* ai, const float* af, bool where) {
     if (!where) return;
     const int raw = (int)(base + within);
     ++within;
-    if (raw < 0 || raw >= p.capacity) return;  // past the TV: dropped
-    p.task[raw] = task;
-#pragma unroll
-    for (int k = 0; k < App::kArgI; ++k) p.argi[raw * App::kArgI + k] = ai[k];
-#pragma unroll
-    for (int k = 0; k < App::kArgF; ++k) p.argf[raw * App::kArgF + k] = af[k];
+    if (raw < 0 || raw >= end) return;  // past the TV (region): dropped
+    put_row(raw, task, ai, af);
     p.epoch[raw] = cen + 1;
     p.child_base[raw] = 0;
     p.child_count[raw] = 0;
@@ -408,11 +449,7 @@ struct ApplySink {
   __device__ void join(int task, const int* ai, const float* af, bool where) {
     if (!where) return;
     joined = true;
-    p.task[cidx] = task;
-#pragma unroll
-    for (int k = 0; k < App::kArgI; ++k) p.argi[cidx * App::kArgI + k] = ai[k];
-#pragma unroll
-    for (int k = 0; k < App::kArgF; ++k) p.argf[cidx * App::kArgF + k] = af[k];
+    put_row(cidx, task, ai, af);
   }
 
   __device__ void emit(const uint32_t* v, bool where) {
@@ -432,6 +469,7 @@ struct ApplySink {
 
   __device__ void map(int g, const int* ai, const float* af, bool where) {
     if (!where) return;
+    if (Fleet) g += p.map_g_off;
     map_bits |= kMapBit << g;
     const long long row = (long long)g * p.capacity + l;
 #pragma unroll
@@ -1572,7 +1610,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
       const int cidx = clampi(start + l, 0, C - 1);
       TaskIn<App> in;
       in.load(p, cidx);
-      ApplySink<App> as(p, cidx, l, cen, base + (unsigned)p.lane_excl[l]);
+      ApplySink<App> as(p, cidx, l, cen, base + (unsigned)p.lane_excl[l],
+                        C);
       App::task(t, in, p, as);
       p.lane_flags[l] = as.finish(flags, p.lane_cnt[l]);
       my_join |= as.joined;
@@ -1787,6 +1826,666 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
   }
 }
 
+// ---- the fleet carry ---------------------------------------------------------
+// A fleet carry (the job service's DeviceMultiplexer) holds J <= kMaxJobs
+// regions of one fused TV: region j owns the slots [base_j, slot_end_j),
+// allocates its children from its own cursor (JobArena next_j) up to its
+// end (JobArena end_j), and has its own stack row, stack pointer and
+// accumulators.  The fused program's tasks are the tenants' tasks, each
+// tenant's task codes shifted by its task offset, its heap variables named
+// j<k>/..., its map launches after those of the tenants before it.  So
+// the fleet kernel runs each region's lanes through its tenant's device
+// table: fleet_chunk_kernel<Apps...> is instantiated over one set of
+// tables (with_fleet below), and region j names the place of its table in
+// the set and a tenant view of the launch parameters (its heap variables,
+// maps and constants, its task and map-launch offsets), copied to the
+// device with the launch.  Every CTA takes part in every epoch (no narrow
+// epochs on one CTA):
+//   pop (CTA 0's thread 0): every region's top entry; the live regions'
+//     popped ranges, in region order, are the epoch's lanes, one after the
+//     other: region j's lanes [off_j, off_j + count_j).  The ranges lie
+//     in their regions, which lie in slot order, so lane order is slot
+//     order, and only popped lanes run: a hole of the union span costs
+//     nothing (hole_lanes still counts the reference's rung of the span,
+//     or of the active count under gather).
+//   -> grid barrier -> the previous epoch's map payloads (stage -> grid
+//     barrier -> apply -> grid barrier, each launch) -> pass A: each CTA
+//     owns a contiguous block of the lanes, counts forks, scans them in
+//     lane order, and sums each region's forks and active lanes -> grid
+//     barrier -> each CTA's base in each region is the earlier CTAs' sum,
+//     so a lane's offset among its region's forks is that base plus its
+//     scan minus the scan at the region's first lane in the block -> pass
+//     B (children clipped to the region's end; the map domains of the
+//     CTA's lanes, scanned) -> grid barrier -> pass C (emits and heap
+//     writes, through the tenant's heap view) beside reclamation: for
+//     every region, the last valid slot searched down from min(next_j +
+//     forks_j, slot_end_j) - 1 to base_j in windows of the whole grid, a
+//     grid barrier a round -> CTA 0 pushes each region's join continuation
+//     and forked range on its own row, fails a region whose forks pass its
+//     end (next_j + forks_j > end_j) or whose stack is full, and counts.
+// Per region: next_j = min(next_j + forks_j, max(last_valid_j + 1,
+// base_j)) and next_free = max_j next_j (src/repro/core/tvm.py), as the
+// plain loop's segmented commit does for every region, live or not.
+struct FleetArgs {
+  const Params* tps;  // the regions' tenant views, in device memory
+  int J, n_launches;
+  int app[kMaxJobs];       // the region's table: its place in the set
+  int task_off[kMaxJobs];  // its first task code in the fused program
+  int map_g_off[kMaxJobs];
+  int base[kMaxJobs], slot_end[kMaxJobs];
+  int map_owner[kMaxMaps];  // the region each map launch belongs to
+};
+
+// The cooperative scratch of a fleet launch, in uint64 words: [0] the grid
+// barrier's counter, then FleetCtl[2] by epoch parity, then the
+// reclamation words [epoch parity][round parity][region], then one
+// FleetCta per CTA.
+struct FleetCtl {
+  int go, nl, key, fired, map_nl, map_per, fault, pad;
+  int live[kMaxJobs], cen[kMaxJobs], start[kMaxJobs], count[kMaxJobs];
+  int off[kMaxJobs], next[kMaxJobs], end[kMaxJobs], pad2[kMaxJobs];
+  unsigned long long map_el[kMaxMaps];
+};
+struct FleetCta {
+  unsigned tot[kMaxJobs];  // the CTA's forks, per region
+  int act[kMaxJobs];       // its active lanes, per region
+  int join[kMaxJobs];      // some lane of the region joined
+  int pad[kMaxJobs];
+  unsigned long long el[kMaxMaps];
+  int rows[kMaxMaps], dmax[kMaxMaps];
+};
+constexpr int kFleetCtlWords = (int)sizeof(FleetCtl) / 8;
+constexpr int kFleetLastWords = 2 * 2 * kMaxJobs * 4 / 8;
+constexpr int kFleetHeader = 1 + 2 * kFleetCtlWords + kFleetLastWords;
+constexpr int kFleetCtaWords = (int)sizeof(FleetCta) / 8;
+static_assert(sizeof(FleetCtl) % 8 == 0 && sizeof(FleetCta) % 8 == 0,
+              "fleet scratch layout");
+
+// The fleet carry's scalars and per-region rows, held by CTA 0 in shared
+// memory for the chunk (as Scalars are for a solo carry).
+struct FleetScalars {
+  long long job_tasks[kMaxJobs], job_forks[kMaxJobs];
+  long long map_elements, map_lanes, hole_lanes;
+  int sp[kMaxJobs], job_epochs[kMaxJobs], job_peak[kMaxJobs];
+  int next[kMaxJobs], end[kMaxJobs];
+  int n_epochs, map_launches, fault, limit, next_free;
+  bool failed[kMaxJobs], failed_stack[kMaxJobs];
+
+  __device__ void load(const Params& p, int J) {
+    for (int j = 0; j < J; ++j) {
+      job_tasks[j] = p.job_tasks[j]; job_forks[j] = p.job_forks[j];
+      sp[j] = p.sp[j]; job_epochs[j] = p.job_epochs[j];
+      job_peak[j] = p.job_peak[j];
+      next[j] = p.arena_next[j]; end[j] = p.arena_end[j];
+      failed[j] = p.failed[j]; failed_stack[j] = p.failed_stack[j];
+    }
+    map_elements = p.map_elements[0]; map_lanes = p.map_lanes[0];
+    hole_lanes = p.hole_lanes[0];
+    n_epochs = p.n_epochs[0]; map_launches = p.map_launches[0];
+    fault = p.fault[0]; limit = p.limit[0]; next_free = p.next_free[0];
+  }
+  __device__ void store(const Params& p, int J) const {
+    for (int j = 0; j < J; ++j) {
+      p.job_tasks[j] = job_tasks[j]; p.job_forks[j] = job_forks[j];
+      p.sp[j] = sp[j]; p.job_epochs[j] = job_epochs[j];
+      p.job_peak[j] = job_peak[j]; p.arena_next[j] = next[j];
+      p.failed[j] = failed[j]; p.failed_stack[j] = failed_stack[j];
+    }
+    p.map_elements[0] = map_elements; p.map_lanes[0] = map_lanes;
+    p.hole_lanes[0] = hole_lanes;
+    p.n_epochs[0] = n_epochs; p.map_launches[0] = map_launches;
+    p.fault[0] = fault; p.next_free[0] = next_free;
+  }
+};
+
+// f(A{}) for the table at place i of the set A0, As...
+template <class A0, class... As, class F>
+__device__ __forceinline__ auto on_app(int i, F&& f) {
+  if constexpr (sizeof...(As) == 0) {
+    return f(A0{});
+  } else {
+    if (i == 0) return f(A0{});
+    return on_app<As...>(i - 1, f);
+  }
+}
+
+// Pop every region's top entry into ctl[e & 1] and reset the epoch's
+// reclamation words.  One thread (CTA 0's thread 0).
+__device__ void fleet_pop(const Params& p, const FleetArgs& fa,
+                          const FleetScalars& car, FleetCtl* ctl,
+                          int* lastw, int e) {
+  FleetCtl& c = ctl[e & 1];
+  const int C = p.capacity;
+  int off = 0, lo = C, hi = 0;
+  bool any = false;
+  for (int j = 0; j < fa.J; ++j) {
+    const int sp = car.sp[j];
+    const bool live = sp > 0;
+    const int top = clampi(sp - 1, 0, p.depth - 1);
+    const int* js = p.jstack + (long long)j * p.depth;
+    const int* rs = p.rstack + 2LL * j * p.depth;
+    c.live[j] = live;
+    c.cen[j] = live ? js[top] : 0;
+    c.start[j] = live ? rs[2 * top] : 0;
+    c.count[j] = live ? rs[2 * top + 1] : 0;
+    c.off[j] = off;
+    off = min(C, off + clampi(c.count[j], 0, C));
+    if (live) {
+      any = true;
+      lo = min(lo, c.start[j]);
+      hi = max(hi, c.start[j] + c.count[j]);
+    }
+    c.next[j] = car.next[j];
+    c.end[j] = car.end[j];
+  }
+  c.nl = off;
+  c.key = clampi(hi - clampi(lo, 0, C), 0, C);  // the union span's width
+  c.go = any && (car.n_epochs < car.limit);
+  c.fault = 0;
+  for (int q = 0; q < 2 * kMaxJobs; ++q) lastw[(e & 1) * 2 * kMaxJobs + q] = -1;
+}
+
+template <class... Apps>
+__global__ void __launch_bounds__(kThreads, 1)
+    fleet_chunk_kernel(const Params p, const FleetArgs fa) {
+  __shared__ unsigned s_warp32[kWarps];
+  __shared__ unsigned long long s_warp64[kWarps];
+  __shared__ int s_wmax[kWarps];
+  __shared__ unsigned long long s_elbase[kMaxGrid];
+  __shared__ FleetScalars car;  // CTA 0's
+  __shared__ int s_live[kMaxJobs], s_cen[kMaxJobs], s_start[kMaxJobs];
+  __shared__ int s_cnt[kMaxJobs], s_off[kMaxJobs], s_next[kMaxJobs];
+  __shared__ int s_end[kMaxJobs], s_hi[kMaxJobs], s_lv[kMaxJobs];
+  __shared__ unsigned s_rtot[kMaxJobs], s_rbase[kMaxJobs], s_rtotal[kMaxJobs];
+  __shared__ int s_ract[kMaxJobs], s_ractive[kMaxJobs], s_rjoin[kMaxJobs];
+  __shared__ int s_fex[kMaxJobs];
+  __shared__ unsigned long long s_mel[kMaxMaps];
+  __shared__ int s_mrows[kMaxMaps], s_mdmax[kMaxMaps];
+
+  const int C = p.capacity, J = fa.J;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const unsigned G = gridDim.x;
+  unsigned* const bar = reinterpret_cast<unsigned*>(p.coop);
+  FleetCtl* const ctl = reinterpret_cast<FleetCtl*>(p.coop + 1);
+  int* const lastw = reinterpret_cast<int*>(p.coop + 1 + 2 * kFleetCtlWords);
+  FleetCta* const cta = reinterpret_cast<FleetCta*>(p.coop + kFleetHeader);
+  unsigned gen0 = 0;
+  long long n_epochs = 0, n_grid = 0, n_search = 0;
+
+  if (b == 0 && tid == 0) {
+    // the sink rows stay zero (the plain loop zeroes them each epoch)
+    p.task[C] = 0;
+    p.epoch[C] = 0;
+    p.child_base[C] = 0;
+    p.child_count[C] = 0;
+    for (int k = 0; k < p.arg_si; ++k) p.argi[C * p.arg_si + k] = 0;
+    for (int k = 0; k < p.arg_sf; ++k) p.argf[C * p.arg_sf + k] = 0.f;
+    p.value[C] = 0u;  // value rows are one word wide (trees_fleet_chunk)
+    for (int v = 0; v < p.n_heap; ++v) p.heap[v][p.heap_len[v]] = 0u;
+    car.load(p, J);
+    fleet_pop(p, fa, car, ctl, lastw, 0);
+  }
+
+  // the region of lane l of this epoch (the last with off <= l)
+  auto region = [&](int l) {
+    int j = 0;
+    while (j + 1 < J && l >= s_off[j + 1]) ++j;
+    return j;
+  };
+
+  for (int e = 0;; ++e) {
+    bar_sync(bar, gen0, G);  // ctl[e & 1] is written
+    ++n_grid;
+    const FleetCtl* const cc = ctl + (e & 1);
+
+    // ---- the previous epoch's map payloads, launch by launch, over the
+    // whole grid: stage -> grid barrier -> apply -> grid barrier
+    const int fired = __ldcg(&cc->fired);
+    if (fired) {
+      const int mnl = __ldcg(&cc->map_nl), mper = __ldcg(&cc->map_per);
+      const long long stride = (long long)G * kThreads;
+      for (int g = 0; g < fa.n_launches; ++g) {
+        if (!(fired & (1 << g))) continue;
+        const int j = fa.map_owner[g];
+        const Params& tq = fa.tps[j];
+        const unsigned long long el = __ldcg(&cc->map_el[g]);
+        if (tid < 32) {  // the first element of each CTA's lanes
+          unsigned long long run = 0;
+          for (int q0 = 0; q0 < (int)G; q0 += 32) {
+            const int q = q0 + tid;
+            const unsigned long long x =
+                q < (int)G ? __ldcg(&cta[q].el[g]) : 0ull;
+            unsigned long long incl = x;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+              const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+              if (tid >= d) incl += y;
+            }
+            if (q < (int)G) s_elbase[q] = run + incl - x;
+            run += __shfl_sync(kFull, incl, 31);
+          }
+        }
+        __syncthreads();
+        const long long* pre = p.map_pre + (long long)g * C;
+        on_app<Apps...>(fa.app[j], [&](auto app) {
+          using A = decltype(app);
+          const int mid = A::map_id(g - fa.map_g_off[j]);
+          for (long long f = (long long)b * kThreads + tid; f < (long long)el;
+               f += stride) {
+            int c0 = 0, c1 = (int)G - 1;
+            while (c0 < c1) {
+              const int m = (c0 + c1 + 1) >> 1;
+              if (s_elbase[m] <= (unsigned long long)f) c0 = m; else c1 = m - 1;
+            }
+            const long long fl = f - (long long)s_elbase[c0];
+            int a = min(mnl, c0 * mper), z = min(mnl, a + mper) - 1;
+            while (a < z) {
+              const int m = (a + z + 1) >> 1;
+              if (pre[m] <= fl) a = m; else z = m - 1;
+            }
+            const long long row = (long long)g * C + a;
+            StageSink<A> ss{tq, f};
+            A::map_payload(mid, p.map_argi + row * A::kArgI,
+                           p.map_argf + row * (A::kArgF > 0 ? A::kArgF : 1),
+                           (int)(fl - pre[a]), tq, ss);
+          }
+        });
+        bar_sync(bar, gen0, G);  // every element is staged
+        ++n_grid;
+        int* const mfault = const_cast<int*>(&cc->fault);
+        on_app<Apps...>(fa.app[j], [&](auto app) {
+          using A = decltype(app);
+          for (long long f = (long long)b * kThreads + tid; f < (long long)el;
+               f += stride) {
+            for (int k = 0; k < A::kMapWrites; ++k) {
+              const long long at = (long long)k * p.stage_cap + f;
+              const int meta = p.st_meta[at];
+              if (meta >= 0 && !heap_apply(tq, meta, p.st_idx[at], p.st_val[at])) {
+                atomicOr(mfault, 1);
+              }
+            }
+          }
+        });
+        bar_sync(bar, gen0, G);  // the heap is written
+        ++n_grid;
+      }
+      if (__ldcg(&cc->fault)) {
+        if (b == 0 && tid == 0) car.fault = kFaultFloatAdd;
+        break;
+      }
+    }
+    if (!__ldcg(&cc->go)) break;
+    ++n_epochs;
+
+    // ---- this epoch's regions
+    if (tid < J) {
+      const int live = __ldcg(&cc->live[tid]);
+      s_live[tid] = live;
+      s_cen[tid] = __ldcg(&cc->cen[tid]);
+      s_start[tid] = __ldcg(&cc->start[tid]);
+      s_cnt[tid] = live ? clampi(__ldcg(&cc->count[tid]), 0, C) : 0;
+      s_off[tid] = __ldcg(&cc->off[tid]);
+      s_next[tid] = __ldcg(&cc->next[tid]);
+      s_end[tid] = __ldcg(&cc->end[tid]);
+      s_rtot[tid] = 0;
+      s_ract[tid] = 0;
+      s_rjoin[tid] = 0;
+    }
+    const int nl = __ldcg(&cc->nl);
+    const int per = (nl + (int)G - 1) / (int)G;
+    const int lo = min(nl, b * per), hi = min(nl, lo + per);
+    __syncthreads();
+
+    // ---- pass A: frontier, fork counts and their scan in lane order
+    // within this CTA's block, each region's forks and active lanes
+    unsigned run = 0;
+    for (int b0 = lo; b0 < hi; b0 += kThreads) {
+      const int l = b0 + tid;
+      unsigned cnt = 0;
+      if (l < hi) {
+        const int j = region(l);
+        const int cen = s_cen[j];
+        const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
+        int flags = 0;
+        if (cen > 0 && p.epoch[cidx] == cen) {
+          const Params& tq = fa.tps[j];
+          const int t = p.task[cidx] - fa.task_off[j];
+          on_app<Apps...>(fa.app[j], [&](auto app) {
+            using A = decltype(app);
+            const bool known = t >= 0 && t < A::kTypes;
+            flags = kActive | ((known ? t + 1 : 0) << kTypeShift);
+            if (known) {
+              TaskIn<A> in;
+              in.template load<true>(tq, cidx);
+              CountSink cs;
+              A::task(t, in, tq, cs);
+              cnt = (unsigned)cs.n;
+            }
+          });
+          atomicAdd(&s_ract[j], 1);
+          if (cnt) atomicAdd(&s_rtot[j], cnt);
+        }
+        p.lane_flags[l] = flags;
+        p.lane_cnt[l] = (int)cnt;
+      }
+      unsigned tot;
+      const unsigned ex = block_excl_scan<unsigned>(cnt, s_warp32, &tot);
+      if (l < hi) p.lane_excl[l] = (int)(run + ex);
+      run += tot;
+    }
+    __syncthreads();
+    if (tid < J) {
+      cta[b].tot[tid] = s_rtot[tid];
+      cta[b].act[tid] = s_ract[tid];
+    }
+    bar_sync(bar, gen0, G);
+    ++n_grid;
+
+    // ---- per region (warp j): this CTA's base (the earlier CTAs' forks
+    // of the region), the region's forks and active lanes, and the scan
+    // at the region's first lane in this CTA's block
+    if (warp < J) {
+      unsigned before = 0, total = 0;
+      int act = 0;
+      for (int q0 = 0; q0 < (int)G; q0 += 32) {
+        const int q = q0 + lane;
+        const unsigned t = q < (int)G ? __ldcg(&cta[q].tot[warp]) : 0u;
+        before += __reduce_add_sync(kFull, q < b ? t : 0u);
+        total += __reduce_add_sync(kFull, t);
+        act += __reduce_add_sync(kFull, q < (int)G ? __ldcg(&cta[q].act[warp]) : 0);
+      }
+      if (lane == 0) {
+        s_rbase[warp] = before;
+        s_rtotal[warp] = total;
+        s_ractive[warp] = act;
+        const int first = max(s_off[warp], lo);
+        s_fex[warp] = first < min(s_off[warp] + s_cnt[warp], hi)
+                          ? p.lane_excl[first] : 0;
+        const long long top =
+            min((long long)s_next[warp] + total, (long long)fa.slot_end[warp]);
+        s_hi[warp] = (int)top - 1;
+      }
+    }
+    __syncthreads();
+
+    // ---- pass B: children (clipped to the region's end), joins, child
+    // pointers, TMS; stage the rest
+    for (int l = lo + tid; l < hi; l += kThreads) {
+      const int flags = p.lane_flags[l];
+      const int t = (flags >> kTypeShift) - 1;
+      if (!(flags & kActive) || t < 0) continue;
+      const int j = region(l);
+      const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
+      const Params& tq = fa.tps[j];
+      const unsigned base = (unsigned)s_next[j] + s_rbase[j] +
+                            (unsigned)(p.lane_excl[l] - s_fex[j]);
+      on_app<Apps...>(fa.app[j], [&](auto app) {
+        using A = decltype(app);
+        TaskIn<A> in;
+        in.template load<true>(tq, cidx);
+        ApplySink<A, true> as(tq, cidx, l, s_cen[j], base, s_end[j]);
+        A::task(t, in, tq, as);
+        p.lane_flags[l] = as.finish(flags, p.lane_cnt[l]);
+        if (as.joined) s_rjoin[j] = 1;
+      });
+    }
+    __syncthreads();
+    if (tid < J) cta[b].join[tid] = s_rjoin[tid];
+    // the map domains of this CTA's lanes, launch by launch (map_pre is
+    // CTA-relative)
+    for (int g = 0; g < fa.n_launches; ++g) {
+      const int j = fa.map_owner[g];
+      const Params& tq = fa.tps[j];
+      unsigned long long el = 0;
+      int n_rows = 0, my_dmax = 0;
+      on_app<Apps...>(fa.app[j], [&](auto app) {
+        using A = decltype(app);
+        const int mid = A::map_id(g - fa.map_g_off[j]);
+        const int maxd = tq.max_domain[mid];
+        for (int b0 = lo; b0 < hi; b0 += kThreads) {
+          const int l = b0 + tid;
+          int on = 0;
+          unsigned long long dom = 0;
+          if (l < hi && (p.lane_flags[l] & (kMapBit << g))) {
+            on = 1;
+            const long long row = (long long)g * C + l;
+            const int d = A::map_domain(mid, p.map_argi + row * A::kArgI, tq);
+            dom = (unsigned long long)clampi(d, 0, maxd);
+            my_dmax = max(my_dmax, (int)dom);
+          }
+          unsigned long long tot;
+          const unsigned long long ex =
+              block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
+          if (l < hi) p.map_pre[(long long)g * C + l] = (long long)(el + ex);
+          el += tot;
+          n_rows += __syncthreads_count(on);
+        }
+      });
+      const int dmax = block_max(my_dmax, s_wmax);
+      if (tid == 0) {
+        cta[b].el[g] = el;
+        cta[b].rows[g] = n_rows;
+        cta[b].dmax[g] = dmax;
+      }
+    }
+    bar_sync(bar, gen0, G);  // the TV is written; pass B's reads are done
+    ++n_grid;
+
+    // ---- pass C: staged emits and heap writes of this CTA's lanes
+    for (int l = lo + tid; l < hi; l += kThreads) {
+      const int flags = p.lane_flags[l];
+      if (!(flags & kActive) || (flags >> kTypeShift) == 0) continue;
+      const int j = region(l);
+      const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
+      const Params& tq = fa.tps[j];
+      on_app<Apps...>(fa.app[j], [&](auto app) {
+        using A = decltype(app);
+        if (flags & kEmitted) {
+          for (int w = 0; w < A::kValW; ++w) {
+            p.value[cidx * A::kValW + w] = p.emit_stage[(long long)l * A::kValW + w];
+          }
+        }
+        for (int k = 0; k < A::kWrites; ++k) {
+          const long long at = (long long)k * C + l;
+          const int meta = p.wr_meta[at];
+          if (meta >= 0 && !heap_apply(tq, meta, p.wr_idx[at], p.wr_val[at])) {
+            atomicOr(const_cast<int*>(&cc->fault), 1);
+          }
+        }
+      });
+    }
+
+    // ---- reclamation (beside pass C: it reads only `epoch`): each
+    // region's last valid slot, searched down from s_hi[j] to base_j in
+    // windows of the whole grid, a grid barrier a round
+    unsigned pending = 0;
+    for (int j = 0; j < J; ++j) {
+      if (s_hi[j] >= fa.base[j]) pending |= 1u << j;
+      else if (tid == 0) s_lv[j] = -1;
+    }
+    for (int r = 0; pending; ++r) {
+      int* const words = lastw + ((e & 1) * 2 + (r & 1)) * kMaxJobs;
+      for (int j = 0; j < J; ++j) {
+        if (!(pending & (1u << j))) continue;
+        const long long s =
+            (long long)s_hi[j] - ((long long)r * G + b) * kThreads - tid;
+        const bool valid = s >= fa.base[j] && p.epoch[s] > 0;
+        const int m = __reduce_max_sync(kFull, valid ? (int)s : -1);
+        if (lane == 0 && m >= 0) atomicMax(words + j, m);
+      }
+      bar_sync(bar, gen0, G);
+      ++n_grid;
+      if (r) ++n_search;
+      unsigned still = 0;
+      for (int j = 0; j < J; ++j) {
+        if (!(pending & (1u << j))) continue;
+        const int lv = __ldcg(words + j);
+        if (lv >= 0 || (long long)s_hi[j] - (long long)(r + 1) * G * kThreads <
+                           (long long)fa.base[j]) {
+          if (tid == 0) s_lv[j] = lv;
+        } else {
+          still |= 1u << j;
+        }
+      }
+      pending = still;
+    }
+
+    // ---- push, counters and the map launches' totals (CTA 0); the
+    // payloads run at the next epoch's start
+    if (b == 0) {
+      if (tid < 32) {
+        for (int j = 0; j < J; ++j) {
+          int jn = 0;
+          for (int q = tid; q < (int)G; q += 32) jn |= __ldcg(&cta[q].join[j]);
+          jn = __reduce_or_sync(kFull, jn);
+          if (tid == 0) s_rjoin[j] = jn;
+        }
+        for (int g = 0; g < fa.n_launches; ++g) {
+          unsigned long long el = 0;
+          int rows = 0, dmax = 0;
+          for (int q0 = 0; q0 < (int)G; q0 += 32) {
+            const int q = q0 + tid;
+            unsigned long long x = q < (int)G ? __ldcg(&cta[q].el[g]) : 0ull;
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+            el += x;
+            rows += __reduce_add_sync(kFull, q < (int)G ? __ldcg(&cta[q].rows[g]) : 0);
+            dmax = max(dmax, __reduce_max_sync(
+                                 kFull, q < (int)G ? __ldcg(&cta[q].dmax[g]) : 0));
+          }
+          if (tid == 0) {
+            s_mel[g] = el;
+            s_mrows[g] = rows;
+            s_mdmax[g] = dmax;
+          }
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int nf = 0;
+        long long active = 0;
+        for (int j = 0; j < J; ++j) {
+          const bool live = s_live[j];
+          int sp = car.sp[j] - (live ? 1 : 0);
+          const int forks = (int)s_rtotal[j];
+          const long long nft = (long long)car.next[j] + forks;
+          const int jn = (int)min(nft, (long long)max(s_lv[j] + 1, fa.base[j]));
+          bool failed = car.failed[j] || (live && nft > car.end[j]);
+          const bool ok = live && !failed;
+          bool of = false;
+          int* const js = p.jstack + (long long)j * p.depth;
+          int* const rs = p.rstack + 2LL * j * p.depth;
+          if (ok && s_rjoin[j]) {  // the join continuation, below
+            of |= sp >= p.depth;
+            const int ssp = clampi(sp, 0, p.depth - 1);
+            js[ssp] = s_cen[j];
+            rs[2 * ssp] = s_start[j];
+            rs[2 * ssp + 1] = cc->count[j];
+            ++sp;
+          }
+          if (ok && forks > 0) {  // this epoch's forked range, on top
+            of |= sp >= p.depth;
+            const int ssp = clampi(sp, 0, p.depth - 1);
+            js[ssp] = s_cen[j] + 1;
+            rs[2 * ssp] = jn - forks;
+            rs[2 * ssp + 1] = forks;
+            ++sp;
+          }
+          failed = failed || of;
+          car.failed_stack[j] = car.failed_stack[j] || of;
+          car.failed[j] = failed;
+          car.sp[j] = failed ? 0 : sp;
+          car.job_peak[j] = max(car.job_peak[j], jn - fa.base[j]);
+          car.next[j] = jn;
+          nf = j == 0 ? jn : max(nf, jn);
+          car.job_epochs[j] += live ? 1 : 0;
+          car.job_tasks[j] += s_ractive[j];
+          car.job_forks[j] += forks;
+          active += s_ractive[j];
+        }
+        car.next_free = nf;
+        const long long key = p.gather ? active : __ldcg(&cc->key);
+        car.hole_lanes += C - rung(p.span_w, p.n_span, key);
+        car.n_epochs += 1;
+        FleetCtl& nx = ctl[(e + 1) & 1];
+        int fire = 0;
+        bool fault = false;
+        for (int g = 0; g < fa.n_launches && !fault; ++g) {
+          const Params& tq = fa.tps[fa.map_owner[g]];
+          const int j = fa.map_owner[g];
+          const int mid = on_app<Apps...>(fa.app[j], [&](auto app) {
+            return decltype(app)::map_id(g - fa.map_g_off[j]);
+          });
+          car.map_elements += (long long)s_mel[g];
+          if (s_mdmax[g] > 0) {
+            car.map_launches += 1;
+            car.map_lanes += (long long)rung(p.span_w, p.n_span, s_mrows[g]) *
+                             rung(tq.map_w[mid], tq.n_map_w[mid], s_mdmax[g]);
+            if ((long long)s_mel[g] > p.stage_cap) {
+              car.fault = kFaultStage;
+              fault = true;
+            } else {
+              fire |= 1 << g;
+              nx.map_el[g] = s_mel[g];
+            }
+          }
+        }
+        if (!fault && __ldcg(&cc->fault)) {  // pass C met a float add
+          car.fault = kFaultFloatAdd;
+          fault = true;
+          fire = 0;
+        }
+        nx.fired = fire;
+        nx.map_nl = nl;
+        nx.map_per = per;
+        if (fault) {
+          nx.go = 0;
+          nx.fault = 0;
+        } else {
+          fleet_pop(p, fa, car, ctl, lastw, e + 1);
+        }
+      }
+    }
+  }
+  if (b == 0 && tid == 0) car.store(p, J);
+  if (b == 0 && tid == 0 && p.stats) {
+    p.stats[1] += n_epochs;  // every fleet epoch runs on the whole grid
+    p.stats[2] += n_grid;
+    p.stats[4] += n_search;
+  }
+}
+
+// the tables' sets a fleet kernel is instantiated over, in the order of
+// FLEET_SETS in epoch_megakernel.py: fib_fleet; mixed3; mixed4
+template <class... Apps>
+struct FleetSet {};
+
+template <class F>
+int with_fleet(int set, int unknown, F f) {
+  switch (set) {
+    case 0: return f(FleetSet<FibApp>{});
+    case 1: return f(FleetSet<FibApp, TreePostApp, BfsApp>{});
+    case 2: return f(FleetSet<FibApp, TreePostApp, BfsApp, MsortApp>{});
+    default: return unknown;
+  }
+}
+
+// The host's checks of region j's table (the set's place `app`) against
+// the fused launch: widths, heap variables, map launches, constants.
+template <class A0, class... As>
+bool fleet_app_ok(int app, const long long* tints, int n_heap,
+                  int n_launches) {
+  if (app != 0) {
+    if constexpr (sizeof...(As) == 0) return false;
+    else return fleet_app_ok<As...>(app - 1, tints, n_heap, n_launches);
+  }
+  return A0::kArgI <= tints[I_N_ARG_I] && A0::kArgF <= tints[I_N_ARG_F] &&
+         A0::kValW == 1 && tints[I_VALUE_WIDTH] == 1 && A0::kHeap == n_heap &&
+         !A0::kOrderedMapAdd && A0::kMapLaunches == n_launches &&
+         A0::consts_ok(tints);
+}
+
 // An empty cooperative kernel that crosses n grid barriers: the barrier's
 // own cost, the serial floor of the chunk's design.
 __global__ void __launch_bounds__(kThreads, 1) grid_sync_bench(unsigned* bar,
@@ -1795,12 +2494,11 @@ __global__ void __launch_bounds__(kThreads, 1) grid_sync_bench(unsigned* bar,
   for (int i = 0; i < n; ++i) bar_sync(bar, target, gridDim.x);
 }
 
-// CTAs of the cooperative grid of epoch_chunk_kernel<App> on the current
-// device: SMs x the CTAs an SM holds, computed once per device; a negative
-// CUDA error where the device cannot launch cooperatively.
-template <class App>
-int grid_size() {
-  static int cache[kMaxDevices];
+// CTAs of the cooperative grid of `kernel` on the current device: SMs x the
+// CTAs an SM holds, computed once per device (in the caller's `cache`); a
+// negative CUDA error where the device cannot launch cooperatively.
+template <class Kernel>
+int grid_size(Kernel kernel, int* cache) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return -(int)e;
@@ -1811,14 +2509,20 @@ int grid_size() {
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   }
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, epoch_chunk_kernel<App>, kThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads,
+                                                      0);
   }
   if (e != cudaSuccess) return -(int)e;
   if (!coop || per < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
   const int g = min(sms * per, kMaxGrid);
   if (dev < kMaxDevices) cache[dev] = g;
   return g;
+}
+
+template <class App>
+int solo_grid() {
+  static int cache[kMaxDevices];
+  return grid_size(epoch_chunk_kernel<App>, cache);
 }
 
 template <class App>
@@ -1834,6 +2538,119 @@ int launch(const Params& p, long long coop_words, cudaStream_t s) {
                                   dim3(p.grid), dim3(kThreads), args, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <class... Apps>
+int launch_fleet(FleetSet<Apps...>, const Params& p, const FleetArgs& fa,
+                 long long coop_words, cudaStream_t s) {
+  if (p.grid < 1 || p.grid > kMaxGrid ||
+      coop_words < kFleetHeader + (long long)kFleetCtaWords * p.grid) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaMemsetAsync(p.coop, 0, 8 * (size_t)coop_words, s);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {const_cast<Params*>(&p), const_cast<FleetArgs*>(&fa)};
+  e = cudaLaunchCooperativeKernel((const void*)fleet_chunk_kernel<Apps...>,
+                                  dim3(p.grid), dim3(kThreads), args, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <class... Apps>
+int fleet_grid(FleetSet<Apps...>) {
+  static int cache[kMaxDevices];
+  return grid_size(fleet_chunk_kernel<Apps...>, cache);
+}
+
+template <class... Apps>
+bool fleet_ok(FleetSet<Apps...>, int app, const long long* tints, int n_heap,
+              int n_launches) {
+  return fleet_app_ok<Apps...>(app, tints, n_heap, n_launches);
+}
+
+// Params from the launch's pointers and sizes (the solo layout, which a
+// fleet launch shares); false where a size is out of range.
+bool fill_params(const unsigned long long* ptrs, const long long* ints,
+                 Params& p) {
+  p.task = (int*)ptrs[P_TASK];
+  p.argi = (int*)ptrs[P_ARGI];
+  p.argf = (float*)ptrs[P_ARGF];
+  p.epoch = (int*)ptrs[P_EPOCH];
+  p.value = (uint32_t*)ptrs[P_VALUE];
+  p.child_base = (int*)ptrs[P_CHILD_BASE];
+  p.child_count = (int*)ptrs[P_CHILD_COUNT];
+  p.next_free = (int*)ptrs[P_NEXT_FREE];
+  p.jstack = (int*)ptrs[P_JSTACK];
+  p.rstack = (int*)ptrs[P_RSTACK];
+  p.sp = (int*)ptrs[P_SP];
+  p.failed = (uint8_t*)ptrs[P_FAILED];
+  p.failed_stack = (uint8_t*)ptrs[P_FAILED_STACK];
+  p.n_epochs = (int*)ptrs[P_N_EPOCHS];
+  p.job_epochs = (int*)ptrs[P_JOB_EPOCHS];
+  p.job_tasks = (long long*)ptrs[P_JOB_TASKS];
+  p.job_forks = (long long*)ptrs[P_JOB_FORKS];
+  p.job_peak = (int*)ptrs[P_JOB_PEAK];
+  p.map_launches = (int*)ptrs[P_MAP_LAUNCHES];
+  p.map_elements = (long long*)ptrs[P_MAP_ELEMENTS];
+  p.map_lanes = (long long*)ptrs[P_MAP_LANES];
+  p.hole_lanes = (long long*)ptrs[P_HOLE_LANES];
+  p.fault = (int*)ptrs[P_FAULT];
+  p.limit = (const int*)ptrs[P_LIMIT];
+  p.lane_cnt = (int*)ptrs[P_LANE_CNT];
+  p.lane_excl = (int*)ptrs[P_LANE_EXCL];
+  p.lane_flags = (int*)ptrs[P_LANE_FLAGS];
+  p.emit_stage = (uint32_t*)ptrs[P_EMIT_STAGE];
+  p.wr_idx = (int*)ptrs[P_WR_IDX];
+  p.wr_val = (uint32_t*)ptrs[P_WR_VAL];
+  p.wr_meta = (int*)ptrs[P_WR_META];
+  p.map_argi = (int*)ptrs[P_MAP_ARGI];
+  p.map_argf = (float*)ptrs[P_MAP_ARGF];
+  p.map_pre = (long long*)ptrs[P_MAP_PRE];
+  p.st_idx = (int*)ptrs[P_ST_IDX];
+  p.st_val = (uint32_t*)ptrs[P_ST_VAL];
+  p.st_meta = (int*)ptrs[P_ST_META];
+  p.coop = (unsigned long long*)ptrs[P_COOP];
+  p.stats = (long long*)ptrs[P_STATS];
+  p.oa_cnt = (int*)ptrs[P_OA_CNT];
+  p.oa_off = (int*)ptrs[P_OA_OFF];
+  p.oa_long = (int*)ptrs[P_OA_LONG];
+  p.oa_run = (int*)ptrs[P_OA_RUN];
+  p.oa_tot = (int*)ptrs[P_OA_TOT];
+  p.arena_end = (int*)ptrs[P_ARENA_END];
+  p.arena_next = (int*)ptrs[P_ARENA_NEXT];
+  p.grid = (int)ints[I_GRID];
+  for (int v = 0; v < kMaxHeap; ++v) p.heap[v] = (uint32_t*)ptrs[P_HEAP0 + v];
+  p.capacity = (int)ints[I_CAPACITY];
+  p.depth = (int)ints[I_DEPTH];
+  p.gather = (int)ints[I_GATHER];
+  p.n_span = (int)ints[I_N_SPAN];
+  if (p.capacity < 1 || p.depth < 1 || p.n_span < 1 || p.n_span > kMaxSpan) {
+    return false;
+  }
+  for (int i = 0; i < kMaxSpan; ++i) p.span_w[i] = (int)ints[I_SPAN0 + i];
+  p.stage_cap = ints[I_STAGE_CAP];
+  p.n_heap = (int)ints[I_N_HEAP];
+  if (p.n_heap < 0 || p.n_heap > kMaxHeap) return false;
+  for (int v = 0; v < kMaxHeap; ++v) {
+    p.heap_len[v] = (int)ints[I_HEAP_LEN0 + v];
+    p.heap_dtype[v] = (int)ints[I_HEAP_DTYPE0 + v];
+  }
+  p.n_maps = (int)ints[I_N_MAPS];
+  if (p.n_maps < 0 || p.n_maps > kMaxMaps) return false;
+  for (int m = 0; m < kMaxMaps; ++m) {
+    const long long* mi = ints + I_MAP0 + m * (2 + kMaxMapW);
+    p.max_domain[m] = (int)mi[0];
+    p.n_map_w[m] = (int)mi[1];
+    if (m < p.n_maps && (p.n_map_w[m] < 1 || p.n_map_w[m] > kMaxMapW)) {
+      return false;
+    }
+    for (int i = 0; i < kMaxMapW; ++i) p.map_w[m][i] = (int)mi[2 + i];
+  }
+  for (int i = 0; i < kMaxConsts; ++i) p.consts[i] = (int)ints[I_CONST0 + i];
+  p.task_off = p.map_g_off = 0;
+  p.arg_si = (int)ints[I_N_ARG_I];
+  p.arg_sf = (int)ints[I_N_ARG_F];
+  return true;
 }
 
 template <class App>
@@ -1876,7 +2693,7 @@ int trees_epoch_int_count() { return I_COUNT; }
 // where the device cannot launch it.
 int trees_epoch_grid(int app) {
   return with_app(app, -(int)cudaErrorInvalidValue, [](auto a) {
-    return grid_size<decltype(a)>();
+    return solo_grid<decltype(a)>();
   });
 }
 
@@ -1923,84 +2740,122 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
                       const long long* ints, int n_ints, void* stream) {
   if (n_ptrs != P_COUNT || n_ints != I_COUNT) return (int)cudaErrorInvalidValue;
   Params p;
-  p.task = (int*)ptrs[P_TASK];
-  p.argi = (int*)ptrs[P_ARGI];
-  p.argf = (float*)ptrs[P_ARGF];
-  p.epoch = (int*)ptrs[P_EPOCH];
-  p.value = (uint32_t*)ptrs[P_VALUE];
-  p.child_base = (int*)ptrs[P_CHILD_BASE];
-  p.child_count = (int*)ptrs[P_CHILD_COUNT];
-  p.next_free = (int*)ptrs[P_NEXT_FREE];
-  p.jstack = (int*)ptrs[P_JSTACK];
-  p.rstack = (int*)ptrs[P_RSTACK];
-  p.sp = (int*)ptrs[P_SP];
-  p.failed = (uint8_t*)ptrs[P_FAILED];
-  p.failed_stack = (uint8_t*)ptrs[P_FAILED_STACK];
-  p.n_epochs = (int*)ptrs[P_N_EPOCHS];
-  p.job_epochs = (int*)ptrs[P_JOB_EPOCHS];
-  p.job_tasks = (long long*)ptrs[P_JOB_TASKS];
-  p.job_forks = (long long*)ptrs[P_JOB_FORKS];
-  p.job_peak = (int*)ptrs[P_JOB_PEAK];
-  p.map_launches = (int*)ptrs[P_MAP_LAUNCHES];
-  p.map_elements = (long long*)ptrs[P_MAP_ELEMENTS];
-  p.map_lanes = (long long*)ptrs[P_MAP_LANES];
-  p.hole_lanes = (long long*)ptrs[P_HOLE_LANES];
-  p.fault = (int*)ptrs[P_FAULT];
-  p.limit = (const int*)ptrs[P_LIMIT];
-  p.lane_cnt = (int*)ptrs[P_LANE_CNT];
-  p.lane_excl = (int*)ptrs[P_LANE_EXCL];
-  p.lane_flags = (int*)ptrs[P_LANE_FLAGS];
-  p.emit_stage = (uint32_t*)ptrs[P_EMIT_STAGE];
-  p.wr_idx = (int*)ptrs[P_WR_IDX];
-  p.wr_val = (uint32_t*)ptrs[P_WR_VAL];
-  p.wr_meta = (int*)ptrs[P_WR_META];
-  p.map_argi = (int*)ptrs[P_MAP_ARGI];
-  p.map_argf = (float*)ptrs[P_MAP_ARGF];
-  p.map_pre = (long long*)ptrs[P_MAP_PRE];
-  p.st_idx = (int*)ptrs[P_ST_IDX];
-  p.st_val = (uint32_t*)ptrs[P_ST_VAL];
-  p.st_meta = (int*)ptrs[P_ST_META];
-  p.coop = (unsigned long long*)ptrs[P_COOP];
-  p.stats = (long long*)ptrs[P_STATS];
-  p.oa_cnt = (int*)ptrs[P_OA_CNT];
-  p.oa_off = (int*)ptrs[P_OA_OFF];
-  p.oa_long = (int*)ptrs[P_OA_LONG];
-  p.oa_run = (int*)ptrs[P_OA_RUN];
-  p.oa_tot = (int*)ptrs[P_OA_TOT];
-  p.grid = (int)ints[I_GRID];
-  for (int v = 0; v < kMaxHeap; ++v) p.heap[v] = (uint32_t*)ptrs[P_HEAP0 + v];
-  p.capacity = (int)ints[I_CAPACITY];
-  p.depth = (int)ints[I_DEPTH];
-  p.gather = (int)ints[I_GATHER];
-  p.n_span = (int)ints[I_N_SPAN];
-  if (p.capacity < 1 || p.depth < 1 || p.n_span < 1 || p.n_span > kMaxSpan) {
-    return (int)cudaErrorInvalidValue;
-  }
-  for (int i = 0; i < kMaxSpan; ++i) p.span_w[i] = (int)ints[I_SPAN0 + i];
-  p.stage_cap = ints[I_STAGE_CAP];
-  p.n_heap = (int)ints[I_N_HEAP];
-  if (p.n_heap < 0 || p.n_heap > kMaxHeap) return (int)cudaErrorInvalidValue;
-  for (int v = 0; v < kMaxHeap; ++v) {
-    p.heap_len[v] = (int)ints[I_HEAP_LEN0 + v];
-    p.heap_dtype[v] = (int)ints[I_HEAP_DTYPE0 + v];
-  }
-  p.n_maps = (int)ints[I_N_MAPS];
-  if (p.n_maps < 0 || p.n_maps > kMaxMaps) return (int)cudaErrorInvalidValue;
-  for (int m = 0; m < kMaxMaps; ++m) {
-    const long long* mi = ints + I_MAP0 + m * (2 + kMaxMapW);
-    p.max_domain[m] = (int)mi[0];
-    p.n_map_w[m] = (int)mi[1];
-    if (m < p.n_maps && (p.n_map_w[m] < 1 || p.n_map_w[m] > kMaxMapW)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    for (int i = 0; i < kMaxMapW; ++i) p.map_w[m][i] = (int)mi[2 + i];
-  }
-  for (int i = 0; i < kMaxConsts; ++i) p.consts[i] = (int)ints[I_CONST0 + i];
+  if (!fill_params(ptrs, ints, p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_app(app, (int)cudaErrorInvalidValue, [&](auto a) {
     using A = decltype(a);
     if (!shape_ok<A>(ints)) return (int)cudaErrorInvalidValue;
     return launch<A>(p, ints[I_COOP_WORDS], s);
+  });
+}
+
+int trees_fleet_int_count() { return F_COUNT; }
+int trees_fleet_max_jobs() { return kMaxJobs; }
+
+// bytes of the tenant views a fleet launch copies to the device
+long long trees_fleet_tenant_bytes() {
+  return (long long)sizeof(Params) * kMaxJobs;
+}
+
+// CTAs of the cooperative grid of the fleet kernel of table set `set`.
+int trees_fleet_grid(int set) {
+  return with_fleet(set, -(int)cudaErrorInvalidValue,
+                    [](auto f) { return fleet_grid(f); });
+}
+
+// uint64 words of cooperative scratch a fleet grid of `grid` CTAs takes.
+long long trees_fleet_coop_words(int grid) {
+  return kFleetHeader + (long long)kFleetCtaWords * grid;
+}
+
+// One chunk of a fleet carry through the kernel of table set `set`: the
+// fused launch in `ptrs` and `ints` (the solo layout: the fused program's
+// TV, heap and maps, the carry's [J] rows) and the regions in `fleet`
+// (enum FleetInt).  Each region's tenant view (its heap variables, maps,
+// constants and offsets) is built here and copied, on the stream, to the
+// device buffer ptrs[P_TENANTS] before the launch.
+int trees_fleet_chunk(int set, const unsigned long long* ptrs, int n_ptrs,
+                      const long long* ints, int n_ints,
+                      const long long* fleet, int n_fleet, void* stream) {
+  if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_fleet != F_COUNT) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p;
+  if (!fill_params(ptrs, ints, p)) return (int)cudaErrorInvalidValue;
+  if (ints[I_VALUE_WIDTH] != 1) return (int)cudaErrorInvalidValue;
+  FleetArgs fa;
+  fa.tps = reinterpret_cast<const Params*>(ptrs[P_TENANTS]);
+  fa.J = (int)fleet[F_N_JOBS];
+  fa.n_launches = (int)fleet[F_N_LAUNCHES];
+  if (fa.J < 1 || fa.J > kMaxJobs || fa.n_launches < 0 ||
+      fa.n_launches > kMaxMaps || !fa.tps || !p.arena_end || !p.arena_next) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int g = 0; g < kMaxMaps; ++g) {
+    fa.map_owner[g] = (int)fleet[F_MAP_OWNER0 + g];
+    if (g < fa.n_launches && (fa.map_owner[g] < 0 || fa.map_owner[g] >= fa.J)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  Params tp[kMaxJobs];
+  for (int j = 0; j < fa.J; ++j) {
+    const long long* r = fleet + F_REGION0 + j * R_COUNT;
+    fa.app[j] = (int)r[R_APP];
+    fa.task_off[j] = (int)r[R_TASK_OFF];
+    fa.map_g_off[j] = (int)r[R_MAP_G_OFF];
+    fa.base[j] = (int)r[R_BASE];
+    fa.slot_end[j] = (int)r[R_SLOT_END];
+    const int hb = (int)r[R_HEAP_BASE], nh = (int)r[R_N_HEAP];
+    const int mo = (int)r[R_MAP_OFF], nm = (int)r[R_N_MAPS];
+    if (hb < 0 || nh < 0 || hb + nh > p.n_heap || mo < 0 || nm < 0 ||
+        mo + nm > p.n_maps) {
+      return (int)cudaErrorInvalidValue;
+    }
+    // the tenant's view: its heap variables and maps at its own indices
+    Params& t = tp[j];
+    t = p;
+    long long tints[I_COUNT];
+    for (int i = 0; i < I_COUNT; ++i) tints[i] = ints[i];
+    t.n_heap = nh;
+    for (int v = 0; v < kMaxHeap; ++v) {
+      const bool own = v < nh;
+      t.heap[v] = own ? p.heap[hb + v] : nullptr;
+      t.heap_len[v] = own ? p.heap_len[hb + v] : 0;
+      t.heap_dtype[v] = own ? p.heap_dtype[hb + v] : 0;
+      tints[I_HEAP_LEN0 + v] = t.heap_len[v];
+    }
+    t.n_maps = nm;
+    for (int m = 0; m < kMaxMaps; ++m) {
+      const bool own = m < nm;
+      t.max_domain[m] = own ? p.max_domain[mo + m] : 0;
+      t.n_map_w[m] = own ? p.n_map_w[mo + m] : 0;
+      for (int i = 0; i < kMaxMapW; ++i) t.map_w[m][i] = own ? p.map_w[mo + m][i] : 0;
+    }
+    for (int i = 0; i < kMaxConsts; ++i) {
+      t.consts[i] = (int)r[R_CONST0 + i];
+      tints[I_CONST0 + i] = r[R_CONST0 + i];
+    }
+    t.task_off = fa.task_off[j];
+    t.map_g_off = fa.map_g_off[j];
+    const int launches = j + 1 < fa.J
+        ? (int)fleet[F_REGION0 + (j + 1) * R_COUNT + R_MAP_G_OFF] - fa.map_g_off[j]
+        : fa.n_launches - fa.map_g_off[j];
+    const bool ok = with_fleet(set, 0, [&](auto f) {
+      return (int)fleet_ok(f, fa.app[j], tints, nh, launches);
+    });
+    if (!ok || fa.base[j] < 0 || fa.slot_end[j] > p.capacity ||
+        fa.base[j] > fa.slot_end[j]) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // pageable source: the copy is staged before this returns
+  cudaError_t e = cudaMemcpyAsync(const_cast<Params*>(fa.tps), tp,
+                                  sizeof(Params) * fa.J,
+                                  cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  return with_fleet(set, (int)cudaErrorInvalidValue, [&](auto f) {
+    return launch_fleet(f, p, fa, ints[I_COOP_WORDS], s);
   });
 }
 

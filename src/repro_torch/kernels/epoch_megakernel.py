@@ -37,8 +37,15 @@ mergesort (map and naive variants), treewalk (post- and pre-order), sssp,
 nqueens, tsp, annealing, fft and matmul.  matmul's map adds floats into
 ``C``: the kernel applies those in stage order with the ordered add of
 ``csrc/ordered_add.cuh`` (the ``ordered_add`` kernel's algorithm), for
-which :func:`launch` allocates the ``oa_*`` scratch.  What the kernel does
-not run yet is a fleet carry (several regions of the job service).
+which :func:`launch` allocates the ``oa_*`` scratch.
+
+A fleet carry (the job service's ``DeviceMultiplexer``: a ``JobArena``
+and one stack row per region) runs through the fleet kernel, instantiated
+over the sets of tables in :data:`FLEET_SETS` (those of the registry
+fleets ``fib_fleet``, ``mixed3`` and ``mixed4``): :func:`fleet_plan` gives
+each region its tenant's table, task offset, map launches, heap variables
+and slot region, and a wave whose tables lie in no instantiated set
+raises.
 
 :func:`epoch_chunk` dispatches on the carry's device: on the CPU it runs
 the plain loop ``ref.epoch_chunk_ref`` (as the JAX package's ``"auto"``
@@ -65,7 +72,7 @@ SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
           / "epoch_megakernel.cu")
 
 # the argument layout of trees_epoch_chunk (enum Ptr / enum Int in SOURCE)
-MAX_SPAN, MAX_MAPS, MAX_MAP_WIDTHS, MAX_HEAP, MAX_CONSTS = 8, 4, 40, 8, 4
+MAX_SPAN, MAX_MAPS, MAX_MAP_WIDTHS, MAX_HEAP, MAX_CONSTS = 8, 4, 40, 16, 4
 _PTRS = (
     "task", "argi", "argf", "epoch", "value", "child_base", "child_count",
     "next_free", "jstack", "rstack", "sp", "failed", "failed_stack",
@@ -74,10 +81,22 @@ _PTRS = (
     "limit", "lane_cnt", "lane_excl", "lane_flags", "emit_stage", "wr_idx",
     "wr_val", "wr_meta", "map_argi", "map_argf", "map_pre", "st_idx",
     "st_val", "st_meta", "coop", "stats", "oa_cnt", "oa_off", "oa_long",
-    "oa_run", "oa_tot",
+    "oa_run", "oa_tot", "arena_end", "arena_next", "tenants",
 ) + tuple(f"heap{v}" for v in range(MAX_HEAP))
 _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
            + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5 + MAX_CONSTS)
+# trees_fleet_chunk's regions (enum FleetInt / RegionInt in SOURCE): the
+# set, J and the map launches, then per region its table's place in the
+# set, task offset, first map launch, first heap variable and count, first
+# map and count, slot region [base, end) and constants; then each map
+# launch's region
+MAX_JOBS = 8
+_R_INTS = 9 + MAX_CONSTS
+_N_FLEET_INTS = 3 + MAX_JOBS * _R_INTS + MAX_MAPS
+# the fleet kernel's instantiations: the device tables (app_id) of the
+# registry fleets fib_fleet, mixed3 and mixed4, in the order of with_fleet
+# in SOURCE; a wave's tables must lie in one of them
+FLEET_SETS: Tuple[Tuple[int, ...], ...] = ((0,), (0, 3, 1), (0, 3, 1, 2))
 # the cooperative scratch (csrc: kCoopHeader, kCtaWords, kMaxGrid): the
 # barrier counters, the popped range with the pending map launches and the
 # reclamation words by epoch parity, then one record of totals per CTA
@@ -419,6 +438,93 @@ def device_table(program) -> Optional[DeviceTable]:
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    """How the fleet kernel runs a fused fleet: the instantiated set of
+    tables (``FLEET_SETS[set_id]``), each region's table and its
+    ``trees_fleet_chunk`` row (the table's place in the set, the tenant's
+    task offset, first map launch, first heap variable and count, first
+    map and count, slot region and constants), the region of each map
+    launch, and the map stage the fleet needs."""
+
+    set_id: int
+    tables: Tuple[DeviceTable, ...]
+    regions: Tuple[Tuple[int, ...], ...]
+    map_owner: Tuple[int, ...]
+    stage: int
+
+    def ints(self) -> list:
+        """The launch's ``fleet`` array (enum FleetInt in SOURCE)."""
+        out = [self.set_id, len(self.regions), len(self.map_owner)]
+        for r in range(MAX_JOBS):
+            out += list(self.regions[r]) if r < len(self.regions) \
+                else [0] * _R_INTS
+        out += list(self.map_owner) + [0] * (MAX_MAPS - len(self.map_owner))
+        assert len(out) == _N_FLEET_INTS
+        return out
+
+
+def fleet_plan(program, tenants) -> FleetPlan:
+    """The fleet kernel's plan for the fused ``program`` of ``tenants``
+    (the ``TenantSlot`` layout of ``service/multiplexer.py``): each
+    tenant's device table, checked as :func:`device_table` checks a solo
+    program, and the instantiated set that holds them all.  Raises
+    ``ValueError`` where a tenant has no table, the tables lie in no
+    instantiated set (``FLEET_SETS``), or the fleet exceeds the kernel's
+    limits (``MAX_JOBS`` regions, ``MAX_MAPS`` map launches, ``MAX_HEAP``
+    heap variables, one-word values)."""
+    if not 1 <= len(tenants) <= MAX_JOBS:
+        raise ValueError(f"epoch_chunk: a fleet of {len(tenants)} regions "
+                         f"(the kernel takes 1..{MAX_JOBS})")
+    tables = []
+    for slot in tenants:
+        t = device_table(slot.program)
+        if t is None:
+            raise ValueError(
+                f"epoch_chunk: fleet tenant {slot.program.name!r} (region "
+                f"{slot.index}) has no device task table")
+        tables.append(t)
+    ids = {t.app_id for t in tables}
+    set_id = next((k for k, st in enumerate(FLEET_SETS) if ids <= set(st)),
+                  None)
+    if set_id is None:
+        raise ValueError(
+            "epoch_chunk: no fleet kernel is instantiated for the tenant "
+            f"tables {sorted(ids)} (instantiated sets: {FLEET_SETS}; "
+            "ROADMAP lists the mixes still to instantiate)")
+    if program.value_width != 1 or len(program.heap) > MAX_HEAP:
+        raise ValueError("epoch_chunk: a fleet needs one-word values and at "
+                         f"most {MAX_HEAP} heap variables")
+    regions, owner = [], []
+    heap_base = 0
+    for j, (slot, t) in enumerate(zip(tenants, tables)):
+        sub = slot.program
+        names = [hv.name for hv in program.heap[heap_base:
+                                                heap_base + len(sub.heap)]]
+        if names != [slot.prefix + hv.name for hv in sub.heap] or \
+                slot.index != j:
+            raise ValueError("epoch_chunk: the fused program's layout does "
+                             "not match its tenants")
+        consts = [int(c) for c in t.consts(sub)]
+        # every table's maps are launched from one site each
+        regions.append((
+            FLEET_SETS[set_id].index(t.app_id), slot.task_offset,
+            len(owner), heap_base, len(sub.heap), slot.map_offset,
+            len(sub.maps), slot.base, slot.end,
+            *consts, *[0] * (MAX_CONSTS - len(consts)),
+        ))
+        owner += [j] * len(t.maps)
+        heap_base += len(sub.heap)
+    if len(owner) > MAX_MAPS:
+        raise ValueError(f"epoch_chunk: a fleet of {len(owner)} map launches "
+                         f"(the kernel takes {MAX_MAPS})")
+    stage = max(int(t.stage(slot.program))
+                for slot, t in zip(tenants, tables))
+    return FleetPlan(set_id=set_id, tables=tuple(tables),
+                     regions=tuple(regions), map_owner=tuple(owner),
+                     stage=stage)
+
+
 # --------------------------------------------------------------------------
 # The launch
 # --------------------------------------------------------------------------
@@ -441,8 +547,19 @@ def _load() -> ctypes.CDLL:
             lib.trees_epoch_coop_words.restype = ctypes.c_longlong
             lib.trees_grid_sync_bench.argtypes = [i, i, p, p]
             lib.trees_grid_sync_bench.restype = i
+            lib.trees_fleet_chunk.argtypes = [i, p, i, p, i, p, i, p]
+            lib.trees_fleet_chunk.restype = i
+            lib.trees_fleet_grid.argtypes = [i]
+            lib.trees_fleet_grid.restype = i
+            lib.trees_fleet_coop_words.argtypes = [i]
+            lib.trees_fleet_coop_words.restype = ctypes.c_longlong
+            lib.trees_fleet_tenant_bytes.restype = ctypes.c_longlong
+            lib.trees_fleet_int_count.restype = i
+            lib.trees_fleet_max_jobs.restype = i
             if (lib.trees_epoch_ptr_count() != len(_PTRS)
-                    or lib.trees_epoch_int_count() != _N_INTS):
+                    or lib.trees_epoch_int_count() != _N_INTS
+                    or lib.trees_fleet_int_count() != _N_FLEET_INTS
+                    or lib.trees_fleet_max_jobs() != MAX_JOBS):
                 raise RuntimeError(
                     "epoch_megakernel: the library disagrees on the "
                     "argument layout"
@@ -459,6 +576,18 @@ def grid(app_id: int, device=None) -> int:
     if g < 1:
         raise RuntimeError(
             f"epoch_chunk: no cooperative grid on this device (error {-g})")
+    return g
+
+
+def fleet_grid(set_id: int, device=None) -> int:
+    """CTAs of the cooperative grid of the fleet kernel of
+    ``FLEET_SETS[set_id]`` on ``device`` (builds the library)."""
+    with torch.cuda.device(device):
+        g = _load().trees_fleet_grid(set_id)
+    if g < 1:
+        raise RuntimeError(
+            f"epoch_chunk: no cooperative fleet grid on this device "
+            f"(error {-g})")
     return g
 
 
@@ -505,37 +634,53 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
 
 
 def launch(program, carry, limit, *, gather: bool,
-           stats: Optional[torch.Tensor] = None):
+           stats: Optional[torch.Tensor] = None, tenants=None):
     """One chunk of ``carry`` on the card: a memset of the cooperative
     scratch and one cooperative kernel launch.
 
-    ``carry`` is a solo ``ResidentCarry`` on a CUDA device; ``limit`` an
-    int or an ``i32`` tensor (the epoch bound, read on the device).
-    ``stats``, if given, is an ``i64[5]`` on the carry's device to which
+    ``carry`` is a ``ResidentCarry`` on a CUDA device: solo, run through
+    ``program``'s device table, or a fleet (a ``JobArena`` and one stack row
+    per region), run through the fleet kernel of :func:`fleet_plan` over
+    ``tenants`` (the fused ``program``'s ``TenantSlot`` layout).  ``limit``
+    is an int or an ``i32`` tensor (the epoch bound, read on the device).
+    ``stats``, if given, is an ``i64[6]`` on the carry's device to which
     the kernel adds the chunk's :data:`STATS`.  Updates the carry in place
-    and returns it; raises if the program has no device table, the carry
+    and returns it; raises if a program has no device table, the carry
     does not fit it, or the launch fails.
     """
     from ..core.engine import _map_width_ladder, _span_width_ladder
 
-    table = device_table(program)
-    if table is None:
-        raise ValueError(
-            f"epoch_chunk: program {program.name!r} has no device task table"
-        )
-    if carry.arena is not None or carry.sp.shape != (1,):
-        raise ValueError("epoch_chunk: the kernel runs solo carries only")
+    fleet = carry.arena is not None
+    if fleet:
+        if tenants is None:
+            raise ValueError("epoch_chunk: a fleet carry needs its tenants")
+        plan = fleet_plan(program, tenants)
+        J = len(tenants)
+        tables = plan.tables
+        S, consts = plan.stage, []
+    else:
+        table = device_table(program)
+        if table is None:
+            raise ValueError(f"epoch_chunk: program {program.name!r} has no "
+                             "device task table")
+        if carry.sp.shape != (1,):
+            raise ValueError("epoch_chunk: a carry without an arena has one "
+                             "region")
+        J = 1
+        tables = (table,)
+        S = int(table.stage(program))
+        consts = [int(c) for c in table.consts(program)]
     st = carry.state
     dev = st.task.device
     if dev.type != "cuda":
         raise ValueError(f"epoch_chunk: expects a CUDA carry, got {dev}")
     lib = _load()
-    info = app_info(table.app_id)
+    infos = [app_info(t.app_id) for t in tables]
     C = st.capacity
     A, Af, VW = program.n_arg_i, program.n_arg_f, program.value_width
     depth = carry.jstack.shape[1]
     i32, i64 = torch.int32, torch.int64
-    for name, t, dtype, shape in (
+    checks = [
         ("task", st.task, i32, (C + 1,)),
         ("argi", st.argi, i32, (C + 1, A)),
         ("argf", st.argf, torch.float32, (C + 1, Af)),
@@ -544,22 +689,26 @@ def launch(program, carry, limit, *, gather: bool,
         ("child_base", st.child_base, i32, (C + 1,)),
         ("child_count", st.child_count, i32, (C + 1,)),
         ("next_free", st.next_free, i32, ()),
-        ("jstack", carry.jstack, i32, (1, depth)),
-        ("rstack", carry.rstack, i32, (1, depth, 2)),
-        ("sp", carry.sp, i32, (1,)),
-        ("failed", carry.failed, torch.bool, (1,)),
-        ("failed_stack", carry.failed_stack, torch.bool, (1,)),
+        ("jstack", carry.jstack, i32, (J, depth)),
+        ("rstack", carry.rstack, i32, (J, depth, 2)),
+        ("sp", carry.sp, i32, (J,)),
+        ("failed", carry.failed, torch.bool, (J,)),
+        ("failed_stack", carry.failed_stack, torch.bool, (J,)),
         ("n_epochs", carry.n_epochs, i32, ()),
-        ("job_epochs", carry.job_epochs, i32, (1,)),
-        ("job_tasks", carry.job_tasks, i64, (1,)),
-        ("job_forks", carry.job_forks, i64, (1,)),
-        ("job_peak", carry.job_peak, i32, (1,)),
+        ("job_epochs", carry.job_epochs, i32, (J,)),
+        ("job_tasks", carry.job_tasks, i64, (J,)),
+        ("job_forks", carry.job_forks, i64, (J,)),
+        ("job_peak", carry.job_peak, i32, (J,)),
         ("map_launches", carry.map_launches, i32, ()),
         ("map_elements", carry.map_elements, i64, ()),
         ("map_lanes", carry.map_lanes, i64, ()),
         ("hole_lanes", carry.hole_lanes, i64, ()),
         ("fault", carry.fault, i32, ()),
-    ):
+    ]
+    if fleet:
+        checks += [("arena.end", carry.arena.end, i32, (J,)),
+                   ("arena.next", carry.arena.next, i32, (J,))]
+    for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     heap = [carry.heap[hv.name] for hv in program.heap]
     for hv, t in zip(program.heap, heap):
@@ -571,25 +720,28 @@ def launch(program, carry, limit, *, gather: bool,
     def empty(n, dtype=i32):
         return torch.empty((max(1, n),), dtype=dtype, device=dev)
 
-    S = int(table.stage(program))
+    writes = max(i["writes"] for i in infos)
+    n_launch = sum(i["map_launches"] for i in infos)
+    map_writes = max(i["map_writes"] for i in infos)
     scratch = dict(
         lane_cnt=empty(C), lane_excl=empty(C), lane_flags=empty(C),
         emit_stage=empty(C * VW),
-        wr_idx=empty(info["writes"] * C), wr_val=empty(info["writes"] * C),
-        wr_meta=empty(info["writes"] * C),
-        map_argi=empty(info["map_launches"] * C * A),
-        map_argf=empty(info["map_launches"] * C * Af, torch.float32),
-        map_pre=empty(info["map_launches"] * C, i64),
-        st_idx=empty(info["map_writes"] * S), st_val=empty(info["map_writes"] * S),
-        st_meta=empty(info["map_writes"] * S),
+        wr_idx=empty(writes * C), wr_val=empty(writes * C),
+        wr_meta=empty(writes * C),
+        map_argi=empty(n_launch * C * A),
+        map_argf=empty(n_launch * C * Af, torch.float32),
+        map_pre=empty(n_launch * C, i64),
+        st_idx=empty(map_writes * S), st_val=empty(map_writes * S),
+        st_meta=empty(map_writes * S),
     )
-    # the ordered add's: counts, cursors and the long-run count (and its
-    # copy) cleared here, the kernel clearing them after each use; offsets
-    # and long cells per cell of the added variable; two position buffers
-    # of the stage's size; one total per CTA
+    # the ordered add's (solo tables with kOrderedMapAdd; no fleet set has
+    # one): counts, cursors and the long-run count (and its copy) cleared
+    # here, the kernel clearing them after each use; offsets and long cells
+    # per cell of the added variable; two position buffers of the stage's
+    # size; one total per CTA
     N = 0
-    if info["ordered_var"] >= 0:
-        N = program.heap[info["ordered_var"]].shape[0]
+    if not fleet and infos[0]["ordered_var"] >= 0:
+        N = program.heap[infos[0]["ordered_var"]].shape[0]
         if S >= ORDERED_MAX_STAGE:
             raise ValueError(f"epoch_chunk: a stage of {S} elements "
                              f"(the ordered add takes < {ORDERED_MAX_STAGE})")
@@ -598,8 +750,16 @@ def launch(program, carry, limit, *, gather: bool,
         oa_off=empty(N), oa_long=empty(N), oa_run=empty(2 * S if N else 0),
         oa_tot=empty(MAX_GRID if N else 0),
     )
-    G = grid(table.app_id, dev)
-    coop_words = coop_scratch_words(G)
+    if fleet:
+        G = fleet_grid(plan.set_id, dev)
+        coop_words = int(lib.trees_fleet_coop_words(G))
+        scratch.update(
+            arena_end=carry.arena.end, arena_next=carry.arena.next,
+            tenants=empty(int(lib.trees_fleet_tenant_bytes()), torch.uint8),
+        )
+    else:
+        G = grid(table.app_id, dev)
+        coop_words = coop_scratch_words(G)
     scratch["coop"] = empty(coop_words, i64)
     if stats is not None:
         _check("stats", stats, i64, (len(STATS),), dev)
@@ -649,7 +809,6 @@ def launch(program, carry, limit, *, gather: bool,
             ints += list(w) + [0] * (MAX_MAP_WIDTHS - len(w))
         else:
             ints += [0] * (2 + MAX_MAP_WIDTHS)
-    consts = [int(c) for c in table.consts(program)]
     if len(consts) > MAX_CONSTS:
         raise ValueError("epoch_chunk: the table has too many constants")
     ints += [A, Af, VW, G, coop_words] + consts
@@ -657,11 +816,15 @@ def launch(program, carry, limit, *, gather: bool,
     assert len(ints) == _N_INTS
     ints_c = (ctypes.c_int64 * _N_INTS)(*ints)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.trees_epoch_chunk(
-            table.app_id, ptrs, len(_PTRS), ints_c, _N_INTS,
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if fleet:
+            fleet_c = (ctypes.c_int64 * _N_FLEET_INTS)(*plan.ints())
+            err = lib.trees_fleet_chunk(
+                plan.set_id, ptrs, len(_PTRS), ints_c, _N_INTS, fleet_c,
+                _N_FLEET_INTS, stream)
+        else:
+            err = lib.trees_epoch_chunk(
+                table.app_id, ptrs, len(_PTRS), ints_c, _N_INTS, stream)
     if err != 0:
         raise RuntimeError(f"epoch_chunk: the cooperative launch of {G} "
                            f"CTAs failed with CUDA error {err}")
@@ -669,14 +832,16 @@ def launch(program, carry, limit, *, gather: bool,
     return carry
 
 
-def epoch_chunk(cond_fn, body_fn, carry, limit, *, program, gather: bool):
+def epoch_chunk(cond_fn, body_fn, carry, limit, *, program, gather: bool,
+                tenants=None):
     """Run one resident chunk: ``while cond_fn(carry, limit): body_fn``.
 
     A carry on the CPU runs the plain loop (``ref.epoch_chunk_ref``); a
     carry on the card runs :func:`launch` — one kernel launch, with
     ``cond_fn``/``body_fn`` compiled in as the kernel's own phases and
-    ``program``'s device task table.
+    ``program``'s device task table (a fleet carry: its ``tenants``'
+    tables).
     """
     if carry.state.task.device.type == "cpu":
         return ref.epoch_chunk_ref(cond_fn, body_fn, carry, limit)
-    return launch(program, carry, limit, gather=gather)
+    return launch(program, carry, limit, gather=gather, tenants=tenants)

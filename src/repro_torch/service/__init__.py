@@ -1,13 +1,14 @@
-# Epoch-multiplexing job service, host half (PyTorch port of
-# ``repro.service``): co-schedule many independent task-parallel programs
-# inside one shared TVM, paying the per-epoch launch + scalar readback (the
-# paper's V_inf terms) once for the whole fleet — the §3 "work-together"
-# principle extended across tenants.  Each wave runs on the host-loop
-# EpochMultiplexer (streaming completions, region reuse, preemption,
-# masked/compacted/gather); its commit allocates each region's forks with
-# the segmented_fork_scan CUDA kernel on the card.  The resident
-# DeviceMultiplexer and the wave templates are the device half (ROADMAP
-# item 7b).
+# Epoch-multiplexing job service (PyTorch port of ``repro.service``):
+# co-schedule many independent task-parallel programs inside one shared
+# TVM, paying the per-epoch launch + scalar readback (the paper's V_inf
+# terms) once for the whole fleet — the §3 "work-together" principle
+# extended across tenants.  A wave runs on the host-loop EpochMultiplexer
+# (streaming completions, region reuse, preemption, masked/compacted/
+# gather; its commit allocates each region's forks with the
+# segmented_fork_scan CUDA kernel on the card) or resident on the device
+# in the DeviceMultiplexer (K epochs a chunk; on the card the plain
+# resident loop or one epoch_chunk launch a chunk), whose wave shapes the
+# WaveTemplateCache keeps.
 from .admission import AdmissionController, QuotaClass
 from .api import JobFuture, JobService, merge_stats
 from .jobs import (
@@ -19,12 +20,22 @@ from .jobs import (
     JobStats,
     JobStatus,
     RegionCheckpoint,
+    WaveTemplate,
+    WaveTemplateCache,
+    canonical_wave_order,
+    wave_template_key,
 )
-from .multiplexer import EpochMultiplexer, TenantSlot, fuse_programs
+from .multiplexer import (
+    DeviceMultiplexer,
+    EpochMultiplexer,
+    TenantSlot,
+    fuse_programs,
+)
 
 __all__ = [
     "AdmissionController",
     "AdmissionError",
+    "DeviceMultiplexer",
     "EpochMultiplexer",
     "Job",
     "JobFailure",
@@ -37,6 +48,10 @@ __all__ = [
     "QuotaClass",
     "RegionCheckpoint",
     "TenantSlot",
+    "WaveTemplate",
+    "WaveTemplateCache",
+    "canonical_wave_order",
     "fuse_programs",
     "merge_stats",
+    "wave_template_key",
 ]

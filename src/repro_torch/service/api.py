@@ -11,20 +11,28 @@ moment each job's scheduler drains.  ``submit_async`` /
 queue: a :class:`JobFuture` awaits one job while the service keeps
 pumping cooperatively.
 
-The service runs jobs in *waves*: a wave is one fused
-:class:`~repro_torch.service.multiplexer.EpochMultiplexer` fleet (up to
+The service runs jobs in *waves*: a wave is one fused fleet (up to
 ``max_jobs`` jobs whose quotas fit the capacity budget and whose value
-dtypes agree).  While a wave is in flight, queued jobs whose program
+dtypes agree), on the host loop
+(:class:`~repro_torch.service.multiplexer.EpochMultiplexer`,
+``engine="host"``) or resident on the device
+(:class:`~repro_torch.service.multiplexer.DeviceMultiplexer`,
+``engine="device"``: K epochs a chunk, or the whole wave with
+``chunk=None``; ``megakernel=True`` runs each chunk on the card as one
+``epoch_chunk`` launch).  A device wave's members are seated in
+:func:`~repro_torch.service.jobs.canonical_wave_order` and its shape is
+looked up in a :class:`~repro_torch.service.jobs.WaveTemplateCache`, so a
+wave of a shape seen before builds nothing (``trace_count``).  While a wave is in flight, queued jobs whose program
 matches a freed region are admitted mid-flight; everything else waits for
 the next wave.  At each epoch boundary the admission layer may preempt a
 running job into a :class:`~repro_torch.service.jobs.RegionCheckpoint`
 for a strictly higher-priority waiter; the resumed run stays
 bit-identical to an uninterrupted one.
 
-Not ported yet: the resident engines (``engine="device"``, ROADMAP item
-7b; ``engine="sharded"``, item 9), ``dispatch="auto"`` and the
-``metrics``/``tracer`` observability hooks (item 8).  Asking for them
-raises ``NotImplementedError``.
+Not ported yet: the sharded fleet (``engine="sharded"``, ROADMAP item
+9), ``dispatch="auto"``, ``chunk="auto"`` and the ``metrics``/``tracer``
+observability hooks (item 8).  Asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from typing import (
 
 from ..core.engine import resolve_device
 from ..core.program import InitialTask, Program
-from ..core.scheduler import RunStats
+from ..core.scheduler import RunStats, resolve_policy
 from .admission import AdmissionController, QuotaClass
 from .jobs import (
     AdmissionError,
@@ -45,9 +53,13 @@ from .jobs import (
     JobHandle,
     JobResult,
     JobStatus,
+    WaveTemplate,
+    WaveTemplateCache,
+    canonical_wave_order,
     validate_job,
+    wave_template_key,
 )
-from .multiplexer import EpochMultiplexer
+from .multiplexer import DeviceMultiplexer, EpochMultiplexer
 
 
 def merge_stats(into: RunStats, s: RunStats) -> RunStats:
@@ -105,13 +117,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class JobService:
-    """Multi-tenant job service over one shared TVM (host engine).
+    """Multi-tenant job service over one shared TVM.
 
     ``capacity`` is the slot budget a wave's quotas must fit in;
     ``max_jobs`` bounds a wave's fan-in; ``dispatch``/``coalesce`` select
     the phase-2 policy for the fused fleet as on ``HostEngine``
     (``masked``, ``compacted``, ``gather``); ``pop_policy``/``gang`` pick
-    the multi-stack pop policy.  ``device=None`` means CUDA (and raises
+    the multi-stack pop policy (host engine).  ``engine="device"`` runs
+    each wave resident (masked or gather, every live region each epoch)
+    with ``stack_depth``, a chunk of ``chunk`` epochs (``None``: the whole
+    wave), ``template_cache`` (a fresh :class:`WaveTemplateCache` unless
+    given) and ``megakernel``.  ``device=None`` means CUDA (and raises
     where CUDA is absent); pass ``device="cpu"`` to run the plain PyTorch
     versions on the CPU.  ``classes``/``admission``/``preemption``/
     ``evict_over_deadline``/``clock`` configure the admission layer.
@@ -128,6 +144,10 @@ class JobService:
         default_quota: int = 1 << 10,
         collect_stats: bool = True,
         engine: str = "host",
+        stack_depth: int = 1 << 10,
+        chunk: Optional[int] = None,
+        template_cache: Optional[WaveTemplateCache] = None,
+        megakernel: bool = False,
         device=None,
         metrics=None,
         tracer=None,
@@ -137,24 +157,54 @@ class JobService:
         evict_over_deadline: bool = False,
         clock: Callable[[], float] = time.monotonic,
     ):
-        if engine == "device":
-            raise _not_ported(
-                "JobService(engine='device'), the resident multiplexer",
-                "7b")
-        if engine == "sharded":
-            raise _not_ported(
-                "JobService(engine='sharded'), the sharded fleet", "9")
-        if engine != "host":
+        if engine not in ("host", "device", "sharded"):
             raise ValueError(
                 "engine must be 'host', 'device' or 'sharded', "
                 f"got {engine!r}"
             )
+        if engine == "sharded":
+            raise _not_ported(
+                "JobService(engine='sharded'), the sharded fleet", "9")
         if dispatch == "auto":
             raise _not_ported("dispatch='auto' (the dispatch controller)",
                               "8")
+        if chunk == "auto":
+            raise _not_ported("chunk='auto' (the chunk controller)", "8")
         if metrics is not None or tracer is not None:
             raise _not_ported("the metrics and tracer hooks", "8")
+        if engine == "device":
+            if resolve_policy(dispatch).name not in ("masked", "gather"):
+                raise ValueError(
+                    "engine='device' supports dispatch='masked' or "
+                    "'gather' (resident launch shapes are fixed per chunk; "
+                    "compacted sizes launches from runtime populations and "
+                    "is host-only)"
+                )
+            if gang or pop_policy != "fuse_all":
+                raise ValueError(
+                    "engine='device' runs every live region each epoch "
+                    "(fuse_all); gang/pop_policy are host-engine options"
+                )
+            if isinstance(chunk, str) or (chunk is not None and chunk < 1):
+                raise ValueError(f"chunk must be >= 1 or None, got {chunk!r}")
+        elif chunk is not None:
+            raise ValueError(
+                "chunk sets the resident readback cadence; it requires "
+                "engine='device' (the host engine reads back every epoch)"
+            )
+        elif megakernel:
+            raise ValueError(
+                "megakernel fuses the resident chunk loop; it requires "
+                "engine='device' (the host engine has no resident loop)"
+            )
         self.engine = engine
+        self.stack_depth = stack_depth
+        self.chunk = chunk
+        self.megakernel = bool(megakernel)
+        self.template_cache = (
+            template_cache if template_cache is not None
+            else WaveTemplateCache()
+        )
         self.device = resolve_device(device)
         self.capacity = capacity
         self.max_jobs = max_jobs
@@ -178,7 +228,7 @@ class JobService:
         self.preemption = bool(preemption)
         self._ids = itertools.count()
         self._queue: List[JobHandle] = []
-        self._mux: Optional[EpochMultiplexer] = None
+        self._mux = None  # the live wave's EpochMultiplexer/DeviceMultiplexer
         self._stats = RunStats()
         self._admit_ready = False  # a region was freed since the last scan
 
@@ -292,6 +342,12 @@ class JobService:
             merge_stats(total, self._mux.stats())
         return total
 
+    @property
+    def trace_count(self) -> int:
+        """Resident bodies built across every device wave template: an
+        identical consecutive wave must leave it unchanged."""
+        return self.template_cache.trace_count
+
     # ------------------------------------------------------------ internal
     def _pending(self) -> bool:
         return bool(self._queue) or (self._mux is not None and self._mux.live)
@@ -306,15 +362,18 @@ class JobService:
             wave = self._take_wave()
             if not wave:
                 return []
-            self._mux = EpochMultiplexer(
-                wave,
-                dispatch=self.dispatch,
-                coalesce=self.coalesce,
-                pop_policy=self.pop_policy,
-                gang=self.gang,
-                collect_stats=self.collect_stats,
-                device=self.device,
-            )
+            if self.engine == "device":
+                self._mux = self._device_wave(wave)
+            else:
+                self._mux = EpochMultiplexer(
+                    wave,
+                    dispatch=self.dispatch,
+                    coalesce=self.coalesce,
+                    pop_policy=self.pop_policy,
+                    gang=self.gang,
+                    collect_stats=self.collect_stats,
+                    device=self.device,
+                )
             self._admit_ready = False
         elif self._admit_ready and self._queue:
             # streaming admission: a region frees only at a completion or
@@ -339,6 +398,36 @@ class JobService:
                     self._queue.append(v)
                     self._admit_ready = True
         return done
+
+    def _device_wave(self, wave: List[JobHandle]) -> DeviceMultiplexer:
+        """A resident wave: members seated in canonical order (so a
+        permutation of an earlier wave lands on its cached template's slot
+        layout), the template looked up by the wave's key, stored on a
+        miss."""
+        order = canonical_wave_order([h.job for h in wave])
+        wave = [wave[i] for i in order]
+        jobs = [h.job for h in wave]
+        dispatch = resolve_policy(self.dispatch).name
+        key = wave_template_key(
+            jobs, sum(j.quota for j in jobs), self.stack_depth, self.chunk,
+            dispatch=dispatch, megakernel=self.megakernel,
+        )
+        tpl = self.template_cache.lookup(key)
+        mux = DeviceMultiplexer(
+            wave,
+            dispatch=dispatch,
+            stack_depth=self.stack_depth,
+            chunk=self.chunk,
+            collect_stats=self.collect_stats,
+            template=tpl,
+            megakernel=self.megakernel,
+            device=self.device,
+        )
+        if tpl is None:
+            self.template_cache.store(WaveTemplate(
+                key=key, program=mux.program, slots=mux.slots,
+                loop=mux.loop))
+        return mux
 
     def _admit_queued(self) -> int:
         """Seat queued jobs into free regions of the live wave, in

@@ -15,16 +15,19 @@ only runtime failure left is a job outgrowing its own quota, which fails
 that job alone (its fork scatters are bounded by its region end, so a
 runaway tenant cannot corrupt a neighbour).
 
-The wave templates of the resident multiplexer (``WaveTemplate``,
-``WaveTemplateCache``, ``canonical_wave_order``, ``wave_template_key``)
-come with the device half of the service (ROADMAP item 7b).
+The resident multiplexer's waves are keyed by shape (``wave_template_key``
+over ``canonical_wave_order``), and a :class:`WaveTemplateCache` keeps one
+:class:`WaveTemplate` per shape: the fused program, its slot layout and
+the ``EpochLoop`` that owns the wave's resident bodies, so that a wave of
+a shape seen before builds nothing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import time
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,6 +227,109 @@ def validate_job(job: Job, capacity: int) -> None:
             f"job {job.name!r}: seed task {job.initial.task!r} not in "
             f"program {job.program.name!r}"
         ) from None
+
+
+@dataclasses.dataclass
+class WaveTemplate:
+    """One wave *shape*, built: the fused program, its fuse-time slot
+    layout, and the :class:`~repro_torch.core.engine.EpochLoop` that owns
+    the resident bodies built for it (and, on the card, the device tables
+    its ``epoch_chunk`` launches dispatch to).
+
+    Two waves whose members are structurally equal (``structural_hash``)
+    with the same quotas, capacity, stack depth, chunk size K, dispatch and
+    chunk driver run the same loop, so the second wave runs on the first
+    wave's template: only runtime state (TV, heap, stacks) is rebuilt.
+    """
+
+    key: Tuple
+    program: Any   # fused Program
+    slots: Any     # List[TenantSlot] (fuse-time layout)
+    loop: Any      # EpochLoop (owns the resident bodies)
+
+
+def canonical_wave_order(jobs: Sequence[Job]) -> Tuple[int, ...]:
+    """Canonical member order of a wave: sort by (structural hash, quota).
+
+    Two waves that are permutations of each other run the same template
+    once their members are seated in the same order.  The sort is stable
+    (ties keep submission order) and quotas ride the permutation, so the
+    slot layout follows the members.  Results need no un-permuting: they
+    attach to each job's own handle.
+    """
+    return tuple(sorted(
+        range(len(jobs)),
+        key=lambda i: (jobs[i].program.structural_hash(), jobs[i].quota),
+    ))
+
+
+def wave_template_key(jobs: Sequence[Job], capacity: int, stack_depth: int,
+                      chunk, dispatch: str = "masked",
+                      megakernel: bool = False) -> Tuple:
+    """Cache key of one wave shape: member structure and quota layout in
+    :func:`canonical_wave_order`, TV capacity, stack depth, the chunk size
+    K (an int or ``None``), the resolved dispatch and the chunk driver
+    (the plain loop or the ``epoch_chunk`` kernel)."""
+    order = canonical_wave_order(jobs)
+    return (
+        tuple(jobs[i].program.structural_hash() for i in order),
+        tuple(jobs[i].quota for i in order),
+        int(capacity),
+        int(stack_depth),
+        chunk,
+        str(dispatch),
+        bool(megakernel),
+    )
+
+
+class WaveTemplateCache:
+    """LRU cache of :class:`WaveTemplate` per wave shape.
+
+    ``JobService(engine="device")`` consults it before fusing a wave: a hit
+    runs the wave on the cached loop (``hits``/``misses`` make the reuse
+    observable; ``trace_count`` sums the owned loops' build counters, so a
+    test can assert that a hit built nothing).
+    """
+
+    def __init__(self, max_entries: int = 16):
+        self.max_entries = max_entries
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self._entries: "collections.OrderedDict[Tuple, WaveTemplate]" = (
+            collections.OrderedDict()
+        )
+        # builds owned by templates since evicted: keeps trace_count
+        # monotone, so an eviction can never hide a rebuild
+        self._evicted_traces = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def lookup(self, key: Tuple) -> Optional[WaveTemplate]:
+        t = self._entries.get(key)
+        if t is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return t
+
+    def store(self, template: WaveTemplate) -> None:
+        self._entries[template.key] = template
+        self._entries.move_to_end(template.key)
+        while len(self._entries) > self.max_entries:
+            _, evicted = self._entries.popitem(last=False)
+            self.evictions += 1
+            self._evicted_traces += evicted.loop.trace_count
+
+    @property
+    def trace_count(self) -> int:
+        """Resident bodies built across every template ever cached
+        (evicted templates' builds stay counted: the total is monotone)."""
+        return self._evicted_traces + sum(
+            t.loop.trace_count for t in self._entries.values()
+        )
 
 
 def check_fleet_dtype(programs) -> torch.dtype:

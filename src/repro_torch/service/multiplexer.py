@@ -28,9 +28,21 @@ module extends work-together across tenants:
   reuse (structurally equal programs, ``Program.structural_hash``), gang
   policies and preemption into a :class:`RegionCheckpoint`.
 
+* :class:`DeviceMultiplexer` is the chunked resident driver (DESIGN.md
+  §9–10): the wave runs in the resident loop
+  (:meth:`~repro_torch.core.engine.EpochLoop.run_chunk`) with per-region
+  stacks (``batched_device_stacks``) and the arena's cursors riding the
+  carry, for at most ``chunk`` (K) epochs a chunk; each chunk boundary
+  reads one :class:`~repro_torch.core.engine.ChunkSummary`, so a wave of E
+  epochs pays ⌈E/K⌉ dispatches and readbacks.  Between chunks the host
+  streams completions, reseeds freed regions in the live carry and
+  preempts.  On the card a chunk is the plain resident loop (which calls
+  the ``segmented_fork_scan`` and ``type_rank`` kernels) or, with
+  ``megakernel=True``, one cooperative ``epoch_chunk`` launch over the
+  fleet carry.
+
 Per-job results are bit-identical to solo ``HostEngine`` runs with
-``capacity=quota``.  The resident ``DeviceMultiplexer`` is the device half
-of the service (ROADMAP item 7b).
+``capacity=quota`` under both drivers, at every K.
 """
 from __future__ import annotations
 
@@ -41,14 +53,24 @@ import numpy as np
 import torch
 
 from ..core import tvm
-from ..core.engine import EpochLoop, resolve_device
+from ..core.engine import (
+    _COMPACTED_RESIDENT_MSG,
+    ChunkSummary,
+    EpochLoop,
+    _fresh_resident_carry,
+    resolve_device,
+)
 from ..core.program import HeapVar, MapType, Program, TaskType, pack_args
 from ..core.scheduler import (
     EpochScheduler,
     NullStats,
     RunStats,
     RunStatsCollector,
+    batched_device_stacks,
+    load_region_stacks,
+    reseed_region_stacks,
     resolve_mux_policy,
+    resolve_policy,
 )
 from .jobs import (
     Job,
@@ -303,18 +325,23 @@ class _FleetBase:
         coalesce: bool = True,
         collect_stats: bool = True,
         device=None,
+        template=None,
     ):
         if not handles:
             raise ValueError(f"{type(self).__name__} needs at least one job")
-        if any(h is None for h in handles):
+        # a None handle is a vacant slot region, seated later through the
+        # admit path; the fused program then comes from a wave template
+        jobs = [h.job for h in handles if h is not None]
+        if len(jobs) != len(handles) and template is None:
             raise ValueError(
-                "vacant wave slots (handle=None) need a wave template, "
-                "which comes with the device half of the service (ROADMAP "
-                "item 7b)"
+                "vacant wave slots (handle=None) require a wave template: "
+                "the fused program cannot be derived from absent jobs"
             )
         self.device = resolve_device(device)
-        jobs = [h.job for h in handles]
-        quota_total = sum(j.quota for j in jobs)
+        quota_total = (
+            sum(s.quota for s in template.slots) if template is not None
+            else sum(j.quota for j in jobs)
+        )
         self.capacity = int(capacity) if capacity else quota_total
         if quota_total > self.capacity:
             raise ValueError(
@@ -324,9 +351,24 @@ class _FleetBase:
         for j in jobs:
             validate_job(j, self.capacity)
         self.coalesce = coalesce
-        self.program, self._slots = fuse_programs(
-            [j.program for j in jobs], [j.quota for j in jobs]
-        )
+        if template is not None:
+            # wave-template reuse (jobs.py WaveTemplateCache): the members
+            # are structurally equal to the template's, so its fused
+            # program and loop apply as they are; only runtime state is
+            # rebuilt below
+            if len(handles) != len(template.slots) or any(
+                h is not None and h.job.quota != s.quota
+                for h, s in zip(handles, template.slots)
+            ):
+                raise ValueError(
+                    "wave template quota layout does not match the wave"
+                )
+            self.program = template.program
+            self._slots = list(template.slots)
+        else:
+            self.program, self._slots = fuse_programs(
+                [j.program for j in jobs], [j.quota for j in jobs]
+            )
         self._col = RunStatsCollector() if collect_stats else NullStats()
         # (region index, handle) pairs whose TV image restores from a
         # RegionCheckpoint once the wave's runtime state exists
@@ -354,12 +396,14 @@ class _FleetBase:
         self._heap: Dict[str, torch.Tensor] = {}
         for slot, h in zip(self._slots, handles):
             slot_job[slot.base: slot.end] = slot.index
-            if h.checkpoint is not None:
-                # a preempted job resuming in this wave: declared-default
-                # heap now, its region image restores once the state exists
+            if h is None or h.checkpoint is not None:
+                # a vacant region, or a preempted job resuming in this
+                # wave: declared-default heap now (a resuming job's region
+                # image restores once the driver's state exists)
                 self._heap.update(self._tenant_heap(slot))
                 self._regions.append(_Region(slot=slot))
-                self._restore_pending.append((slot.index, h))
+                if h is not None:
+                    self._restore_pending.append((slot.index, h))
                 continue
             job = h.job
             tid = slot.task_offset + slot.program.task_id(job.initial.task)
@@ -418,8 +462,11 @@ class _FleetBase:
         A region can be reused by any job whose program is structurally
         equal to the region's fused-in template (``Program.structural_hash``
         — same tables and task bytecode), with a quota up to the region's.
-        Returns False when no compatible free region exists.
+        Returns False when the driver is not admitting now
+        (``_admits_midflight``) or no compatible free region exists.
         """
+        if not self._admits_midflight():
+            return False
         job = handle.job
         for r in self._regions:
             if r.handle is not None:
@@ -438,6 +485,9 @@ class _FleetBase:
             return True
         return False
 
+    def _admits_midflight(self) -> bool:
+        return True
+
     def _seed_region(self, r: _Region, handle: JobHandle) -> None:
         raise NotImplementedError
 
@@ -450,12 +500,17 @@ class _FleetBase:
         the handle, the region is freed for admission, and the handle
         moves to PREEMPTED.  Re-admitting the handle restores the image and
         the job continues bit-identically to an uninterrupted run.
-        Returns False when the handle is not running here.
+        Returns False when the driver is not at a yield point
+        (``_admits_midflight``: a fully resident wave has none) or the
+        handle is not running here.
         """
+        if not self._admits_midflight():
+            return False
         for j, r in enumerate(self._regions):
             if r.handle is handle and r.running:
                 cp = self._capture_region(j)
                 self._release(j)
+                self._vacate(j)
                 handle.mark_preempted(cp)
                 return True
         return False
@@ -469,6 +524,11 @@ class _FleetBase:
 
     def _restore_region(self, r: _Region, handle: JobHandle) -> None:
         raise NotImplementedError
+
+    def _vacate(self, j: int) -> None:
+        """Driver-specific cleanup after a region's tenant was captured
+        (the host driver needs none: with its scheduler gone, no pop ever
+        reaches the stale TV content)."""
 
     def _capture_tv(self, r: _Region):
         """The TVM half of a capture: the job's TV rows (task codes
@@ -779,6 +839,378 @@ class EpochMultiplexer(_FleetBase):
         sched.load_stack(cp.jstack, ranges)
         r.handle = handle
         r.sched = sched
+        r.stats = (
+            cp.stats if cp.stats is not None
+            else JobStats(
+                epochs=cp.job_epochs, tasks_executed=cp.job_tasks,
+                total_forks=cp.job_forks, peak_tv_slots=cp.job_peak,
+            )
+        )
+        r.active_quota = cp.quota
+        handle.checkpoint = None
+        handle.mark_running()
+
+
+# --------------------------------------------------------------------------
+# The chunked resident driver
+# --------------------------------------------------------------------------
+class _ChunkLedger:
+    """Fleet totals already credited to the stats collector.
+
+    Each chunk boundary accounts only its delta against these, so
+    re-reading the carry's monotone accumulators never double-counts and
+    an empty trailing chunk credits nothing.  A region's entries change
+    with the carry's when it is reseeded or restored.
+    """
+
+    def __init__(self, n_regions: int):
+        self.epochs = 0
+        self.job_epochs = np.zeros(n_regions, np.int64)
+        self.job_tasks = np.zeros(n_regions, np.int64)
+        self.job_forks = np.zeros(n_regions, np.int64)
+        self.map_launches = 0
+        self.map_elements = 0
+        self.map_lanes = 0
+        self.hole_lanes = 0
+
+
+class DeviceMultiplexer(_FleetBase):
+    """Chunked device-resident wave execution (DESIGN.md §9–10).
+
+    The admitted fleet runs in the resident loop — per-region stacks on
+    the device, the :class:`~repro_torch.core.tvm.JobArena` cursors and
+    per-region reclamation riding the carry, every region's pop fused
+    into one per-lane epoch-number vector per epoch — for at most
+    ``chunk`` (K) epochs a call.  Each chunk boundary reads one
+    :class:`~repro_torch.core.engine.ChunkSummary`; between chunks the host
+    streams the completions of drained regions, reseeds freed regions in
+    the live carry (``admit``: a structurally equal queued job, nothing
+    rebuilt) and preempts.  ``chunk=None`` runs the whole wave as one
+    chunk and is closed to admission and preemption.
+
+    Masked and gather dispatches only (``compacted`` raises, as in the
+    reference); every live region pops each global epoch.  On the card a
+    chunk is the plain loop, whose steps call the ``segmented_fork_scan``
+    and ``type_rank`` kernels, or with ``megakernel=True`` one
+    cooperative ``epoch_chunk`` launch (a wave whose tenant mix the kernel
+    does not instantiate raises).  A job overflowing its region (quota or
+    stack depth) fails alone, mid-chunk.  Per-job results are bit-identical
+    to solo runs at every K.  ``template`` reuses a
+    :class:`~repro_torch.service.jobs.WaveTemplate`'s fused program, slots
+    and loop.  ``device=None`` means CUDA (and raises where CUDA is
+    absent).
+    """
+
+    def __init__(
+        self,
+        handles: Sequence[JobHandle],
+        capacity: Optional[int] = None,
+        dispatch: Any = "masked",
+        stack_depth: int = 1 << 10,
+        chunk: Any = None,
+        collect_stats: bool = True,
+        template=None,
+        megakernel: bool = False,
+        device=None,
+    ):
+        super().__init__(
+            handles, capacity=capacity, collect_stats=collect_stats,
+            device=device, template=template,
+        )
+        policy = resolve_policy(dispatch)
+        if policy.name not in ("masked", "gather"):
+            raise ValueError(_COMPACTED_RESIDENT_MSG)
+        if chunk == "auto":
+            raise NotImplementedError(
+                "chunk='auto' (the chunk controller) is not ported to the "
+                "PyTorch package yet (ROADMAP item 8)")
+        if isinstance(chunk, str) or (chunk is not None and chunk < 1):
+            raise ValueError(
+                "chunk must be >= 1 epoch, or None for a fully resident "
+                f"wave; got {chunk!r}"
+            )
+        self.stack_depth = stack_depth
+        self.chunk = chunk
+        if template is not None:
+            if template.loop.policy.name != policy.name:
+                raise ValueError(
+                    "wave template was built with dispatch "
+                    f"{template.loop.policy.name!r} but this wave asks for "
+                    f"{policy.name!r} (key on dispatch when caching "
+                    "templates)"
+                )
+            if template.loop.megakernel != bool(megakernel):
+                raise ValueError(
+                    "wave template was built with megakernel="
+                    f"{template.loop.megakernel} but this wave asks for "
+                    f"megakernel={bool(megakernel)} (key on megakernel "
+                    "when caching templates)"
+                )
+            self._loop: EpochLoop = template.loop
+        else:
+            self._loop = EpochLoop(self.program, dispatch,
+                                   megakernel=megakernel,
+                                   tenants=self._slots)
+        self.policy = self._loop.policy
+        if self._loop.megakernel and self.device.type == "cuda":
+            self._loop.device_table()  # no instantiated tenant mix: raise
+        self._carry = None
+        self._ledger = _ChunkLedger(len(self._slots))
+
+    @property
+    def loop(self) -> EpochLoop:
+        """The driver core (owner of the resident bodies)."""
+        return self._loop
+
+    @property
+    def slots(self):
+        """Fuse-time slot layout (for wave-template capture)."""
+        return self._slots
+
+    # ------------------------------------------------------------ driving
+    def _ensure_carry(self) -> None:
+        """Build the resident carry on first use: a seated region's stack
+        gets its seed entry (sp=1), a vacant one starts empty (sp=0)."""
+        if self._carry is not None:
+            return
+        J = len(self._slots)
+        jstack, rstack, sp = batched_device_stacks(
+            J, self.stack_depth, self.device,
+            cens=np.ones(J, np.int32),
+            starts=np.asarray([s.base for s in self._slots], np.int32),
+            counts=np.ones(J, np.int32),
+        )
+        seated = torch.as_tensor(
+            [r.handle is not None for r in self._regions], device=self.device)
+        sp = sp * seated.to(_I32)
+        self._carry = _fresh_resident_carry(
+            self._state, self._heap, self._arena, jstack, rstack, sp,
+            n_regions=J,
+        )
+
+    def _chunk_limit(self, max_epochs: int) -> int:
+        """This chunk's epoch bound: the guard for a fully resident wave,
+        else the ledger's epoch watermark plus K."""
+        if self.chunk is None:
+            return max_epochs
+        return min(max_epochs, self._ledger.epochs + self.chunk)
+
+    def _attach_carry(self, carry) -> None:
+        """Adopt a post-chunk carry (the same tensors, updated in place):
+        the shared plumbing reads the wave state through these."""
+        self._carry = carry
+        self._state, self._heap, self._arena = (
+            carry.state, carry.heap, carry.arena
+        )
+
+    def step(self, max_epochs: int = 1 << 20) -> List[JobHandle]:
+        """Run one chunk — at most ``chunk`` epochs (the whole wave when
+        ``chunk`` is None) — then surface every region that drained or
+        failed.  Once nothing is live, calls are no-ops that touch neither
+        the device nor the stats."""
+        if self._restore_pending:
+            # wave members resuming from preemption: build the carry, then
+            # write each checkpoint image into its region
+            self._ensure_carry()
+            for j, h in self._restore_pending:
+                self._restore_region(self._regions[j], h)
+            self._restore_pending = []
+        riders = [j for j, r in enumerate(self._regions) if r.running]
+        if not riders:
+            return []
+        self._ensure_carry()
+        carry = self._loop.run_chunk(
+            self._carry, self._chunk_limit(max_epochs),
+            n_regions=len(self._slots))
+        self._attach_carry(carry)
+        s = self._loop.chunk_summary(carry)
+        self._account(s, riders)
+        return self._settle(s, riders, max_epochs)
+
+    def run(self, max_epochs: int = 1 << 20) -> List[JobHandle]:
+        """Drive the wave to completion, chunk by chunk."""
+        out: List[JobHandle] = []
+        while self.live:
+            out.extend(self.step(max_epochs=max_epochs))
+        return out
+
+    # --------------------------------------------------------- accounting
+    def _account(self, s: ChunkSummary, riders: List[int]) -> None:
+        """Credit this chunk's delta to the fleet collector and to every
+        region that rode the chunk."""
+        col = self._col
+        col.dispatch()
+        col.transfer()
+        for j in riders:
+            self._regions[j].stats.shared_dispatches += 1
+            self._regions[j].stats.shared_transfers += 1
+        led = self._ledger
+        d_epochs = s.n_epochs - led.epochs
+        d_holes = s.hole_lanes - led.hole_lanes
+        if d_epochs > 0:
+            # every global epoch fused all regions live then; the task
+            # steps were span-bucketed, so launched lanes are the full-TV
+            # total minus the hole lanes (reported first, as the host
+            # gather path does)
+            col.epoch(
+                s.n_epochs,
+                n_ranges=int((s.job_epochs - led.job_epochs).sum()),
+                n=d_epochs,
+            )
+            col.holes_skipped(d_holes)
+            col.lanes(int((s.job_tasks - led.job_tasks).sum()),
+                      d_epochs * self.capacity - d_holes, None)
+            col.forks(int((s.job_forks - led.job_forks).sum()))
+        bases = np.asarray([sl.base for sl in self._slots])
+        col.tv_peak(int((s.job_peak + bases).max()))
+        d_maps = s.map_launches - led.map_launches
+        if d_maps > 0:
+            col.map_launch(
+                s.map_elements - led.map_elements,
+                s.map_lanes - led.map_lanes, n=d_maps,
+            )
+        led.epochs = s.n_epochs
+        led.job_epochs = s.job_epochs.astype(np.int64)
+        led.job_tasks = s.job_tasks.astype(np.int64)
+        led.job_forks = s.job_forks.astype(np.int64)
+        led.map_launches = s.map_launches
+        led.map_elements = s.map_elements
+        led.map_lanes = s.map_lanes
+        led.hole_lanes = s.hole_lanes
+
+    def _settle(self, s: ChunkSummary, riders: List[int],
+                max_epochs: int) -> List[JobHandle]:
+        """Surface every rider whose region drained, failed, or hit the
+        epoch guard; the others stay RUNNING for the next chunk."""
+        done: List[JobHandle] = []
+        for j in riders:
+            r = self._regions[j]
+            # a region still holding stack entries at the guard fails, so
+            # the wave always resolves every handle
+            timed_out = bool(s.sp[j] > 0) and s.n_epochs >= max_epochs
+            if s.sp[j] > 0 and not timed_out:
+                continue
+            st = r.stats
+            st.epochs = int(s.job_epochs[j])
+            st.tasks_executed = int(s.job_tasks[j])
+            st.total_forks = int(s.job_forks[j])
+            st.peak_tv_slots = int(s.job_peak[j])
+            if bool(s.failed[j]) or timed_out:
+                if timed_out:
+                    reason = f"exceeded max_epochs={max_epochs}"
+                elif bool(s.failed_stack[j]):
+                    reason = (
+                        f"job {r.handle.job.name!r} exhausted the resident "
+                        f"scheduler stack: stack_depth={self.stack_depth}"
+                    )
+                else:
+                    reason = None  # TV region overflow: the default message
+                done.append(self._fail(j, reason=reason))
+            else:
+                done.append(self._finalize(j))
+        return done
+
+    # ------------------------------------------------- streaming admission
+    def _admits_midflight(self) -> bool:
+        # a fully resident wave (chunk=None) is closed: the host sees no
+        # freed region until the whole wave drains
+        return self.chunk is not None and self._carry is not None and self.live
+
+    def _reset_region_carry(self, j: int, end: int, nxt: int,
+                            acc=(0, 0, 0, 0)) -> None:
+        """Point region ``j``'s arena cursors and accumulator rows (epochs,
+        tasks, forks, peak) at a newly seated tenant, in the live carry
+        and the ledger alike."""
+        c = self._carry
+        c.arena.end[j] = end
+        c.arena.next[j] = nxt
+        c.failed[j] = False
+        c.failed_stack[j] = False
+        for t, v in zip((c.job_epochs, c.job_tasks, c.job_forks,
+                         c.job_peak), acc):
+            t[j] = v
+        led = self._ledger
+        led.job_epochs[j], led.job_tasks[j], led.job_forks[j] = acc[:3]
+
+    def _seed_region(self, r: _Region, handle: JobHandle) -> None:
+        """Reseed a freed region in the live carry between chunks: TV
+        slots, tenant heap, arena cursors, its stack row and accumulators;
+        the next chunk sees one more live region."""
+        job = handle.job
+        s = r.slot
+        self._seed_state(s, job)
+        self._heap.update(self._tenant_heap(s, job.heap_init))
+        self._reset_region_carry(s.index, s.base + job.quota, s.base + 1)
+        reseed_region_stacks(self._carry.jstack, self._carry.rstack,
+                             self._carry.sp, s.index, cen=1, start=s.base,
+                             count=1)
+        r.handle = handle
+        r.sched = None
+        r.stats = JobStats()
+        r.active_quota = job.quota
+        handle.mark_running()
+
+    # --------------------------------------------------------- preemption
+    def _capture_region(self, j: int) -> RegionCheckpoint:
+        """Lift region ``j`` off the live carry at a chunk boundary: TV
+        image, heap and arena cursor (``_capture_tv``), its stack row
+        (starts region-relative) and its accumulators."""
+        r = self._regions[j]
+        tv, heap, next_off = self._capture_tv(r)
+        c = self._carry
+        epochs, tasks, forks, peak, sp = (int(v) for v in torch.stack([
+            c.job_epochs[j].to(torch.int64), c.job_tasks[j],
+            c.job_forks[j], c.job_peak[j].to(torch.int64),
+            c.sp[j].to(torch.int64)]).tolist())
+        jst = _host(c.jstack[j, :sp]).astype(np.int32)
+        rst = _host(c.rstack[j, :sp]).astype(np.int32).copy()
+        if rst.size:
+            rst[:, 0] -= r.slot.base
+        st = dataclasses.replace(
+            r.stats, epochs=epochs, tasks_executed=tasks,
+            total_forks=forks, peak_tv_slots=peak,
+        )
+        return RegionCheckpoint(
+            structural_hash=r.slot.program.structural_hash(),
+            quota=r.active_quota,
+            tv=tv, heap=heap, arena_next_off=next_off,
+            sp=sp, jstack=jst, rstack=rst,
+            job_epochs=epochs, job_tasks=tasks,
+            job_forks=forks, job_peak=peak,
+            stats=st,
+        )
+
+    def _vacate(self, j: int) -> None:
+        # sp = 0 makes the region inert: nothing pops it, so its stale TV
+        # content is unreachable.  Its accumulator rows still match the
+        # ledger, so chunk deltas stay zero until a reseed or restore.
+        self._carry.sp[j] = 0
+
+    def _restore_region(self, r: _Region, handle: JobHandle) -> None:
+        """Write a checkpoint image into a freed region of the live carry
+        (the dual of ``_seed_region``): TV, heap, arena cursor, the whole
+        stack row, and the accumulators, with the ledger rows set to match
+        so the next chunk credits only new work."""
+        cp = handle.checkpoint
+        s = r.slot
+        self._restore_state(s, cp)
+        self._heap.update({
+            s.prefix + k: v
+            for k, v in tvm.heap_with_sink({
+                k: torch.as_tensor(v, device=self.device)
+                for k, v in cp.heap.items()
+            }).items()
+        })
+        self._reset_region_carry(
+            s.index, s.base + cp.quota, s.base + cp.arena_next_off,
+            (cp.job_epochs, cp.job_tasks, cp.job_forks, cp.job_peak))
+        ranges = np.asarray(cp.rstack, np.int32).reshape(-1, 2).copy()
+        if ranges.size:
+            ranges[:, 0] += s.base
+        load_region_stacks(self._carry.jstack, self._carry.rstack,
+                           self._carry.sp, s.index, cp.jstack, ranges)
+        r.handle = handle
+        r.sched = None
         r.stats = (
             cp.stats if cp.stats is not None
             else JobStats(

@@ -23,7 +23,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.models import init_model
 from repro_torch.serving import EpochServer, Request
-from repro_torch.service import JobService
+from repro_torch.service import DeviceMultiplexer, Job, JobHandle, JobService
 
 pytestmark = pytest.mark.cuda
 
@@ -710,6 +710,123 @@ def test_service_on_cuda_matches_cpu(cuda_device, dispatch):
         assert g.result.stats == c.result.stats
     assert gs.as_dict() == cs.as_dict()
     assert launches["segmented_fork_scan"] == gs.epochs
+
+
+def _fleet_mux(name, dispatch, megakernel, device, chunk=None):
+    handles = [
+        JobHandle(i, Job(c.program, c.initial, dict(c.heap_init), quota=q,
+                         name=c.name))
+        for i, (c, q) in enumerate(get_fleet(name))
+    ]
+    mux = DeviceMultiplexer(handles, dispatch=dispatch, chunk=chunk,
+                            megakernel=megakernel, device=device)
+    mux._ensure_carry()
+    return handles, mux
+
+
+def _carry_tensors(carry):
+    out = {}
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}.{k}": t for k, t in v.items()})
+        elif dataclasses.is_dataclass(v):  # TVMState, JobArena
+            out.update({f"{f.name}.{g.name}": getattr(v, g.name)
+                        for g in dataclasses.fields(v)})
+        elif v is not None:
+            out[f.name] = v
+    return out
+
+
+def _assert_same_carry(a, b):
+    ta, tb = _carry_tensors(a), _carry_tensors(b)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert ta[k].dtype == tb[k].dtype and ta[k].shape == tb[k].shape, k
+        assert torch.equal(ta[k].cpu(), tb[k].cpu()), k
+
+
+@pytest.mark.parametrize("K", (1, 4, None))
+@pytest.mark.parametrize("dispatch", ("masked", "gather"))
+@pytest.mark.parametrize("name", ("mixed3", "mixed4", "fib_fleet"))
+def test_fleet_kernel_matches_plain_fleet_loop(cuda_device, name, dispatch,
+                                               K):
+    """The fleet epoch_chunk against the plain resident fleet loop on the
+    card, every carry tensor after every chunk."""
+    from repro_torch.kernels import epoch_megakernel as mk
+
+    _, plain = _fleet_mux(name, dispatch, False, "cuda")
+    _, kern = _fleet_mux(name, dispatch, True, "cuda")
+    J = len(plain.slots)
+    mk.reset_launches()
+    chunks = 0
+    while True:
+        limit = 1 << 16 if K is None else int(plain._carry.n_epochs) + K
+        want = plain.loop.run_chunk(plain._carry, limit, J)
+        got = kern.loop.run_chunk(kern._carry, limit, J)
+        plain._attach_carry(want)
+        kern._attach_carry(got)
+        torch.cuda.synchronize()
+        chunks += 1
+        _assert_same_carry(got, want)
+        sg, sw = kern.loop.chunk_summary(got), plain.loop.chunk_summary(want)
+        for f in dataclasses.fields(sg):
+            np.testing.assert_array_equal(getattr(sg, f.name),
+                                          getattr(sw, f.name), f.name)
+        if not bool((want.sp > 0).any()):
+            break
+    assert mk.LAUNCHES["epoch_chunk"] == chunks
+
+
+def test_fleet_without_an_instantiated_mix_raises(cuda_device):
+    """A wave whose tenant tables lie in no instantiated fleet set raises
+    on the card with megakernel=True, rather than running the plain loop;
+    megakernel=False runs it."""
+    from repro_torch.apps import get_case
+    from repro_torch.core import EngineError
+
+    members = [(get_case("fib"), 512), (get_case("sssp"), 1 << 11)]
+    handles = [JobHandle(i, Job(c.program, c.initial, dict(c.heap_init),
+                                quota=q, name=c.name))
+               for i, (c, q) in enumerate(members)]
+    with pytest.raises(EngineError, match="no fleet kernel"):
+        DeviceMultiplexer(handles, megakernel=True, device="cuda")
+    svc = JobService(capacity=512 + (1 << 11), engine="device",
+                     megakernel=True, device="cuda")
+    for c, q in members:
+        svc.submit_case(c, quota=q)
+    with pytest.raises(EngineError, match="no fleet kernel"):
+        svc.drain()
+    svc = JobService(capacity=512 + (1 << 11), engine="device",
+                     device="cuda")
+    hs = [svc.submit_case(c, quota=q) for c, q in members]
+    svc.drain()
+    assert all(h.status is h.status.DONE for h in hs)
+
+
+@pytest.mark.parametrize("megakernel", (False, True))
+@pytest.mark.parametrize("dispatch", ("masked", "gather"))
+def test_device_service_on_cuda_matches_cpu(cuda_device, dispatch,
+                                            megakernel):
+    """JobService(engine='device') on the card (plain resident loop or the
+    fleet kernel) against the same wave on the CPU, per job and fleet."""
+    fleet = get_fleet("mixed4")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = JobService(capacity=sum(q for _, q in fleet),
+                         dispatch=dispatch, engine="device", chunk=4,
+                         megakernel=megakernel and dev == "cuda", device=dev)
+        handles = [svc.submit_case(c, quota=q) for c, q in fleet]
+        svc.drain()
+        runs[dev] = (handles, svc.stats())
+    (gh, gs), (ch, cs) = runs["cuda"], runs["cpu"]
+    for g, c in zip(gh, ch):
+        assert g.status is c.status is g.status.DONE
+        assert torch.equal(g.result.value.cpu(), c.result.value)
+        for k in c.result.heap:
+            assert torch.equal(g.result.heap[k].cpu(), c.result.heap[k]), k
+        assert g.result.stats == c.result.stats
+    assert gs.as_dict() == cs.as_dict()
 
 
 # B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window

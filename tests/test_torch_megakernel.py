@@ -3,7 +3,8 @@
 On the CPU: the chunk cadence (K = 1, 4 and unbounded give the same final
 carry, with one readback per chunk), the reclamation invariant the kernel
 relies on, the device task table lookup (every program of the registry has
-one), and the refusals.  On a card (marker ``cuda``; they skip here): the
+one), the fleet kernel's plan (each tenant region's table, offsets and
+heap base), and the refusals.  On a card (marker ``cuda``; they skip here): the
 kernel against its plain version, ``kernels/ref.py::epoch_chunk_ref``,
 every carry tensor exactly, ``DeviceEngine(megakernel=True)`` against the
 CPU, and matmul's ordered float add with runs of 128 terms a cell.  The file imports no
@@ -25,7 +26,9 @@ from repro_torch.apps import (
     all_cases, annealing, bfs, fft, fib, get_case, matmul, mergesort, nqueens,
     sssp, treewalk, tsp,
 )
+from repro_torch.apps import get_fleet
 from repro_torch.apps.registry import AppCase
+from repro_torch.service import fuse_programs
 from repro_torch.core import DeviceEngine, EngineError, EpochLoop, Program
 from repro_torch.core.program import HeapVar, TaskType
 from repro_torch.kernels import epoch_megakernel as mk
@@ -38,6 +41,18 @@ MORE_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive",
              "annealing", "fft", "matmul")
 DISPATCHES = ("masked", "gather")
 KS = (1, 4, None)  # None: one unbounded chunk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    torch's thread pool costs more than it gives on them, many times more
+    while other test processes load the machine.  The results are the
+    same."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _case(name):
@@ -281,6 +296,66 @@ def test_program_without_a_table_is_refused():
         mk.launch(case.program, _fresh(case, eng), 8, gather=False)
     with pytest.raises(ValueError, match="device task table"):
         mk.launch(odd, _fresh(case, eng), 8, gather=False)
+
+
+@pytest.mark.parametrize("name, set_id", (
+    ("fib_fleet", 0), ("mixed3", 1), ("mixed4", 2)))
+def test_fleet_plan_gives_each_region_its_table(name, set_id):
+    """The fleet kernel's plan: each TenantSlot's own device table, its
+    place in the instantiated set, its task offset, first map launch,
+    heap variables (the fused program's j<k>/ names, in order), maps and
+    slot region; the map launches' owners."""
+    fleet = get_fleet(name)
+    program, slots = fuse_programs([c.program for c, _ in fleet],
+                                   [q for _, q in fleet])
+    plan = mk.fleet_plan(program, slots)
+    assert plan.set_id == set_id
+    assert len(plan.regions) == len(slots) == len(plan.tables)
+    heap_base = launches = 0
+    for slot, table, r in zip(slots, plan.tables, plan.regions):
+        sub = slot.program
+        assert table is mk.device_table(sub)
+        assert mk.FLEET_SETS[set_id][r[0]] == table.app_id
+        assert r[1:5] == (slot.task_offset, launches, heap_base,
+                          len(sub.heap))
+        assert [hv.name for hv in program.heap[heap_base:heap_base + r[4]]] \
+            == [slot.prefix + hv.name for hv in sub.heap]
+        assert r[5:9] == (slot.map_offset, len(sub.maps), slot.base,
+                          slot.end)
+        assert r[9:] == (0,) * mk.MAX_CONSTS  # no registry tenant has one
+        heap_base += len(sub.heap)
+        launches += len(table.maps)
+    assert plan.map_owner == tuple(
+        j for j, t in enumerate(plan.tables) for _ in t.maps)
+    assert plan.stage == max(t.stage(s.program)
+                             for s, t in zip(slots, plan.tables))
+    ints = plan.ints()
+    assert len(ints) == mk._N_FLEET_INTS
+    assert ints[:3] == [set_id, len(slots), len(plan.map_owner)]
+    loop = EpochLoop(program, "masked", megakernel=True, tenants=slots)
+    assert loop.device_table() == plan
+
+
+def test_fleet_plan_refusals():
+    def plan(members):
+        program, slots = fuse_programs([p for p, _ in members],
+                                       [q for _, q in members])
+        return program, slots
+
+    # a tenant without a table
+    odd = _renamed(fib.PROGRAM, tasks=(
+        fib.PROGRAM.tasks[0], TaskType("fibsum", lambda ctx: None)))
+    with pytest.raises(ValueError, match="no device task table"):
+        mk.fleet_plan(*plan([(fib.PROGRAM, 64), (odd, 64)]))
+    # tables in no instantiated set: an EngineError from the loop
+    program, slots = plan([(fib.PROGRAM, 64), (get_case("sssp").program, 64)])
+    with pytest.raises(ValueError, match="no fleet kernel is instantiated"):
+        mk.fleet_plan(program, slots)
+    with pytest.raises(EngineError, match="no fleet kernel"):
+        EpochLoop(program, megakernel=True, tenants=slots).device_table()
+    # more regions than the kernel holds
+    with pytest.raises(ValueError, match="regions"):
+        mk.fleet_plan(*plan([(fib.PROGRAM, 64)] * (mk.MAX_JOBS + 1)))
 
 
 def test_coop_scratch_words():

@@ -206,11 +206,10 @@ def test_refusals():
     assert str(err.value) == jengine._COMPACTED_RESIDENT_MSG
     eng = DeviceEngine(case.program, capacity=case.capacity, device="cpu")
     carry = eng.initial_carry(case.initial)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    # a carry of one region run as a fleet of two (fleet carries run, in
+    # tests/test_torch_device_service.py)
+    with pytest.raises(ValueError, match="n_regions=2"):
         eng.loop.run_chunk(carry, 4, n_regions=2)
-    fleet = dataclasses.replace(carry, arena=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        eng.loop.resident_body(case.capacity, 8)(fleet)
     with pytest.raises(EngineError, match="max_epochs"):
         eng.run(case.initial, max_epochs=3)
     small = DeviceEngine(case.program, capacity=8, device="cpu")

@@ -389,8 +389,11 @@ def test_admission_rejects_bad_jobs():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
-        JobService(engine="device", device="cpu")
+    # engine="device" is ported (tests/test_torch_chunked_service.py);
+    # its adaptive chunk is not
+    assert JobService(engine="device", device="cpu").engine == "device"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        JobService(engine="device", chunk="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         JobService(engine="sharded", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
