@@ -687,6 +687,24 @@ def _chunk_bound(program, stats):
     return bound_ms(n_bytes, stats.tasks_executed)
 
 
+def _fleet_bound(mux, s):
+    """Least bytes a fleet chunk must move, region by region, from its
+    ChunkSummary: each task reads its tenant's own prefix of its row (the
+    kernel reads no padding column), each fork writes a row of the fused
+    stride (its padding zeroed, as the plain loop writes it), the heap
+    once, 8 bytes a live map element; bound_by the operations only if one
+    operation per task outweighs that."""
+    fused = mux.program
+    fork_row = 4 * (4 + fused.n_arg_i + fused.n_arg_f + fused.value_width)
+    n_bytes = (sum(4 * hv.shape[0] for hv in fused.heap)
+               + 8 * s.map_elements)
+    for slot, tasks, forks in zip(mux.slots, s.job_tasks, s.job_forks):
+        sub = slot.program
+        row = 4 * (4 + sub.n_arg_i + sub.n_arg_f + sub.value_width)
+        n_bytes += int(tasks) * row + int(forks) * fork_row
+    return bound_ms(n_bytes, int(s.job_tasks.sum()))
+
+
 # the programs of epoch_chunk's later device tables, held at the registry's
 # size and at full size: phase 3b's cells and treewalk on phase 7's tree
 CHUNK_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive",
@@ -1001,7 +1019,7 @@ def phase_fleet_chunks(dev, row):
                     timing[d] = (members, kern, fresh, s_want, plain_ms)
     row["fleet_max_abs_err"] = err
 
-    def chunk_ms(mux, fresh, reps=3, device=True):
+    def chunk_ms(run, fresh, reps=3, device=True):
         # as phase_chunks' chunk_ms: the card sleeps while the host
         # enqueues, so the events hold the device's time alone
         ts = []
@@ -1013,44 +1031,119 @@ def phase_fleet_chunks(dev, row):
             if device:
                 torch.cuda._sleep(5_000_000)
             a.record()
-            mux.loop.run_chunk(c, 1 << 16, len(mux.slots))
+            run(c)
             b.record()
             torch.cuda.synchronize()
             ts.append(a.elapsed_time(b))
         return sorted(ts)[len(ts) // 2]
 
-    for d, (members, kern, fresh, s, plain_ms) in timing.items():
-        ms = chunk_ms(kern, fresh)
-        call_ms = chunk_ms(kern, fresh, device=False)
-        stats = types.SimpleNamespace(
-            tasks_executed=int(s.job_tasks.sum()),
-            total_forks=int(s.job_forks.sum()), map_elements=s.map_elements)
-        b, by = _chunk_bound(kern.program, stats)
+    def loop_chunk(mux):
+        return lambda c: mux.loop.run_chunk(c, 1 << 16, len(mux.slots))
+
+    def counted(mux, fresh, plan=None):
+        """One chunk of a fresh clone with the kernel's STATS: (carry,
+        stats)."""
         st = torch.zeros(len(epoch_megakernel.STATS), dtype=torch.int64,
                          device=dev)
-        again = fresh.clone()
-        epoch_megakernel.launch(kern.program, again, 1 << 16,
-                                gather=d == "gather", stats=st,
-                                tenants=kern.slots)
+        c = fresh.clone()
+        epoch_megakernel.launch(mux.program, c, 1 << 16,
+                                gather=mux.policy.name == "gather", stats=st,
+                                plan=plan or mux.loop.device_table())
         torch.cuda.synchronize()
-        st = dict(zip(epoch_megakernel.STATS, st.tolist()))
-        G = epoch_megakernel.fleet_grid(
-            epoch_megakernel.fleet_plan(kern.program, kern.slots).set_id, dev)
+        return c, dict(zip(epoch_megakernel.STATS, st.tolist()))
+
+    for d, (members, kern, fresh, s, plain_ms) in timing.items():
+        ms = chunk_ms(loop_chunk(kern), fresh)
+        call_ms = chunk_ms(loop_chunk(kern), fresh, device=False)
+        b, by = _fleet_bound(kern, s)
+        _, st = counted(kern, fresh)
+        plan = kern.loop.device_table()
+        G = epoch_megakernel.fleet_grid(plan.set_id, dev)
         floor = st["grid_barriers"] * row["barrier_us"] * 1e-3
+        tasks, forks = int(s.job_tasks.sum()), int(s.job_forks.sum())
         print(f"[kernels] fleet epoch_chunk mixed4 full {d}, one chunk "
-              f"({G} CTAs): device {ms:.3f} ms (with the host's enqueue "
-              f"{call_ms:.3f} ms), bound {b:.5f} ms ({by}), barrier floor "
-              f"{floor:.3f} ms ({st['grid_barriers']} grid barriers, "
-              f"{st['search_barriers']} of further reclamation rounds, "
-              f"{st['wide_epochs']} epochs), plain fleet loop "
-              f"{plain_ms:.1f} ms ({s.n_epochs} global epochs, "
-              f"{stats.tasks_executed} tasks, {stats.total_forks} forks)")
+              f"({G} CTAs, set {plan.set_id}): device {ms:.3f} ms (with the "
+              f"host's enqueue {call_ms:.3f} ms), bound {b:.5f} ms ({by}), "
+              f"barrier floor {floor:.3f} ms ({st['grid_barriers']} grid "
+              f"barriers, {st['search_barriers']} of further reclamation "
+              f"rounds, {st['wide_epochs']} epochs), plain fleet loop "
+              f"{plain_ms:.1f} ms ({s.n_epochs} global epochs, {tasks} "
+              f"tasks, {forks} forks)")
         row[f"fleet_mixed4_{d}_ms"] = ms
         row[f"fleet_mixed4_{d}_call_ms"] = call_ms
         row[f"fleet_mixed4_{d}_plain_ms"] = plain_ms
         row[f"fleet_mixed4_{d}_bound_ms"] = b
         row[f"fleet_mixed4_{d}_floor_ms"] = floor
         row[f"fleet_mixed4_{d}_stats"] = st
+
+    # a solo carry is the one-region case of a fleet: fib(28) through the
+    # fleet kernel (J = 1) against the solo kernel, the same bits and the
+    # chunk's device time beside the solo kernel's
+    from repro_torch.core import DeviceEngine
+
+    fib_case = {c.name: c for c, _ in path_cases()}["fib"]
+    one = fleet_mux([(fib_case, fib_case.capacity)], "masked", True)
+    one_fresh = one._carry.clone()
+    solo = DeviceEngine(fib_case.program, capacity=fib_case.capacity,
+                        dispatch="masked", megakernel=True, device="cuda")
+    solo_fresh = solo.initial_carry(fib_case.initial)
+    got, _ = counted(one, one_fresh)
+    want = solo.loop.run_chunk(solo_fresh.clone(), 1 << 16, 1)
+    ta, tb = _carry_tensors(got), _carry_tensors(want)
+    for k in tb:
+        if k in ta and not torch.equal(ta[k], tb[k]):
+            fail(f"fib(28) as a one-region fleet: {k} differs from the solo "
+                 "kernel's")
+    one_ms = chunk_ms(loop_chunk(one), one_fresh)
+    _, one_st = counted(one, one_fresh)
+    print(f"[kernels] fib(28) as a one-region fleet (masked): equal to the "
+          f"solo kernel's carry; device {one_ms:.3f} ms against the solo "
+          f"kernel's {row['ms']:.3f} ms ({one_st['grid_barriers']} grid "
+          f"barriers, {one_st['wide_epochs']} epochs all on the whole grid; "
+          f"solo: {row['stats']['grid_barriers']} grid + "
+          f"{row['stats']['group_barriers']} group barriers, "
+          f"{row['stats']['narrow_epochs']} narrow epochs on one CTA)")
+    row["fleet_fib_one_region_ms"] = one_ms
+    row["fleet_fib_one_region_stats"] = one_st
+
+    # the fleet kernel's instantiations: each fleet's chunk on every
+    # instantiated set of tables that holds its tenants' (a larger set
+    # switches over more tables in every lane)
+    from repro_torch.apps import get_fleet
+
+    by_name = {c.name: c for c, _ in path_cases()}
+    fleets = (
+        ("fib(28), one region", None),
+        ("mixed3 full", [(c, c.capacity) for c in (
+            by_name["fib"], tree_case("post")[0], by_name["bfs"])]),
+        ("fib_fleet", get_fleet("fib_fleet")),
+        ("mixed3", get_fleet("mixed3")),
+    )
+    sets = {}
+    for label, members in fleets:
+        mux = one if members is None else fleet_mux(members, "masked", True)
+        fresh = mux._carry.clone()
+        want = None
+        for k in range(len(epoch_megakernel.FLEET_SETS)):
+            try:
+                plan = epoch_megakernel.fleet_plan(mux.program, mux.slots,
+                                                   set_id=k)
+            except ValueError:
+                continue
+            got, _ = counted(mux, fresh, plan)
+            if want is None:
+                want = got
+            elif carry_err(got, want, f"{label} on set {k}") != 0:
+                fail(f"{label}: set {k} gives other bits")
+            sets[label, k] = chunk_ms(
+                lambda c: epoch_megakernel.launch(
+                    mux.program, c, 1 << 16, gather=False, plan=plan),
+                fresh, reps=5)
+        print(f"[kernels] fleet epoch_chunk {label} masked, device ms by "
+              "instantiated set: " + ", ".join(
+                  f"set {k} {epoch_megakernel.FLEET_SETS[k]}: {v:.4f}"
+                  for (lb, k), v in sets.items() if lb == label))
+    row["fleet_sets_ms"] = {f"{lb} set {k}": v for (lb, k), v in sets.items()}
     return row
 
 
@@ -1687,6 +1780,7 @@ def device_waves(wave, runs, tenants, host_stats):
     epoch_megakernel.reset_launches()
     for d in ("masked", "gather"):
         hs = host_stats[d]
+        walls = {}
         for megakernel, K in DEVICE_WAVES:
             label = (f"device {d} {'epoch_chunk' if megakernel else 'plain'}"
                      f" K={'inf' if K is None else K}")
@@ -1711,6 +1805,12 @@ def device_waves(wave, runs, tenants, host_stats):
                   f"transfers {fs.scalar_transfers} (host wave "
                   f"{hs.dispatches} / {hs.scalar_transfers}), tasks "
                   f"{fs.tasks_executed}, wall_ms={wall * 1e3:.1f}")
+            walls[megakernel, K] = wall
+        # what a chunk boundary costs: K = 1 takes epochs chunks, K = inf one
+        per = (walls[True, 1] - walls[True, None]) / (hs.epochs - 1)
+        print(f"[service] mixed4 device {d} epoch_chunk: a chunk boundary "
+              f"costs {per * 1e3:.3f} ms ((K=1 wall - K=inf wall) / "
+              f"{hs.epochs - 1})")
     torch.cuda.synchronize()
     n = epoch_megakernel.LAUNCHES["epoch_chunk"]
     if n <= 0:

@@ -373,6 +373,8 @@ class EpochLoop:
         # counted: the wave-template cache's zero-rebuild check reads it
         self._resident_cache: Dict[Tuple[int, int, int], Callable] = {}
         self.trace_count = 0
+        # the epoch_chunk kernel's table (a fleet: its plan), found once
+        self._device_table = None
 
     # ------------------------------------------------------------ the steps
     # ``cen`` is an int or a per-lane ``i32[P]`` tensor (a fused frontier);
@@ -691,14 +693,19 @@ class EpochLoop:
     def device_table(self):
         """The ``epoch_chunk`` kernel's device task table for this program
         (or, for a fused fleet, its per-region plan over the tenants'
-        tables); raises :class:`EngineError` where there is none."""
+        tables), found once per loop; raises :class:`EngineError` where
+        there is none."""
         from ..kernels import epoch_megakernel as mk
 
+        if self._device_table is not None:
+            return self._device_table
         if self.tenants is not None:
             try:
-                return mk.fleet_plan(self.program, self.tenants)
+                self._device_table = mk.fleet_plan(self.program,
+                                                   self.tenants)
             except ValueError as e:
                 raise EngineError(str(e)) from None
+            return self._device_table
         table = mk.device_table(self.program)
         if table is None:
             raise EngineError(
@@ -707,6 +714,7 @@ class EpochLoop:
                 "program of the registry, checked by task bodies, widths, "
                 "heap and captured constants)"
             )
+        self._device_table = table
         return table
 
     def run_chunk(self, carry: ResidentCarry, limit,
@@ -742,16 +750,19 @@ class EpochLoop:
         if self.megakernel:
             from ..kernels import epoch_megakernel as mk
 
+            plan = None
             if carry.state.device.type == "cuda":
                 if (carry.arena is None) != (self.tenants is None):
                     raise EngineError(
                         "epoch_chunk: a fleet carry needs the loop's "
                         "tenants (EpochLoop(tenants=...)), a solo carry "
                         "none")
-                self.device_table()
+                table = self.device_table()
+                plan = table if self.tenants is not None else None
             return mk.epoch_chunk(
                 _resident_cond, body, carry, limit, program=self.program,
                 gather=self.policy.name == "gather", tenants=self.tenants,
+                plan=plan,
             )
         return kref.epoch_chunk_ref(_resident_cond, body, carry, limit)
 

@@ -180,7 +180,7 @@ enum Ptr {
   P_LIMIT, P_LANE_CNT, P_LANE_EXCL, P_LANE_FLAGS, P_EMIT_STAGE, P_WR_IDX,
   P_WR_VAL, P_WR_META, P_MAP_ARGI, P_MAP_ARGF, P_MAP_PRE, P_ST_IDX,
   P_ST_VAL, P_ST_META, P_COOP, P_STATS, P_OA_CNT, P_OA_OFF, P_OA_LONG,
-  P_OA_RUN, P_OA_TOT, P_ARENA_END, P_ARENA_NEXT, P_TENANTS, P_HEAP0,
+  P_OA_RUN, P_OA_TOT, P_ARENA_END, P_ARENA_NEXT, P_HEAP0,
   P_COUNT = P_HEAP0 + kMaxHeap
 };
 // the fleet launch's layout (trees_fleet_chunk's `fleet`): per region its
@@ -1331,6 +1331,242 @@ __device__ int ordered_site(const Params& p, int k, long long el,
   return 4;
 }
 
+// ---- the phases both chunk kernels run ---------------------------------------
+// `tq` is the launch parameters a table's bodies see: the launch's own for
+// a solo carry, a region's tenant view for a fleet (Fleet: rows of the
+// fused argument stride, task codes and map launches shifted).
+
+// The sink rows stay zero (the plain loop zeroes them after each epoch):
+// written once, before the first barrier.  One thread.
+__device__ __forceinline__ void zero_sinks(const Params& p, int value_w) {
+  const int C = p.capacity;
+  p.task[C] = 0;
+  p.epoch[C] = 0;
+  p.child_base[C] = 0;
+  p.child_count[C] = 0;
+  for (int k = 0; k < p.arg_si; ++k) p.argi[C * p.arg_si + k] = 0;
+  for (int k = 0; k < p.arg_sf; ++k) p.argf[C * p.arg_sf + k] = 0.f;
+  for (int w = 0; w < value_w; ++w) p.value[C * value_w + w] = 0u;
+  for (int v = 0; v < p.n_heap; ++v) p.heap[v][p.heap_len[v]] = 0u;
+}
+
+// Pass A of an active lane of known type t at slot cidx: its fork count
+// (the body runs against CountSink: no writes).
+template <class A, bool Fleet>
+__device__ __forceinline__ unsigned count_lane(const Params& tq, int t,
+                                               int cidx) {
+  TaskIn<A> in;
+  in.template load<Fleet>(tq, cidx);
+  CountSink cs;
+  A::task(t, in, tq, cs);
+  return (unsigned)cs.n;
+}
+
+// Pass B of lane l (type t, slot cidx): children from `base` (dropped at
+// `end`), the join, child pointers and TMS written, emits, heap writes and
+// map arguments staged, the lane's flags updated.  Returns whether it
+// joined.
+template <class A, bool Fleet>
+__device__ __forceinline__ bool apply_lane(const Params& tq, int l, int t,
+                                           int cidx, int cen, unsigned base,
+                                           int end) {
+  TaskIn<A> in;
+  in.template load<Fleet>(tq, cidx);
+  ApplySink<A, Fleet> as(tq, cidx, l, cen, base, end);
+  A::task(t, in, tq, as);
+  tq.lane_flags[l] = as.finish(tq.lane_flags[l], tq.lane_cnt[l]);
+  return as.joined;
+}
+
+// Pass C of lane l (slot cidx): its staged emit and heap writes; a float
+// add raises *fault.
+template <class A>
+__device__ __forceinline__ void commit_lane(const Params& tq, int l, int cidx,
+                                            int flags, int* fault) {
+  if (flags & kEmitted) {
+    for (int w = 0; w < A::kValW; ++w) {
+      tq.value[cidx * A::kValW + w] =
+          tq.emit_stage[(long long)l * A::kValW + w];
+    }
+  }
+  for (int k = 0; k < A::kWrites; ++k) {
+    const long long at = (long long)k * tq.capacity + l;
+    const int meta = tq.wr_meta[at];
+    if (meta >= 0 && !heap_apply(tq, meta, tq.wr_idx[at], tq.wr_val[at])) {
+      atomicOr(fault, 1);
+    }
+  }
+}
+
+// A map launch's totals over some lanes: live elements, the lanes that
+// scheduled it, their largest domain.
+struct MapTotals {
+  unsigned long long el;
+  int rows, dmax;
+};
+
+// The map domains of map launch g (map `mid` of tq) over this CTA's lanes
+// [lo, hi), scanned in lane order into map_pre (CTA-relative), and their
+// totals (to every thread).  Every thread of the CTA must call it.
+template <class A>
+__device__ MapTotals map_domains(const Params& tq, int g, int mid, int lo,
+                                 int hi, unsigned long long* s_warp64,
+                                 int* s_wmax) {
+  const long long C = tq.capacity;
+  const int maxd = tq.max_domain[mid];
+  MapTotals t{0ull, 0, 0};
+  int my_dmax = 0;
+  for (int b0 = lo; b0 < hi; b0 += kThreads) {
+    const int l = b0 + threadIdx.x;
+    int on = 0;
+    unsigned long long dom = 0;
+    if (l < hi && (tq.lane_flags[l] & (kMapBit << g))) {
+      on = 1;
+      const long long row = g * C + l;
+      const int d = A::map_domain(mid, tq.map_argi + row * A::kArgI, tq);
+      dom = (unsigned long long)clampi(d, 0, maxd);
+      my_dmax = max(my_dmax, (int)dom);
+    }
+    unsigned long long tot;
+    const unsigned long long ex =
+        block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
+    if (l < hi) tq.map_pre[g * C + l] = (long long)(t.el + ex);
+    t.el += tot;
+    t.rows += __syncthreads_count(on);
+  }
+  t.dmax = block_max(my_dmax, s_wmax);
+  return t;
+}
+
+// Map launch g's totals over the first n CTA records (to thread 0 of the
+// calling warp; the warp must be whole).
+template <class Rec>
+__device__ MapTotals sum_map_totals(const Rec* cta, int n, int g) {
+  const int lane = threadIdx.x & 31;
+  MapTotals t{0ull, 0, 0};
+  for (int q0 = 0; q0 < n; q0 += 32) {
+    const int q = q0 + lane;
+    unsigned long long x = q < n ? __ldcg(&cta[q].el[g]) : 0ull;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+    t.el += x;
+    t.rows += __reduce_add_sync(kFull, q < n ? __ldcg(&cta[q].rows[g]) : 0);
+    t.dmax = max(t.dmax, __reduce_max_sync(
+                             kFull, q < n ? __ldcg(&cta[q].dmax[g]) : 0));
+  }
+  return t;
+}
+
+// Stage the `el` elements of map launch g (map `mid` of tq), scheduled by
+// the previous epoch's `mnl` lanes in blocks of `mper` over `mge` CTAs
+// (their element counts in the CTA records), on the first gm CTAs:
+// element f lies in the CTA whose elements hold it, at that CTA's last
+// lane with map_pre <= f.  Every thread of CTAs b < gm must call it.
+template <class A, class Rec>
+__device__ void stage_map(const Params& tq, const Rec* cta, int g, int mid,
+                          long long el, int mnl, int mge, int mper, int gm,
+                          unsigned long long* s_elbase) {
+  const int tid = threadIdx.x;
+  const long long C = tq.capacity;
+  if (tid < 32) {  // the first element of each CTA's lanes
+    unsigned long long run = 0;
+    for (int q0 = 0; q0 < mge; q0 += 32) {
+      const int q = q0 + tid;
+      const unsigned long long x = q < mge ? __ldcg(&cta[q].el[g]) : 0ull;
+      unsigned long long incl = x;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned long long y = __shfl_up_sync(kFull, incl, d);
+        if (tid >= d) incl += y;
+      }
+      if (q < mge) s_elbase[q] = run + incl - x;
+      run += __shfl_sync(kFull, incl, 31);
+    }
+  }
+  __syncthreads();
+  const long long* pre = tq.map_pre + g * C;
+  for (long long f = (long long)blockIdx.x * kThreads + tid; f < el;
+       f += (long long)gm * kThreads) {
+    int c0 = 0, c1 = mge - 1;
+    while (c0 < c1) {
+      const int m = (c0 + c1 + 1) >> 1;
+      if (s_elbase[m] <= (unsigned long long)f) c0 = m; else c1 = m - 1;
+    }
+    const long long fl = f - (long long)s_elbase[c0];
+    int a = min(mnl, c0 * mper), z = min(mnl, a + mper) - 1;
+    while (a < z) {
+      const int m = (a + z + 1) >> 1;
+      if (pre[m] <= fl) a = m; else z = m - 1;
+    }
+    const long long row = g * C + a;
+    StageSink<A> ss{tq, f};
+    A::map_payload(mid, tq.map_argi + row * A::kArgI,
+                   tq.map_argf + row * (A::kArgF > 0 ? A::kArgF : 1),
+                   (int)(fl - pre[a]), tq, ss);
+  }
+}
+
+// Apply the staged writes of `el` map elements on the first gm CTAs (no
+// ordered add); a float add raises *fault.
+template <class A>
+__device__ void apply_map(const Params& tq, long long el, int gm, int* fault) {
+  for (long long f = (long long)blockIdx.x * kThreads + threadIdx.x; f < el;
+       f += (long long)gm * kThreads) {
+    for (int k = 0; k < A::kMapWrites; ++k) {
+      const long long at = (long long)k * tq.stage_cap + f;
+      const int meta = tq.st_meta[at];
+      if (meta >= 0 && !heap_apply(tq, meta, tq.st_idx[at], tq.st_val[at])) {
+        atomicOr(fault, 1);
+      }
+    }
+  }
+}
+
+// One region's LIFO push onto its stack row (js, rs) from stack pointer
+// sp: the join continuation (cen, start, count) below, the forked range
+// [first, first + forks) at cen + 1 on top.  A push onto a full stack
+// clips to the top row; returns whether one did.
+__device__ __forceinline__ bool push_epoch(int* js, int* rs, int depth,
+                                           int& sp, bool join, int forks,
+                                           int cen, int start, int count,
+                                           int first) {
+  bool of = false;
+  if (join) {
+    of |= sp >= depth;
+    const int ssp = clampi(sp, 0, depth - 1);
+    js[ssp] = cen;
+    rs[2 * ssp] = start;
+    rs[2 * ssp + 1] = count;
+    ++sp;
+  }
+  if (forks > 0) {
+    of |= sp >= depth;
+    const int ssp = clampi(sp, 0, depth - 1);
+    js[ssp] = cen + 1;
+    rs[2 * ssp] = first;
+    rs[2 * ssp + 1] = forks;
+    ++sp;
+  }
+  return of;
+}
+
+// A map launch's epoch totals into the carry's counters (elements; where
+// some scheduled lane has a domain, a launch and its lanes, the JAX
+// body's lane rung x domain rung).  Returns 1 where it runs at the next
+// epoch's start, 0 where it has nothing to run, -1 where its elements
+// overflow the stage (a fault).  One thread.
+__device__ __forceinline__ int account_map(const Params& tq, int mid,
+                                           const MapTotals& t,
+                                           long long& elements, int& launches,
+                                           long long& lanes) {
+  elements += (long long)t.el;
+  if (t.dmax <= 0) return 0;
+  launches += 1;
+  lanes += (long long)rung(tq.span_w, tq.n_span, t.rows) *
+           rung(tq.map_w[mid], tq.n_map_w[mid], t.dmax);
+  return (long long)t.el > tq.stage_cap ? -1 : 1;
+}
+
 // ---- the chunk ---------------------------------------------------------------
 // Every CTA runs the epoch loop; CTA 0's thread 0 pops and pushes.  Each
 // epoch starts at a barrier of the whole grid, after which every CTA reads
@@ -1348,8 +1584,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
   __shared__ unsigned long long s_elbase[kMaxGrid];  // each CTA's first element
   __shared__ unsigned s_base, s_total;
   __shared__ int s_nact, s_join, s_last[2];  // s_last: by round parity
-  __shared__ unsigned long long s_mel[kMaxMaps];  // CTA 0: map launch totals
-  __shared__ int s_mrows[kMaxMaps], s_mdmax[kMaxMaps];
+  __shared__ MapTotals s_mt[kMaxMaps];  // CTA 0: map launch totals
   __shared__ Scalars car;  // CTA 0's
   __shared__ unsigned s_obase;  // the ordered add's scan base
   __shared__ int s_sort[App::kOrderedMapAdd ? oadd::kSortTile : 1];
@@ -1368,16 +1603,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
   if (tid == 0) s_obase = 0;
 
   if (b == 0 && tid == 0) {
-    // the sink rows stay zero (the plain loop zeroes them after each
-    // epoch); written once, before the first barrier
-    p.task[C] = 0;
-    p.epoch[C] = 0;
-    p.child_base[C] = 0;
-    p.child_count[C] = 0;
-    for (int k = 0; k < App::kArgI; ++k) p.argi[C * App::kArgI + k] = 0;
-    for (int k = 0; k < App::kArgF; ++k) p.argf[C * App::kArgF + k] = 0.f;
-    for (int w = 0; w < App::kValW; ++w) p.value[C * App::kValW + w] = 0u;
-    for (int v = 0; v < p.n_heap; ++v) p.heap[v][p.heap_len[v]] = 0u;
+    zero_sinks(p, App::kValW);
     car.load(p);
     pop(p, car, ctl, last, 0, 0u);
   }
@@ -1425,52 +1651,12 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
       const int mper = (mnl + mge - 1) / mge;
       for (int g = 0; g < App::kMapLaunches; ++g) {
         if (!(fired & (1 << g))) continue;
-        const int mid = App::map_id(g);
         const unsigned long long el = __ldcg(&cc->map_el[g]);
         const int gm = (int)min((unsigned long long)G,
                                 (el + kThreads - 1) / kThreads);
-        const long long stride = (long long)gm * kThreads;
         if (b < gm) {
-          if (tid < 32) {  // the first element of each CTA's lanes
-            unsigned long long run = 0;
-            for (int q0 = 0; q0 < mge; q0 += 32) {
-              const int q = q0 + tid;
-              const unsigned long long x =
-                  q < mge ? __ldcg(&cta[q].el[g]) : 0ull;
-              unsigned long long incl = x;
-#pragma unroll
-              for (int d = 1; d < 32; d <<= 1) {
-                const unsigned long long y = __shfl_up_sync(kFull, incl, d);
-                if (tid >= d) incl += y;
-              }
-              if (q < mge) s_elbase[q] = run + incl - x;
-              run += __shfl_sync(kFull, incl, 31);
-            }
-          }
-          __syncthreads();
-          // element f: the CTA whose elements hold it, then that CTA's
-          // last lane with map_pre <= f
-          const long long* pre = p.map_pre + (long long)g * C;
-          for (long long f = (long long)b * kThreads + tid;
-               f < (long long)el; f += stride) {
-            int c0 = 0, c1 = mge - 1;
-            while (c0 < c1) {
-              const int m = (c0 + c1 + 1) >> 1;
-              if (s_elbase[m] <= (unsigned long long)f) c0 = m; else c1 = m - 1;
-            }
-            const long long fl = f - (long long)s_elbase[c0];
-            int a = min(mnl, c0 * mper), z = min(mnl, a + mper) - 1;
-            while (a < z) {
-              const int m = (a + z + 1) >> 1;
-              if (pre[m] <= fl) a = m; else z = m - 1;
-            }
-            const long long row = (long long)g * C + a;
-            StageSink<App> ss{p, f};
-            App::map_payload(
-                mid, p.map_argi + row * App::kArgI,
-                p.map_argf + row * (App::kArgF > 0 ? App::kArgF : 1),
-                (int)(fl - pre[a]), p, ss);
-          }
+          stage_map<App>(p, cta, g, App::map_id(g), (long long)el, mnl, mge,
+                         mper, gm, s_elbase);
         }
         bar_sync(bar, gen0, G);  // every element is staged
         ++n_grid;
@@ -1490,17 +1676,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
             }
           }
         } else if (b < gm) {
-          for (long long f = (long long)b * kThreads + tid;
-               f < (long long)el; f += stride) {
-            for (int k = 0; k < App::kMapWrites; ++k) {
-              const long long at = (long long)k * p.stage_cap + f;
-              const int meta = p.st_meta[at];
-              if (meta >= 0 &&
-                  !heap_apply(p, meta, p.st_idx[at], p.st_val[at])) {
-                atomicOr(mfault, 1);
-              }
-            }
-          }
+          apply_map<App>(p, (long long)el, gm, mfault);
         }
         bar_sync(bar, gen0, G);  // the heap is written
         ++n_grid;
@@ -1549,13 +1725,7 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
           const int t = p.task[cidx];
           const bool known = t >= 0 && t < App::kTypes;
           flags = kActive | ((known ? t + 1 : 0) << kTypeShift);
-          if (known) {
-            TaskIn<App> in;
-            in.load(p, cidx);
-            CountSink cs;
-            App::task(t, in, p, cs);
-            cnt = (unsigned)cs.n;
-          }
+          if (known) cnt = count_lane<App, false>(p, t, cidx);
         }
         p.lane_flags[l] = flags;
         p.lane_cnt[l] = (int)cnt;
@@ -1608,13 +1778,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
       const int t = (flags >> kTypeShift) - 1;
       if (!(flags & kActive) || t < 0) continue;
       const int cidx = clampi(start + l, 0, C - 1);
-      TaskIn<App> in;
-      in.load(p, cidx);
-      ApplySink<App> as(p, cidx, l, cen, base + (unsigned)p.lane_excl[l],
-                        C);
-      App::task(t, in, p, as);
-      p.lane_flags[l] = as.finish(flags, p.lane_cnt[l]);
-      my_join |= as.joined;
+      my_join |= apply_lane<App, false>(p, l, t, cidx, cen,
+                                        base + (unsigned)p.lane_excl[l], C);
     }
     const int any_join = __syncthreads_or(my_join);
     if (tid == 0) {
@@ -1624,38 +1789,13 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
     // the map domains of this CTA's lanes, scanned in lane order, one map
     // launch at a time (map_pre is CTA-relative)
     for (int g = 0; g < App::kMapLaunches; ++g) {
-      const int mid = App::map_id(g);
-      const int maxd = p.max_domain[mid];
-      unsigned long long el = 0;
-      int n_rows = 0, my_dmax = 0;
-      for (int b0 = lo; b0 < hi; b0 += kThreads) {
-        const int l = b0 + tid;
-        int on = 0;
-        unsigned long long dom = 0;
-        if (l < hi && (p.lane_flags[l] & (kMapBit << g))) {
-          on = 1;
-          const long long row = (long long)g * C + l;
-          const int d = App::map_domain(mid, p.map_argi + row * App::kArgI, p);
-          dom = (unsigned long long)clampi(d, 0, maxd);
-          my_dmax = max(my_dmax, (int)dom);
-        }
-        unsigned long long tot;
-        const unsigned long long ex =
-            block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
-        if (l < hi) p.map_pre[(long long)g * C + l] = (long long)(el + ex);
-        el += tot;
-        n_rows += __syncthreads_count(on);
-      }
-      const int dmax = block_max(my_dmax, s_wmax);
+      const MapTotals mt =
+          map_domains<App>(p, g, App::map_id(g), lo, hi, s_warp64, s_wmax);
       if (tid == 0) {
-        cta[b].el[g] = el;
-        cta[b].rows[g] = n_rows;
-        cta[b].dmax[g] = dmax;
-        if (ge == 1) {
-          s_mel[g] = el;
-          s_mrows[g] = n_rows;
-          s_mdmax[g] = dmax;
-        }
+        cta[b].el[g] = mt.el;
+        cta[b].rows[g] = mt.rows;
+        cta[b].dmax[g] = mt.dmax;
+        if (ge == 1) s_mt[g] = mt;
       }
     }
     group_sync();  // the TV is written; pass B's reads are done
@@ -1664,20 +1804,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
     for (int l = lo + tid; l < hi; l += kThreads) {
       const int flags = p.lane_flags[l];
       if (!(flags & kActive) || (flags >> kTypeShift) == 0) continue;
-      const int cidx = clampi(start + l, 0, C - 1);
-      if (flags & kEmitted) {
-        for (int w = 0; w < App::kValW; ++w) {
-          p.value[cidx * App::kValW + w] =
-              p.emit_stage[(long long)l * App::kValW + w];
-        }
-      }
-      for (int k = 0; k < App::kWrites; ++k) {
-        const long long at = (long long)k * C + l;
-        const int meta = p.wr_meta[at];
-        if (meta >= 0 && !heap_apply(p, meta, p.wr_idx[at], p.wr_val[at])) {
-          atomicOr(const_cast<int*>(&cc->fault), 1);
-        }
-      }
+      commit_lane<App>(p, l, clampi(start + l, 0, C - 1), flags,
+                       const_cast<int*>(&cc->fault));
     }
 
     // ---- reclamation (beside pass C: it reads only `epoch`, which pass B
@@ -1721,23 +1849,8 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         j = __reduce_or_sync(kFull, j);
         if (tid == 0) s_join = j;
         for (int g = 0; g < App::kMapLaunches; ++g) {
-          unsigned long long el = 0;
-          int rows = 0, dmax = 0;
-          for (int q0 = 0; q0 < ge; q0 += 32) {
-            const int q = q0 + tid;
-            unsigned long long x = q < ge ? __ldcg(&cta[q].el[g]) : 0ull;
-#pragma unroll
-            for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
-            el += x;
-            rows += __reduce_add_sync(kFull, q < ge ? __ldcg(&cta[q].rows[g]) : 0);
-            dmax = max(dmax, __reduce_max_sync(
-                                 kFull, q < ge ? __ldcg(&cta[q].dmax[g]) : 0));
-          }
-          if (tid == 0) {
-            s_mel[g] = el;
-            s_mrows[g] = rows;
-            s_mdmax[g] = dmax;
-          }
+          const MapTotals mt = sum_map_totals(cta, ge, g);
+          if (tid == 0) s_mt[g] = mt;
         }
       }
       __syncthreads();
@@ -1747,23 +1860,9 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         bool failed = car.failed || (live && nft > C);
         const bool ok = live && !failed;
         const int forks = (int)total;
-        bool of = false;
-        if (ok && s_join) {  // the join continuation, below
-          of |= sp >= p.depth;
-          const int ssp = clampi(sp, 0, p.depth - 1);
-          p.jstack[ssp] = cen;
-          p.rstack[2 * ssp] = start;
-          p.rstack[2 * ssp + 1] = count;
-          ++sp;
-        }
-        if (ok && forks > 0) {  // this epoch's forked range, on top
-          of |= sp >= p.depth;
-          const int ssp = clampi(sp, 0, p.depth - 1);
-          p.jstack[ssp] = cen + 1;
-          p.rstack[2 * ssp] = new_nf - forks;
-          p.rstack[2 * ssp + 1] = forks;
-          ++sp;
-        }
+        const bool of = push_epoch(p.jstack, p.rstack, p.depth, sp,
+                                   ok && s_join, ok ? forks : 0, cen, start,
+                                   count, new_nf - forks);
         failed = failed || of;
         car.failed_stack = car.failed_stack || of;
         car.failed = failed;
@@ -1782,19 +1881,15 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
         int fire = 0;
         bool fault = false;
         for (int g = 0; g < App::kMapLaunches && !fault; ++g) {
-          const int mid = App::map_id(g);
-          car.map_elements += (long long)s_mel[g];
-          if (s_mdmax[g] > 0) {
-            car.map_launches += 1;
-            car.map_lanes += (long long)rung(p.span_w, p.n_span, s_mrows[g]) *
-                             rung(p.map_w[mid], p.n_map_w[mid], s_mdmax[g]);
-            if ((long long)s_mel[g] > p.stage_cap) {
-              car.fault = kFaultStage;
-              fault = true;
-            } else {
-              fire |= 1 << g;
-              nx.map_el[g] = s_mel[g];
-            }
+          const int r = account_map(p, App::map_id(g), s_mt[g],
+                                    car.map_elements, car.map_launches,
+                                    car.map_lanes);
+          if (r < 0) {
+            car.fault = kFaultStage;
+            fault = true;
+          } else if (r > 0) {
+            fire |= 1 << g;
+            nx.map_el[g] = s_mt[g].el;
           }
         }
         if (!fault && __ldcg(&cc->fault)) {  // pass C met a float add
@@ -1837,10 +1932,12 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
 // the fleet kernel runs each region's lanes through its tenant's device
 // table: fleet_chunk_kernel<Apps...> is instantiated over one set of
 // tables (with_fleet below), and region j names the place of its table in
-// the set and a tenant view of the launch parameters (its heap variables,
-// maps and constants, its task and map-launch offsets), copied to the
-// device with the launch.  Every CTA takes part in every epoch (no narrow
-// epochs on one CTA):
+// the set, and its heap variables, maps, constants and task and map-launch
+// offsets, from which each CTA builds the region's tenant view of the
+// launch parameters in shared memory (tenant_view) before the first
+// barrier.  The phases both kernels share are the __device__ helpers
+// above (count_lane ... account_map).  Every CTA takes part in every
+// epoch (no narrow epochs on one CTA):
 //   pop (CTA 0's thread 0): every region's top entry; the live regions'
 //     popped ranges, in region order, are the epoch's lanes, one after the
 //     other: region j's lanes [off_j, off_j + count_j).  The ranges lie
@@ -1867,14 +1964,43 @@ __global__ void __launch_bounds__(kThreads, 1) epoch_chunk_kernel(const Params p
 // base_j)) and next_free = max_j next_j (src/repro/core/tvm.py), as the
 // plain loop's segmented commit does for every region, live or not.
 struct FleetArgs {
-  const Params* tps;  // the regions' tenant views, in device memory
   int J, n_launches;
   int app[kMaxJobs];       // the region's table: its place in the set
   int task_off[kMaxJobs];  // its first task code in the fused program
   int map_g_off[kMaxJobs];
   int base[kMaxJobs], slot_end[kMaxJobs];
+  // its heap variables and maps in the fused program's, its constants
+  int heap_base[kMaxJobs], n_heap[kMaxJobs];
+  int map_base[kMaxJobs], n_maps[kMaxJobs];
+  int consts[kMaxJobs][kMaxConsts];
   int map_owner[kMaxMaps];  // the region each map launch belongs to
 };
+
+// Region j's tenant view of the fused launch p: its heap variables and
+// maps at its own indices, its constants and offsets (what its table's
+// bodies see).
+__device__ void tenant_view(Params& t, const Params& p, const FleetArgs& fa,
+                            int j) {
+  t = p;
+  const int hb = fa.heap_base[j], mb = fa.map_base[j];
+  t.n_heap = fa.n_heap[j];
+  for (int v = 0; v < kMaxHeap; ++v) {
+    const bool own = v < t.n_heap;
+    t.heap[v] = own ? p.heap[hb + v] : nullptr;
+    t.heap_len[v] = own ? p.heap_len[hb + v] : 0;
+    t.heap_dtype[v] = own ? p.heap_dtype[hb + v] : 0;
+  }
+  t.n_maps = fa.n_maps[j];
+  for (int m = 0; m < kMaxMaps; ++m) {
+    const bool own = m < t.n_maps;
+    t.max_domain[m] = own ? p.max_domain[mb + m] : 0;
+    t.n_map_w[m] = own ? p.n_map_w[mb + m] : 0;
+    for (int i = 0; i < kMaxMapW; ++i) t.map_w[m][i] = own ? p.map_w[mb + m][i] : 0;
+  }
+  for (int i = 0; i < kMaxConsts; ++i) t.consts[i] = fa.consts[j][i];
+  t.task_off = fa.task_off[j];
+  t.map_g_off = fa.map_g_off[j];
+}
 
 // The cooperative scratch of a fleet launch, in uint64 words: [0] the grid
 // barrier's counter, then FleetCtl[2] by epoch parity, then the
@@ -1999,8 +2125,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ unsigned s_rtot[kMaxJobs], s_rbase[kMaxJobs], s_rtotal[kMaxJobs];
   __shared__ int s_ract[kMaxJobs], s_ractive[kMaxJobs], s_rjoin[kMaxJobs];
   __shared__ int s_fex[kMaxJobs];
-  __shared__ unsigned long long s_mel[kMaxMaps];
-  __shared__ int s_mrows[kMaxMaps], s_mdmax[kMaxMaps];
+  __shared__ MapTotals s_mt[kMaxMaps];
+  __shared__ Params s_tp[kMaxJobs];  // the regions' tenant views
 
   const int C = p.capacity, J = fa.J;
   const int tid = threadIdx.x, b = blockIdx.x;
@@ -2013,16 +2139,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned gen0 = 0;
   long long n_epochs = 0, n_grid = 0, n_search = 0;
 
+  if (tid < J) tenant_view(s_tp[tid], p, fa, tid);
   if (b == 0 && tid == 0) {
-    // the sink rows stay zero (the plain loop zeroes them each epoch)
-    p.task[C] = 0;
-    p.epoch[C] = 0;
-    p.child_base[C] = 0;
-    p.child_count[C] = 0;
-    for (int k = 0; k < p.arg_si; ++k) p.argi[C * p.arg_si + k] = 0;
-    for (int k = 0; k < p.arg_sf; ++k) p.argf[C * p.arg_sf + k] = 0.f;
-    p.value[C] = 0u;  // value rows are one word wide (trees_fleet_chunk)
-    for (int v = 0; v < p.n_heap; ++v) p.heap[v][p.heap_len[v]] = 0u;
+    zero_sinks(p, 1);  // value rows are one word wide (trees_fleet_chunk)
     car.load(p, J);
     fleet_pop(p, fa, car, ctl, lastw, 0);
   }
@@ -2044,68 +2163,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int fired = __ldcg(&cc->fired);
     if (fired) {
       const int mnl = __ldcg(&cc->map_nl), mper = __ldcg(&cc->map_per);
-      const long long stride = (long long)G * kThreads;
       for (int g = 0; g < fa.n_launches; ++g) {
         if (!(fired & (1 << g))) continue;
         const int j = fa.map_owner[g];
-        const Params& tq = fa.tps[j];
-        const unsigned long long el = __ldcg(&cc->map_el[g]);
-        if (tid < 32) {  // the first element of each CTA's lanes
-          unsigned long long run = 0;
-          for (int q0 = 0; q0 < (int)G; q0 += 32) {
-            const int q = q0 + tid;
-            const unsigned long long x =
-                q < (int)G ? __ldcg(&cta[q].el[g]) : 0ull;
-            unsigned long long incl = x;
-#pragma unroll
-            for (int d = 1; d < 32; d <<= 1) {
-              const unsigned long long y = __shfl_up_sync(kFull, incl, d);
-              if (tid >= d) incl += y;
-            }
-            if (q < (int)G) s_elbase[q] = run + incl - x;
-            run += __shfl_sync(kFull, incl, 31);
-          }
-        }
-        __syncthreads();
-        const long long* pre = p.map_pre + (long long)g * C;
+        const Params& tq = s_tp[j];
+        const long long el = (long long)__ldcg(&cc->map_el[g]);
         on_app<Apps...>(fa.app[j], [&](auto app) {
           using A = decltype(app);
-          const int mid = A::map_id(g - fa.map_g_off[j]);
-          for (long long f = (long long)b * kThreads + tid; f < (long long)el;
-               f += stride) {
-            int c0 = 0, c1 = (int)G - 1;
-            while (c0 < c1) {
-              const int m = (c0 + c1 + 1) >> 1;
-              if (s_elbase[m] <= (unsigned long long)f) c0 = m; else c1 = m - 1;
-            }
-            const long long fl = f - (long long)s_elbase[c0];
-            int a = min(mnl, c0 * mper), z = min(mnl, a + mper) - 1;
-            while (a < z) {
-              const int m = (a + z + 1) >> 1;
-              if (pre[m] <= fl) a = m; else z = m - 1;
-            }
-            const long long row = (long long)g * C + a;
-            StageSink<A> ss{tq, f};
-            A::map_payload(mid, p.map_argi + row * A::kArgI,
-                           p.map_argf + row * (A::kArgF > 0 ? A::kArgF : 1),
-                           (int)(fl - pre[a]), tq, ss);
-          }
+          stage_map<A>(tq, cta, g, A::map_id(g - fa.map_g_off[j]), el, mnl,
+                       (int)G, mper, (int)G, s_elbase);
         });
         bar_sync(bar, gen0, G);  // every element is staged
         ++n_grid;
         int* const mfault = const_cast<int*>(&cc->fault);
         on_app<Apps...>(fa.app[j], [&](auto app) {
-          using A = decltype(app);
-          for (long long f = (long long)b * kThreads + tid; f < (long long)el;
-               f += stride) {
-            for (int k = 0; k < A::kMapWrites; ++k) {
-              const long long at = (long long)k * p.stage_cap + f;
-              const int meta = p.st_meta[at];
-              if (meta >= 0 && !heap_apply(tq, meta, p.st_idx[at], p.st_val[at])) {
-                atomicOr(mfault, 1);
-              }
-            }
-          }
+          apply_map<decltype(app)>(tq, el, (int)G, mfault);
         });
         bar_sync(bar, gen0, G);  // the heap is written
         ++n_grid;
@@ -2149,19 +2221,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
         int flags = 0;
         if (cen > 0 && p.epoch[cidx] == cen) {
-          const Params& tq = fa.tps[j];
           const int t = p.task[cidx] - fa.task_off[j];
           on_app<Apps...>(fa.app[j], [&](auto app) {
             using A = decltype(app);
             const bool known = t >= 0 && t < A::kTypes;
             flags = kActive | ((known ? t + 1 : 0) << kTypeShift);
-            if (known) {
-              TaskIn<A> in;
-              in.template load<true>(tq, cidx);
-              CountSink cs;
-              A::task(t, in, tq, cs);
-              cnt = (unsigned)cs.n;
-            }
+            if (known) cnt = count_lane<A, true>(s_tp[j], t, cidx);
           });
           atomicAdd(&s_ract[j], 1);
           if (cnt) atomicAdd(&s_rtot[j], cnt);
@@ -2217,17 +2282,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!(flags & kActive) || t < 0) continue;
       const int j = region(l);
       const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
-      const Params& tq = fa.tps[j];
       const unsigned base = (unsigned)s_next[j] + s_rbase[j] +
                             (unsigned)(p.lane_excl[l] - s_fex[j]);
       on_app<Apps...>(fa.app[j], [&](auto app) {
-        using A = decltype(app);
-        TaskIn<A> in;
-        in.template load<true>(tq, cidx);
-        ApplySink<A, true> as(tq, cidx, l, s_cen[j], base, s_end[j]);
-        A::task(t, in, tq, as);
-        p.lane_flags[l] = as.finish(flags, p.lane_cnt[l]);
-        if (as.joined) s_rjoin[j] = 1;
+        if (apply_lane<decltype(app), true>(s_tp[j], l, t, cidx, s_cen[j],
+                                            base, s_end[j])) {
+          s_rjoin[j] = 1;
+        }
       });
     }
     __syncthreads();
@@ -2236,37 +2297,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // CTA-relative)
     for (int g = 0; g < fa.n_launches; ++g) {
       const int j = fa.map_owner[g];
-      const Params& tq = fa.tps[j];
-      unsigned long long el = 0;
-      int n_rows = 0, my_dmax = 0;
-      on_app<Apps...>(fa.app[j], [&](auto app) {
+      const MapTotals mt = on_app<Apps...>(fa.app[j], [&](auto app) {
         using A = decltype(app);
-        const int mid = A::map_id(g - fa.map_g_off[j]);
-        const int maxd = tq.max_domain[mid];
-        for (int b0 = lo; b0 < hi; b0 += kThreads) {
-          const int l = b0 + tid;
-          int on = 0;
-          unsigned long long dom = 0;
-          if (l < hi && (p.lane_flags[l] & (kMapBit << g))) {
-            on = 1;
-            const long long row = (long long)g * C + l;
-            const int d = A::map_domain(mid, p.map_argi + row * A::kArgI, tq);
-            dom = (unsigned long long)clampi(d, 0, maxd);
-            my_dmax = max(my_dmax, (int)dom);
-          }
-          unsigned long long tot;
-          const unsigned long long ex =
-              block_excl_scan<unsigned long long>(dom, s_warp64, &tot);
-          if (l < hi) p.map_pre[(long long)g * C + l] = (long long)(el + ex);
-          el += tot;
-          n_rows += __syncthreads_count(on);
-        }
+        return map_domains<A>(s_tp[j], g, A::map_id(g - fa.map_g_off[j]), lo,
+                              hi, s_warp64, s_wmax);
       });
-      const int dmax = block_max(my_dmax, s_wmax);
       if (tid == 0) {
-        cta[b].el[g] = el;
-        cta[b].rows[g] = n_rows;
-        cta[b].dmax[g] = dmax;
+        cta[b].el[g] = mt.el;
+        cta[b].rows[g] = mt.rows;
+        cta[b].dmax[g] = mt.dmax;
       }
     }
     bar_sync(bar, gen0, G);  // the TV is written; pass B's reads are done
@@ -2278,21 +2317,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!(flags & kActive) || (flags >> kTypeShift) == 0) continue;
       const int j = region(l);
       const int cidx = clampi(s_start[j] + (l - s_off[j]), 0, C - 1);
-      const Params& tq = fa.tps[j];
       on_app<Apps...>(fa.app[j], [&](auto app) {
-        using A = decltype(app);
-        if (flags & kEmitted) {
-          for (int w = 0; w < A::kValW; ++w) {
-            p.value[cidx * A::kValW + w] = p.emit_stage[(long long)l * A::kValW + w];
-          }
-        }
-        for (int k = 0; k < A::kWrites; ++k) {
-          const long long at = (long long)k * C + l;
-          const int meta = p.wr_meta[at];
-          if (meta >= 0 && !heap_apply(tq, meta, p.wr_idx[at], p.wr_val[at])) {
-            atomicOr(const_cast<int*>(&cc->fault), 1);
-          }
-        }
+        commit_lane<decltype(app)>(s_tp[j], l, cidx, flags,
+                                   const_cast<int*>(&cc->fault));
       });
     }
 
@@ -2342,23 +2369,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (tid == 0) s_rjoin[j] = jn;
         }
         for (int g = 0; g < fa.n_launches; ++g) {
-          unsigned long long el = 0;
-          int rows = 0, dmax = 0;
-          for (int q0 = 0; q0 < (int)G; q0 += 32) {
-            const int q = q0 + tid;
-            unsigned long long x = q < (int)G ? __ldcg(&cta[q].el[g]) : 0ull;
-#pragma unroll
-            for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
-            el += x;
-            rows += __reduce_add_sync(kFull, q < (int)G ? __ldcg(&cta[q].rows[g]) : 0);
-            dmax = max(dmax, __reduce_max_sync(
-                                 kFull, q < (int)G ? __ldcg(&cta[q].dmax[g]) : 0));
-          }
-          if (tid == 0) {
-            s_mel[g] = el;
-            s_mrows[g] = rows;
-            s_mdmax[g] = dmax;
-          }
+          const MapTotals mt = sum_map_totals(cta, (int)G, g);
+          if (tid == 0) s_mt[g] = mt;
         }
       }
       __syncthreads();
@@ -2373,25 +2385,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int jn = (int)min(nft, (long long)max(s_lv[j] + 1, fa.base[j]));
           bool failed = car.failed[j] || (live && nft > car.end[j]);
           const bool ok = live && !failed;
-          bool of = false;
-          int* const js = p.jstack + (long long)j * p.depth;
-          int* const rs = p.rstack + 2LL * j * p.depth;
-          if (ok && s_rjoin[j]) {  // the join continuation, below
-            of |= sp >= p.depth;
-            const int ssp = clampi(sp, 0, p.depth - 1);
-            js[ssp] = s_cen[j];
-            rs[2 * ssp] = s_start[j];
-            rs[2 * ssp + 1] = cc->count[j];
-            ++sp;
-          }
-          if (ok && forks > 0) {  // this epoch's forked range, on top
-            of |= sp >= p.depth;
-            const int ssp = clampi(sp, 0, p.depth - 1);
-            js[ssp] = s_cen[j] + 1;
-            rs[2 * ssp] = jn - forks;
-            rs[2 * ssp + 1] = forks;
-            ++sp;
-          }
+          const bool of = push_epoch(
+              p.jstack + (long long)j * p.depth,
+              p.rstack + 2LL * j * p.depth, p.depth, sp, ok && s_rjoin[j],
+              ok ? forks : 0, s_cen[j], s_start[j], cc->count[j], jn - forks);
           failed = failed || of;
           car.failed_stack[j] = car.failed_stack[j] || of;
           car.failed[j] = failed;
@@ -2412,23 +2409,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         int fire = 0;
         bool fault = false;
         for (int g = 0; g < fa.n_launches && !fault; ++g) {
-          const Params& tq = fa.tps[fa.map_owner[g]];
           const int j = fa.map_owner[g];
           const int mid = on_app<Apps...>(fa.app[j], [&](auto app) {
             return decltype(app)::map_id(g - fa.map_g_off[j]);
           });
-          car.map_elements += (long long)s_mel[g];
-          if (s_mdmax[g] > 0) {
-            car.map_launches += 1;
-            car.map_lanes += (long long)rung(p.span_w, p.n_span, s_mrows[g]) *
-                             rung(tq.map_w[mid], tq.n_map_w[mid], s_mdmax[g]);
-            if ((long long)s_mel[g] > p.stage_cap) {
-              car.fault = kFaultStage;
-              fault = true;
-            } else {
-              fire |= 1 << g;
-              nx.map_el[g] = s_mel[g];
-            }
+          const int r = account_map(s_tp[j], mid, s_mt[g], car.map_elements,
+                                    car.map_launches, car.map_lanes);
+          if (r < 0) {
+            car.fault = kFaultStage;
+            fault = true;
+          } else if (r > 0) {
+            fire |= 1 << g;
+            nx.map_el[g] = s_mt[g].el;
           }
         }
         if (!fault && __ldcg(&cc->fault)) {  // pass C met a float add
@@ -2752,11 +2744,6 @@ int trees_epoch_chunk(int app, const unsigned long long* ptrs, int n_ptrs,
 int trees_fleet_int_count() { return F_COUNT; }
 int trees_fleet_max_jobs() { return kMaxJobs; }
 
-// bytes of the tenant views a fleet launch copies to the device
-long long trees_fleet_tenant_bytes() {
-  return (long long)sizeof(Params) * kMaxJobs;
-}
-
 // CTAs of the cooperative grid of the fleet kernel of table set `set`.
 int trees_fleet_grid(int set) {
   return with_fleet(set, -(int)cudaErrorInvalidValue,
@@ -2771,9 +2758,9 @@ long long trees_fleet_coop_words(int grid) {
 // One chunk of a fleet carry through the kernel of table set `set`: the
 // fused launch in `ptrs` and `ints` (the solo layout: the fused program's
 // TV, heap and maps, the carry's [J] rows) and the regions in `fleet`
-// (enum FleetInt).  Each region's tenant view (its heap variables, maps,
-// constants and offsets) is built here and copied, on the stream, to the
-// device buffer ptrs[P_TENANTS] before the launch.
+// (enum FleetInt).  Each region's table is checked against its tenant's
+// widths, heap variables, maps and constants here; the kernel builds the
+// regions' tenant views from the launch's arguments.
 int trees_fleet_chunk(int set, const unsigned long long* ptrs, int n_ptrs,
                       const long long* ints, int n_ints,
                       const long long* fleet, int n_fleet, void* stream) {
@@ -2784,11 +2771,10 @@ int trees_fleet_chunk(int set, const unsigned long long* ptrs, int n_ptrs,
   if (!fill_params(ptrs, ints, p)) return (int)cudaErrorInvalidValue;
   if (ints[I_VALUE_WIDTH] != 1) return (int)cudaErrorInvalidValue;
   FleetArgs fa;
-  fa.tps = reinterpret_cast<const Params*>(ptrs[P_TENANTS]);
   fa.J = (int)fleet[F_N_JOBS];
   fa.n_launches = (int)fleet[F_N_LAUNCHES];
   if (fa.J < 1 || fa.J > kMaxJobs || fa.n_launches < 0 ||
-      fa.n_launches > kMaxMaps || !fa.tps || !p.arena_end || !p.arena_next) {
+      fa.n_launches > kMaxMaps || !p.arena_end || !p.arena_next) {
     return (int)cudaErrorInvalidValue;
   }
   for (int g = 0; g < kMaxMaps; ++g) {
@@ -2797,46 +2783,32 @@ int trees_fleet_chunk(int set, const unsigned long long* ptrs, int n_ptrs,
       return (int)cudaErrorInvalidValue;
     }
   }
-  Params tp[kMaxJobs];
-  for (int j = 0; j < fa.J; ++j) {
+  for (int j = 0; j < kMaxJobs; ++j) {
     const long long* r = fleet + F_REGION0 + j * R_COUNT;
     fa.app[j] = (int)r[R_APP];
     fa.task_off[j] = (int)r[R_TASK_OFF];
     fa.map_g_off[j] = (int)r[R_MAP_G_OFF];
     fa.base[j] = (int)r[R_BASE];
     fa.slot_end[j] = (int)r[R_SLOT_END];
-    const int hb = (int)r[R_HEAP_BASE], nh = (int)r[R_N_HEAP];
-    const int mo = (int)r[R_MAP_OFF], nm = (int)r[R_N_MAPS];
+    fa.heap_base[j] = (int)r[R_HEAP_BASE];
+    fa.n_heap[j] = (int)r[R_N_HEAP];
+    fa.map_base[j] = (int)r[R_MAP_OFF];
+    fa.n_maps[j] = (int)r[R_N_MAPS];
+    for (int i = 0; i < kMaxConsts; ++i) fa.consts[j][i] = (int)r[R_CONST0 + i];
+    if (j >= fa.J) continue;
+    const int hb = fa.heap_base[j], nh = fa.n_heap[j];
+    const int mo = fa.map_base[j], nm = fa.n_maps[j];
     if (hb < 0 || nh < 0 || hb + nh > p.n_heap || mo < 0 || nm < 0 ||
         mo + nm > p.n_maps) {
       return (int)cudaErrorInvalidValue;
     }
-    // the tenant's view: its heap variables and maps at its own indices
-    Params& t = tp[j];
-    t = p;
+    // the tenant's sizes, as its table sees them
     long long tints[I_COUNT];
     for (int i = 0; i < I_COUNT; ++i) tints[i] = ints[i];
-    t.n_heap = nh;
     for (int v = 0; v < kMaxHeap; ++v) {
-      const bool own = v < nh;
-      t.heap[v] = own ? p.heap[hb + v] : nullptr;
-      t.heap_len[v] = own ? p.heap_len[hb + v] : 0;
-      t.heap_dtype[v] = own ? p.heap_dtype[hb + v] : 0;
-      tints[I_HEAP_LEN0 + v] = t.heap_len[v];
+      tints[I_HEAP_LEN0 + v] = v < nh ? p.heap_len[hb + v] : 0;
     }
-    t.n_maps = nm;
-    for (int m = 0; m < kMaxMaps; ++m) {
-      const bool own = m < nm;
-      t.max_domain[m] = own ? p.max_domain[mo + m] : 0;
-      t.n_map_w[m] = own ? p.n_map_w[mo + m] : 0;
-      for (int i = 0; i < kMaxMapW; ++i) t.map_w[m][i] = own ? p.map_w[mo + m][i] : 0;
-    }
-    for (int i = 0; i < kMaxConsts; ++i) {
-      t.consts[i] = (int)r[R_CONST0 + i];
-      tints[I_CONST0 + i] = r[R_CONST0 + i];
-    }
-    t.task_off = fa.task_off[j];
-    t.map_g_off = fa.map_g_off[j];
+    for (int i = 0; i < kMaxConsts; ++i) tints[I_CONST0 + i] = r[R_CONST0 + i];
     const int launches = j + 1 < fa.J
         ? (int)fleet[F_REGION0 + (j + 1) * R_COUNT + R_MAP_G_OFF] - fa.map_g_off[j]
         : fa.n_launches - fa.map_g_off[j];
@@ -2849,11 +2821,6 @@ int trees_fleet_chunk(int set, const unsigned long long* ptrs, int n_ptrs,
     }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // pageable source: the copy is staged before this returns
-  cudaError_t e = cudaMemcpyAsync(const_cast<Params*>(fa.tps), tp,
-                                  sizeof(Params) * fa.J,
-                                  cudaMemcpyHostToDevice, s);
-  if (e != cudaSuccess) return (int)e;
   return with_fleet(set, (int)cudaErrorInvalidValue, [&](auto f) {
     return launch_fleet(f, p, fa, ints[I_COOP_WORDS], s);
   });

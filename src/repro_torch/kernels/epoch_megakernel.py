@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import inspect
 import numbers
 import pathlib
@@ -81,7 +82,7 @@ _PTRS = (
     "limit", "lane_cnt", "lane_excl", "lane_flags", "emit_stage", "wr_idx",
     "wr_val", "wr_meta", "map_argi", "map_argf", "map_pre", "st_idx",
     "st_val", "st_meta", "coop", "stats", "oa_cnt", "oa_off", "oa_long",
-    "oa_run", "oa_tot", "arena_end", "arena_next", "tenants",
+    "oa_run", "oa_tot", "arena_end", "arena_next",
 ) + tuple(f"heap{v}" for v in range(MAX_HEAP))
 _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
            + MAX_MAPS * (2 + MAX_MAP_WIDTHS) + 5 + MAX_CONSTS)
@@ -464,15 +465,16 @@ class FleetPlan:
         return out
 
 
-def fleet_plan(program, tenants) -> FleetPlan:
+def fleet_plan(program, tenants, set_id: Optional[int] = None) -> FleetPlan:
     """The fleet kernel's plan for the fused ``program`` of ``tenants``
     (the ``TenantSlot`` layout of ``service/multiplexer.py``): each
     tenant's device table, checked as :func:`device_table` checks a solo
-    program, and the instantiated set that holds them all.  Raises
-    ``ValueError`` where a tenant has no table, the tables lie in no
-    instantiated set (``FLEET_SETS``), or the fleet exceeds the kernel's
-    limits (``MAX_JOBS`` regions, ``MAX_MAPS`` map launches, ``MAX_HEAP``
-    heap variables, one-word values)."""
+    program, and the first instantiated set that holds them all (or
+    ``FLEET_SETS[set_id]``).  Raises ``ValueError`` where a tenant has no
+    table, the tables lie in no instantiated set (or not in ``set_id``'s),
+    or the fleet exceeds the kernel's limits (``MAX_JOBS`` regions,
+    ``MAX_MAPS`` map launches, ``MAX_HEAP`` heap variables, one-word
+    values)."""
     if not 1 <= len(tenants) <= MAX_JOBS:
         raise ValueError(f"epoch_chunk: a fleet of {len(tenants)} regions "
                          f"(the kernel takes 1..{MAX_JOBS})")
@@ -485,8 +487,11 @@ def fleet_plan(program, tenants) -> FleetPlan:
                 f"{slot.index}) has no device task table")
         tables.append(t)
     ids = {t.app_id for t in tables}
-    set_id = next((k for k, st in enumerate(FLEET_SETS) if ids <= set(st)),
-                  None)
+    if set_id is None:
+        set_id = next((k for k, st in enumerate(FLEET_SETS)
+                       if ids <= set(st)), None)
+    elif not (0 <= set_id < len(FLEET_SETS) and ids <= set(FLEET_SETS[set_id])):
+        set_id = None
     if set_id is None:
         raise ValueError(
             "epoch_chunk: no fleet kernel is instantiated for the tenant "
@@ -553,7 +558,6 @@ def _load() -> ctypes.CDLL:
             lib.trees_fleet_grid.restype = i
             lib.trees_fleet_coop_words.argtypes = [i]
             lib.trees_fleet_coop_words.restype = ctypes.c_longlong
-            lib.trees_fleet_tenant_bytes.restype = ctypes.c_longlong
             lib.trees_fleet_int_count.restype = i
             lib.trees_fleet_max_jobs.restype = i
             if (lib.trees_epoch_ptr_count() != len(_PTRS)
@@ -608,6 +612,7 @@ def grid_sync_bench(n: int, grid_ctas: int, device=None) -> None:
                            f"error {err}")
 
 
+@functools.lru_cache(maxsize=None)
 def app_info(app_id: int) -> Dict[str, int]:
     """The compiled table's constants (builds the library);
     ``ordered_var`` is the heap variable its maps' float adds go to
@@ -634,14 +639,16 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
 
 
 def launch(program, carry, limit, *, gather: bool,
-           stats: Optional[torch.Tensor] = None, tenants=None):
+           stats: Optional[torch.Tensor] = None, tenants=None,
+           plan: Optional[FleetPlan] = None):
     """One chunk of ``carry`` on the card: a memset of the cooperative
     scratch and one cooperative kernel launch.
 
     ``carry`` is a ``ResidentCarry`` on a CUDA device: solo, run through
     ``program``'s device table, or a fleet (a ``JobArena`` and one stack row
-    per region), run through the fleet kernel of :func:`fleet_plan` over
-    ``tenants`` (the fused ``program``'s ``TenantSlot`` layout).  ``limit``
+    per region), run through the fleet kernel of ``plan`` (by default
+    :func:`fleet_plan` over ``tenants``, the fused ``program``'s
+    ``TenantSlot`` layout; ``EpochLoop`` passes the plan it keeps).  ``limit``
     is an int or an ``i32`` tensor (the epoch bound, read on the device).
     ``stats``, if given, is an ``i64[6]`` on the carry's device to which
     the kernel adds the chunk's :data:`STATS`.  Updates the carry in place
@@ -652,10 +659,12 @@ def launch(program, carry, limit, *, gather: bool,
 
     fleet = carry.arena is not None
     if fleet:
-        if tenants is None:
-            raise ValueError("epoch_chunk: a fleet carry needs its tenants")
-        plan = fleet_plan(program, tenants)
-        J = len(tenants)
+        if plan is None:
+            if tenants is None:
+                raise ValueError("epoch_chunk: a fleet carry needs its "
+                                 "tenants")
+            plan = fleet_plan(program, tenants)
+        J = len(plan.regions)
         tables = plan.tables
         S, consts = plan.stage, []
     else:
@@ -753,10 +762,8 @@ def launch(program, carry, limit, *, gather: bool,
     if fleet:
         G = fleet_grid(plan.set_id, dev)
         coop_words = int(lib.trees_fleet_coop_words(G))
-        scratch.update(
-            arena_end=carry.arena.end, arena_next=carry.arena.next,
-            tenants=empty(int(lib.trees_fleet_tenant_bytes()), torch.uint8),
-        )
+        scratch.update(arena_end=carry.arena.end,
+                       arena_next=carry.arena.next)
     else:
         G = grid(table.app_id, dev)
         coop_words = coop_scratch_words(G)
@@ -833,15 +840,16 @@ def launch(program, carry, limit, *, gather: bool,
 
 
 def epoch_chunk(cond_fn, body_fn, carry, limit, *, program, gather: bool,
-                tenants=None):
+                tenants=None, plan: Optional[FleetPlan] = None):
     """Run one resident chunk: ``while cond_fn(carry, limit): body_fn``.
 
     A carry on the CPU runs the plain loop (``ref.epoch_chunk_ref``); a
     carry on the card runs :func:`launch` — one kernel launch, with
     ``cond_fn``/``body_fn`` compiled in as the kernel's own phases and
     ``program``'s device task table (a fleet carry: its ``tenants``'
-    tables).
+    tables, or ``plan``).
     """
     if carry.state.task.device.type == "cpu":
         return ref.epoch_chunk_ref(cond_fn, body_fn, carry, limit)
-    return launch(program, carry, limit, gather=gather, tenants=tenants)
+    return launch(program, carry, limit, gather=gather, tenants=tenants,
+                  plan=plan)

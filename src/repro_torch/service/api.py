@@ -59,7 +59,11 @@ from .jobs import (
     validate_job,
     wave_template_key,
 )
-from .multiplexer import DeviceMultiplexer, EpochMultiplexer
+from .multiplexer import (
+    DeviceMultiplexer,
+    EpochMultiplexer,
+    check_resident_options,
+)
 
 
 def merge_stats(into: RunStats, s: RunStats) -> RunStats:
@@ -168,25 +172,15 @@ class JobService:
         if dispatch == "auto":
             raise _not_ported("dispatch='auto' (the dispatch controller)",
                               "8")
-        if chunk == "auto":
-            raise _not_ported("chunk='auto' (the chunk controller)", "8")
         if metrics is not None or tracer is not None:
             raise _not_ported("the metrics and tracer hooks", "8")
         if engine == "device":
-            if resolve_policy(dispatch).name not in ("masked", "gather"):
-                raise ValueError(
-                    "engine='device' supports dispatch='masked' or "
-                    "'gather' (resident launch shapes are fixed per chunk; "
-                    "compacted sizes launches from runtime populations and "
-                    "is host-only)"
-                )
+            check_resident_options(dispatch, chunk)
             if gang or pop_policy != "fuse_all":
                 raise ValueError(
                     "engine='device' runs every live region each epoch "
                     "(fuse_all); gang/pop_policy are host-engine options"
                 )
-            if isinstance(chunk, str) or (chunk is not None and chunk < 1):
-                raise ValueError(f"chunk must be >= 1 or None, got {chunk!r}")
         elif chunk is not None:
             raise ValueError(
                 "chunk sets the resident readback cadence; it requires "

@@ -874,6 +874,28 @@ class _ChunkLedger:
         self.hole_lanes = 0
 
 
+def check_resident_options(dispatch: Any, chunk: Any):
+    """The options of a resident wave, checked here for
+    :class:`DeviceMultiplexer` and ``JobService(engine="device")`` alike:
+    the masked or gather dispatch (compacted sizes its launches from
+    runtime populations) and a chunk of K >= 1 epochs, or None for a fully
+    resident wave (``"auto"``, the chunk controller, is ROADMAP item 8).
+    Returns the dispatch policy."""
+    policy = resolve_policy(dispatch)
+    if policy.name not in ("masked", "gather"):
+        raise ValueError(_COMPACTED_RESIDENT_MSG)
+    if chunk == "auto":
+        raise NotImplementedError(
+            "chunk='auto' (the chunk controller) is not ported to the "
+            "PyTorch package yet (ROADMAP item 8)")
+    if isinstance(chunk, str) or (chunk is not None and chunk < 1):
+        raise ValueError(
+            "chunk must be >= 1 epoch, or None for a fully resident "
+            f"wave; got {chunk!r}"
+        )
+    return policy
+
+
 class DeviceMultiplexer(_FleetBase):
     """Chunked device-resident wave execution (DESIGN.md §9–10).
 
@@ -917,18 +939,7 @@ class DeviceMultiplexer(_FleetBase):
             handles, capacity=capacity, collect_stats=collect_stats,
             device=device, template=template,
         )
-        policy = resolve_policy(dispatch)
-        if policy.name not in ("masked", "gather"):
-            raise ValueError(_COMPACTED_RESIDENT_MSG)
-        if chunk == "auto":
-            raise NotImplementedError(
-                "chunk='auto' (the chunk controller) is not ported to the "
-                "PyTorch package yet (ROADMAP item 8)")
-        if isinstance(chunk, str) or (chunk is not None and chunk < 1):
-            raise ValueError(
-                "chunk must be >= 1 epoch, or None for a fully resident "
-                f"wave; got {chunk!r}"
-            )
+        policy = check_resident_options(dispatch, chunk)
         self.stack_depth = stack_depth
         self.chunk = chunk
         if template is not None:

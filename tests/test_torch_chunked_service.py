@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from repro_torch.apps import fib, get_case, get_fleet
 from repro_torch.core import HostEngine
 from repro_torch.service import (
@@ -37,18 +39,6 @@ from repro_torch.service import (
     WaveTemplate,
     wave_template_key,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: its tensors are small, and
-    torch's thread pool costs more than it gives on them, many times more
-    while other test processes load the machine.  The results are the
-    same."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fib(i, n, quota, name=""):

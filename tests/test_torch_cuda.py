@@ -778,6 +778,53 @@ def test_fleet_kernel_matches_plain_fleet_loop(cuda_device, name, dispatch,
     assert mk.LAUNCHES["epoch_chunk"] == chunks
 
 
+@pytest.mark.parametrize("dispatch", ("masked", "gather"))
+def test_one_region_fleet_is_the_solo_kernel(cuda_device, dispatch):
+    """A solo carry is the one-region case of a fleet: fib through the
+    fleet kernel (J = 1) ends in the solo kernel's carry, every tensor the
+    two carries share equal."""
+    from repro_torch.apps import fib
+    from repro_torch.core import DeviceEngine
+
+    quota = 1 << 14
+    handles = [JobHandle(0, Job(fib.PROGRAM, fib.initial(18), quota=quota,
+                                name="fib"))]
+    mux = DeviceMultiplexer(handles, dispatch=dispatch, megakernel=True,
+                            device="cuda")
+    mux._ensure_carry()
+    got = mux.loop.run_chunk(mux._carry, 1 << 16, 1)
+    eng = DeviceEngine(fib.PROGRAM, capacity=quota, dispatch=dispatch,
+                       megakernel=True, device="cuda")
+    want = eng.loop.run_chunk(eng.initial_carry(fib.initial(18)), 1 << 16, 1)
+    ta, tb = _carry_tensors(got), _carry_tensors(want)
+    assert set(ta) - set(tb) == {f"arena.{f}" for f in
+                                 ("base", "end", "next", "slot_job")}
+    for k in tb:
+        assert torch.equal(ta[k], tb[k]), k
+
+
+@pytest.mark.parametrize("name", ("mixed3", "fib_fleet"))
+def test_fleet_sets_give_the_same_bits(cuda_device, name):
+    """Every instantiated set of tables that holds a fleet's tenants runs
+    its chunk to the same carry."""
+    from repro_torch.kernels import epoch_megakernel as mk
+
+    _, mux = _fleet_mux(name, "masked", True, "cuda")
+    want = None
+    for k in range(len(mk.FLEET_SETS)):
+        try:
+            plan = mk.fleet_plan(mux.program, mux.slots, set_id=k)
+        except ValueError:
+            continue
+        got = mk.launch(mux.program, mux._carry.clone(), 1 << 16,
+                        gather=False, plan=plan)
+        if want is None:
+            want = got
+        else:
+            _assert_same_carry(got, want)
+    assert want is not None
+
+
 def test_fleet_without_an_instantiated_mix_raises(cuda_device):
     """A wave whose tenant tables lie in no instantiated fleet set raises
     on the card with megakernel=True, rather than running the plain loop;

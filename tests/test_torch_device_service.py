@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 pytest.importorskip("jax")
 
 import jax
@@ -43,18 +45,6 @@ FLEETS = ("mixed4",)
 DISPATCHES = ("masked", "gather")
 KS = (1, 4, None)
 CARRY_AFTER = 2  # chunks of K=4 before the converted-carry chunk
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: its tensors are small, and
-    torch's thread pool costs more than it gives on them, many times more
-    while other test processes load the machine.  The results are the
-    same."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _handles(fleet, cls_job, cls_handle):

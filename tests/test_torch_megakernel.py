@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from repro_torch.apps import (
     all_cases, annealing, bfs, fft, fib, get_case, matmul, mergesort, nqueens,
     sssp, treewalk, tsp,
@@ -41,18 +43,6 @@ MORE_APPS = ("treewalk", "treewalk_pre", "sssp", "nqueens", "tsp", "naive",
              "annealing", "fft", "matmul")
 DISPATCHES = ("masked", "gather")
 KS = (1, 4, None)  # None: one unbounded chunk
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: its tensors are small, and
-    torch's thread pool costs more than it gives on them, many times more
-    while other test processes load the machine.  The results are the
-    same."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(name):
@@ -334,6 +324,30 @@ def test_fleet_plan_gives_each_region_its_table(name, set_id):
     assert ints[:3] == [set_id, len(slots), len(plan.map_owner)]
     loop = EpochLoop(program, "masked", megakernel=True, tenants=slots)
     assert loop.device_table() == plan
+    # found once: each chunk reads the loop's plan
+    assert loop.device_table() is loop.device_table()
+
+
+@pytest.mark.parametrize("name", ("fib_fleet", "mixed3", "mixed4"))
+def test_fleet_plan_on_a_chosen_set(name):
+    """``set_id`` picks an instantiated set that holds every tenant's
+    table (the regions name their tables' places in it) and refuses one
+    that does not."""
+    fleet = get_fleet(name)
+    program, slots = fuse_programs([c.program for c, _ in fleet],
+                                   [q for _, q in fleet])
+    ids = {mk.device_table(s.program).app_id for s in slots}
+    for k, st in enumerate(mk.FLEET_SETS):
+        if ids <= set(st):
+            plan = mk.fleet_plan(program, slots, set_id=k)
+            assert plan.set_id == k
+            assert [st[r[0]] for r in plan.regions] == [
+                t.app_id for t in plan.tables]
+        else:
+            with pytest.raises(ValueError, match="no fleet kernel"):
+                mk.fleet_plan(program, slots, set_id=k)
+    with pytest.raises(ValueError, match="no fleet kernel"):
+        mk.fleet_plan(program, slots, set_id=len(mk.FLEET_SETS))
 
 
 def test_fleet_plan_refusals():
