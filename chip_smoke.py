@@ -979,7 +979,8 @@ def phase_fleet_chunks(dev, row):
     """The fleet epoch_chunk against the plain resident fleet loop on the
     card, every carry tensor: full-size mixed4 and the registry's mixed4
     and fib_fleet, masked and gather, K in {1, 4, inf}; then the full-size
-    chunk's device time, barriers and bytes bound.  Adds to ``row``."""
+    chunk's device time, barriers and bytes bound, and fib(28) as a
+    one-region fleet against the solo kernel.  Adds to ``row``."""
     from repro_torch.kernels import epoch_megakernel
 
     err = 0.0
@@ -1040,7 +1041,7 @@ def phase_fleet_chunks(dev, row):
     def loop_chunk(mux):
         return lambda c: mux.loop.run_chunk(c, 1 << 16, len(mux.slots))
 
-    def counted(mux, fresh, plan=None):
+    def counted(mux, fresh):
         """One chunk of a fresh clone with the kernel's STATS: (carry,
         stats)."""
         st = torch.zeros(len(epoch_megakernel.STATS), dtype=torch.int64,
@@ -1048,7 +1049,7 @@ def phase_fleet_chunks(dev, row):
         c = fresh.clone()
         epoch_megakernel.launch(mux.program, c, 1 << 16,
                                 gather=mux.policy.name == "gather", stats=st,
-                                plan=plan or mux.loop.device_table())
+                                plan=mux.loop.device_table())
         torch.cuda.synchronize()
         return c, dict(zip(epoch_megakernel.STATS, st.tolist()))
 
@@ -1057,13 +1058,12 @@ def phase_fleet_chunks(dev, row):
         call_ms = chunk_ms(loop_chunk(kern), fresh, device=False)
         b, by = _fleet_bound(kern, s)
         _, st = counted(kern, fresh)
-        plan = kern.loop.device_table()
-        G = epoch_megakernel.fleet_grid(plan.set_id, dev)
+        G = epoch_megakernel.fleet_grid(kern.loop.device_table().set_id, dev)
         floor = st["grid_barriers"] * row["barrier_us"] * 1e-3
         tasks, forks = int(s.job_tasks.sum()), int(s.job_forks.sum())
         print(f"[kernels] fleet epoch_chunk mixed4 full {d}, one chunk "
-              f"({G} CTAs, set {plan.set_id}): device {ms:.3f} ms (with the "
-              f"host's enqueue {call_ms:.3f} ms), bound {b:.5f} ms ({by}), "
+              f"({G} CTAs): device {ms:.3f} ms (with the host's enqueue "
+              f"{call_ms:.3f} ms), bound {b:.5f} ms ({by}), "
               f"barrier floor {floor:.3f} ms ({st['grid_barriers']} grid "
               f"barriers, {st['search_barriers']} of further reclamation "
               f"rounds, {st['wide_epochs']} epochs), plain fleet loop "
@@ -1087,7 +1087,7 @@ def phase_fleet_chunks(dev, row):
     solo = DeviceEngine(fib_case.program, capacity=fib_case.capacity,
                         dispatch="masked", megakernel=True, device="cuda")
     solo_fresh = solo.initial_carry(fib_case.initial)
-    got, _ = counted(one, one_fresh)
+    got, one_st = counted(one, one_fresh)
     want = solo.loop.run_chunk(solo_fresh.clone(), 1 << 16, 1)
     ta, tb = _carry_tensors(got), _carry_tensors(want)
     for k in tb:
@@ -1095,7 +1095,6 @@ def phase_fleet_chunks(dev, row):
             fail(f"fib(28) as a one-region fleet: {k} differs from the solo "
                  "kernel's")
     one_ms = chunk_ms(loop_chunk(one), one_fresh)
-    _, one_st = counted(one, one_fresh)
     print(f"[kernels] fib(28) as a one-region fleet (masked): equal to the "
           f"solo kernel's carry; device {one_ms:.3f} ms against the solo "
           f"kernel's {row['ms']:.3f} ms ({one_st['grid_barriers']} grid "
@@ -1105,45 +1104,6 @@ def phase_fleet_chunks(dev, row):
           f"{row['stats']['narrow_epochs']} narrow epochs on one CTA)")
     row["fleet_fib_one_region_ms"] = one_ms
     row["fleet_fib_one_region_stats"] = one_st
-
-    # the fleet kernel's instantiations: each fleet's chunk on every
-    # instantiated set of tables that holds its tenants' (a larger set
-    # switches over more tables in every lane)
-    from repro_torch.apps import get_fleet
-
-    by_name = {c.name: c for c, _ in path_cases()}
-    fleets = (
-        ("fib(28), one region", None),
-        ("mixed3 full", [(c, c.capacity) for c in (
-            by_name["fib"], tree_case("post")[0], by_name["bfs"])]),
-        ("fib_fleet", get_fleet("fib_fleet")),
-        ("mixed3", get_fleet("mixed3")),
-    )
-    sets = {}
-    for label, members in fleets:
-        mux = one if members is None else fleet_mux(members, "masked", True)
-        fresh = mux._carry.clone()
-        want = None
-        for k in range(len(epoch_megakernel.FLEET_SETS)):
-            try:
-                plan = epoch_megakernel.fleet_plan(mux.program, mux.slots,
-                                                   set_id=k)
-            except ValueError:
-                continue
-            got, _ = counted(mux, fresh, plan)
-            if want is None:
-                want = got
-            elif carry_err(got, want, f"{label} on set {k}") != 0:
-                fail(f"{label}: set {k} gives other bits")
-            sets[label, k] = chunk_ms(
-                lambda c: epoch_megakernel.launch(
-                    mux.program, c, 1 << 16, gather=False, plan=plan),
-                fresh, reps=5)
-        print(f"[kernels] fleet epoch_chunk {label} masked, device ms by "
-              "instantiated set: " + ", ".join(
-                  f"set {k} {epoch_megakernel.FLEET_SETS[k]}: {v:.4f}"
-                  for (lb, k), v in sets.items() if lb == label))
-    row["fleet_sets_ms"] = {f"{lb} set {k}": v for (lb, k), v in sets.items()}
     return row
 
 

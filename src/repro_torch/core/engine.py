@@ -761,8 +761,7 @@ class EpochLoop:
                 plan = table if self.tenants is not None else None
             return mk.epoch_chunk(
                 _resident_cond, body, carry, limit, program=self.program,
-                gather=self.policy.name == "gather", tenants=self.tenants,
-                plan=plan,
+                gather=self.policy.name == "gather", plan=plan,
             )
         return kref.epoch_chunk_ref(_resident_cond, body, carry, limit)
 

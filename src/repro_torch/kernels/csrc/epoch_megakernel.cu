@@ -2449,16 +2449,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // the tables' sets a fleet kernel is instantiated over, in the order of
-// FLEET_SETS in epoch_megakernel.py: fib_fleet; mixed3; mixed4
+// FLEET_SETS in epoch_megakernel.py: the tables of the registry fleets
+// (fib_fleet, mixed3 and mixed4 alike: a set of one table or three runs
+// its fleet no faster, chip_smoke.py phase 2)
 template <class... Apps>
 struct FleetSet {};
 
 template <class F>
 int with_fleet(int set, int unknown, F f) {
   switch (set) {
-    case 0: return f(FleetSet<FibApp>{});
-    case 1: return f(FleetSet<FibApp, TreePostApp, BfsApp>{});
-    case 2: return f(FleetSet<FibApp, TreePostApp, BfsApp, MsortApp>{});
+    case 0: return f(FleetSet<FibApp, TreePostApp, BfsApp, MsortApp>{});
     default: return unknown;
   }
 }

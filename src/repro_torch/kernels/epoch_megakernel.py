@@ -41,7 +41,7 @@ which :func:`launch` allocates the ``oa_*`` scratch.
 
 A fleet carry (the job service's ``DeviceMultiplexer``: a ``JobArena``
 and one stack row per region) runs through the fleet kernel, instantiated
-over the sets of tables in :data:`FLEET_SETS` (those of the registry
+over the set of tables in :data:`FLEET_SETS` (those of the registry
 fleets ``fib_fleet``, ``mixed3`` and ``mixed4``): :func:`fleet_plan` gives
 each region its tenant's table, task offset, map launches, heap variables
 and slot region, and a wave whose tables lie in no instantiated set
@@ -94,10 +94,11 @@ _N_INTS = (4 + MAX_SPAN + 2 + 2 * MAX_HEAP + 1
 MAX_JOBS = 8
 _R_INTS = 9 + MAX_CONSTS
 _N_FLEET_INTS = 3 + MAX_JOBS * _R_INTS + MAX_MAPS
-# the fleet kernel's instantiations: the device tables (app_id) of the
-# registry fleets fib_fleet, mixed3 and mixed4, in the order of with_fleet
-# in SOURCE; a wave's tables must lie in one of them
-FLEET_SETS: Tuple[Tuple[int, ...], ...] = ((0,), (0, 3, 1), (0, 3, 1, 2))
+# the fleet kernel's instantiations, in the order of with_fleet in SOURCE:
+# one, the device tables (app_id) of the registry fleets fib_fleet, mixed3
+# and mixed4 (fib, treewalk post, bfs, mergesort); a wave's tables must
+# lie in one of them
+FLEET_SETS: Tuple[Tuple[int, ...], ...] = ((0, 3, 1, 2),)
 # the cooperative scratch (csrc: kCoopHeader, kCtaWords, kMaxGrid): the
 # barrier counters, the popped range with the pending map launches and the
 # reclamation words by epoch parity, then one record of totals per CTA
@@ -465,16 +466,15 @@ class FleetPlan:
         return out
 
 
-def fleet_plan(program, tenants, set_id: Optional[int] = None) -> FleetPlan:
+def fleet_plan(program, tenants) -> FleetPlan:
     """The fleet kernel's plan for the fused ``program`` of ``tenants``
     (the ``TenantSlot`` layout of ``service/multiplexer.py``): each
     tenant's device table, checked as :func:`device_table` checks a solo
-    program, and the first instantiated set that holds them all (or
-    ``FLEET_SETS[set_id]``).  Raises ``ValueError`` where a tenant has no
-    table, the tables lie in no instantiated set (or not in ``set_id``'s),
-    or the fleet exceeds the kernel's limits (``MAX_JOBS`` regions,
-    ``MAX_MAPS`` map launches, ``MAX_HEAP`` heap variables, one-word
-    values)."""
+    program, and the first instantiated set that holds them all.  Raises
+    ``ValueError`` where a tenant has no table, the tables lie in no
+    instantiated set (``FLEET_SETS``), or the fleet exceeds the kernel's
+    limits (``MAX_JOBS`` regions, ``MAX_MAPS`` map launches, ``MAX_HEAP``
+    heap variables, one-word values)."""
     if not 1 <= len(tenants) <= MAX_JOBS:
         raise ValueError(f"epoch_chunk: a fleet of {len(tenants)} regions "
                          f"(the kernel takes 1..{MAX_JOBS})")
@@ -487,11 +487,8 @@ def fleet_plan(program, tenants, set_id: Optional[int] = None) -> FleetPlan:
                 f"{slot.index}) has no device task table")
         tables.append(t)
     ids = {t.app_id for t in tables}
-    if set_id is None:
-        set_id = next((k for k, st in enumerate(FLEET_SETS)
-                       if ids <= set(st)), None)
-    elif not (0 <= set_id < len(FLEET_SETS) and ids <= set(FLEET_SETS[set_id])):
-        set_id = None
+    set_id = next((k for k, st in enumerate(FLEET_SETS) if ids <= set(st)),
+                  None)
     if set_id is None:
         raise ValueError(
             "epoch_chunk: no fleet kernel is instantiated for the tenant "
@@ -639,17 +636,17 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
 
 
 def launch(program, carry, limit, *, gather: bool,
-           stats: Optional[torch.Tensor] = None, tenants=None,
+           stats: Optional[torch.Tensor] = None,
            plan: Optional[FleetPlan] = None):
     """One chunk of ``carry`` on the card: a memset of the cooperative
     scratch and one cooperative kernel launch.
 
     ``carry`` is a ``ResidentCarry`` on a CUDA device: solo, run through
     ``program``'s device table, or a fleet (a ``JobArena`` and one stack row
-    per region), run through the fleet kernel of ``plan`` (by default
-    :func:`fleet_plan` over ``tenants``, the fused ``program``'s
-    ``TenantSlot`` layout; ``EpochLoop`` passes the plan it keeps).  ``limit``
-    is an int or an ``i32`` tensor (the epoch bound, read on the device).
+    per region), run through the fleet kernel of ``plan`` (the
+    :func:`fleet_plan` of the fused ``program``'s tenants, which
+    ``EpochLoop`` keeps).  ``limit`` is an int or an ``i32`` tensor (the
+    epoch bound, read on the device).
     ``stats``, if given, is an ``i64[6]`` on the carry's device to which
     the kernel adds the chunk's :data:`STATS`.  Updates the carry in place
     and returns it; raises if a program has no device table, the carry
@@ -660,10 +657,8 @@ def launch(program, carry, limit, *, gather: bool,
     fleet = carry.arena is not None
     if fleet:
         if plan is None:
-            if tenants is None:
-                raise ValueError("epoch_chunk: a fleet carry needs its "
-                                 "tenants")
-            plan = fleet_plan(program, tenants)
+            raise ValueError("epoch_chunk: a fleet carry needs its plan "
+                             "(fleet_plan)")
         J = len(plan.regions)
         tables = plan.tables
         S, consts = plan.stage, []
@@ -840,16 +835,15 @@ def launch(program, carry, limit, *, gather: bool,
 
 
 def epoch_chunk(cond_fn, body_fn, carry, limit, *, program, gather: bool,
-                tenants=None, plan: Optional[FleetPlan] = None):
+                plan: Optional[FleetPlan] = None):
     """Run one resident chunk: ``while cond_fn(carry, limit): body_fn``.
 
     A carry on the CPU runs the plain loop (``ref.epoch_chunk_ref``); a
     carry on the card runs :func:`launch` — one kernel launch, with
     ``cond_fn``/``body_fn`` compiled in as the kernel's own phases and
-    ``program``'s device task table (a fleet carry: its ``tenants``'
-    tables, or ``plan``).
+    ``program``'s device task table (a fleet carry: its tenants' tables,
+    ``plan``).
     """
     if carry.state.task.device.type == "cpu":
         return ref.epoch_chunk_ref(cond_fn, body_fn, carry, limit)
-    return launch(program, carry, limit, gather=gather, tenants=tenants,
-                  plan=plan)
+    return launch(program, carry, limit, gather=gather, plan=plan)

@@ -803,28 +803,6 @@ def test_one_region_fleet_is_the_solo_kernel(cuda_device, dispatch):
         assert torch.equal(ta[k], tb[k]), k
 
 
-@pytest.mark.parametrize("name", ("mixed3", "fib_fleet"))
-def test_fleet_sets_give_the_same_bits(cuda_device, name):
-    """Every instantiated set of tables that holds a fleet's tenants runs
-    its chunk to the same carry."""
-    from repro_torch.kernels import epoch_megakernel as mk
-
-    _, mux = _fleet_mux(name, "masked", True, "cuda")
-    want = None
-    for k in range(len(mk.FLEET_SETS)):
-        try:
-            plan = mk.fleet_plan(mux.program, mux.slots, set_id=k)
-        except ValueError:
-            continue
-        got = mk.launch(mux.program, mux._carry.clone(), 1 << 16,
-                        gather=False, plan=plan)
-        if want is None:
-            want = got
-        else:
-            _assert_same_carry(got, want)
-    assert want is not None
-
-
 def test_fleet_without_an_instantiated_mix_raises(cuda_device):
     """A wave whose tenant tables lie in no instantiated fleet set raises
     on the card with megakernel=True, rather than running the plain loop;

@@ -289,7 +289,7 @@ def test_program_without_a_table_is_refused():
 
 
 @pytest.mark.parametrize("name, set_id", (
-    ("fib_fleet", 0), ("mixed3", 1), ("mixed4", 2)))
+    ("fib_fleet", 0), ("mixed3", 0), ("mixed4", 0)))
 def test_fleet_plan_gives_each_region_its_table(name, set_id):
     """The fleet kernel's plan: each TenantSlot's own device table, its
     place in the instantiated set, its task offset, first map launch,
@@ -326,28 +326,6 @@ def test_fleet_plan_gives_each_region_its_table(name, set_id):
     assert loop.device_table() == plan
     # found once: each chunk reads the loop's plan
     assert loop.device_table() is loop.device_table()
-
-
-@pytest.mark.parametrize("name", ("fib_fleet", "mixed3", "mixed4"))
-def test_fleet_plan_on_a_chosen_set(name):
-    """``set_id`` picks an instantiated set that holds every tenant's
-    table (the regions name their tables' places in it) and refuses one
-    that does not."""
-    fleet = get_fleet(name)
-    program, slots = fuse_programs([c.program for c, _ in fleet],
-                                   [q for _, q in fleet])
-    ids = {mk.device_table(s.program).app_id for s in slots}
-    for k, st in enumerate(mk.FLEET_SETS):
-        if ids <= set(st):
-            plan = mk.fleet_plan(program, slots, set_id=k)
-            assert plan.set_id == k
-            assert [st[r[0]] for r in plan.regions] == [
-                t.app_id for t in plan.tables]
-        else:
-            with pytest.raises(ValueError, match="no fleet kernel"):
-                mk.fleet_plan(program, slots, set_id=k)
-    with pytest.raises(ValueError, match="no fleet kernel"):
-        mk.fleet_plan(program, slots, set_id=len(mk.FLEET_SETS))
 
 
 def test_fleet_plan_refusals():
