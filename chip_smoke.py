@@ -90,10 +90,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 in blocks of 16, annealing of 16 bits x 256 chains x 200
                 steps, naive mergesort of 2^10): HostEngine masked,
                 compacted and gather, the plain resident DeviceEngine
-                masked and gather and DeviceEngine(megakernel=True) masked
-                and gather on CUDA, each megakernel wall printed beside
-                the plain resident one (treewalk in both orders on phase
-                7's tree too); check each against its reference
+                masked and gather (annealing's and naive's are phase 2's
+                full-size plain runs) and DeviceEngine(megakernel=True)
+                masked and gather on CUDA, each megakernel wall printed
+                beside the plain resident one (treewalk in both orders on
+                phase 7's tree too); check each against its reference
                 (Dijkstra, the solution count, brute force, np.fft within
                 a relative L2 error of 1e-4, A @ B in float64 within 1e-5
                 of its largest value, the brute-force optimum as a floor,
@@ -108,8 +109,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 against bitonic_sort, fft (masked and megakernel) against
                 torch.fft.fft, nqueens(7)'s V1 / V_inf against the
                 sequential oracle;
-  4. profile  — one masked fib(28) HostEngine run under torch.profiler:
-                device busy time, its share of the wall time, the top ops;
+  4. graphs   — (run after phase 7, on its wave) the host epoch steps as
+                CUDA graph replays against the same steps run eagerly
+                (graphs=False) on the card: fib(28) on HostEngine masked,
+                compacted and gather, annealing masked, and the full-size
+                mixed4 host wave (EpochMultiplexer) masked and gather; each
+                eager, graphed first (capturing; for the wave, phase 7's)
+                and graphed warm (no capture: the same engine, or a wave on
+                the first wave's loop and buffers), heaps, values and
+                RunStats (each
+                tenant's, the fleet's) equal; walls, captures, the graph
+                pool's and result buffers' bytes, and an eager and a warm
+                run under torch.profiler (device busy share, device ops per
+                epoch).  Phases 3, 3b, 7, 8 and 9 run on graphs, the
+                default;
   5. resident — drive DeviceEngine(megakernel=True) on CUDA on the same
                 three cases under masked and gather; check results against
                 the numpy references and the host path's heaps and values,
@@ -135,33 +148,40 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 streaming admission (six fib jobs into four regions) and
                 one preempt/resume of a bfs tenant at a medium size, on the
                 host engine and on the device engine's epoch_chunk at K=4,
-                and one masked host wave and one unbounded device wave under
-                torch.profiler;
+                and one unbounded device wave under torch.profiler;
   8. serve    — drive EpochServer on granite-3-8b at full width and depth
                 (40 layers, bf16, random weights from seed 0) with 16 slots
                 of 2048 rows: 48 requests, prompts of 64-1024 tokens, 32-128
                 new tokens each; check every output, finite logits, the
                 epoch count the host bookkeeping predicts, and that
                 flash_attention, decode_attention and fork_scan were
-                launched during the run; then the same model at 2 layers in
-                float32 on the card and on the CPU from the same weights
-                (equal tokens, first decode epoch's logits within 1e-3), one
-                decode epoch under torch.profiler (device ms per epoch,
-                decode_attention's share) and one full-bucket prefill (16 x
-                1024 tokens; flash_attention's share);
+                launched during the run; one full-bucket prefill (16 x 1024
+                tokens; flash_attention's share) under torch.profiler; 8
+                decode epochs of 16 requests on a graphed and an eager
+                server (first and warm epoch walls, the decode graph's
+                capture and bytes, busy share, device ops and
+                decode_attention's time per epoch under torch.profiler,
+                equal tokens); then the same model at 2 layers in float32
+                on the card (graphed and eager: equal tokens and logits)
+                and on the CPU from the same weights (equal tokens, first
+                decode epoch's logits within 1e-3);
   9. ssm      — drive EpochServer on mamba2-1.3b at full width and depth
                 (48 layers, bf16, random weights from seed 0) with phase
                 8's slots and request mix; check every output, finite
                 logits, the predicted epochs, ssd_scan launched once per
                 layer of every prefill, fork_scan once per prefill and no
-                attention kernel; one decode epoch and one full-bucket
-                prefill (16 x 1024 tokens; ssd_scan's share) under
-                torch.profiler; the same model at 2 layers in float32 on the card and on
+                attention kernel; one full-bucket prefill (16 x 1024
+                tokens; ssd_scan's share) under torch.profiler and phase
+                8's 8 graphed and eager decode epochs; the same model at 2
+                layers in float32 on the card (graphed and eager) and on
                 the CPU (equal tokens, first decode epoch's logits within
                 1e-3); then hymba-1.5b (attention ∥ SSM, 32 layers) at full
                 width and depth on 16 requests, flash_attention and
                 ssd_scan once per layer of every prefill, decode_attention
-                once per layer of every epoch.
+                once per layer of every epoch, and its 2-layer float32 runs
+                on the card (graphed and eager) and the CPU.
+A kernel's launches count what ran on the card: a graph's capture adds
+none, each replay adds the launches the graph holds.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel (with its design), and, last, ``{"ok": true, "device":
 {...}}``.
@@ -225,6 +245,14 @@ ONE_CTA_RESIDENT_BUSY = {"fib": "54.6% of 11069 us"}
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+_T0 = [0.0]
+
+
+def lap(what: str) -> None:
+    """Print the script's elapsed time after ``what``."""
+    print(f"[env] {what} done at {time.perf_counter() - _T0[0]:.1f} s")
 
 
 def _events_ms(run, n: int) -> float:
@@ -794,7 +822,12 @@ def phase_chunks(dev):
             # one plain run: its final carry is the same at every K
             # (tests/test_torch_megakernel.py::
             # test_chunk_cadence_gives_one_carry)
-            want, _, _ = run_chunks(plain, fresh.clone(), None)
+            out = {}
+            wall = _wall_ms(lambda: out.setdefault(
+                "r", run_chunks(plain, fresh.clone(), None)))
+            want = out["r"][0]
+            if size == "full":
+                PLAIN_RESIDENT_MS[case.name, d] = wall
             for K in (1, 4, None):
                 got, s_got, reads = run_chunks(kern, fresh.clone(), K)
                 torch.cuda.synchronize()
@@ -1396,13 +1429,25 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# plain resident walls of phase 2's full-size runs (one chunk, the
+# epoch_chunk reference); the apps whose plain runs take seconds are not
+# run plainly again in phase 3b: phase 2 holds epoch_chunk to them carry
+# tensor for carry tensor, and phase 3b epoch_chunk to the host path
+PLAIN_RESIDENT_MS = {}
+PLAIN_IN_PHASE_2 = ("annealing", "naive")
+
+
 def _resident_runs(name, case, check, mask, walls, runs):
-    """The plain resident DeviceEngine and DeviceEngine(megakernel=True),
-    masked and gather, against the masked HostEngine run ``mask`` (heaps,
-    values, APP_INVARIANT) and the app's reference."""
+    """The plain resident DeviceEngine (but for PLAIN_IN_PHASE_2) and
+    DeviceEngine(megakernel=True), masked and gather, against the masked
+    HostEngine run ``mask`` (heaps, values, APP_INVARIANT) and the app's
+    reference."""
     from repro_torch.core import DeviceEngine
 
     for d in ("masked", "gather"):
+        if name in PLAIN_IN_PHASE_2:
+            walls[name, "resident " + d] = PLAIN_RESIDENT_MS[name, d]
+            continue
         runs[name, "resident " + d] = r = _run(
             case, d, "cuda", tag="apps-resident", walls=walls,
             wall_key=(name, "resident " + d), engine_cls=DeviceEngine)
@@ -1583,24 +1628,33 @@ def app_yardsticks(path_cases, walls):
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_profile(label, run):
-    """Where the time goes: one run under ``torch.profiler``."""
+def phase_profile(label, run, cpu=True):
+    """Where the time goes: one run under ``torch.profiler`` (``cpu``:
+    host operations traced too, else the device's alone)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, stats = run()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    # a profile that records no device activity at all is run once more
+    # (a profile of a few ms of work once recorded none on the card);
+    # a second empty one fails
+    for attempt in (1, 2):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, memcpy, memset): the host ops that
-    # launched them carry the same time and would count it twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, _, stats = run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side events only (kernels, memcpy, memset): the host ops
+        # that launched them carry the same time and would count it twice
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy_us = sum(e.self_device_time_total for e in events)
+        if busy_us > 0:
+            break
+        print(f"[profile] {label}: attempt {attempt} recorded no device "
+              "activity")
     if busy_us <= 0:
         fail("the profiler saw no device time")
     n_kernels = sum(e.count for e in events)
@@ -1793,8 +1847,13 @@ def phase_service(cases, runs):
     fork_compact.reset_launches()
     tenants = {}
     host_stats = {}
+    # the masked and gather waves, graphed first waves of the graphs phase
+    host_waves = {}
     for d in ("masked", "compacted", "gather"):
         svc, handles, wall = run_wave(wave, d)
+        if d != "compacted":
+            host_waves[d] = (svc._mux, wall * 1e3,
+                             [_tenant(h) for h in handles])
         fs = svc.stats()
         solo = [runs[c.name, d][2] for c in wave]
         for c, h in zip(wave, handles):
@@ -1899,7 +1958,162 @@ def phase_service(cases, runs):
               "uninterrupted run")
     print("[service] every tenant matches its solo run on the card, its "
           "numpy reference, the other dispatches and the host wave")
-    return launches, chunk_launches, wave
+    return launches, chunk_launches, wave, host_waves
+
+
+# ---------------------------------------------------------------- phase 10
+def _graph_report(label, walls, captures, memory, profiles, epochs,
+                  run_epochs):
+    """One graphs-phase line: eager, first (capturing) and warm walls, the
+    captures, the graph pool and result-buffer bytes, and each profiled
+    run's busy share and device ops per epoch (of ``epochs``)."""
+    eager, first, warm = walls
+    pool, res = memory
+    prof = "; ".join(
+        f"{k} busy {100 * b / w:.1f}% ({b / 1e3:.3f} of {w / 1e3:.3f} ms), "
+        f"{n / epochs:.1f} device ops per epoch"
+        for k, (b, w, n) in profiles.items())
+    print(f"[graphs] {label}: eager {eager:.1f} ms, graphed first "
+          f"{first:.1f} ms ({captures} captures), warm {warm:.1f} ms (no "
+          f"capture), {run_epochs} epochs; graph pool {pool / 2**20:.1f} MiB, "
+          f"result buffers {res / 2**20:.1f} MiB; {prof}; bits equal")
+
+
+def _profiled(label, run):
+    """``run`` under the profiler (the device's activity alone): busy us,
+    wall us, device operations."""
+    busy, wall, events = phase_profile(label, run, cpu=False)
+    return busy, wall, sum(e.count for e in events)
+
+
+def _solo_graphs(label, case, dispatch, profile_case=None):
+    """``case`` on HostEngine: eager (graphs=False), graphed first run
+    (captures) and warm run (none), every run's heap, values and RunStats
+    equal; then an eager and a warm graphed run of ``profile_case`` (a
+    shorter run of the same program, or ``case``) under the profiler."""
+    from repro_torch.core import HostEngine
+
+    kw = dict(capacity=case.capacity, dispatch=dispatch, device="cuda")
+
+    def engines(c):
+        args = (c.initial, dict(c.heap_init) or None)
+        return (HostEngine(c.program, graphs=False, **kw),
+                HostEngine(c.program, **kw), args)
+
+    eager_eng, eng, args = engines(case)
+    walls, runs = [], []
+    for e in (eager_eng, eng, eng):
+        out = {}
+        walls.append(_wall_ms(lambda: out.setdefault("r", e.run(*args))))
+        h, v, st = out["r"]
+        runs.append(({k: t.cpu().numpy() for k, t in h.items()},
+                     v.cpu().numpy(), st))
+        if len(runs) == 2:
+            captures = eng.loop.captures
+    if eng.loop.captures != captures:
+        fail(f"graphs {label}: a repeated run captured "
+             f"{eng.loop.captures - captures} more graphs")
+    for r, what in zip(runs[1:], ("first", "warm")):
+        _same(r, runs[0], f"graphs {label} {what} vs eager",
+              fields=tuple(runs[0][2].as_dict()))
+    memory = eng.loop.graph_memory()
+    if profile_case is not None:
+        eager_eng, eng, args = engines(profile_case)
+        eng.run(*args)  # its captures
+        label += f" (profiled: {profile_case.name}, a shorter run)"
+    epochs = eng.run(*args)[2].epochs
+    profiles = {
+        "eager": _profiled(f"{label} eager", lambda: eager_eng.run(*args)),
+        "graphed": _profiled(f"{label} graphed (warm)",
+                             lambda: eng.run(*args))}
+    _graph_report(label, walls, captures, memory, profiles, epochs,
+                  runs[0][2].epochs)
+    return dict(walls=walls, captures=captures, memory=memory,
+                profiles=profiles, epochs=epochs)
+
+
+def _wave_handles(wave):
+    from repro_torch.service import Job, JobHandle
+
+    return [JobHandle(job_id=i, job=Job(
+        program=c.program, initial=c.initial, heap_init=dict(c.heap_init),
+        quota=c.capacity, name=c.name)) for i, c in enumerate(wave)]
+
+
+def _wave_graphs(label, wave, dispatch, first):
+    """The mixed4 host wave: EpochMultiplexer eager (graphs=False) against
+    ``first``, phase 7's JobService wave of this dispatch (the first,
+    capturing wave: ``(multiplexer, wall ms, tenants)``), and a warm wave
+    on its loop and buffers (``reuse=``: no capture); every tenant and the
+    fleet's RunStats equal; then an eager and a warm wave under the
+    profiler."""
+    from repro_torch.service import EpochMultiplexer
+
+    kw = dict(capacity=sum(c.capacity for c in wave), dispatch=dispatch,
+              device="cuda")
+    first_mux, first_ms, first_tenants = first
+    captures = first_mux.loop.captures
+
+    def wave_run(graphs, reuse=None, out=None):
+        def run():
+            hs = _wave_handles(wave)
+            m = EpochMultiplexer(hs, graphs=graphs, reuse=reuse, **kw)
+            m.run()
+            if out is not None:
+                out.append((m, [_tenant(h) for h in hs]))
+            return None, None, m.stats()
+        return run
+
+    done = []
+    eager_ms = _wall_ms(wave_run(False, out=done))
+    warm_ms = _wall_ms(wave_run(True, first_mux, out=done))
+    (eager, eager_tenants), (warm, warm_tenants) = done
+    if warm.loop.captures != captures:
+        fail(f"graphs {label}: the warm wave captured "
+             f"{warm.loop.captures - captures} more graphs")
+    for m, ts, what in ((first_mux, first_tenants, "first"),
+                        (warm, warm_tenants, "warm")):
+        for c, got, want in zip(wave, ts, eager_tenants):
+            _same_tenant(got, want, f"graphs {label} {what} {c.name}")
+        if m.stats().as_dict() != eager.stats().as_dict():
+            fail(f"graphs {label} {what}: fleet RunStats differ")
+    memory = warm.loop.graph_memory()
+    epochs = eager.stats().epochs
+    profiles = {
+        "eager": _profiled(f"{label} eager", wave_run(False)),
+        "graphed": _profiled(f"{label} graphed (warm)",
+                             wave_run(True, warm))}
+    walls = (eager_ms, first_ms, warm_ms)
+    _graph_report(label, walls, captures, memory, profiles, epochs, epochs)
+    return dict(walls=walls, captures=captures, memory=memory,
+                profiles=profiles, epochs=epochs)
+
+
+def phase_graphs(fib_case, wave, host_waves):
+    """CUDA graphs of the host epoch steps against the eager steps on the
+    card: fib(28) on HostEngine masked, compacted and gather, annealing
+    masked, and the mixed4 host wave masked and gather (its first waves
+    phase 7's, ``host_waves``)."""
+    from repro_torch.kernels import fork_compact
+
+    fork_compact.reset_launches()
+    out = {}
+    for d in ("masked", "compacted", "gather"):
+        out["fib", d] = _solo_graphs(f"fib(28) HostEngine {d}", fib_case, d)
+    case, _ = app_case("annealing", APP_FULL["annealing"])
+    # the profiles: 20 of the 200 steps (every epoch traces both types at
+    # the same widths), so the eager profile records 10x fewer operations
+    n_bits, n_chains, _ = APP_FULL["annealing"]
+    short, _ = app_case("annealing", (n_bits, n_chains, 20))
+    out["annealing", "masked"] = _solo_graphs(
+        "annealing HostEngine masked", case, "masked", short)
+    for d in ("masked", "gather"):
+        out["mixed4", d] = _wave_graphs(f"mixed4 host wave {d}", wave, d,
+                                        host_waves[d])
+    torch.cuda.synchronize()
+    print(f"[graphs] kernel launches during the graphs phase (replays "
+          f"counted): {dict(fork_compact.LAUNCHES)}")
+    return out
 
 
 # ------------------------------------------------------ phase 2, attention
@@ -2383,25 +2597,73 @@ def _expect_launches(tag, launches, want):
         fail(f"{tag}: launches (got, want) {bad}")
 
 
-def _profile_epoch(label, srv, model, cfg):
-    """One decode epoch (phase 2 of step) under the profiler."""
-    import types
+DECODE_EPOCHS = 8  # the graphs phase's timed and profiled decode epochs
 
-    from repro_torch.models import decode_step
 
-    toks = torch.as_tensor(srv.last_token[:, None], device="cuda")
+def _decode_graphs(cfg, model, tag):
+    """8 decode epochs of ``cfg`` at the served width (16 slots of 2048
+    rows, 16 requests of the phase 8 mix, seed 3), eager (graphs=False)
+    and graphed: the first epoch (the capture), 8 timed epochs and 8 under
+    the profiler (device ops, busy share, decode_attention's share), then
+    every request's tokens equal between the two servers."""
+    from repro_torch.serving import EpochServer
 
-    def one_epoch():
-        logits, _ = decode_step(model, cfg, toks, srv.cache)
-        logits.argmax(-1).cpu()
-        return None, None, types.SimpleNamespace(epochs=1)
+    res = {}
+    for graphs in (False, True):
+        srv = EpochServer(cfg, model, n_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, device="cuda",
+                          graphs=graphs)
+        for r in serve_requests(SERVE_SLOTS, cfg.vocab, seed=3,
+                                new=(2 * DECODE_EPOCHS + 1,) * 2):
+            srv.submit(r)
+        srv.step()  # the prefill and the first decode epoch (capture)
+        first = srv.timings["decode_s"] * 1e3
+        d0 = srv.timings["decode_s"]
+        for _ in range(DECODE_EPOCHS):
+            srv.step()
+        torch.cuda.synchronize()
+        warm = (srv.timings["decode_s"] - d0) * 1e3 / DECODE_EPOCHS
 
-    one_epoch()
-    busy, wall, events = phase_profile(label, one_epoch)
-    attn = device_us(events, "decode_split", "decode_combine")
-    print(f"[profile]   device time per decode epoch {busy / 1e3:.3f} ms "
-          f"(wall {wall / 1e3:.3f} ms), decode_attention {attn / 1e3:.3f} "
-          f"ms of it ({100 * attn / busy:.1f}%)")
+        def epochs():
+            for _ in range(DECODE_EPOCHS):
+                srv.step()
+            return None, None, types.SimpleNamespace(epochs=DECODE_EPOCHS)
+
+        kind = "graphed" if graphs else "eager"
+        busy, wall, events = phase_profile(
+            f"{cfg.name} {DECODE_EPOCHS} decode epochs, {kind}", epochs,
+            cpu=False)
+        attn = device_us(events, "decode_split", "decode_combine")
+        srv.run_to_completion()
+        if srv.queue or srv.active.any():
+            fail(f"{tag} graphs: requests left after the run")
+        memory = srv.graph_memory() if graphs else (0, 0)
+        res[graphs] = dict(
+            first=first, warm=warm, busy=busy, wall=wall,
+            ops=sum(e.count for e in events), attn=attn,
+            captures=srv.captures, memory=memory,
+            tokens=[(r.rid, r.output) for r in srv.completed])
+        del srv
+        torch.cuda.empty_cache()
+    e, g = res[False], res[True]
+    if e["tokens"] != g["tokens"]:
+        fail(f"{tag} graphs: the graphed server's tokens differ from the "
+             "eager server's")
+    if g["captures"] != 1 or e["captures"] != 0:
+        fail(f"{tag} graphs: {g['captures']} decode captures")
+    for k, r in (("eager", e), ("graphed", g)):
+        print(f"[graphs] {cfg.name} decode, {k}: first epoch "
+              f"{r['first']:.2f} ms, warm {r['warm']:.2f} ms per epoch; "
+              f"profiled {DECODE_EPOCHS} epochs: busy "
+              f"{100 * r['busy'] / r['wall']:.1f}% ({r['busy'] / 1e3:.3f} of "
+              f"{r['wall'] / 1e3:.3f} ms), {r['ops'] / DECODE_EPOCHS:.1f} "
+              f"device ops per epoch, decode_attention "
+              f"{r['attn'] / DECODE_EPOCHS / 1e3:.3f} ms per epoch")
+    pool, resb = g["memory"]
+    print(f"[graphs] {cfg.name} decode: {g['captures']} capture, graph pool "
+          f"{pool / 2**20:.1f} MiB, result buffers {resb / 2**20:.2f} MiB; "
+          f"{len(g['tokens'])} requests, tokens equal to the eager server's")
+    return res
 
 
 def _profile_prefill(label, srv, model, cfg, kernel="flash_attention",
@@ -2435,7 +2697,9 @@ def _profile_prefill(label, srv, model, cfg, kernel="flash_attention",
 def _card_vs_cpu(cfg, tag):
     """The card against the CPU, float32 compute, 2 layers at full width:
     equal tokens, completion order and epochs, and the first decode
-    epoch's logits within 1e-3."""
+    epoch's logits within 1e-3; on the card the graphed server (its
+    logits read before the next epoch's replay overwrites them) and the
+    eager one, with equal tokens and logits."""
     import copy
     import dataclasses
 
@@ -2445,9 +2709,10 @@ def _card_vs_cpu(cfg, tag):
     cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
     cpu_model = init_model(cfg32, seed=1, device="cpu")
     runs = {}
-    for dev in ("cuda", "cpu"):
+    for dev, graphs in (("cuda", True), ("cuda", False), ("cpu", False)):
         m = copy.deepcopy(cpu_model).to(dev) if dev == "cuda" else cpu_model
-        srv = EpochServer(cfg32, m, n_slots=4, max_len=256, device=dev)
+        srv = EpochServer(cfg32, m, n_slots=4, max_len=256, device=dev,
+                          graphs=graphs)
         reqs = serve_requests(6, cfg.vocab, seed=1, plen=(16, 200),
                               new=(8, 8))
         for r in reqs:
@@ -2456,11 +2721,14 @@ def _card_vs_cpu(cfg, tag):
         srv.step()
         first = srv.last_logits[:, :cfg.vocab].cpu()
         srv.run_to_completion()
-        runs[dev] = ([(r.rid, r.output) for r in srv.completed], srv.epochs,
-                     first, time.perf_counter() - t0)
+        runs[dev, graphs] = ([(r.rid, r.output) for r in srv.completed],
+                             srv.epochs, first, time.perf_counter() - t0)
         del srv, m
-    (g_out, g_ep, g_lg, g_s), (c_out, c_ep, c_lg, c_s) = (runs["cuda"],
-                                                          runs["cpu"])
+    (g_out, g_ep, g_lg, g_s), (e_out, e_ep, e_lg, _), (c_out, c_ep, c_lg,
+                                                        c_s) = runs.values()
+    if g_out != e_out or g_ep != e_ep or not torch.equal(g_lg, e_lg):
+        fail(f"{tag} float32: the graphed server's tokens or first logits "
+             "differ from the eager server's on the card")
     lg_err = float((g_lg - c_lg).abs().max())
     if g_out != c_out or g_ep != c_ep:
         fail(f"{tag} float32: the card's tokens {g_out} (epochs {g_ep}) "
@@ -2469,7 +2737,8 @@ def _card_vs_cpu(cfg, tag):
         fail(f"{tag} float32: first decode epoch's logits differ by "
              f"{lg_err}")
     print(f"[{tag}] {cfg.name} float32, 2 layers at full width, 6 requests "
-          f"in 4 slots: card and CPU give equal tokens per request, "
+          f"in 4 slots: card (graphed and eager) and CPU give equal tokens "
+          f"per request, "
           f"completion order and {g_ep} epochs; first decode epoch's logits "
           f"within {lg_err:.3g} (card {g_s:.2f} s, CPU {c_s:.2f} s)")
 
@@ -2484,12 +2753,13 @@ def phase_serve():
     _expect_launches("serve", launches, {
         "fork_scan": n_pf, "flash_attention": n_pf * L,
         "decode_attention": epochs * L, "ssd_scan": 0})
-    _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
-                   model, cfg)
-    # after the run and its profile: this overwrites the slots' caches
+    # after the run: this overwrites the slots' caches
     _profile_prefill(f"{cfg.name} prefill, 16 x 1024 tokens (one bucket)",
                      srv, model, cfg)
-    del srv, model
+    del srv
+    torch.cuda.empty_cache()
+    _decode_graphs(cfg, model, "serve")
+    del model
     torch.cuda.empty_cache()
     _card_vs_cpu(cfg, "serve")
     return launches
@@ -2512,11 +2782,12 @@ def phase_ssm_serve():
     _expect_launches("ssm", launches, {
         "fork_scan": n_pf, "ssd_scan": n_pf * L, "flash_attention": 0,
         "decode_attention": 0})
-    _profile_epoch(f"{cfg.name} decode epoch, 16 slots (one epoch)", srv,
-                   model, cfg)
     _profile_prefill(f"{cfg.name} prefill, 16 x 1024 tokens (one bucket)",
                      srv, model, cfg, "ssd_scan", ("ssd_",))
-    del srv, model
+    del srv
+    torch.cuda.empty_cache()
+    _decode_graphs(cfg, model, "ssm")
+    del model
     torch.cuda.empty_cache()
     _card_vs_cpu(cfg, "ssm")
 
@@ -2529,6 +2800,7 @@ def phase_ssm_serve():
         "decode_attention": h_epochs * L})
     del srv, model
     torch.cuda.empty_cache()
+    _card_vs_cpu(hcfg, "hybrid")
     return launches
 
 
@@ -2541,21 +2813,26 @@ def main() -> int:
     dev = torch.device("cuda")
     print("[env]", sys.version.split()[0], "torch", torch.__version__,
           "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
-    t0 = time.perf_counter()
+    t0 = _T0[0] = time.perf_counter()
     phase_build()
+    lap("build")
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(dev)
+    lap("kernels (scans)")
     rows.append(phase_fleet_chunks(dev, phase_chunks(dev)))
+    lap("kernels (epoch_chunk)")
     rows.append(phase_ordered_add(dev))
     rows += phase_attention(dev)
     rows.append(phase_ssd(dev))
+    lap("kernels")
     launches, cases, host_runs = phase_path()
+    lap("path")
     app_launches = phase_apps(cases)
+    lap("apps")
     fib_case = cases[0][0]
-    phase_profile("fib HostEngine masked",
-                  lambda: fib_case.run(dispatch="masked", device="cuda"))
     launches.update(phase_resident(cases, host_runs))
+    lap("resident")
     # epoch_chunk's count: the resident path's launches and the apps'
     chunk_paths = {"resident": launches["epoch_chunk"],
                    "apps": app_launches["epoch_chunk"]}
@@ -2571,7 +2848,10 @@ def main() -> int:
         print(f"[profile] {case.name} resident busy share "
               f"{100 * busy / wall:.1f}% (one-CTA kernel: "
               f"{ONE_CTA_RESIDENT_BUSY.get(case.name, 'not measured')})")
-    svc_launches, svc_chunks, wave = phase_service(cases, host_runs)
+    lap("resident profiles")
+    svc_launches, svc_chunks, wave, host_waves = phase_service(cases,
+                                                               host_runs)
+    lap("service")
     chunk_paths["service"] = svc_chunks
     launches["epoch_chunk"] += svc_chunks
     launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
@@ -2586,11 +2866,9 @@ def main() -> int:
                        "apps": app_launches["fork_scan"]}
     launches["fork_scan"] += app_launches["fork_scan"]
 
-    def masked_wave():
-        svc, _, _ = run_wave(wave, "masked")
-        return None, None, svc.stats()
-
-    phase_profile("mixed4 JobService masked (global epochs)", masked_wave)
+    phase_graphs(fib_case, wave, host_waves)
+    del host_waves
+    lap("graphs")
 
     def device_wave():
         svc, _, _ = run_wave(wave, "masked", engine="device",
@@ -2602,13 +2880,16 @@ def main() -> int:
         "chunk (global epochs)", device_wave)
     print(f"[profile] mixed4 device wave busy share "
           f"{100 * busy / wall:.1f}%")
+    lap("service profile")
     serve_launches = phase_serve()
+    lap("serve")
     # fork_scan's count: the host path's, the apps', the servers'
     fork_scan_paths["serve"] = serve_launches.pop("fork_scan")
     launches["fork_scan"] += fork_scan_paths["serve"]
     launches.update(flash_attention=serve_launches["flash_attention"],
                     decode_attention=serve_launches["decode_attention"])
     ssm_launches = phase_ssm_serve()
+    lap("ssm")
     fork_scan_paths["ssm"] = ssm_launches["fork_scan"]
     launches["fork_scan"] += fork_scan_paths["ssm"]
     launches["ssd_scan"] = ssm_launches["ssd_scan"]

@@ -20,9 +20,28 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 _WRITE_OPS = ("set", "add", "min", "max")
+
+
+def _on(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)``, a Python or numpy scalar
+    filled on the device instead of copied from the host: a step captured
+    in a CUDA graph cannot make a host-to-device copy (the same values)."""
+    if isinstance(x, bool):
+        inferred = torch.bool
+    elif isinstance(x, int):
+        inferred = torch.int64
+    elif isinstance(x, float):
+        inferred = torch.get_default_dtype()
+    elif isinstance(x, np.generic):
+        inferred = torch.from_numpy(np.asarray(x)).dtype
+        x = x.item()
+    else:
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype or inferred, device=device)
 
 
 @dataclasses.dataclass
@@ -57,7 +76,7 @@ def heap_read(arr: torch.Tensor, index) -> torch.Tensor:
     the commit's in-place heap writes would then show through it, where
     the reference reads the pre-epoch snapshot.
     """
-    idx = torch.as_tensor(index, dtype=torch.int32, device=arr.device)
+    idx = _on(index, arr.device, torch.int32)
     flat = idx.reshape(-1).clamp(0, arr.shape[0] - 2)
     return arr.index_select(0, flat).reshape(idx.shape + arr.shape[1:])
 
@@ -164,7 +183,7 @@ class EpochCtx:
         vector ``[P, k]`` with ``k <= value_width``, zero-padded.
         """
         W = self._program.value_width
-        v = torch.as_tensor(value, device=self._device).to(
+        v = _on(value, self._device).to(
             self._program.value_dtype
         )
         if v.dim() == 0:
@@ -190,7 +209,7 @@ class EpochCtx:
         """
         _check_op(op)
         arr = self._heap[name]
-        val = torch.as_tensor(value, device=self._device).to(arr.dtype)
+        val = _on(value, self._device).to(arr.dtype)
         self.writes.append(
             WriteSite(
                 name=name,
@@ -219,7 +238,7 @@ class EpochCtx:
 
     # ----------------------------------------------------------- helpers
     def _lanes(self, x, dtype) -> torch.Tensor:
-        t = torch.as_tensor(x, device=self._device).to(dtype)
+        t = _on(x, self._device).to(dtype)
         return t.expand(self._P) if t.dim() == 0 else t
 
     def _pack(self, args, width: int, dtype) -> torch.Tensor:
@@ -233,7 +252,7 @@ class EpochCtx:
             task = self._program.task_id(task)
         return ForkSite(
             where=self._lanes(where, torch.bool),
-            task=torch.as_tensor(task, device=self._device).to(torch.int32),
+            task=_on(task, self._device).to(torch.int32),
             argi=self._pack(argi, self._program.n_arg_i, torch.int32),
             argf=self._pack(argf, self._program.n_arg_f, torch.float32),
         )
@@ -278,9 +297,9 @@ class MapCtx:
         self.writes.append(
             WriteSite(
                 name=name,
-                index=torch.as_tensor(index, device=dev).to(torch.int32),
-                value=torch.as_tensor(value, device=dev).to(arr.dtype),
+                index=_on(index, dev).to(torch.int32),
+                value=_on(value, dev).to(arr.dtype),
                 op=op,
-                where=torch.as_tensor(where, device=dev).to(torch.bool),
+                where=_on(where, dev).to(torch.bool),
             )
         )

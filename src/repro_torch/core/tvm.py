@@ -21,7 +21,9 @@ it on the way out.  ``TVMState.capacity`` counts real rows only.
 
 **In place.**  Unlike the immutable JAX arrays, :func:`commit_epoch` and
 :func:`run_map_payload` update the TV and heap tensors in place (phase 2
-only gathers, so every read still sees the pre-epoch snapshot).
+only gathers, so every read still sees the pre-epoch snapshot), down to
+``next_free``: a step captured in a CUDA graph reads and writes the
+addresses it saw at capture.
 
 **Kernels.**  Fork allocation and the compaction pass call
 ``kernels/ops.py``: the ``fork_scan``, ``segmented_fork_scan`` and
@@ -44,7 +46,7 @@ Task Vector (``torch.arange``, ``cumsum`` and ``sum`` name their dtype).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -142,12 +144,11 @@ def arena_reset_region(arena: JobArena, j: int, base: int,
     """Re-point region ``j``'s cursors at a freshly reseeded tenant: its
     ``end`` becomes ``base + quota`` and its cursor ``base + 1`` (root slot
     occupied), the solo ``init_state`` layout shifted by ``base``.
-    Returns a new arena; the argument is not changed."""
-    end = arena.end.clone()
-    nxt = arena.next.clone()
-    end[j] = base + quota
-    nxt[j] = base + 1
-    return dataclasses.replace(arena, end=end, next=nxt)
+    Writes the arena's tensors in place (a captured step reads them where
+    they are) and returns the arena."""
+    arena.end[j] = base + quota
+    arena.next[j] = base + 1
+    return arena
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,12 +282,12 @@ def trace_tasks_compacted(
     program: Program,
     state: TVMState,
     heap,
-    start: int,
-    count: int,
+    start,
+    count,
     cen,
     perm: torch.Tensor,
-    type_offsets: Sequence[int],
-    type_counts: Sequence[int],
+    type_offsets,
+    type_counts,
     buckets: Tuple[int, ...],
 ):
     """Phase 2 under the compacted dispatch: dense per-type slices.
@@ -297,8 +298,10 @@ def trace_tasks_compacted(
     per-lane effects are scattered back to full NDRange lane positions so
     that :func:`commit_epoch` sees exactly the masked dispatch's per-lane
     layout — fork allocation order, and therefore every result, is
-    bit-identical between the two dispatches.  Offsets and counts are host
-    ints (the compaction pass's readback).
+    bit-identical between the two dispatches.  ``start`` and ``count``
+    are ints or 0-d tensors; the per-type offsets and counts are
+    ``i32[n_types]`` tensors (or host sequences) read on the device, so
+    that only ``buckets`` (the reference's key) shapes the step.
 
     Returns ``(per_type, idx, active)`` compatible with :func:`commit_epoch`.
     """
@@ -311,16 +314,20 @@ def trace_tasks_compacted(
     active = (ar < count) & (cen > 0) & (state.epoch[cidx] == cen)
     g_task = state.task[cidx]
 
+    toffs = torch.as_tensor(type_offsets, dtype=_I32, device=dev)
+    tcounts = torch.as_tensor(type_counts, dtype=_I32, device=dev)
     perm_p = torch.cat([
         perm, torch.full((max(buckets),), -1, dtype=_I32, device=dev)
     ])
+    last = perm_p.shape[0] - 1
     per_type = []
     for tid, B in enumerate(buckets):
         if B <= 0:
             continue  # no active lanes of this type: no launch at all
-        ts = int(type_offsets[tid])
-        lanepos = perm_p[ts:ts + B]
-        within = torch.arange(B, dtype=_I32, device=dev) < int(type_counts[tid])
+        # perm_p[ts:ts + B] with the offset ts read on the device
+        ar_b = torch.arange(B, dtype=_I32, device=dev)
+        lanepos = perm_p[(toffs[tid] + ar_b).clamp(0, last)]
+        within = ar_b < tcounts[tid]
         valid = within & (lanepos >= 0)
         src = (start + lanepos).clamp(0, C - 1)
         ctx = _run_type(program, tid, state, heap, src)
@@ -411,6 +418,9 @@ def commit_epoch(
     map_any = torch.zeros((), dtype=torch.bool, device=dev)
     map_launches: List[MapLaunch] = []
     s = state
+    # a device zero for the scatters below: a Python scalar would be copied
+    # from the host, which a step captured in a CUDA graph cannot do
+    zero = torch.zeros((), dtype=_I32, device=dev)
 
     for mask_t, eff in per_type:
         # -------- forks: scatter children at contiguous prefix-sum slots,
@@ -441,8 +451,8 @@ def commit_epoch(
             s.epoch[slots] = child_cen
             # children's child_base=0 lands before the parents' child_base
             # below (tvm.py:534 before :552); keep that order
-            s.child_base[slots] = 0
-            s.child_count[slots] = 0
+            s.child_base[slots] = zero
+            s.child_count[slots] = zero
 
         # -------- join: replace own entry; epoch number stays CEN
         jw = torch.zeros((P,), dtype=torch.bool, device=dev)
@@ -464,7 +474,7 @@ def commit_epoch(
         # -------- emit: store value; entry becomes invalid unless joined
         eslots = torch.where(mask_t & eff.emit_where, cidx, drop)
         s.value[eslots] = eff.emit_value
-        s.epoch[torch.where(mask_t & ~jw, cidx, drop)] = 0
+        s.epoch[torch.where(mask_t & ~jw, cidx, drop)] = zero
 
         # -------- heap writes (reads saw the pre-epoch snapshot)
         for w in eff.writes:
@@ -487,8 +497,8 @@ def commit_epoch(
     iota = torch.arange(C, dtype=_I32, device=dev)
     lv = torch.where(s.epoch[:C] > 0, iota, -1)
     if arena is None:
-        s.next_free = torch.minimum(s.next_free + total_forks,
-                                    lv.max() + 1)
+        s.next_free.copy_(torch.minimum(s.next_free + total_forks,
+                                        lv.max() + 1))
         summary = EpochSummary(
             total_forks=total_forks,
             join_scheduled=join_any,
@@ -506,7 +516,7 @@ def commit_epoch(
         arena.next + job_forks,
         torch.maximum(last_valid[:J] + 1, arena.base),
     )
-    s.next_free = job_next.max()  # fleet high-water
+    s.next_free.copy_(job_next.max())  # fleet high-water
     per_job = torch.zeros((2, J), dtype=_I32, device=dev).index_add_(
         1, jl, torch.stack([lane_join.to(_I32), active.to(_I32)]))
     summary = MuxEpochSummary(

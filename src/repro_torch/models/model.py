@@ -273,8 +273,10 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step for the whole batch: tokens (B, 1) -> (logits
     (B, Vp) float32, cache).  The K/V rows, SSM states and conv windows
     are written into ``cache`` in place, for every slot, idle ones too, as
-    the reference does; the returned dict is ``cache`` with ``lengths``
-    advanced by one for every slot."""
+    the reference does, and ``lengths`` is advanced by one for every slot
+    in place; the returned dict is ``cache``.  The step reads and writes
+    no tensor but ``tokens``, the parameters and the cache, so a CUDA
+    graph of it replays over a fixed token buffer (``EpochServer``)."""
     x = embed_tokens(params, cfg, tokens)
     lengths = cache["lengths"]
     for i, (p, win) in enumerate(zip(params.layers, _layer_windows(cfg))):
@@ -289,5 +291,5 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
         x = _ffn(cfg, p, x, hn, _mix(cfg, a, y))
     x = apply_norm(params, "final_norm", cfg, x)
     logits = logits_fn(params, cfg, x[:, 0])
-    cache["lengths"] = lengths + 1
+    lengths.add_(1)
     return logits, cache

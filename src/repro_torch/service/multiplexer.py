@@ -57,6 +57,7 @@ from ..core.engine import (
     _COMPACTED_RESIDENT_MSG,
     ChunkSummary,
     EpochLoop,
+    Readback,
     _fresh_resident_carry,
     resolve_device,
 )
@@ -381,6 +382,18 @@ class _FleetBase:
         return {slot.prefix + k: v
                 for k, v in tvm.heap_with_sink(arrays).items()}
 
+    def _load_heap(self, arrays: Dict[str, torch.Tensor]) -> None:
+        """Write a seated tenant's heap arrays into the fleet's, in place
+        where the shapes agree (a captured step reads them where they
+        are)."""
+        for k, v in arrays.items():
+            old = self._heap.get(k)
+            if old is not None and old.shape == v.shape \
+                    and old.dtype == v.dtype:
+                old.copy_(v)
+            else:
+                self._heap[k] = v
+
     def _init_fleet(self, handles: Sequence[JobHandle]) -> None:
         """Build the shared TVM state, arena, heap and per-job schedulers."""
         fused, C = self.program, self.capacity
@@ -563,6 +576,17 @@ class _FleetBase:
         next_off = int(self._arena.next[s.index]) - s.base
         return tv, heap, next_off
 
+    def _checkpoint_heap(self, slot: TenantSlot, cp: RegionCheckpoint):
+        """A checkpoint's tenant heap under the slot's namespace, with sink
+        rows, on the device."""
+        return {
+            slot.prefix + k: v
+            for k, v in tvm.heap_with_sink({
+                k: torch.as_tensor(v, device=self.device)
+                for k, v in cp.heap.items()
+            }).items()
+        }
+
     def _clear_region(self, slot: TenantSlot) -> None:
         st = self._state
         sl = slice(slot.base, slot.end)
@@ -660,6 +684,15 @@ class EpochMultiplexer(_FleetBase):
     scheduler sees exactly the solo sequence of pops and pushes.
 
     ``device=None`` means CUDA (and raises where CUDA is absent).
+    ``graphs=True`` (the default) replays each global epoch's steps on the
+    card from CUDA graphs captured once per key (``EpochLoop``): the fused
+    span changes every epoch but its bucket ``P`` is the key, and the
+    state, heap and arena are written in place (admission and restore
+    too); ``graphs=False`` runs them eagerly, for comparison.
+    ``reuse`` is a finished multiplexer of the same fleet layout (fused
+    program, slots, capacity, dispatch) whose loop, graphs and device
+    buffers this wave takes over, its own initial state written into them
+    in place: an identical later wave then captures nothing.
     """
 
     def __init__(
@@ -672,14 +705,20 @@ class EpochMultiplexer(_FleetBase):
         gang: int = 0,
         collect_stats: bool = True,
         device=None,
+        graphs: bool = True,
+        reuse: Optional["EpochMultiplexer"] = None,
     ):
         super().__init__(
             handles, capacity=capacity, coalesce=coalesce,
             collect_stats=collect_stats, device=device,
         )
         self.pop_policy = resolve_mux_policy(pop_policy, gang)
-        self._loop = EpochLoop(self.program, dispatch)
+        if reuse is not None:
+            self._take_over(reuse, dispatch, graphs)
+        else:
+            self._loop = EpochLoop(self.program, dispatch, graphs=graphs)
         self.policy = self._loop.policy
+        self._readback = Readback(self._pack, self._unpack)
         self._rotor = 0
         self._global_epochs = 0
         # resume preempted members now that the runtime state exists
@@ -687,17 +726,52 @@ class EpochMultiplexer(_FleetBase):
             self._restore_region(self._regions[j], h)
         self._restore_pending = []
 
+    @property
+    def loop(self) -> EpochLoop:
+        """The driver core (owner of the step graphs)."""
+        return self._loop
+
+    def _take_over(self, prev: "EpochMultiplexer", dispatch,
+                   graphs: bool) -> None:
+        """Adopt ``prev``'s loop and device buffers, this wave's initial
+        TV, heap and arena written into them in place."""
+        layout = [(s.base, s.quota) for s in self._slots]
+        if (prev.live or prev.device != self.device
+                or prev.capacity != self.capacity
+                or prev.policy.name != resolve_policy(dispatch).name
+                or prev._loop.graphs != bool(graphs)
+                or [(s.base, s.quota) for s in prev._slots] != layout
+                or prev._heap.keys() != self._heap.keys()
+                or prev.program.structural_hash()
+                != self.program.structural_hash()):
+            raise ValueError(
+                "reuse needs a finished multiplexer of the same fleet "
+                "layout, program, capacity, dispatch and graphs setting")
+        for old, new in ((prev._state, self._state),
+                         (prev._arena, self._arena)):
+            for f in dataclasses.fields(old):
+                getattr(old, f.name).copy_(getattr(new, f.name))
+        for k, v in self._heap.items():
+            prev._heap[k].copy_(v)
+        self._state, self._arena, self._heap = (prev._state, prev._arena,
+                                                prev._heap)
+        self._loop = prev._loop
+
     @staticmethod
-    def _readback(summary: tvm.MuxEpochSummary, state):
+    def _pack(summary: tvm.MuxEpochSummary, state):
         """One fused readback for the whole fleet: the five per-job vectors
         and the map flag stacked into one int32 tensor, one transfer."""
-        J = summary.job_forks.shape[0]
-        v = torch.cat([
+        return torch.cat([
             summary.job_forks.to(_I32), summary.job_join.to(_I32),
             summary.job_active.to(_I32), summary.job_overflow.to(_I32),
             summary.job_next.to(_I32),
             summary.map_scheduled.to(_I32).reshape(1),
-        ]).cpu().numpy()
+        ])
+
+    @staticmethod
+    def _unpack(v: np.ndarray):
+        v = v.copy()
+        J = (v.shape[0] - 1) // 5
         return (v[:J], v[J:2 * J] > 0, v[2 * J:3 * J], v[3 * J:4 * J] > 0,
                 v[4 * J:5 * J], bool(v[5 * J]))
 
@@ -729,9 +803,9 @@ class EpochMultiplexer(_FleetBase):
         )
         job_forks, job_join, job_active, job_overflow, job_next, \
             map_sched = fetched
-        # the region cursors advance on the device; only the readback copy
-        # above crosses to the host
-        self._arena = dataclasses.replace(self._arena, next=summary.job_next)
+        # the region cursors advance on the device, in place; only the
+        # readback copy above crosses to the host
+        self._arena.next.copy_(summary.job_next)
 
         done: List[JobHandle] = []
         for j in chosen:
@@ -784,10 +858,8 @@ class EpochMultiplexer(_FleetBase):
         job = handle.job
         s = r.slot
         self._seed_state(s, job)
-        self._arena = tvm.arena_reset_region(
-            self._arena, s.index, s.base, job.quota
-        )
-        self._heap.update(self._tenant_heap(s, job.heap_init))
+        tvm.arena_reset_region(self._arena, s.index, s.base, job.quota)
+        self._load_heap(self._tenant_heap(s, job.heap_init))
         sched = EpochScheduler(coalesce=self.coalesce)
         sched.reset(cen=1, start=s.base, count=1)
         r.handle = handle
@@ -822,16 +894,9 @@ class EpochMultiplexer(_FleetBase):
         cp = handle.checkpoint
         s = r.slot
         self._restore_state(s, cp)
-        arena = tvm.arena_reset_region(self._arena, s.index, s.base, cp.quota)
-        arena.next[s.index] = s.base + cp.arena_next_off
-        self._arena = arena
-        self._heap.update({
-            s.prefix + k: v
-            for k, v in tvm.heap_with_sink({
-                k: torch.as_tensor(v, device=self.device)
-                for k, v in cp.heap.items()
-            }).items()
-        })
+        tvm.arena_reset_region(self._arena, s.index, s.base, cp.quota)
+        self._arena.next[s.index] = s.base + cp.arena_next_off
+        self._load_heap(self._checkpoint_heap(s, cp))
         sched = EpochScheduler(coalesce=self.coalesce)
         ranges = np.asarray(cp.rstack, np.int32).reshape(-1, 2).copy()
         if ranges.size:
@@ -1150,7 +1215,7 @@ class DeviceMultiplexer(_FleetBase):
         job = handle.job
         s = r.slot
         self._seed_state(s, job)
-        self._heap.update(self._tenant_heap(s, job.heap_init))
+        self._load_heap(self._tenant_heap(s, job.heap_init))
         self._reset_region_carry(s.index, s.base + job.quota, s.base + 1)
         reseed_region_stacks(self._carry.jstack, self._carry.rstack,
                              self._carry.sp, s.index, cen=1, start=s.base,
@@ -1205,13 +1270,7 @@ class DeviceMultiplexer(_FleetBase):
         cp = handle.checkpoint
         s = r.slot
         self._restore_state(s, cp)
-        self._heap.update({
-            s.prefix + k: v
-            for k, v in tvm.heap_with_sink({
-                k: torch.as_tensor(v, device=self.device)
-                for k, v in cp.heap.items()
-            }).items()
-        })
+        self._load_heap(self._checkpoint_heap(s, cp))
         self._reset_region_carry(
             s.index, s.base + cp.quota, s.base + cp.arena_next_off,
             (cp.job_epochs, cp.job_tasks, cp.job_forks, cp.job_peak))

@@ -21,6 +21,13 @@ their SSM state and conv window, straight into the slots they were
 allocated — the analogue of the paper's coalesced TV writes at fork time.
 Each epoch reads back one argmax vector.  The server runs any block type
 the model code runs: dense attention, Mamba-2 SSM, or the hybrid.
+
+On the card the decode step is captured once per server in a CUDA graph
+(``graphs=True``, the default), as the reference jits it once, and each
+epoch copies the tokens into the graph's token buffer and replays it; the
+argmax and its copy to page-locked host memory are the graph's last
+nodes.  Prefills stay eager and write the cache the graph reads in place.
+``graphs=False`` decodes eagerly, for comparison.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from ..core import graphs as cgraphs
 from ..core.convert import params_from_numpy
 from ..core.engine import resolve_device
 from ..kernels import ops as kops
@@ -62,13 +70,17 @@ class EpochServer:
     ``params_or_model`` is a :class:`Model` on ``device`` or the
     reference's ``init_model`` dict as numpy arrays (converted with
     ``params_from_numpy``).  ``device`` defaults to CUDA and raises where
-    there is none; pass ``device="cpu"`` for the CPU.
+    there is none; pass ``device="cpu"`` for the CPU.  ``graphs`` replays
+    the decode step from a CUDA graph on the card (``captures`` counts the
+    captures: one per server); it changes nothing on the CPU.
+    ``last_logits`` is then the graph's logits buffer, which the next
+    epoch's replay overwrites: read it before the next ``step``.
     """
 
     def __init__(self, cfg: ModelConfig,
                  params_or_model: Union[Model, Mapping[str, np.ndarray]],
                  n_slots: int = 8, max_len: int = 256, device=None,
-                 enc_frames=None):
+                 enc_frames=None, graphs: bool = True):
         if enc_frames is not None or cfg.encdec:
             raise NotImplementedError(
                 "encoder-decoder serving is not ported yet (ROADMAP item 11:"
@@ -102,6 +114,13 @@ class EpochServer:
         self.last_logits: Optional[torch.Tensor] = None
         self.timings: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0,
                                           "prefills": 0}
+        # the decode graph (core/graphs.py) and its token buffer
+        self.graphs = bool(graphs) and self.device.type == "cuda"
+        self.captures = 0
+        self._decode_graph: Optional[cgraphs.CapturedStep] = None
+        self._tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                   device=self.device)
+        self._next_host = None
 
     # ----------------------------------------------------------- frontend
     def submit(self, req: Request) -> int:
@@ -163,12 +182,8 @@ class EpochServer:
         if not self.active.any():
             return False
         t0 = time.perf_counter()
-        toks = torch.as_tensor(self.last_token[:, None], device=self.device)
-        logits, self.cache = decode_step(self.params, self.cfg, toks,
-                                         self.cache)
-        self.last_logits = logits
+        nxt = self._decode()
         self.epochs += 1
-        nxt = logits.argmax(-1).cpu().numpy()
         self.timings["decode_s"] += time.perf_counter() - t0
         for s in range(self.n_slots):
             if not self.active[s]:
@@ -188,6 +203,43 @@ class EpochServer:
                 self.slot_req[s] = None
                 self.completed.append(r)
         return True
+
+    def _decode(self) -> np.ndarray:
+        """The bulk decode step over every slot: this epoch's next token
+        per slot, on the host.  On the card with graphs, a replay of the
+        decode graph (captured at the first epoch, after an eager warm-up
+        that is that epoch's run)."""
+        self._tokens.copy_(torch.from_numpy(self.last_token[:, None]))
+        if not self.graphs:
+            logits, _ = decode_step(self.params, self.cfg, self._tokens,
+                                    self.cache)
+            self.last_logits = logits
+            return logits.argmax(-1).cpu().numpy()
+
+        def step():
+            logits, _ = decode_step(self.params, self.cfg, self._tokens,
+                                    self.cache)
+            nxt = logits.argmax(-1)
+            if self._next_host is None:
+                self._next_host = cgraphs.pinned_like(nxt)
+            self._next_host.copy_(nxt, non_blocking=True)
+            return logits
+
+        if self._decode_graph is None:
+            self.last_logits, self._decode_graph = cgraphs.capture(step)
+            self.captures += 1
+        else:
+            self.last_logits = self._decode_graph.replay()
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._next_host.numpy().copy()
+
+    def graph_memory(self):
+        """``(pool bytes, result-buffer bytes)`` of the decode graph."""
+        if self._decode_graph is None:
+            return 0, 0
+        g = self._decode_graph
+        return (cgraphs.pool_bytes(g.graph.pool()),
+                cgraphs.result_bytes([g]))
 
     def run_to_completion(self, max_epochs: int = 10_000):
         while (self.queue or self.active.any()) and self.epochs < max_epochs:
