@@ -90,11 +90,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 in blocks of 16, annealing of 16 bits x 256 chains x 200
                 steps, naive mergesort of 2^10): HostEngine masked,
                 compacted and gather, the plain resident DeviceEngine
-                masked and gather (annealing's and naive's are phase 2's
-                full-size plain runs) and DeviceEngine(megakernel=True)
-                masked and gather on CUDA, each megakernel wall printed
-                beside the plain resident one (treewalk in both orders on
-                phase 7's tree too); check each against its reference
+                masked and gather (annealing's and naive's, which take
+                seconds, once masked at 20 steps and 2^8 keys; at full
+                size phase 2 holds them to epoch_chunk and times both
+                sides alike) and DeviceEngine(megakernel=True) masked and
+                gather on CUDA, each megakernel wall printed beside the
+                plain resident one (treewalk in both orders on phase 7's
+                tree too); check each against its reference
                 (Dijkstra, the solution count, brute force, np.fft within
                 a relative L2 error of 1e-4, A @ B in float64 within 1e-5
                 of its largest value, the brute-force optimum as a floor,
@@ -113,16 +115,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 CUDA graph replays against the same steps run eagerly
                 (graphs=False) on the card: fib(28) on HostEngine masked,
                 compacted and gather, annealing masked, and the full-size
-                mixed4 host wave (EpochMultiplexer) masked and gather; each
-                eager, graphed first (capturing; for the wave, phase 7's)
-                and graphed warm (no capture: the same engine, or a wave on
-                the first wave's loop and buffers), heaps, values and
-                RunStats (each
-                tenant's, the fleet's) equal; walls, captures, the graph
-                pool's and result buffers' bytes, and an eager and a warm
-                run under torch.profiler (device busy share, device ops per
-                epoch).  Phases 3, 3b, 7, 8 and 9 run on graphs, the
-                default;
+                mixed4 host wave masked and gather; each eager and
+                graphed: a fresh engine's (or JobService's: phase 7's)
+                first run, where a key runs eagerly at its first two uses
+                and is captured at its third, a second and third run and
+                a warm fourth (no capture: the same engine, or the next
+                wave on the same service, which runs on the last wave's
+                loop and buffers); heaps, values and RunStats (each
+                tenant's, the fleet's) equal; walls (fib's the medians of
+                three fresh engines), captures, the graph pool's and
+                result buffers'
+                bytes, fib's eager uses, captures and first replays timed
+                alone, and an eager and a warm run under torch.profiler
+                (device busy share, device ops per epoch, the graphed run
+                recording no fewer device ops than the eager one).
+                Phases 3, 3b, 7, 8 and 9 run on graphs, the default;
   5. resident — drive DeviceEngine(megakernel=True) on CUDA on the same
                 three cases under masked and gather; check results against
                 the numpy references and the host path's heaps and values,
@@ -158,13 +165,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 launched during the run; one full-bucket prefill (16 x 1024
                 tokens; flash_attention's share) under torch.profiler; 8
                 decode epochs of 16 requests on a graphed and an eager
-                server (first and warm epoch walls, the decode graph's
-                capture and bytes, busy share, device ops and
+                server (first and second (eager), third (the capture) and
+                warm epoch walls, the decode graph's capture and bytes, busy share,
+                device ops and
                 decode_attention's time per epoch under torch.profiler,
                 equal tokens); then the same model at 2 layers in float32
                 on the card (graphed and eager: equal tokens and logits)
-                and on the CPU from the same weights (equal tokens, first
-                decode epoch's logits within 1e-3);
+                and on the CPU from the same weights (equal tokens, the
+                first and fourth (a replay) decode epochs' logits within
+                1e-3);
   9. ssm      — drive EpochServer on mamba2-1.3b at full width and depth
                 (48 layers, bf16, random weights from seed 0) with phase
                 8's slots and request mix; check every output, finite
@@ -174,14 +183,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 tokens; ssd_scan's share) under torch.profiler and phase
                 8's 8 graphed and eager decode epochs; the same model at 2
                 layers in float32 on the card (graphed and eager) and on
-                the CPU (equal tokens, first decode epoch's logits within
-                1e-3); then hymba-1.5b (attention ∥ SSM, 32 layers) at full
-                width and depth on 16 requests, flash_attention and
+                the CPU (equal tokens, the first and fourth decode epochs'
+                logits within 1e-3); then hymba-1.5b (attention ∥ SSM,
+                32 layers) at full width and depth on 16 requests,
+                flash_attention and
                 ssd_scan once per layer of every prefill, decode_attention
                 once per layer of every epoch, and its 2-layer float32 runs
                 on the card (graphed and eager) and the CPU.
 A kernel's launches count what ran on the card: a graph's capture adds
-none, each replay adds the launches the graph holds.
+none, each replay adds the launches the graph holds.  Profiles whose
+first attempt recorded no device activity are run again and named at
+the end.
 Then it prints the card's name and power limit, one JSON line describing
 each kernel (with its design), and, last, ``{"ok": true, "device":
 {...}}``.
@@ -826,8 +838,11 @@ def phase_chunks(dev):
             wall = _wall_ms(lambda: out.setdefault(
                 "r", run_chunks(plain, fresh.clone(), None)))
             want = out["r"][0]
-            if size == "full":
-                PLAIN_RESIDENT_MS[case.name, d] = wall
+            if size == "full" and case.name in PLAIN_IN_PHASE_2:
+                # phase 3b's walls of these two: both sides timed alike
+                RESIDENT_CHUNK_MS[case.name, d] = (
+                    _wall_ms(lambda: run_chunks(kern, fresh.clone(), None)),
+                    wall)
             for K in (1, 4, None):
                 got, s_got, reads = run_chunks(kern, fresh.clone(), K)
                 torch.cuda.synchronize()
@@ -1429,24 +1444,37 @@ def _wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-# plain resident walls of phase 2's full-size runs (one chunk, the
-# epoch_chunk reference); the apps whose plain runs take seconds are not
-# run plainly again in phase 3b: phase 2 holds epoch_chunk to them carry
-# tensor for carry tensor, and phase 3b epoch_chunk to the host path
-PLAIN_RESIDENT_MS = {}
+# the apps whose plain resident runs take seconds at full size (annealing
+# 14 s, naive 6.6 s a dispatch): phase 2 holds epoch_chunk to their plain
+# loop carry tensor for carry tensor at full size and times both there
+# alike, one unbounded chunk by run_chunks (RESIDENT_CHUNK_MS: (epoch_chunk
+# ms, plain ms)); phase 3b runs the plain DeviceEngine once each, masked,
+# at PLAIN_3B_SIZE, against the host path and the reference
+RESIDENT_CHUNK_MS = {}
 PLAIN_IN_PHASE_2 = ("annealing", "naive")
+PLAIN_3B_SIZE = {"annealing": (16, 256, 20), "naive": 2**8}
 
 
 def _resident_runs(name, case, check, mask, walls, runs):
-    """The plain resident DeviceEngine (but for PLAIN_IN_PHASE_2) and
-    DeviceEngine(megakernel=True), masked and gather, against the masked
-    HostEngine run ``mask`` (heaps, values, APP_INVARIANT) and the app's
-    reference."""
+    """The plain resident DeviceEngine (for PLAIN_IN_PHASE_2: once, masked,
+    at PLAIN_3B_SIZE) and DeviceEngine(megakernel=True), masked and gather,
+    against the masked HostEngine run ``mask`` (heaps, values,
+    APP_INVARIANT) and the app's reference."""
     from repro_torch.core import DeviceEngine
 
+    if name in PLAIN_IN_PHASE_2:
+        small, small_check = app_case(name, PLAIN_3B_SIZE[name])
+        want = _run(small, "masked", "cuda", tag="apps-resident")
+        got = _run(small, "masked", "cuda", tag="apps-resident",
+                   engine_cls=DeviceEngine)
+        _same(got, want, f"{name} {PLAIN_3B_SIZE[name]} resident masked vs "
+              "masked", fields=APP_INVARIANT)
+        ok, detail = small_check(got[0], got[1])
+        if not ok:
+            fail(f"{name} {PLAIN_3B_SIZE[name]} resident masked: result "
+                 f"differs from the reference ({detail})")
     for d in ("masked", "gather"):
         if name in PLAIN_IN_PHASE_2:
-            walls[name, "resident " + d] = PLAIN_RESIDENT_MS[name, d]
             continue
         runs[name, "resident " + d] = r = _run(
             case, d, "cuda", tag="apps-resident", walls=walls,
@@ -1464,6 +1492,12 @@ def _resident_runs(name, case, check, mask, walls, runs):
         if not ok:
             fail(f"{name} megakernel {d}: result differs from the "
                  f"reference ({detail})")
+        if name in PLAIN_IN_PHASE_2:
+            kern_ms, plain_ms = RESIDENT_CHUNK_MS[name, d]
+            print(f"[apps] {name} {d}: megakernel wall {walls[key]:.1f} ms; "
+                  f"phase 2's one-chunk run_chunks walls: epoch_chunk "
+                  f"{kern_ms:.1f} ms, plain resident {plain_ms:.1f} ms")
+            continue
         print(f"[apps] {name} {d}: megakernel wall "
               f"{walls[key]:.1f} ms, plain resident "
               f"{walls[name, 'resident ' + d]:.1f} ms")
@@ -1628,6 +1662,11 @@ def app_yardsticks(path_cases, walls):
 
 
 # ---------------------------------------------------------------- phase 4
+# the profiles whose first attempt recorded no device activity, printed
+# at the end of the run
+PROFILE_RETRIES = []
+
+
 def phase_profile(label, run, cpu=True):
     """Where the time goes: one run under ``torch.profiler`` (``cpu``:
     host operations traced too, else the device's alone)."""
@@ -1636,8 +1675,10 @@ def phase_profile(label, run, cpu=True):
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     # a profile that records no device activity at all is run once more
-    # (a profile of a few ms of work once recorded none on the card);
-    # a second empty one fails
+    # and named in PROFILE_RETRIES (one of a 4 ms resident run, the first
+    # profile after phase 5, once recorded none; the cause is not known);
+    # a second empty one fails.  Partial records are caught where an
+    # eager profile gives a floor (_profiles, _decode_graphs)
     for attempt in (1, 2):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -1655,6 +1696,7 @@ def phase_profile(label, run, cpu=True):
             break
         print(f"[profile] {label}: attempt {attempt} recorded no device "
               "activity")
+        PROFILE_RETRIES.append(label)
     if busy_us <= 0:
         fail("the profiler saw no device time")
     n_kernels = sum(e.count for e in events)
@@ -1847,13 +1889,14 @@ def phase_service(cases, runs):
     fork_compact.reset_launches()
     tenants = {}
     host_stats = {}
-    # the masked and gather waves, graphed first waves of the graphs phase
+    # the masked and gather services: their first waves are the graphs
+    # phase's first graphed waves, which runs two more on each
     host_waves = {}
     for d in ("masked", "compacted", "gather"):
         svc, handles, wall = run_wave(wave, d)
         if d != "compacted":
-            host_waves[d] = (svc._mux, wall * 1e3,
-                             [_tenant(h) for h in handles])
+            host_waves[d] = (svc, wall * 1e3, [_tenant(h) for h in handles],
+                             svc._mux.stats())
         fs = svc.stats()
         solo = [runs[c.name, d][2] for c in wave]
         for c, h in zip(wave, handles):
@@ -1964,19 +2007,25 @@ def phase_service(cases, runs):
 # ---------------------------------------------------------------- phase 10
 def _graph_report(label, walls, captures, memory, profiles, epochs,
                   run_epochs):
-    """One graphs-phase line: eager, first (capturing) and warm walls, the
-    captures, the graph pool and result-buffer bytes, and each profiled
-    run's busy share and device ops per epoch (of ``epochs``)."""
-    eager, first, warm = walls
+    """One graphs-phase line: the eager wall, the walls of the first three
+    graphed runs (a fresh loop: each key eager at its first two uses,
+    captured at its third, in whichever run that falls) and of a warm
+    fourth (no capture), the captures in each, the graph pool and
+    result-buffer bytes, and each profiled run's busy share and device ops
+    per epoch (of ``epochs``)."""
+    eager, *graphed, warm = walls
     pool, res = memory
+    runs = ", ".join(
+        f"{w:.1f} ms ({c - b} captures)"
+        for w, b, c in zip(graphed, [0] + captures[:-1], captures))
     prof = "; ".join(
         f"{k} busy {100 * b / w:.1f}% ({b / 1e3:.3f} of {w / 1e3:.3f} ms), "
         f"{n / epochs:.1f} device ops per epoch"
         for k, (b, w, n) in profiles.items())
-    print(f"[graphs] {label}: eager {eager:.1f} ms, graphed first "
-          f"{first:.1f} ms ({captures} captures), warm {warm:.1f} ms (no "
-          f"capture), {run_epochs} epochs; graph pool {pool / 2**20:.1f} MiB, "
-          f"result buffers {res / 2**20:.1f} MiB; {prof}; bits equal")
+    print(f"[graphs] {label}: eager {eager:.1f} ms; graphed runs 1-3 "
+          f"{runs}, warm {warm:.1f} ms (no capture), {run_epochs} epochs; "
+          f"graph pool {pool / 2**20:.1f} MiB, result buffers "
+          f"{res / 2**20:.1f} MiB; {prof}; bits equal")
 
 
 def _profiled(label, run):
@@ -1986,11 +2035,30 @@ def _profiled(label, run):
     return busy, wall, sum(e.count for e in events)
 
 
-def _solo_graphs(label, case, dispatch, profile_case=None):
-    """``case`` on HostEngine: eager (graphs=False), graphed first run
-    (captures) and warm run (none), every run's heap, values and RunStats
-    equal; then an eager and a warm graphed run of ``profile_case`` (a
-    shorter run of the same program, or ``case``) under the profiler."""
+def _profiles(label, eager_run, graphed_run, epochs):
+    """An eager and a warm graphed run under the profiler.  A graph replay
+    runs every operation of the eager step and the copies into its result
+    buffers, so a graphed profile that records fewer device operations an
+    epoch than the eager one missed some, and fails."""
+    profiles = {"eager": _profiled(f"{label} eager", eager_run),
+                "graphed": _profiled(f"{label} graphed (warm)",
+                                     graphed_run)}
+    if profiles["graphed"][2] < profiles["eager"][2]:
+        fail(f"graphs {label}: the graphed profile recorded "
+             f"{profiles['graphed'][2] / epochs:.1f} device ops an epoch, "
+             f"fewer than the eager one's "
+             f"{profiles['eager'][2] / epochs:.1f}")
+    return profiles
+
+
+def _solo_graphs(label, case, dispatch, profile_case=None, reps=1):
+    """``case`` on HostEngine: eager (graphs=False), then a fresh graphed
+    engine's first run (what ``AppCase.run``, which builds an engine for
+    each call, costs), second, third and warm fourth run (no capture),
+    every run's heap, values and RunStats equal, each wall the median of
+    ``reps`` (eager: runs of one engine; graphed: ``reps`` fresh engines);
+    then an eager and a warm graphed run of ``profile_case`` (a shorter run
+    of the same program, or ``case``) under the profiler."""
     from repro_torch.core import HostEngine
 
     kw = dict(capacity=case.capacity, dispatch=dispatch, device="cuda")
@@ -2001,35 +2069,101 @@ def _solo_graphs(label, case, dispatch, profile_case=None):
                 HostEngine(c.program, **kw), args)
 
     eager_eng, eng, args = engines(case)
-    walls, runs = [], []
-    for e in (eager_eng, eng, eng):
-        out = {}
-        walls.append(_wall_ms(lambda: out.setdefault("r", e.run(*args))))
-        h, v, st = out["r"]
-        runs.append(({k: t.cpu().numpy() for k, t in h.items()},
-                     v.cpu().numpy(), st))
-        if len(runs) == 2:
-            captures = eng.loop.captures
-    if eng.loop.captures != captures:
-        fail(f"graphs {label}: a repeated run captured "
-             f"{eng.loop.captures - captures} more graphs")
-    for r, what in zip(runs[1:], ("first", "warm")):
+    timed, runs = [[] for _ in range(5)], []
+    for rep in range(reps):
+        if rep:
+            eng = engines(case)[1]
+        captures = []
+        for i, e in enumerate((eager_eng, eng, eng, eng, eng)):
+            out = {}
+            timed[i].append(
+                _wall_ms(lambda: out.setdefault("r", e.run(*args))))
+            h, v, st = out["r"]
+            runs.append(({k: t.cpu().numpy() for k, t in h.items()},
+                         v.cpu().numpy(), st))
+            if e is eng:
+                captures.append(eng.loop.captures)
+    walls = [float(np.median(t)) for t in timed]
+    if captures[3] != captures[2]:
+        fail(f"graphs {label}: the fourth run captured "
+             f"{captures[3] - captures[2]} more graphs")
+    for i, r in enumerate(runs[1:], 1):
+        what = ("eager", "first", "second", "third", "warm")[i % 5]
         _same(r, runs[0], f"graphs {label} {what} vs eager",
               fields=tuple(runs[0][2].as_dict()))
     memory = eng.loop.graph_memory()
     if profile_case is not None:
         eager_eng, eng, args = engines(profile_case)
-        eng.run(*args)  # its captures
+        for _ in range(3):  # its captures
+            eng.run(*args)
         label += f" (profiled: {profile_case.name}, a shorter run)"
     epochs = eng.run(*args)[2].epochs
-    profiles = {
-        "eager": _profiled(f"{label} eager", lambda: eager_eng.run(*args)),
-        "graphed": _profiled(f"{label} graphed (warm)",
-                             lambda: eng.run(*args))}
+    profiles = _profiles(label, lambda: eager_eng.run(*args),
+                         lambda: eng.run(*args), epochs)
     _graph_report(label, walls, captures, memory, profiles, epochs,
                   runs[0][2].epochs)
     return dict(walls=walls, captures=captures, memory=memory,
                 profiles=profiles, epochs=epochs)
+
+
+def _capture_costs(label, case, dispatch):
+    """Where a graphed run's extra time goes: a fresh engine runs ``case``
+    four times with the graph cache's eager uses, captures and first
+    replays each timed alone (the card synchronised around each, so these
+    runs are not timed themselves); prints their counts and mean times and
+    how often each key is used in one run."""
+    import collections
+
+    from repro_torch.core import HostEngine
+    from repro_torch.core import graphs as cgraphs
+
+    times = collections.defaultdict(list)
+    uses = collections.Counter()
+    fresh = set()
+    orig = (cgraphs.run_eager, cgraphs.capture, cgraphs.run_cached,
+            cgraphs.CapturedStep.replay)
+
+    def timed(kind, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def capture(*a, **k):
+        step = timed("capture", orig[1], *a, **k)
+        fresh.add(id(step))
+        return step
+
+    def replay(step):
+        if id(step) not in fresh:
+            return orig[3](step)
+        fresh.discard(id(step))
+        return timed("first replay", orig[3], step)
+
+    def run_cached(cache, key, *a, **k):
+        uses[id(cache), key] += 1
+        return orig[2](cache, key, *a, **k)
+
+    eng = HostEngine(case.program, capacity=case.capacity, dispatch=dispatch,
+                     device="cuda")
+    args = (case.initial, dict(case.heap_init) or None)
+    cgraphs.run_eager = lambda fn: timed("eager use", orig[0], fn)
+    cgraphs.capture, cgraphs.run_cached = capture, run_cached
+    cgraphs.CapturedStep.replay = replay
+    try:
+        eng.run(*args)
+        per_run = collections.Counter(uses.values())
+        for _ in range(3):
+            eng.run(*args)
+    finally:
+        (cgraphs.run_eager, cgraphs.capture, cgraphs.run_cached,
+         cgraphs.CapturedStep.replay) = orig
+    cost = ", ".join(f"{k} {len(v)} x {sum(v) / len(v):.2f} ms (max "
+                     f"{max(v):.2f})" for k, v in sorted(times.items()))
+    print(f"[graphs] {label} costs, each timed alone: {cost}; keys by uses "
+          f"in one run (uses: keys): {dict(sorted(per_run.items()))}")
 
 
 def _wave_handles(wave):
@@ -2042,48 +2176,57 @@ def _wave_handles(wave):
 
 def _wave_graphs(label, wave, dispatch, first):
     """The mixed4 host wave: EpochMultiplexer eager (graphs=False) against
-    ``first``, phase 7's JobService wave of this dispatch (the first,
-    capturing wave: ``(multiplexer, wall ms, tenants)``), and a warm wave
-    on its loop and buffers (``reuse=``: no capture); every tenant and the
-    fleet's RunStats equal; then an eager and a warm wave under the
+    ``first``, phase 7's JobService and its wave of this dispatch (the
+    service's first wave: ``(service, wall ms, tenants, stats)``), then the
+    second, third and a warm fourth wave on that service (each on the last
+    wave's loop and buffers; the fourth captures nothing); every tenant and
+    the fleet's RunStats equal; then an eager and a warm wave under the
     profiler."""
     from repro_torch.service import EpochMultiplexer
 
     kw = dict(capacity=sum(c.capacity for c in wave), dispatch=dispatch,
               device="cuda")
-    first_mux, first_ms, first_tenants = first
-    captures = first_mux.loop.captures
+    svc, first_ms, first_tenants, first_stats = first
+    loop = svc._mux.loop
+    captures = [loop.captures]
 
-    def wave_run(graphs, reuse=None, out=None):
-        def run():
-            hs = _wave_handles(wave)
-            m = EpochMultiplexer(hs, graphs=graphs, reuse=reuse, **kw)
-            m.run()
-            if out is not None:
-                out.append((m, [_tenant(h) for h in hs]))
-            return None, None, m.stats()
-        return run
+    def eager_run(out=None):
+        hs = _wave_handles(wave)
+        m = EpochMultiplexer(hs, graphs=False, **kw)
+        m.run()
+        if out is not None:
+            out.append(([_tenant(h) for h in hs], m.stats()))
+        return None, None, m.stats()
+
+    def service_run(out=None):
+        hs = [svc.submit_case(c, quota=c.capacity) for c in wave]
+        svc.drain()
+        if svc._mux.loop is not loop:
+            fail(f"graphs {label}: the wave did not run on the last "
+                 "wave's loop")
+        if out is not None:
+            out.append(([_tenant(h) for h in hs], svc._mux.stats()))
+        return None, None, svc._mux.stats()
 
     done = []
-    eager_ms = _wall_ms(wave_run(False, out=done))
-    warm_ms = _wall_ms(wave_run(True, first_mux, out=done))
-    (eager, eager_tenants), (warm, warm_tenants) = done
-    if warm.loop.captures != captures:
-        fail(f"graphs {label}: the warm wave captured "
-             f"{warm.loop.captures - captures} more graphs")
-    for m, ts, what in ((first_mux, first_tenants, "first"),
-                        (warm, warm_tenants, "warm")):
+    walls = [_wall_ms(lambda: eager_run(done))]
+    walls.append(first_ms)
+    for _ in range(3):
+        walls.append(_wall_ms(lambda: service_run(done)))
+        captures.append(loop.captures)
+    if captures[3] != captures[2]:
+        fail(f"graphs {label}: the fourth wave captured "
+             f"{captures[3] - captures[2]} more graphs")
+    (eager_tenants, eager_stats), *graphed = done
+    for (ts, st), what in zip([(first_tenants, first_stats)] + graphed,
+                              ("first", "second", "third", "warm")):
         for c, got, want in zip(wave, ts, eager_tenants):
             _same_tenant(got, want, f"graphs {label} {what} {c.name}")
-        if m.stats().as_dict() != eager.stats().as_dict():
+        if st.as_dict() != eager_stats.as_dict():
             fail(f"graphs {label} {what}: fleet RunStats differ")
-    memory = warm.loop.graph_memory()
-    epochs = eager.stats().epochs
-    profiles = {
-        "eager": _profiled(f"{label} eager", wave_run(False)),
-        "graphed": _profiled(f"{label} graphed (warm)",
-                             wave_run(True, warm))}
-    walls = (eager_ms, first_ms, warm_ms)
+    memory = loop.graph_memory()
+    epochs = eager_stats.epochs
+    profiles = _profiles(label, eager_run, service_run, epochs)
     _graph_report(label, walls, captures, memory, profiles, epochs, epochs)
     return dict(walls=walls, captures=captures, memory=memory,
                 profiles=profiles, epochs=epochs)
@@ -2092,14 +2235,16 @@ def _wave_graphs(label, wave, dispatch, first):
 def phase_graphs(fib_case, wave, host_waves):
     """CUDA graphs of the host epoch steps against the eager steps on the
     card: fib(28) on HostEngine masked, compacted and gather, annealing
-    masked, and the mixed4 host wave masked and gather (its first waves
-    phase 7's, ``host_waves``)."""
+    masked, and the mixed4 host wave masked and gather (the first wave of
+    each phase 7's JobService, ``host_waves``, and three more on it)."""
     from repro_torch.kernels import fork_compact
 
     fork_compact.reset_launches()
     out = {}
     for d in ("masked", "compacted", "gather"):
-        out["fib", d] = _solo_graphs(f"fib(28) HostEngine {d}", fib_case, d)
+        out["fib", d] = _solo_graphs(f"fib(28) HostEngine {d}", fib_case, d,
+                                     reps=3)
+        _capture_costs(f"fib(28) HostEngine {d}", fib_case, d)
     case, _ = app_case("annealing", APP_FULL["annealing"])
     # the profiles: 20 of the 200 steps (every epoch traces both types at
     # the same widths), so the eager profile records 10x fewer operations
@@ -2603,9 +2748,10 @@ DECODE_EPOCHS = 8  # the graphs phase's timed and profiled decode epochs
 def _decode_graphs(cfg, model, tag):
     """8 decode epochs of ``cfg`` at the served width (16 slots of 2048
     rows, 16 requests of the phase 8 mix, seed 3), eager (graphs=False)
-    and graphed: the first epoch (the capture), 8 timed epochs and 8 under
-    the profiler (device ops, busy share, decode_attention's share), then
-    every request's tokens equal between the two servers."""
+    and graphed: the first two epochs (eager on both), the third (the
+    capture), 8 timed epochs and 8 under the profiler (device ops, busy
+    share, decode_attention's share), then every request's tokens equal
+    between the two servers."""
     from repro_torch.serving import EpochServer
 
     res = {}
@@ -2614,10 +2760,15 @@ def _decode_graphs(cfg, model, tag):
                           max_len=SERVE_MAX_LEN, device="cuda",
                           graphs=graphs)
         for r in serve_requests(SERVE_SLOTS, cfg.vocab, seed=3,
-                                new=(2 * DECODE_EPOCHS + 1,) * 2):
+                                new=(2 * DECODE_EPOCHS + 3,) * 2):
             srv.submit(r)
-        srv.step()  # the prefill and the first decode epoch (capture)
-        first = srv.timings["decode_s"] * 1e3
+        # the prefill and the first decode epoch, the second (both eager),
+        # the third (graphed: the capture)
+        ts = []
+        for _ in range(3):
+            srv.step()
+            ts.append(srv.timings["decode_s"] * 1e3)
+        first, second, third = ts[0], ts[1] - ts[0], ts[2] - ts[1]
         d0 = srv.timings["decode_s"]
         for _ in range(DECODE_EPOCHS):
             srv.step()
@@ -2639,7 +2790,8 @@ def _decode_graphs(cfg, model, tag):
             fail(f"{tag} graphs: requests left after the run")
         memory = srv.graph_memory() if graphs else (0, 0)
         res[graphs] = dict(
-            first=first, warm=warm, busy=busy, wall=wall,
+            first=first, second=second, third=third, warm=warm, busy=busy,
+            wall=wall,
             ops=sum(e.count for e in events), attn=attn,
             captures=srv.captures, memory=memory,
             tokens=[(r.rid, r.output) for r in srv.completed])
@@ -2651,9 +2803,14 @@ def _decode_graphs(cfg, model, tag):
              "eager server's")
     if g["captures"] != 1 or e["captures"] != 0:
         fail(f"{tag} graphs: {g['captures']} decode captures")
+    if g["ops"] < e["ops"]:  # a replay runs every eager operation
+        fail(f"{tag} graphs: the graphed profile recorded {g['ops']} device "
+             f"ops, fewer than the eager one's {e['ops']}")
     for k, r in (("eager", e), ("graphed", g)):
         print(f"[graphs] {cfg.name} decode, {k}: first epoch "
-              f"{r['first']:.2f} ms, warm {r['warm']:.2f} ms per epoch; "
+              f"{r['first']:.2f} ms, second {r['second']:.2f} ms, third "
+              f"{r['third']:.2f} ms, warm "
+              f"{r['warm']:.2f} ms per epoch; "
               f"profiled {DECODE_EPOCHS} epochs: busy "
               f"{100 * r['busy'] / r['wall']:.1f}% ({r['busy'] / 1e3:.3f} of "
               f"{r['wall'] / 1e3:.3f} ms), {r['ops'] / DECODE_EPOCHS:.1f} "
@@ -2696,10 +2853,11 @@ def _profile_prefill(label, srv, model, cfg, kernel="flash_attention",
 
 def _card_vs_cpu(cfg, tag):
     """The card against the CPU, float32 compute, 2 layers at full width:
-    equal tokens, completion order and epochs, and the first decode
-    epoch's logits within 1e-3; on the card the graphed server (its
-    logits read before the next epoch's replay overwrites them) and the
-    eager one, with equal tokens and logits."""
+    equal tokens, completion order and epochs, and the first and fourth
+    decode epochs' logits within 1e-3; on the card the graphed server (its
+    first epoch eager, its fourth a replay, whose logits are read before
+    the next epoch's replay overwrites them) and the eager one, with equal
+    tokens and logits."""
     import copy
     import dataclasses
 
@@ -2718,29 +2876,33 @@ def _card_vs_cpu(cfg, tag):
         for r in reqs:
             srv.submit(r)
         t0 = time.perf_counter()
-        srv.step()
-        first = srv.last_logits[:, :cfg.vocab].cpu()
+        logits = []
+        for _ in range(4):
+            srv.step()
+            logits.append(srv.last_logits[:, :cfg.vocab].cpu())
         srv.run_to_completion()
         runs[dev, graphs] = ([(r.rid, r.output) for r in srv.completed],
-                             srv.epochs, first, time.perf_counter() - t0)
+                             srv.epochs, torch.stack([logits[0], logits[3]]),
+                             time.perf_counter() - t0)
         del srv, m
     (g_out, g_ep, g_lg, g_s), (e_out, e_ep, e_lg, _), (c_out, c_ep, c_lg,
                                                         c_s) = runs.values()
     if g_out != e_out or g_ep != e_ep or not torch.equal(g_lg, e_lg):
-        fail(f"{tag} float32: the graphed server's tokens or first logits "
-             "differ from the eager server's on the card")
+        fail(f"{tag} float32: the graphed server's tokens or logits differ "
+             "from the eager server's on the card")
     lg_err = float((g_lg - c_lg).abs().max())
     if g_out != c_out or g_ep != c_ep:
         fail(f"{tag} float32: the card's tokens {g_out} (epochs {g_ep}) "
              f"differ from the CPU's {c_out} (epochs {c_ep})")
     if not lg_err <= 1e-3:
-        fail(f"{tag} float32: first decode epoch's logits differ by "
-             f"{lg_err}")
+        fail(f"{tag} float32: the first or fourth decode epoch's logits "
+             f"differ by {lg_err}")
     print(f"[{tag}] {cfg.name} float32, 2 layers at full width, 6 requests "
           f"in 4 slots: card (graphed and eager) and CPU give equal tokens "
           f"per request, "
-          f"completion order and {g_ep} epochs; first decode epoch's logits "
-          f"within {lg_err:.3g} (card {g_s:.2f} s, CPU {c_s:.2f} s)")
+          f"completion order and {g_ep} epochs; first and fourth decode "
+          f"epochs' logits within {lg_err:.3g} (card {g_s:.2f} s, CPU "
+          f"{c_s:.2f} s)")
 
 
 def phase_serve():
@@ -2903,6 +3065,8 @@ def main() -> int:
             r["launches_by_path"] = chunk_paths
         if r["name"] == "ordered_add":
             r["launches_by_path"] = ordered_paths
+    print(f"[profile] profiles that needed a second attempt: "
+          f"{PROFILE_RETRIES or 'none'}")
     print(f"[env] all phases took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,13 +24,15 @@ Two engines configure it:
 
 The step builders of the JAX reference are plain methods here.  Where the
 reference jits each host step once per shape key and replays the compiled
-program, :meth:`EpochLoop.run_epoch` on the card captures each step once
-per the reference's key in a CUDA graph and replays it
-(``core/graphs.py``): ``_step_cache`` keyed ``("m", P)``, ``("c", P,
-buckets)`` and ``("g", P, G)`` under the reference's FIFO bound of 256,
-``_compact_cache`` and ``_gather_cache`` keyed ``P``, each capture counted
-in ``EpochLoop.captures``.  The epoch's varying inputs (``start``,
-``count``, ``cen``) come from device buffers filled before each step, the
+program, :meth:`EpochLoop.run_epoch` on the card captures each step in a
+CUDA graph under the reference's key at that key's third use, and replays
+it (``core/graphs.py``; the earlier uses run eagerly, so a key used once
+or twice costs what the eager step costs): ``_step_cache`` keyed ``("m",
+P)``, ``("c", P, buckets)`` and ``("g", P, G)`` under the reference's
+FIFO bound of 256, ``_compact_cache`` and ``_gather_cache`` keyed ``P``,
+each capture counted in ``EpochLoop.captures``.  The epoch's varying
+inputs (``start``, ``count``, ``cen``) come from device buffers filled
+before each step, the
 state, heap and arena are updated in place, and the end-of-epoch
 readback's stack and its copy to page-locked host memory are the step
 graph's last nodes.  ``graphs=False`` runs the same steps eagerly on the
@@ -430,12 +432,13 @@ class EpochLoop:
     """The epoch core: step builders, the one-epoch host driver and the
     resident chunk loop.
 
-    ``graphs=True`` (the default) replays each host step on the card from
-    a CUDA graph captured on its key's first use (``captures`` counts the
-    captures); ``graphs=False`` runs the steps eagerly there.  On the CPU
-    the steps run eagerly either way."""
+    ``graphs=True`` (the default) runs each host step on the card eagerly
+    at its key's first two uses and from a CUDA graph captured at the third
+    (``captures`` counts the captures); ``graphs=False`` runs
+    the steps eagerly there.  On the CPU the steps run eagerly either
+    way."""
 
-    _MAX_STEP_CACHE = 256  # captured step graphs kept (FIFO), as the JAX loop
+    _MAX_STEP_CACHE = 256  # step keys kept (FIFO), as the JAX loop
 
     def __init__(self, program: Program, dispatch: Any = MASKED,
                  megakernel: bool = False, *,
@@ -466,11 +469,12 @@ class EpochLoop:
         # the epoch_chunk kernel's table (a fleet: its plan), found once
         self._device_table = None
         # the host steps' graphs (core/graphs.py), under the reference's
-        # cache names and keys; all share one pool and one side stream
+        # cache names and keys (an entry: a key seen once, or its graph);
+        # all share one pool and one side stream
         self.graphs = bool(graphs)
-        self._step_cache: Dict[Any, cgraphs.CapturedStep] = {}
-        self._compact_cache: Dict[int, cgraphs.CapturedStep] = {}
-        self._gather_cache: Dict[int, cgraphs.CapturedStep] = {}
+        self._step_cache: Dict[Any, Any] = {}
+        self._compact_cache: Dict[int, Any] = {}
+        self._gather_cache: Dict[int, Any] = {}
         self.captures = 0
         self._pool = None
         self._side = None
@@ -559,16 +563,14 @@ class EpochLoop:
             self._bound = sig
 
     def _run_step(self, cache, key, fn, graphed: bool):
-        """``fn()``, eagerly, or on the card through the graph cached under
-        ``key`` (captured now on the key's first use: one eager warm-up,
-        the epoch's real run, then the capture; ``captures`` + 1)."""
+        """``fn()``, eagerly, or on the card through the entry cached under
+        ``key`` (core/graphs.py): eager at the key's first uses, captured
+        on the loop's side stream and replayed at its ``CAPTURE_AT``-th
+        (``captures`` + 1), replayed after."""
         if not graphed:
             return fn()
-        entry = cache.get(key)
-        if entry is not None:
-            return entry.replay()
-        if cache is self._step_cache:
-            # FIFO eviction, as the reference's: an evicted key recaptures
+        if key not in cache and cache is self._step_cache:
+            # FIFO eviction, as the reference's: an evicted key starts over
             while len(cache) >= self._MAX_STEP_CACHE:
                 cache.pop(next(iter(cache)))
         if self._pool is None:
@@ -579,16 +581,16 @@ class EpochLoop:
         space = ("step" if cache is self._step_cache
                  else (cache is self._compact_cache, key))
 
-        def buffer(i, t):
-            k = (space, i, tuple(t.shape), t.dtype)
+        def buffer(i, shape, dtype):
+            k = (space, i, shape, dtype)
             if k not in self._results:
-                self._results[k] = torch.empty_like(
-                    t, memory_format=torch.contiguous_format)
+                self._results[k] = torch.empty(shape, dtype=dtype,
+                                               device=self._inputs.device)
             return self._results[k]
 
-        result, cache[key] = cgraphs.capture(fn, self._pool, self._side,
-                                             buffer)
-        self.captures += 1
+        result, captured = cgraphs.run_cached(
+            cache, key, fn, self._side, self._pool, buffer)
+        self.captures += captured
         return result
 
     def graph_memory(self) -> Tuple[int, int]:
@@ -1030,11 +1032,12 @@ class HostEngine:
     the :class:`EpochScheduler`.
 
     ``graphs=True`` (the default) replays each epoch's steps on the card
-    from CUDA graphs captured once per key (``loop.captures``); the engine
-    then keeps its TV and heap buffers from run to run, reset in place, so
-    that a second run of the same program captures nothing, and returns
-    copies.  ``graphs=False`` runs the steps eagerly: the plain version on
-    the card, for comparison.  On the CPU it changes nothing.
+    from CUDA graphs, each captured at its key's third use
+    (``loop.captures``); the engine then keeps its TV and heap buffers from
+    run to run, reset in place, so that the graphs and key counts of one
+    run serve the next (the fourth of four identical runs captures
+    nothing), and returns copies.  ``graphs=False`` runs the steps eagerly: the
+    plain version on the card, for comparison.  On the CPU it changes nothing.
     """
 
     def __init__(

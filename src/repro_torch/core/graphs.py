@@ -4,10 +4,11 @@ The JAX package never runs an epoch step op by op: it jits each step once
 per shape key and replays the compiled program (``EpochLoop._step_cache``
 and the pass caches, the server's decode step).  Eager PyTorch pays one
 host launch per operation instead, 15-25 µs each on the card, which sets
-the wall of every host-driven path.  Here a step is captured once per key
-in a ``torch.cuda.CUDAGraph`` and replayed: one host call per step.
+the wall of every host-driven path.  Here a step that keeps coming back
+under its key is captured in a ``torch.cuda.CUDAGraph`` and replayed: one
+host call per step.
 
-A step given to :func:`capture` is a function of no arguments that
+A step given to :func:`run_cached` is a function of no arguments that
 
   * reads only tensors whose addresses stay fixed from call to call: state
     updated in place, static input buffers filled before each call, and
@@ -17,45 +18,34 @@ A step given to :func:`capture` is a function of no arguments that
   * makes no host synchronisation (``.item()``, ``.cpu()``, a host-to-device
     copy of Python data): capture fails on one, and the error is raised.
 
-:func:`capture` runs the step once eagerly on a side stream — the warm-up
-``torch.cuda.graph`` asks for, and the call's real work (its effects and
-its results are those of this call) — then captures it.  The results of a
-replay land in buffers allocated before the capture, outside the graph
-pool, so that the pool holds only what is dead at the graph's end and the
-graphs of one pool may be replayed in any order.
+:func:`run_cached` chooses from what its cache has seen, a key's uses: the
+first :data:`CAPTURE_AT` - 1 run the step eagerly on the current stream
+(the call's real work, and the warm-up a capture needs: the kernels are
+built and loaded, the allocator's cache is the warm one of the eager
+path), so a key used fewer times costs what the eager step costs; the
+:data:`CAPTURE_AT`-th captures the step on a side stream
+(:func:`capture`) and replays it; every later use replays.  A replay's
+results land in buffers allocated before the capture, outside the graph
+pool, shaped as the eager uses' results were, so that the pool holds
+only what is dead at the graph's end and the graphs of one pool may be
+replayed in any order.
 
-Kernel launch counts (each kernel module's ``LAUNCHES``) count what runs
-on the device: a capture adds nothing (it runs nothing), each replay adds
-the launches its graph holds, and the warm-up counts as an eager call.
+Kernel launch counts (the counters registered in ``kernels/counters.py``)
+count what runs on the device: a capture adds nothing (it runs nothing),
+each replay adds the launches its graph holds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 
-def _launch_counters() -> Tuple[Dict[str, int], ...]:
-    from ..kernels import (
-        decode_attention, epoch_megakernel, flash_attention, fork_compact,
-        ordered_add, ssd_scan,
-    )
+def _counters():
+    from ..kernels import counters  # imports (registers) every kernel module
 
-    return (fork_compact.LAUNCHES, ordered_add.LAUNCHES,
-            epoch_megakernel.LAUNCHES, flash_attention.LAUNCHES,
-            decode_attention.LAUNCHES, ssd_scan.LAUNCHES)
-
-
-def _launch_snapshot() -> Dict[str, int]:
-    return {k: v for c in _launch_counters() for k, v in c.items()}
-
-
-def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
-    for c in _launch_counters():
-        for k in c:
-            if k in delta:
-                c[k] += sign * delta[k]
+    return counters
 
 
 _LEAF = object()
@@ -91,6 +81,29 @@ def _rebuild(tree, leaves):
     return go(tree)
 
 
+# the shape and type of each result tensor of a step, in tree order
+Layout = List[Tuple[Tuple[int, ...], torch.dtype]]
+
+
+# the use of a key that captures its step.  A capture (the recording and
+# the graph's instantiation) costs a few eager steps of host time, and a
+# replay saves most of one (PERF.md, chip_smoke.py's capture costs): a
+# key captured at its second use made runs whose keys come back two to
+# four times slower than eager.  Captured at its third, a key has paid
+# about the capture's price in eager uses first (rent until the rent paid
+# nears the price); a key used less often runs eagerly throughout.
+CAPTURE_AT = 3
+
+
+class Seen:
+    """A key run eagerly so far: its uses, and the layout of its results,
+    which the result buffers of its capture take."""
+
+    def __init__(self, layout: Layout):
+        self.layout = layout
+        self.uses = 1
+
+
 class CapturedStep:
     """One captured step: its graph, the buffers a replay leaves its
     results in (:attr:`result`, the step's tree over them) and the kernel
@@ -105,52 +118,53 @@ class CapturedStep:
         """Replay the graph on the current stream; returns :attr:`result`,
         filled once the stream reaches the replay's end."""
         self.graph.replay()
-        _add_launches(self.launches)
+        _counters().add(self.launches)
         return self.result
 
 
-def capture(fn: Callable[[], Any], pool=None, stream=None,
-            buffer: Callable[[int, torch.Tensor], torch.Tensor] = None
-            ) -> Tuple[Any, CapturedStep]:
-    """Run ``fn`` once eagerly, then capture it in a CUDA graph.
+def run_eager(fn: Callable[[], Any]) -> Tuple[Any, Layout]:
+    """``fn()`` on the current stream; returns ``(result, layout)``."""
+    out = fn()
+    leaves: List[torch.Tensor] = []
+    _flatten(out, leaves)
+    return out, [(tuple(t.shape), t.dtype) for t in leaves]
 
-    ``pool`` is a graph pool handle shared with other captures
-    (``torch.cuda.graph_pool_handle()``; None: the graph's own pool),
-    ``stream`` the side stream the warm-up and the capture run on (None: a
-    new one) and ``buffer(i, t)`` the result buffer of the ``i``-th result
-    tensor, like ``t`` (None: a new one; graphs whose results are read
-    before the next replay of any of them may share buffers).  Returns
-    ``(result, step)``: ``result`` is the warm-up's results copied into the
-    buffers every replay of ``step`` refills, in ``fn``'s tree.  A capture
+
+def capture(fn: Callable[[], Any], layout: Layout, pool=None, stream=None,
+            buffer: Optional[Callable[[int, Tuple[int, ...], torch.dtype],
+                                      torch.Tensor]] = None
+            ) -> CapturedStep:
+    """Capture ``fn`` in a CUDA graph; nothing runs until a replay.
+
+    ``layout`` is the shapes and types of ``fn``'s result tensors (an
+    eager call's, :func:`run_eager`), ``pool`` a graph pool handle shared
+    with other captures (``torch.cuda.graph_pool_handle()``; None: the
+    graph's own pool), ``stream`` the side stream the capture runs on
+    (None: a new one) and ``buffer(i, shape, dtype)`` the result buffer of
+    the ``i``-th result tensor (None: a new one; graphs whose results are
+    read before the next replay of any of them may share buffers).  The
+    buffers are allocated before the capture, outside its pool.  A capture
     that fails raises.
     """
+    dev = torch.device("cuda", torch.cuda.current_device())
+    outs = [torch.empty(shape, dtype=dtype, device=dev) if buffer is None
+            else buffer(i, shape, dtype)
+            for i, (shape, dtype) in enumerate(layout)]
     cur = torch.cuda.current_stream()
     side = stream if stream is not None else torch.cuda.Stream()
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        warm = fn()
-    cur.wait_stream(side)
-    warm_leaves: List[torch.Tensor] = []
-    tree = _flatten(warm, warm_leaves)
-    del warm
-    # the results' buffers: allocated before the capture, outside its pool
-    outs = [torch.empty_like(t) if buffer is None else buffer(i, t)
-            for i, t in enumerate(warm_leaves)]
-    for o, w in zip(outs, warm_leaves):
-        o.copy_(w)
-        w.record_stream(cur)
-    del warm_leaves
     graph = torch.cuda.CUDAGraph()
-    before = _launch_snapshot()
+    counters = _counters()
+    before = counters.snapshot()
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         graph.capture_begin(pool=pool)
         try:
             got: List[torch.Tensor] = []
-            _flatten(fn(), got)
-            if len(got) != len(outs):
+            tree = _flatten(fn(), got)
+            if [(tuple(t.shape), t.dtype) for t in got] != list(layout):
                 raise RuntimeError(
-                    "a captured step returned another tree than its warm-up")
+                    "a captured step returned other tensors than its eager "
+                    "call")
             for o, t in zip(outs, got):
                 o.copy_(t)
             del got
@@ -162,11 +176,31 @@ def capture(fn: Callable[[], Any], pool=None, stream=None,
             raise
         graph.capture_end()
     cur.wait_stream(side)
-    after = _launch_snapshot()
+    after = counters.snapshot()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    _add_launches(delta, -1)  # the capture ran nothing
-    result = _rebuild(tree, outs)
-    return result, CapturedStep(graph, result, delta)
+    counters.add(delta, -1)  # the capture ran nothing
+    return CapturedStep(graph, _rebuild(tree, outs), delta)
+
+
+def run_cached(cache: Dict[Any, Any], key, fn: Callable[[], Any], stream,
+               pool=None, buffer=None) -> Tuple[Any, bool]:
+    """``fn()`` through ``cache[key]``: eagerly at the key's first
+    ``CAPTURE_AT - 1`` uses (the entry counts them and records the result
+    layout), captured on ``stream`` and replayed at the next, replayed
+    after.  Returns ``(result, captured)``, ``captured`` True when this
+    call made the key's capture."""
+    entry = cache.get(key)
+    if isinstance(entry, CapturedStep):
+        return entry.replay(), False
+    if entry is None or entry.uses + 1 < CAPTURE_AT:
+        out, layout = run_eager(fn)
+        if entry is None:
+            cache[key] = Seen(layout)
+        else:
+            entry.uses += 1
+        return out, False
+    step = cache[key] = capture(fn, entry.layout, pool, stream, buffer)
+    return step.replay(), True
 
 
 def pinned_like(t: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import nvcc
+from . import counters, nvcc
 from .flash_attention import DTYPES, HEAD_DIMS, check_strided
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
@@ -32,7 +32,7 @@ SPLIT_ROWS = 256  # cache rows per split, up to MAX_SPLITS splits
 MAX_SPLITS = 64
 
 # launches of the kernel since the last reset (one per wrapper call)
-LAUNCHES: Dict[str, int] = {"decode_attention": 0}
+LAUNCHES: Dict[str, int] = counters.register({"decode_attention": 0})
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -67,7 +67,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from . import nvcc, ref
+from . import counters, nvcc, ref
 
 SOURCE = (pathlib.Path(__file__).resolve().parent / "csrc"
           / "epoch_megakernel.cu")
@@ -111,7 +111,7 @@ STATS = ("narrow_epochs", "wide_epochs", "grid_barriers", "group_barriers",
 # the ordered add's stage positions are int32, and its merges add two
 ORDERED_MAX_STAGE = 2**30
 
-LAUNCHES: Dict[str, int] = {"epoch_chunk": 0}
+LAUNCHES: Dict[str, int] = counters.register({"epoch_chunk": 0})
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

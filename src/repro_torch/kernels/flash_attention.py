@@ -23,13 +23,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import nvcc
+from . import counters, nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
     "flash_attention.cu"
 
 # launches of the kernel since the last reset (one per wrapper call)
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = counters.register({"flash_attention": 0})
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 

@@ -30,15 +30,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import nvcc
+from . import counters, nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "fork_compact.cu"
 BUILD_DIR = nvcc.BUILD_DIR
 
 # launches of each kernel since the last reset (one per wrapper call)
-LAUNCHES: Dict[str, int] = {
+LAUNCHES: Dict[str, int] = counters.register({
     "fork_scan": 0, "segmented_fork_scan": 0, "type_rank": 0,
-}
+})
 
 # segmented_fork_scan's tiles and segment groups (kSegTile, kSegGroup in
 # SOURCE); type_rank's tiles (kRankTile; its groups are SEG_GROUP types)

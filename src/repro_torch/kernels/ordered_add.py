@@ -32,13 +32,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import fork_compact, nvcc
+from . import counters, fork_compact, nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ordered_add.cu"
 # positions are int32 in the kernel, and its merge passes add two of them
 MAX_TERMS = 2**30
 
-LAUNCHES: Dict[str, int] = {"ordered_add": 0}
+LAUNCHES: Dict[str, int] = counters.register({"ordered_add": 0})
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import nvcc
+from . import counters, nvcc
 from .flash_attention import DTYPES
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -34,7 +34,7 @@ STATE_DIMS = (8, 16, 32, 64, 128)     # N
 DESIGNS = {"cuda_core": 0, "tensor_core": 1}
 
 # launches of the kernel since the last reset (one per wrapper call)
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+LAUNCHES: Dict[str, int] = counters.register({"ssd_scan": 0})
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -22,7 +22,10 @@ dtypes agree), on the host loop
 ``epoch_chunk`` launch).  A device wave's members are seated in
 :func:`~repro_torch.service.jobs.canonical_wave_order` and its shape is
 looked up in a :class:`~repro_torch.service.jobs.WaveTemplateCache`, so a
-wave of a shape seen before builds nothing (``trace_count``).  While a wave is in flight, queued jobs whose program
+wave of a shape seen before builds nothing (``trace_count``).  A host
+wave of the previous host wave's layout runs on that wave's epoch loop,
+CUDA graphs and device buffers, so that on the card its step keys are
+already captured.  While a wave is in flight, queued jobs whose program
 matches a freed region are admitted mid-flight; everything else waits for
 the next wave.  At each epoch boundary the admission layer may preempt a
 running job into a :class:`~repro_torch.service.jobs.RegionCheckpoint`
@@ -223,6 +226,9 @@ class JobService:
         self._ids = itertools.count()
         self._queue: List[JobHandle] = []
         self._mux = None  # the live wave's EpochMultiplexer/DeviceMultiplexer
+        # the last finished host wave, kept until the next wave takes over
+        # its loop and buffers (EpochMultiplexer._adopt)
+        self._last = None
         self._stats = RunStats()
         self._admit_ready = False  # a region was freed since the last scan
 
@@ -351,7 +357,7 @@ class JobService:
         run one fused global epoch.  Returns newly completed handles."""
         if self._mux is not None and not self._mux.live:
             merge_stats(self._stats, self._mux.stats())
-            self._mux = None
+            self._last, self._mux = self._mux, None
         if self._mux is None:
             wave = self._take_wave()
             if not wave:
@@ -368,6 +374,11 @@ class JobService:
                     collect_stats=self.collect_stats,
                     device=self.device,
                 )
+                # a wave of the last one's layout runs on its loop, graphs
+                # and buffers, as the device engine's on its template
+                if isinstance(self._last, EpochMultiplexer):
+                    self._mux._adopt(self._last)
+            self._last = None
             self._admit_ready = False
         elif self._admit_ready and self._queue:
             # streaming admission: a region frees only at a completion or

@@ -58,6 +58,7 @@ from ..core.engine import (
     ChunkSummary,
     EpochLoop,
     Readback,
+    _bound_tensors,
     _fresh_resident_carry,
     resolve_device,
 )
@@ -685,14 +686,13 @@ class EpochMultiplexer(_FleetBase):
 
     ``device=None`` means CUDA (and raises where CUDA is absent).
     ``graphs=True`` (the default) replays each global epoch's steps on the
-    card from CUDA graphs captured once per key (``EpochLoop``): the fused
-    span changes every epoch but its bucket ``P`` is the key, and the
-    state, heap and arena are written in place (admission and restore
-    too); ``graphs=False`` runs them eagerly, for comparison.
-    ``reuse`` is a finished multiplexer of the same fleet layout (fused
-    program, slots, capacity, dispatch) whose loop, graphs and device
-    buffers this wave takes over, its own initial state written into them
-    in place: an identical later wave then captures nothing.
+    card from CUDA graphs, each captured at its key's third use
+    (``EpochLoop``): the fused span changes every epoch but its bucket
+    ``P`` is the key, and the state, heap and arena are written in place
+    (admission and restore too); ``graphs=False`` runs them eagerly, for
+    comparison.  :class:`~repro_torch.service.api.JobService` hands a
+    finished wave's loop, graphs and device buffers to the next wave of
+    the same layout (:meth:`_adopt`).
     """
 
     def __init__(
@@ -706,17 +706,13 @@ class EpochMultiplexer(_FleetBase):
         collect_stats: bool = True,
         device=None,
         graphs: bool = True,
-        reuse: Optional["EpochMultiplexer"] = None,
     ):
         super().__init__(
             handles, capacity=capacity, coalesce=coalesce,
             collect_stats=collect_stats, device=device,
         )
         self.pop_policy = resolve_mux_policy(pop_policy, gang)
-        if reuse is not None:
-            self._take_over(reuse, dispatch, graphs)
-        else:
-            self._loop = EpochLoop(self.program, dispatch, graphs=graphs)
+        self._loop = EpochLoop(self.program, dispatch, graphs=graphs)
         self.policy = self._loop.policy
         self._readback = Readback(self._pack, self._unpack)
         self._rotor = 0
@@ -728,34 +724,35 @@ class EpochMultiplexer(_FleetBase):
 
     @property
     def loop(self) -> EpochLoop:
-        """The driver core (owner of the step graphs)."""
+        """The epoch loop (owner of the step graphs)."""
         return self._loop
 
-    def _take_over(self, prev: "EpochMultiplexer", dispatch,
-                   graphs: bool) -> None:
-        """Adopt ``prev``'s loop and device buffers, this wave's initial
-        TV, heap and arena written into them in place."""
-        layout = [(s.base, s.quota) for s in self._slots]
-        if (prev.live or prev.device != self.device
-                or prev.capacity != self.capacity
-                or prev.policy.name != resolve_policy(dispatch).name
-                or prev._loop.graphs != bool(graphs)
-                or [(s.base, s.quota) for s in prev._slots] != layout
-                or prev._heap.keys() != self._heap.keys()
+    def _adopt(self, prev: "EpochMultiplexer") -> bool:
+        """Take over ``prev``'s loop (its graphs) and its TV, heap and arena
+        tensors, this wave's state written into them in place, when
+        ``prev`` is finished and of the same layout: fused program,
+        dispatch, graphs setting, slots, and every tensor's shape, type
+        and device.  Returns whether it did; a wave that has stepped keeps
+        its own."""
+        mine = _bound_tensors(self._state, self._heap, self._arena)
+        theirs = _bound_tensors(prev._state, prev._heap, prev._arena)
+        if (prev.live or self._global_epochs
+                or prev._loop.policy.name != self._loop.policy.name
+                or prev._loop.graphs != self._loop.graphs
+                or [(s.base, s.quota) for s in prev._slots]
+                != [(s.base, s.quota) for s in self._slots]
+                or list(prev._heap) != list(self._heap)
                 or prev.program.structural_hash()
-                != self.program.structural_hash()):
-            raise ValueError(
-                "reuse needs a finished multiplexer of the same fleet "
-                "layout, program, capacity, dispatch and graphs setting")
-        for old, new in ((prev._state, self._state),
-                         (prev._arena, self._arena)):
-            for f in dataclasses.fields(old):
-                getattr(old, f.name).copy_(getattr(new, f.name))
-        for k, v in self._heap.items():
-            prev._heap[k].copy_(v)
+                != self.program.structural_hash()
+                or [(t.shape, t.dtype, t.device) for t in theirs]
+                != [(t.shape, t.dtype, t.device) for t in mine]):
+            return False
+        for old, new in zip(theirs, mine):
+            old.copy_(new)
         self._state, self._arena, self._heap = (prev._state, prev._arena,
                                                 prev._heap)
         self._loop = prev._loop
+        return True
 
     @staticmethod
     def _pack(summary: tvm.MuxEpochSummary, state):

@@ -23,8 +23,9 @@ Each epoch reads back one argmax vector.  The server runs any block type
 the model code runs: dense attention, Mamba-2 SSM, or the hybrid.
 
 On the card the decode step is captured once per server in a CUDA graph
-(``graphs=True``, the default), as the reference jits it once, and each
-epoch copies the tokens into the graph's token buffer and replays it; the
+(``graphs=True``, the default), as the reference jits it once: the first
+decode epoch runs eagerly, the second captures the step, and each epoch
+copies the tokens into the graph's token buffer and replays it; the
 argmax and its copy to page-locked host memory are the graph's last
 nodes.  Prefills stay eager and write the cache the graph reads in place.
 ``graphs=False`` decodes eagerly, for comparison.
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -71,10 +72,11 @@ class EpochServer:
     reference's ``init_model`` dict as numpy arrays (converted with
     ``params_from_numpy``).  ``device`` defaults to CUDA and raises where
     there is none; pass ``device="cpu"`` for the CPU.  ``graphs`` replays
-    the decode step from a CUDA graph on the card (``captures`` counts the
-    captures: one per server); it changes nothing on the CPU.
-    ``last_logits`` is then the graph's logits buffer, which the next
-    epoch's replay overwrites: read it before the next ``step``.
+    the decode step from a CUDA graph on the card from the second decode
+    epoch on (``captures`` counts the captures: one per server that
+    decodes twice); it changes nothing on the CPU.  ``last_logits`` is
+    then the graph's logits buffer, which the next epoch's replay
+    overwrites: read it before the next ``step``.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -117,7 +119,8 @@ class EpochServer:
         # the decode graph (core/graphs.py) and its token buffer
         self.graphs = bool(graphs) and self.device.type == "cuda"
         self.captures = 0
-        self._decode_graph: Optional[cgraphs.CapturedStep] = None
+        self._decode_graph: Dict[None, Any] = {}  # core/graphs.py's cache
+        self._side = None
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
                                    device=self.device)
         self._next_host = None
@@ -206,9 +209,9 @@ class EpochServer:
 
     def _decode(self) -> np.ndarray:
         """The bulk decode step over every slot: this epoch's next token
-        per slot, on the host.  On the card with graphs, a replay of the
-        decode graph (captured at the first epoch, after an eager warm-up
-        that is that epoch's run)."""
+        per slot, on the host.  On the card with graphs, the first epoch
+        runs eagerly (the capture's warm-up), the second captures the
+        decode graph on a side stream, and every epoch after replays it."""
         self._tokens.copy_(torch.from_numpy(self.last_token[:, None]))
         if not self.graphs:
             logits, _ = decode_step(self.params, self.cfg, self._tokens,
@@ -225,19 +228,19 @@ class EpochServer:
             self._next_host.copy_(nxt, non_blocking=True)
             return logits
 
-        if self._decode_graph is None:
-            self.last_logits, self._decode_graph = cgraphs.capture(step)
-            self.captures += 1
-        else:
-            self.last_logits = self._decode_graph.replay()
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self.last_logits, captured = cgraphs.run_cached(
+            self._decode_graph, None, step, self._side)
+        self.captures += captured
         torch.cuda.current_stream(self.device).synchronize()
         return self._next_host.numpy().copy()
 
     def graph_memory(self):
         """``(pool bytes, result-buffer bytes)`` of the decode graph."""
-        if self._decode_graph is None:
+        g = self._decode_graph.get(None)
+        if not isinstance(g, cgraphs.CapturedStep):
             return 0, 0
-        g = self._decode_graph
         return (cgraphs.pool_bytes(g.graph.pool()),
                 cgraphs.result_bytes([g]))
 

@@ -7,8 +7,12 @@ on ``EpochMultiplexer`` across a mid-flight admission, and in two
 ``decode_step`` calls; and the compacted step's device-side type offsets
 give the bits of host-int slices.
 
+On the CPU too, ``JobService`` runs a host wave on the last wave's loop
+and buffers when the layout is the same.
+
 Marked ``cuda`` (skipped here): graphed runs against eager runs
-(``graphs=False``) on the card, a repeated run capturing nothing, graphs
+(``graphs=False``) on the card, each key captured at its third use (the
+fourth of four identical runs capturing nothing), graphs
 replayed out of their capture order, and the servers' tokens.  The file
 imports no JAX:
 
@@ -30,6 +34,7 @@ from repro_torch.apps import all_cases, fib, get_case, get_fleet  # noqa: E402
 from repro_torch.apps.registry import AppCase  # noqa: E402
 from repro_torch.core import HostEngine, tvm  # noqa: E402
 from repro_torch.core.engine import _bound_tensors  # noqa: E402
+from repro_torch.core.graphs import CapturedStep  # noqa: E402
 from repro_torch.core.scheduler import (  # noqa: E402
     EpochScheduler,
     size_type_buckets,
@@ -152,22 +157,64 @@ def _same_results(a, b):
         assert all(torch.equal(ha[k], hb[k]) for k in ha)
 
 
-def test_multiplexer_reuse_takes_over_buffers():
-    """A second identical wave on a finished multiplexer's loop and
-    buffers (what keeps its graphs valid on the card) gives the first
-    wave's results."""
+def _drain_wave(svc, members):
+    handles = [svc.submit_case(c, quota=q) for c, q in members]
+    list(svc.completions())
+    assert all(h.status.value == "done" for h in handles)
+    return handles, svc._mux
+
+
+def test_service_wave_runs_on_the_last_waves_loop():
+    """JobService hands a finished host wave's loop and TV, heap and arena
+    tensors (what keeps its graphs valid on the card) to the next wave of
+    the same layout, which gives the first wave's results; a wave of
+    another layout gets its own."""
     fleet = get_fleet("mixed3")
-    first_h, h1 = _handles(fleet), _handles(fleet)
-    first = EpochMultiplexer(first_h, device="cpu")
-    first.run()
-    second = EpochMultiplexer(h1, device="cpu", reuse=first)
-    assert second.loop is first.loop and second._state is first._state
-    assert second._arena is first._arena and second._heap is first._heap
-    second.run()
-    _same_results(_results(h1), _results(first_h))
+    svc = JobService(capacity=sum(q for _, q in fleet), dispatch="masked",
+                     device="cpu")
+    first_h, first = _drain_wave(svc, fleet)
+    again_h, again = _drain_wave(svc, fleet)
+    assert again is not first and again.loop is first.loop
+    assert again._state is first._state and again._arena is first._arena
+    assert again._heap is first._heap
+    _same_results(_results(again_h), _results(first_h))
+    other = [(c, q) for c, q in fleet[:2]]
+    other_h, third = _drain_wave(svc, other)
+    assert third.loop is not first.loop and third._state is not first._state
+    solo = [HostEngine(c.program, capacity=q, device="cpu").run(
+        c.initial, heap_init=dict(c.heap_init) or None) for c, q in other]
+    for h, (heap, value, _) in zip(other_h, solo):
+        assert torch.equal(h.result.value, value)
+        assert all(torch.equal(h.result.heap[k], heap[k]) for k in heap)
+    # a multiplexer that has stepped, or another dispatch, keeps its own
+    fresh = EpochMultiplexer(_handles(fleet), device="cpu",
+                             dispatch="gather")
+    assert not fresh._adopt(again)
+    fresh = EpochMultiplexer(_handles(fleet), device="cpu")
+    fresh.step()
+    assert not fresh._adopt(again) and fresh.loop is not again.loop
+
+
+def test_every_kernel_counter_is_registered():
+    """The graphs' launch accounting reads the registry: every kernel
+    module's LAUNCHES is in it, and a name nothing registered raises."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels import counters
+
+    mods = [getattr(kernels, n) for n in dir(kernels)
+            if hasattr(getattr(kernels, n), "LAUNCHES")]
+    assert len(mods) == 6
+    assert all(any(m.LAUNCHES is c for c in counters._REGISTRY)
+               for m in mods)
+    snap = counters.snapshot()
+    assert set(snap) == {k for m in mods for k in m.LAUNCHES}
+    counters.add({"fork_scan": 2})
+    counters.add({"fork_scan": 2}, -1)
+    assert counters.snapshot() == snap
+    with pytest.raises(KeyError):
+        counters.add({"no_such_kernel": 1})
     with pytest.raises(ValueError):
-        EpochMultiplexer(_handles(fleet), device="cpu", dispatch="gather",
-                         reuse=second)
+        counters.register({"fork_scan": 0})
 
 
 def test_trace_tasks_compacted_device_offsets_match_host_slices():
@@ -328,13 +375,24 @@ def test_graphed_runs_equal_eager(cuda_device, name, dispatch):
     eng = HostEngine(case.program, capacity=case.capacity, dispatch=dispatch,
                      device=cuda_device)
     args = (case.initial, dict(case.heap_init) or None)
-    first = _host(eng.run(*args))
-    captures = eng.loop.captures
-    assert captures > 0
-    second = _host(eng.run(*args))
-    assert eng.loop.captures == captures  # a repeated run captures nothing
-    _equal_runs(first, eager, f"{name} {dispatch} graphed")
-    _equal_runs(second, eager, f"{name} {dispatch} replayed")
+    loop = eng.loop
+    entries = lambda: [e for c in (loop._step_cache, loop._compact_cache,
+                                   loop._gather_cache) for e in c.values()]
+    # each key is captured at its third use, in whichever run that falls;
+    # after three runs every key is, and a fourth captures nothing
+    runs = []
+    for _ in range(3):
+        runs.append(_host(eng.run(*args)))
+        assert loop.captures == sum(isinstance(e, CapturedStep)
+                                    for e in entries())
+    captures = loop.captures
+    assert captures > 0 and all(isinstance(e, CapturedStep)
+                                for e in entries())
+    runs.append(_host(eng.run(*args)))
+    assert loop.captures == captures  # every key replayed
+    for i, run in enumerate(runs):
+        _equal_runs(run, eager, f"{name} {dispatch} graphed run {i + 1}")
+    first = runs[0]
     cpu = _host(case.run(dispatch=dispatch, device="cpu"))
     if name != "fft":  # fft: the card's cos/sin differ by an ulp
         _equal_runs(first, cpu, f"{name} {dispatch} card vs CPU")
@@ -373,18 +431,21 @@ def test_graphed_fleets_equal_eager(cuda_device, fleet, dispatch):
     assert all(h.status.value == "done" for h in handles)
     _same_results(_results(handles), _results(eager_h))
     assert svc.stats().as_dict() == eager.stats().as_dict()
-    # a second wave on the first's graphs: no capture, the same bits
-    first_h = _handles(members)
-    first = EpochMultiplexer(first_h, dispatch=dispatch, device=cuda_device)
-    first.run()
-    captures = first.loop.captures
-    again_h = _handles(members)
-    again = EpochMultiplexer(again_h, dispatch=dispatch, device=cuda_device,
-                             reuse=first)
-    again.run()
-    assert captures > 0 and again.loop.captures == captures
-    _same_results(_results(again_h), _results(eager_h))
-    _same_results(_results(first_h), _results(eager_h))
+    # the next waves on the first's loop: by the end of the third every
+    # key has had its third use, and the fourth captures nothing; the
+    # same bits
+    first = svc._mux
+    captures = [first.loop.captures]
+    for _ in range(3):
+        again_h, again = _drain_wave(svc, members)
+        assert again.loop is first.loop
+        captures.append(again.loop.captures)
+        _same_results(_results(again_h), _results(eager_h))
+    loop = first.loop
+    assert all(isinstance(e, CapturedStep)
+               for c in (loop._step_cache, loop._compact_cache,
+                         loop._gather_cache) for e in c.values())
+    assert captures[0] <= captures[1] <= captures[2] == captures[3] > 0
 
 
 @pytest.mark.cuda
