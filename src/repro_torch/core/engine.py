@@ -65,10 +65,23 @@ carry.  :meth:`EpochLoop.run_chunk` keeps one resident body per
 ``(n_regions, capacity, depth)`` and counts each build in
 ``EpochLoop.trace_count`` (the JAX loop's trace counter).
 
+Control and telemetry, as in the JAX engine: under ``dispatch="auto"``
+a ``control.DispatchController`` picks each host epoch's mode from the
+observed frontier fill, and :meth:`EpochLoop.run_epoch` feeds it the
+epoch's readback (``Readback.active``), whatever the driver (the step keys of whichever mode it picks are
+captured and replayed as any static mode's; the controller is host Python
+outside the graphs), and a resident loop resolves ``"auto"`` once,
+masked or gather (:func:`resolve_resident_dispatch`).  A ``tracer``
+(``obs.trace.SpanTracer``) receives one ``epoch`` span per host epoch with
+its ``pack``, ``dispatch``, ``readback`` and ``map`` phases (the step's
+synchronize inside ``readback``, so the two spans mean what the
+reference's do), and a ``wave`` span per resident run; the annotations
+``trees:epoch_step``, ``trees:map{id}`` and ``trees:resident_wave`` wrap
+the launches (on the card the graph replays) as host ranges.
+
 Not ported yet: the sharded fleet chunk (``run_chunk_fleet``,
-``fleet_chunk_summaries``), ``dispatch="auto"``, the tracer, the
-controller and ``seg_offsets_fn``.  ``donate`` has no meaning here: the
-state is updated in place.
+``fleet_chunk_summaries``, ROADMAP item 9) and ``seg_offsets_fn``.
+``donate`` has no meaning here: the state is updated in place.
 """
 from __future__ import annotations
 
@@ -99,6 +112,7 @@ from .scheduler import (
 )
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..obs.trace import NULL_TRACER
 
 _I32 = torch.int32
 
@@ -114,6 +128,35 @@ _COMPACTED_RESIDENT_MSG = (
     "'compacted' sizes per-type launches from runtime populations (use a "
     "host-loop driver for compacted dispatch)"
 )
+
+
+def resolve_resident_dispatch(dispatch, controller, capacity: int,
+                              peek: Optional[Callable[[str], Any]] = None):
+    """Resolve ``dispatch="auto"`` for a resident loop.
+
+    A resident loop bakes its mode in, so the decision is made once per
+    template, masked-vs-gather only (§5.4 compacted stays host-side).
+    With no controller (or a cold observation window) the answer is
+    masked — the cheapest critical path when nothing is known.
+
+    ``peek`` is the stickiness hook (optional): called with each
+    candidate mode name, it returns a truthy value when a template for
+    this wave shape already exists under that mode.  A hit wins before the
+    controller is ever consulted — identical consecutive waves can never
+    rebuild on a flipped decision — while a *new* wave shape falls through
+    to the controller, whose rolling window has been accumulating fill
+    observations across every prior wave's chunks (the service passes a
+    wave-template cache peek here).
+    """
+    if resolve_policy(dispatch).name != "auto":
+        return dispatch
+    if peek is not None:
+        for cand in ("masked", "gather"):
+            if peek(cand):
+                return cand
+    if controller is None:
+        return "masked"
+    return controller.choose_resident(capacity).mode
 
 
 def resolve_device(device=None) -> torch.device:
@@ -162,8 +205,9 @@ class MapLauncher:
     not fit).  The stats count the reference's ``[P, D]`` launch.
     """
 
-    def __init__(self, program: Program):
+    def __init__(self, program: Program, tracer=None):
         self.program = program
+        self.tracer = tracer or NULL_TRACER
 
     def run(self, map_launches, heap, col: StatsCollector):
         """Launch each scheduled map payload, sized to its live domain."""
@@ -181,10 +225,13 @@ class MapLauncher:
                 continue
             D = launch_bucket(dmax, minimum=8)
             P = int(ml.where.shape[0])
-            heap = tvm.run_map_payload(
-                self.program, heap, ml.map_id, ml.where[rows], argi,
-                ml.argf[rows], D,
-            )
+            with self.tracer.span(
+                "map", "host", map_id=ml.map_id, lanes=P, width=D,
+            ), self.tracer.annotation(f"trees:map{ml.map_id}"):
+                heap = tvm.run_map_payload(
+                    self.program, heap, ml.map_id, ml.where[rows], argi,
+                    ml.argf[rows], D,
+                )
             col.dispatch()
             col.map_launch(int(dom.sum()), P * D)
         return heap
@@ -367,10 +414,12 @@ class Readback:
     step's last operation, inside its graph on the card) and
     ``unpack(values)`` turns the transferred numpy vector into the
     engine's host values (copies: the transfer buffer is refilled each
-    epoch)."""
+    epoch); ``active(fetched)`` reads the epoch's active lane count from
+    those values, the dispatch controller's observation."""
 
     pack: Callable
     unpack: Callable
+    active: Callable
 
 
 class _StepInputs:
@@ -446,14 +495,30 @@ class EpochLoop:
                  pack_fn: Optional[Callable] = None,
                  fork_offsets_fn: Optional[Callable] = None,
                  tenants: Optional[List[Any]] = None,
-                 graphs: bool = True):
+                 graphs: bool = True,
+                 tracer=None,
+                 controller=None):
         self.program = program
         # a fused fleet's TenantSlot layout (service/multiplexer.py): the
         # epoch_chunk kernel dispatches each region to its tenant's table
         self.tenants = None if tenants is None else list(tenants)
         self.policy: DispatchPolicy = resolve_policy(dispatch)
         self.task_names = [t.name for t in program.tasks]
-        self.maps = MapLauncher(program)
+        # dispatch="auto": a DispatchController picks the mode per host
+        # epoch (DESIGN.md §14).  Safe because all three modes are
+        # bit-identical; the hook in run_epoch only moves critical-path
+        # overhead.
+        if self.policy.name == "auto" and controller is None:
+            from ..control.controller import DispatchController
+
+            controller = DispatchController(n_types=len(program.tasks))
+        self.controller = controller
+        self.last_decision = None
+        self.last_span_bucket = 0
+        # span tracing is opt-in: NULL_TRACER's hooks are constant-time
+        # no-ops, so the disabled path stays off the critical budget
+        self.tracer = tracer or NULL_TRACER
+        self.maps = MapLauncher(program, tracer=self.tracer)
         # plug points (None: the port's kernels through kernels/ops.py)
         self._rank_fn = rank_fn
         self._pack_fn = pack_fn or kops.lane_pack
@@ -647,13 +712,38 @@ class EpochLoop:
 
         dispatches = 1
         by_type = None
+        tr = self.tracer
+        # decision hook: under dispatch="auto" the controller prices this
+        # epoch's modes at the rolling observed fill and picks one; static
+        # policies pass through.  The decision (and its evidence) rides the
+        # dispatch span's args.  Each mode's steps keep their own keys, so
+        # the graphs are those of the static modes.
         mode = self.policy.name
+        decision = None
+        if mode == "auto":
+            decision = self.controller.choose(P)
+            mode = decision.mode
+        self.last_decision = decision
+        self.last_span_bucket = P
+        dargs = {}
+        if decision is not None and tr.enabled:
+            dargs["auto_reason"] = decision.reason
+            if decision.hole_fraction is not None:
+                dargs["auto_hole_fraction"] = round(decision.hole_fraction, 4)
+            if decision.costs:
+                dargs["auto_cost_us"] = {
+                    m: round(c * 1e6, 2) for m, c in decision.costs.items()
+                }
         if mode == "compacted":
-            perm, counts_dev = self._run_step(
-                self._compact_cache, P,
-                lambda: self.compact_pass(state, start_t, count_t, cen_t, P),
-                graphed)
-            counts = counts_dev.cpu().numpy().astype(np.int64)
+            # the pack span includes its count readback (the §5.4 extra
+            # V_inf dispatch + transfer)
+            with tr.span("pack", "host", mode="compacted", width=P):
+                perm, counts_dev = self._run_step(
+                    self._compact_cache, P,
+                    lambda: self.compact_pass(state, start_t, count_t, cen_t,
+                                              P),
+                    graphed)
+                counts = counts_dev.cpu().numpy().astype(np.int64)
             col.dispatch()
             col.transfer()
             dispatches += 1
@@ -669,12 +759,15 @@ class EpochLoop:
                     counts_dev, buckets, arena))
 
             key = ("c", P, buckets)
+            sargs = dict(mode="compacted", launched=launched)
         elif mode == "gather":
-            perm, count_dev = self._run_step(
-                self._gather_cache, P,
-                lambda: self.gather_pass(state, start_t, count_t, cen_t, P),
-                graphed)
-            n_sched = int(count_dev.cpu())
+            with tr.span("pack", "host", mode="gather", width=P):
+                perm, count_dev = self._run_step(
+                    self._gather_cache, P,
+                    lambda: self.gather_pass(state, start_t, count_t, cen_t,
+                                             P),
+                    graphed)
+                n_sched = int(count_dev.cpu())
             col.dispatch()
             col.transfer()
             dispatches += 1
@@ -686,6 +779,7 @@ class EpochLoop:
 
             key = ("g", P, G)
             launched = G
+            sargs = dict(mode="gather", launched=G, holes=P - G)
             col.holes_skipped(P - G)
         else:
             def step():
@@ -694,13 +788,23 @@ class EpochLoop:
 
             key = ("m", P)
             launched = P
-        summary, map_launches = self._run_step(self._step_cache, key, step,
-                                               graphed)
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-        fetched = readback.unpack(self._rb.numpy())
+            sargs = dict(mode="masked", launched=P)
+        with tr.span("dispatch", "host", **sargs, **dargs), tr.annotation(
+                "trees:epoch_step"):
+            summary, map_launches = self._run_step(self._step_cache, key,
+                                                   step, graphed)
+        # the step's synchronize is the readback's wait, as the reference's
+        # readback span absorbs its asynchronous launch's
+        with tr.span("readback", "host"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            fetched = readback.unpack(self._rb.numpy())
         col.dispatch()
         col.transfer()
+        # close the feedback loop: the readback's active count against the
+        # *full* frontier width seeds the next epoch's decision
+        if self.controller is not None:
+            self.controller.observe(readback.active(fetched), P)
         return (
             state, heap, summary, fetched, map_launches, launched, by_type,
             dispatches,
@@ -1038,6 +1142,12 @@ class HostEngine:
     run serve the next (the fourth of four identical runs captures
     nothing), and returns copies.  ``graphs=False`` runs the steps eagerly: the
     plain version on the card, for comparison.  On the CPU it changes nothing.
+
+    ``dispatch="auto"`` picks each epoch's mode with ``controller`` (a
+    ``control.DispatchController``; one with the reference's priors unless
+    given), fed after each readback with the epoch's active lanes against
+    its full width; ``tracer`` (an ``obs.trace.SpanTracer``) receives one
+    ``epoch`` span per epoch.
     """
 
     def __init__(
@@ -1053,6 +1163,8 @@ class HostEngine:
         stats_factory: Optional[Callable[[], StatsCollector]] = None,
         device=None,
         graphs: bool = True,
+        tracer=None,
+        controller=None,
     ):
         self.program = program
         self.capacity = capacity
@@ -1063,8 +1175,11 @@ class HostEngine:
         self.loop = EpochLoop(program, dispatch, rank_fn=rank_fn,
                               pack_fn=pack_fn,
                               fork_offsets_fn=fork_offsets_fn,
-                              graphs=graphs)
+                              graphs=graphs, tracer=tracer,
+                              controller=controller)
+        self.tracer = self.loop.tracer
         self.policy = self.loop.policy
+        self.controller = self.loop.controller
         # the graphs read fixed addresses: keep the buffers across runs
         self._keeps_buffers = self.loop.graphs and self.device.type == "cuda"
         self._kept = None
@@ -1130,33 +1245,49 @@ class HostEngine:
         The TVM halts when the join/NDRange stacks empty (paper §4.3.3).
         """
         state, heap = self._buffers(initial, heap_init)
-        readback = Readback(self._pack, self._unpack)
+        readback = Readback(self._pack, self._unpack,
+                            active=lambda fetched: fetched[3])
         # phase-1 state owned by the CPU, exactly as in the paper (§5.2.2)
         sched = EpochScheduler(coalesce=self.coalesce)
         sched.reset()
         col = self._collector()
         n_epochs = 0
+        tr = self.tracer
+        if tr.enabled:
+            tr.thread(1, "host-epochs")
         while sched:  # termination predicate: host stacks drained
             if n_epochs >= max_epochs:
                 raise EngineError(f"exceeded max_epochs={max_epochs}")
             n_epochs += 1
             d = sched.pop()
-            (state, heap, _summary, fetched, map_launches, launched,
-             by_type, _disp) = self.loop.run_epoch(
-                state, heap, d.start, d.count, d.cen, col, readback,
-            )
-            total_forks, join_sched, map_sched, n_active, overflow, nf = (
-                fetched
-            )
-            if overflow:
-                raise EngineError(
-                    f"task vector overflow: capacity={self.capacity}"
+            with tr.span(
+                "epoch", "host", tid=1,
+                cen=d.cen, ranges=d.n_ranges, mode=self.policy.name,
+            ) as sargs:
+                (state, heap, _summary, fetched, map_launches, launched,
+                 by_type, _disp) = self.loop.run_epoch(
+                    state, heap, d.start, d.count, d.cen, col, readback,
                 )
-            if join_sched:
-                sched.push_join(d.cen, d.start, d.count)
-            sched.push_forked(d.cen + 1, nf - total_forks, total_forks)
-            if map_sched:
-                heap = self.loop.maps.run(map_launches, heap, col)
+                total_forks, join_sched, map_sched, n_active, overflow, nf = (
+                    fetched
+                )
+                if overflow:
+                    raise EngineError(
+                        f"task vector overflow: capacity={self.capacity}"
+                    )
+                if join_sched:
+                    sched.push_join(d.cen, d.start, d.count)
+                sched.push_forked(d.cen + 1, nf - total_forks, total_forks)
+                if map_sched:
+                    heap = self.loop.maps.run(map_launches, heap, col)
+                if tr.enabled:
+                    dec = self.loop.last_decision
+                    sargs.update(
+                        launched=launched, active=n_active,
+                        util=n_active / max(1, launched),
+                        **({"mode": dec.mode, "auto_reason": dec.reason}
+                           if dec is not None else {}),
+                    )
             col.epoch(d.cen, d.n_ranges)
             col.lanes(n_active, launched, by_type)
             col.forks(total_forks)
@@ -1183,6 +1314,10 @@ class DeviceEngine:
     card any other program (fft, matmul, annealing) raises
     :class:`EngineError` (there is no fallback), and on the CPU the flag
     runs the plain loop, as the JAX package's ``"auto"`` does off the TPU.
+    ``dispatch="auto"`` resolves once, at construction, to masked or gather
+    (``controller``'s resident choice; masked without one or on a cold
+    window); ``tracer`` receives one ``wave`` span a run with its
+    ``readback``.
     """
 
     def __init__(
@@ -1194,15 +1329,22 @@ class DeviceEngine:
         dispatch: Any = MASKED,
         megakernel: bool = False,
         device=None,
+        tracer=None,
+        controller=None,
     ):
         self.program = program
         self.capacity = capacity
         self.stack_depth = stack_depth
+        # a resident loop bakes its dispatch mode in, so "auto" resolves
+        # here, once, via the controller (masked on a cold window) —
+        # never per epoch inside the loop
+        dispatch = resolve_resident_dispatch(dispatch, controller, capacity)
         if resolve_policy(dispatch).name not in ("masked", "gather"):
             raise ValueError(_COMPACTED_RESIDENT_MSG)
         self.device = resolve_device(device)
         self.loop = EpochLoop(program, dispatch, megakernel=megakernel,
-                              fork_offsets_fn=fork_offsets_fn)
+                              fork_offsets_fn=fork_offsets_fn, tracer=tracer)
+        self.tracer = self.loop.tracer
         self.policy = self.loop.policy
         if self.loop.megakernel and self.device.type == "cuda":
             self.loop.device_table()
@@ -1251,10 +1393,29 @@ class DeviceEngine:
         Returns (final heap, final TV value array ``[capacity, W]``,
         stats); the chunk summary is the run's one scalar transfer.
         """
-        out = self.loop.run_resident(
-            self.initial_carry(initial, heap_init), max_epochs, n_regions=1
-        )
-        s = self.loop.chunk_summary(out)
+        carry = self.initial_carry(initial, heap_init)
+        tr = self.tracer
+        if tr.enabled:
+            tr.thread(2, "resident")
+        # the resident loop is unobservable per epoch by design (no
+        # per-epoch readbacks to hang spans on): one "wave" span covers the
+        # whole run, with the ChunkSummary's totals attached after its one
+        # readback
+        with tr.span(
+            "wave", "resident", tid=2,
+            driver="device", mode=self.policy.name,
+            megakernel=self.loop.megakernel,
+        ) as sargs:
+            with tr.annotation("trees:resident_wave"):
+                out = self.loop.run_resident(carry, max_epochs, n_regions=1)
+            # the one scalar transfer of the whole run
+            with tr.span("readback", "resident", tid=2):
+                s = self.loop.chunk_summary(out)
+            if tr.enabled:
+                sargs.update(
+                    epochs=s.n_epochs, tasks=int(s.job_tasks[0]),
+                    holes=s.hole_lanes,
+                )
         if s.failed.any():
             raise EngineError("TV capacity or stack depth exhausted")
         if (s.sp > 0).any():

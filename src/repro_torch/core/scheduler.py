@@ -11,7 +11,8 @@
     active lanes are scattered into dense per-type ranges (the ``type_rank``
     kernel's ``type_pack``) and each type launches as one dense slice sized
     to its own population.  ``gather`` packs every scheduled lane into one
-    dense frontier (``kernels.ops.lane_pack``).
+    dense frontier (``kernels.ops.lane_pack``).  ``auto`` picks one of the
+    three per epoch (``control.controller.DispatchController``).
   * :class:`MuxPopPolicy` — which tenants' stacks pop into one fused
     global epoch of the job service (``fuse_all``, ``round_robin``,
     ``deepest_first``, with an optional ``gang`` bound).
@@ -91,17 +92,19 @@ def size_type_buckets(policy: DispatchPolicy, counts, task_names):
 MASKED = DispatchPolicy("masked")
 COMPACTED = DispatchPolicy("compacted")
 GATHER = DispatchPolicy("gather")
-_POLICIES = {p.name: p for p in (MASKED, COMPACTED, GATHER)}
+# auto: not a strategy of its own — a per-epoch *selection* among the
+# three above, made by control.DispatchController from the observed hole
+# fraction priced against the pack pass's cost (DESIGN.md §14).  Safe
+# because every mode is bit-identical by construction; only the
+# critical-path overhead moves.  Bucket params mirror the static modes so
+# the full-frontier width P is the same whichever mode the epoch lands on.
+AUTO = DispatchPolicy("auto")
+_POLICIES = {p.name: p for p in (MASKED, COMPACTED, GATHER, AUTO)}
 
 
 def resolve_policy(dispatch) -> DispatchPolicy:
     if isinstance(dispatch, DispatchPolicy):
-        dispatch = dispatch.name
-    if dispatch == "auto":
-        raise ValueError(
-            "dispatch='auto' (the per-epoch dispatch controller) is not "
-            "ported yet; choose 'masked', 'compacted' or 'gather'"
-        )
+        return dispatch
     try:
         return _POLICIES[dispatch]
     except KeyError:

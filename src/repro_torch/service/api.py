@@ -32,10 +32,19 @@ running job into a :class:`~repro_torch.service.jobs.RegionCheckpoint`
 for a strictly higher-priority waiter; the resumed run stays
 bit-identical to an uninterrupted one.
 
+Control and telemetry, as in the reference: ``dispatch="auto"`` keeps
+one :class:`~repro_torch.control.controller.DispatchController` on the
+service (per-epoch decisions on the host engine; one resolution per new
+wave shape on the device engine, sticky through the template cache),
+calibrated by default with
+:meth:`~repro_torch.control.controller.CostModel.calibrated` on the
+service's device; ``chunk="auto"`` one ``ChunkController`` fed by the
+service's queue probe; ``metrics`` (a ``MetricsRegistry``) gets each
+wave's run series and the per-tenant lifecycle, deadline, preemption and
+template-cache series; ``tracer`` gets the wave drivers' spans.
+
 Not ported yet: the sharded fleet (``engine="sharded"``, ROADMAP item
-9), ``dispatch="auto"``, ``chunk="auto"`` and the ``metrics``/``tracer``
-observability hooks (item 8).  Asking for them raises
-``NotImplementedError``.
+9), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ from typing import (
     Any, AsyncIterator, Callable, Iterator, List, Mapping, Optional,
 )
 
-from ..core.engine import resolve_device
+from ..core.engine import resolve_device, resolve_resident_dispatch
 from ..core.program import InitialTask, Program
 from ..core.scheduler import RunStats, resolve_policy
 from .admission import AdmissionController, QuotaClass
@@ -138,6 +147,14 @@ class JobService:
     where CUDA is absent); pass ``device="cpu"`` to run the plain PyTorch
     versions on the CPU.  ``classes``/``admission``/``preemption``/
     ``evict_over_deadline``/``clock`` configure the admission layer.
+
+    ``dispatch="auto"`` and ``chunk="auto"`` (device engine) hand the
+    mode and K to controllers kept on the service, so what they learn
+    carries across waves; ``calibrate`` (default on) seeds the dispatch
+    controller with a :meth:`~repro_torch.control.controller.CostModel.
+    calibrated` micro-probe of the service's device, cached per process.
+    ``metrics`` (a :class:`~repro_torch.obs.metrics.MetricsRegistry`) and
+    ``tracer`` (a :class:`~repro_torch.obs.trace.SpanTracer`) are opt-in.
     """
 
     def __init__(
@@ -152,12 +169,13 @@ class JobService:
         collect_stats: bool = True,
         engine: str = "host",
         stack_depth: int = 1 << 10,
-        chunk: Optional[int] = None,
+        chunk: Any = None,
         template_cache: Optional[WaveTemplateCache] = None,
         megakernel: bool = False,
         device=None,
         metrics=None,
         tracer=None,
+        calibrate: bool = True,
         classes: Optional[List[QuotaClass]] = None,
         admission: Optional[AdmissionController] = None,
         preemption: bool = True,
@@ -172,11 +190,6 @@ class JobService:
         if engine == "sharded":
             raise _not_ported(
                 "JobService(engine='sharded'), the sharded fleet", "9")
-        if dispatch == "auto":
-            raise _not_ported("dispatch='auto' (the dispatch controller)",
-                              "8")
-        if metrics is not None or tracer is not None:
-            raise _not_ported("the metrics and tracer hooks", "8")
         if engine == "device":
             check_resident_options(dispatch, chunk)
             if gang or pop_policy != "fuse_all":
@@ -211,6 +224,38 @@ class JobService:
         self.gang = gang
         self.default_quota = default_quota
         self.collect_stats = collect_stats
+        # observability (DESIGN.md §13), both opt-in: ``metrics`` is a
+        # MetricsRegistry fed with per-wave run series (via the collector
+        # adapter) and the per-tenant job lifecycle series below; ``tracer``
+        # receives epoch/chunk span timelines from the wave drivers
+        self.metrics = metrics
+        self.tracer = tracer
+        # self-tuning (DESIGN.md §14): the controllers live on the service
+        # so what they learn carries across waves.  The dispatch controller
+        # is shared by every wave's loop (host: per-epoch decisions;
+        # device: one resolution per new wave shape, sticky via the
+        # template cache); the chunk controller owns K across waves.
+        self.controller = None
+        if resolve_policy(dispatch).name == "auto":
+            from ..control.controller import CostModel, DispatchController
+
+            # calibrate by default: the controller's priors come from a
+            # one-shot micro-probe of the service's device (process-cached,
+            # so only the first service pays it)
+            cost = (CostModel.calibrated(device=self.device) if calibrate
+                    else None)
+            self.controller = DispatchController(cost=cost)
+            if metrics is not None:
+                self.controller.bind_registry(
+                    metrics, driver=engine, app="service"
+                )
+        self.chunk_controller = None
+        if chunk == "auto":
+            from ..control.controller import ChunkController
+
+            self.chunk_controller = ChunkController()
+            if metrics is not None:
+                self.chunk_controller.bind_registry(metrics, app="service")
         # admission layer: an explicit controller wins (its clock becomes
         # the service clock so handle stamps and deadlines share a base)
         if admission is not None:
@@ -231,6 +276,127 @@ class JobService:
         self._last = None
         self._stats = RunStats()
         self._admit_ready = False  # a region was freed since the last scan
+
+    # ------------------------------------------------------- observability
+    def _stats_factory(self):
+        """Per-wave collector factory: the plain collector when metrics are
+        off (the disabled path allocates nothing extra), the registry
+        adapter around it when on."""
+        if self.metrics is None:
+            return None
+        from ..core.scheduler import NullStats, RunStatsCollector
+        from ..obs.metrics import MetricsCollector
+
+        registry = self.metrics
+        driver = self.engine
+        dispatch = resolve_policy(self.dispatch).name
+        collect = self.collect_stats
+
+        def factory():
+            inner = RunStatsCollector() if collect else NullStats()
+            return MetricsCollector(
+                inner, registry, driver=driver, dispatch=dispatch,
+                app="service",
+            )
+
+        return factory
+
+    def _observe_completions(self, done: List[JobHandle]) -> None:
+        """Record deadline outcomes with the admission layer and feed the
+        per-tenant/per-class lifecycle series for newly finished jobs:
+        queue-wait and run-time latency histograms, completion counters by
+        terminal status, and the per-class deadline scoreboard."""
+        # admission accounting happens with or without a registry
+        outcomes = {
+            h.job_id: self.admission.note_finished(h) for h in done
+        }
+        if self.metrics is None or not done:
+            return
+        r = self.metrics
+        lab = ("tenant",)
+        qw = r.histogram(
+            "trees_job_queue_wait_seconds",
+            "seconds from submit to first co-scheduled epoch", lab,
+        )
+        rt = r.histogram(
+            "trees_job_run_seconds",
+            "seconds from first co-scheduled epoch to completion", lab,
+        )
+        fin = r.counter(
+            "trees_jobs_finished_total",
+            "jobs reaching a terminal status", ("tenant", "status"),
+        )
+        # per-class series (new names: the registry pins labelnames per
+        # metric, so class-labeled series cannot share the tenant ones)
+        cqw = r.histogram(
+            "trees_class_queue_wait_seconds",
+            "queue wait by quota class", ("klass",),
+        )
+        dmiss = r.counter(
+            "trees_deadline_misses_total",
+            "deadlined jobs finishing past their deadline", ("klass",),
+        )
+        dmet = r.counter(
+            "trees_deadlines_met_total",
+            "deadlined jobs finishing in time", ("klass",),
+        )
+        ratio = r.gauge(
+            "trees_deadline_miss_ratio",
+            "misses / (misses + met) per quota class", ("klass",),
+        )
+        for h in done:
+            tenant = h.job.name or h.job.program.name
+            if h.queue_wait is not None:
+                qw.labels(tenant=tenant).observe(h.queue_wait)
+                cqw.labels(klass=h.klass).observe(h.queue_wait)
+            if h.run_time is not None:
+                rt.labels(tenant=tenant).observe(h.run_time)
+            fin.labels(tenant=tenant, status=h.status.value).inc()
+            met = outcomes[h.job_id]
+            if met is True:
+                dmet.labels(klass=h.klass).inc()
+            elif met is False:
+                dmiss.labels(klass=h.klass).inc()
+            if met is not None:
+                ratio.labels(klass=h.klass).set(
+                    self.admission.miss_ratio(h.klass)
+                )
+        # completions follow the wave's builds, so the trace-count gauge
+        # set at lookup time is refreshed here with what the wave built
+        r.gauge(
+            "trees_wave_template_traces",
+            "traced builder bodies across all wave templates",
+        ).labels().set(self.template_cache.trace_count)
+
+    def _observe_preemption(self, h: JobHandle) -> None:
+        """Count one executed preemption, labeled by quota class."""
+        if self.metrics is None:
+            return
+        self.metrics.counter(
+            "trees_job_preemptions_total",
+            "running jobs checkpointed and re-queued at a chunk boundary",
+            ("klass",),
+        ).labels(klass=h.klass).inc()
+
+    def _observe_template_cache(self, hit: bool) -> None:
+        """Mirror the wave-template cache's reuse counters into the
+        registry (hit/miss per wave build, LRU evictions, plus the
+        monotone trace-count gauge)."""
+        if self.metrics is None:
+            return
+        r = self.metrics
+        r.counter(
+            "trees_wave_template_lookups_total",
+            "wave-template cache lookups", ("outcome",),
+        ).labels(outcome="hit" if hit else "miss").inc()
+        r.gauge(
+            "trees_wave_template_evictions",
+            "wave templates LRU-evicted from the cache so far",
+        ).labels().set(self.template_cache.evictions)
+        r.gauge(
+            "trees_wave_template_traces",
+            "traced builder bodies across all wave templates",
+        ).labels().set(self.template_cache.trace_count)
 
     # ------------------------------------------------------------- submit
     def submit(
@@ -331,6 +497,7 @@ class JobService:
         if self._mux is None or not self._mux.preempt(handle):
             return False
         self.admission.note_preempted(handle)
+        self._observe_preemption(handle)
         self._queue.append(handle)
         self._admit_ready = True
         return True
@@ -349,6 +516,23 @@ class JobService:
         return self.template_cache.trace_count
 
     # ------------------------------------------------------------ internal
+    def _queue_probe(self):
+        """Queue-heat signal for the chunk controller: (queued jobs, the
+        oldest queued job's wait in seconds, seconds of slack to the
+        nearest outstanding deadline)."""
+        running = (
+            self._mux.running_handles() if self._mux is not None else ()
+        )
+        slack = self.admission.deadline_slack(self._queue, running)
+        if not self._queue:
+            return (0, 0.0, slack)
+        now = self._clock()
+        return (
+            len(self._queue),
+            max(now - h.submitted_at for h in self._queue),
+            slack,
+        )
+
     def _pending(self) -> bool:
         return bool(self._queue) or (self._mux is not None and self._mux.live)
 
@@ -372,7 +556,10 @@ class JobService:
                     pop_policy=self.pop_policy,
                     gang=self.gang,
                     collect_stats=self.collect_stats,
+                    stats_factory=self._stats_factory(),
                     device=self.device,
+                    tracer=self.tracer,
+                    controller=self.controller,
                 )
                 # a wave of the last one's layout runs on its loop, graphs
                 # and buffers, as the device engine's on its template
@@ -388,8 +575,7 @@ class JobService:
         done = self._mux.step()
         if done:
             self._admit_ready = True
-            for h in done:
-                self.admission.note_finished(h)
+            self._observe_completions(done)
         # preemption: seat what free regions absorb first, then ask the
         # admission layer who must yield for whoever is still stuck
         if self.preemption and self._queue and self._mux.live:
@@ -400,6 +586,7 @@ class JobService:
             for v in victims:
                 if self._mux.preempt(v):
                     self.admission.note_preempted(v)
+                    self._observe_preemption(v)
                     self._queue.append(v)
                     self._admit_ready = True
         return done
@@ -407,26 +594,45 @@ class JobService:
     def _device_wave(self, wave: List[JobHandle]) -> DeviceMultiplexer:
         """A resident wave: members seated in canonical order (so a
         permutation of an earlier wave lands on its cached template's slot
-        layout), the template looked up by the wave's key, stored on a
-        miss."""
+        layout), ``dispatch="auto"`` resolved (a cached template's mode
+        wins before the controller is asked), the template looked up by
+        the wave's key, stored on a miss."""
         order = canonical_wave_order([h.job for h in wave])
         wave = [wave[i] for i in order]
         jobs = [h.job for h in wave]
-        dispatch = resolve_policy(self.dispatch).name
+        cap = sum(j.quota for j in jobs)
+
+        def peek(cand: str):
+            # sticky per wave shape: an identical consecutive wave never
+            # rebuilds on a flipped decision; a new shape falls through to
+            # the controller's window, accumulated across waves
+            return self.template_cache.peek(wave_template_key(
+                jobs, cap, self.stack_depth, self.chunk,
+                dispatch=cand, megakernel=self.megakernel,
+            ))
+
+        dispatch = resolve_policy(resolve_resident_dispatch(
+            self.dispatch, self.controller, cap, peek=peek)).name
         key = wave_template_key(
-            jobs, sum(j.quota for j in jobs), self.stack_depth, self.chunk,
+            jobs, cap, self.stack_depth, self.chunk,
             dispatch=dispatch, megakernel=self.megakernel,
         )
         tpl = self.template_cache.lookup(key)
+        self._observe_template_cache(hit=tpl is not None)
         mux = DeviceMultiplexer(
             wave,
             dispatch=dispatch,
             stack_depth=self.stack_depth,
             chunk=self.chunk,
             collect_stats=self.collect_stats,
+            stats_factory=self._stats_factory(),
             template=tpl,
             megakernel=self.megakernel,
             device=self.device,
+            tracer=self.tracer,
+            controller=self.controller,
+            chunk_controller=self.chunk_controller,
+            queue_probe=self._queue_probe,
         )
         if tpl is None:
             self.template_cache.store(WaveTemplate(

@@ -268,7 +268,10 @@ def wave_template_key(jobs: Sequence[Job], capacity: int, stack_depth: int,
                       megakernel: bool = False) -> Tuple:
     """Cache key of one wave shape: member structure and quota layout in
     :func:`canonical_wave_order`, TV capacity, stack depth, the chunk size
-    K (an int or ``None``), the resolved dispatch and the chunk driver
+    K (an int, ``None``, or ``"auto"``: adaptive-K waves share one entry,
+    K being only the chunk's dynamic epoch bound), the resolved dispatch
+    ("auto" is resolved by the service before keying, sticky per wave
+    shape through :meth:`WaveTemplateCache.peek`) and the chunk driver
     (the plain loop or the ``epoch_chunk`` kernel)."""
     order = canonical_wave_order(jobs)
     return (
@@ -314,6 +317,12 @@ class WaveTemplateCache:
         self._entries.move_to_end(key)
         self.hits += 1
         return t
+
+    def peek(self, key: Tuple) -> Optional[WaveTemplate]:
+        """Non-counting probe: dispatch="auto" checks which resolved-mode
+        template already exists for a wave shape (the sticky-decision
+        rule) without skewing the hit/miss counters or the LRU order."""
+        return self._entries.get(key)
 
     def store(self, template: WaveTemplate) -> None:
         self._entries[template.key] = template

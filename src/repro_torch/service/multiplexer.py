@@ -41,6 +41,14 @@ module extends work-together across tenants:
   ``megakernel=True``, one cooperative ``epoch_chunk`` launch over the
   fleet carry.
 
+Both drivers take the reference's control and telemetry hooks:
+``dispatch="auto"`` (the host driver decides per global epoch, the
+resident one once per wave), ``chunk="auto"`` (a ``ChunkController``
+picks each chunk's epoch bound from the service's queue probe),
+``tracer`` (epoch spans on the host, ``chunk``/``dispatch``/``readback``
+spans per resident chunk) and ``stats_factory`` (a
+``obs.metrics.MetricsCollector`` for the registry's series).
+
 Per-job results are bit-identical to solo ``HostEngine`` runs with
 ``capacity=quota`` under both drivers, at every K.
 """
@@ -53,6 +61,7 @@ import numpy as np
 import torch
 
 from ..core import tvm
+from ..control.controller import ChunkController
 from ..core.engine import (
     _COMPACTED_RESIDENT_MSG,
     ChunkSummary,
@@ -61,6 +70,7 @@ from ..core.engine import (
     _bound_tensors,
     _fresh_resident_carry,
     resolve_device,
+    resolve_resident_dispatch,
 )
 from ..core.program import HeapVar, MapType, Program, TaskType, pack_args
 from ..core.scheduler import (
@@ -68,12 +78,14 @@ from ..core.scheduler import (
     NullStats,
     RunStats,
     RunStatsCollector,
+    StatsCollector,
     batched_device_stacks,
     load_region_stacks,
     reseed_region_stacks,
     resolve_mux_policy,
     resolve_policy,
 )
+from ..obs.trace import NULL_TRACER
 from .jobs import (
     Job,
     JobFailure,
@@ -326,6 +338,7 @@ class _FleetBase:
         capacity: Optional[int] = None,
         coalesce: bool = True,
         collect_stats: bool = True,
+        stats_factory=None,
         device=None,
         template=None,
     ):
@@ -371,11 +384,18 @@ class _FleetBase:
             self.program, self._slots = fuse_programs(
                 [j.program for j in jobs], [j.quota for j in jobs]
             )
-        self._col = RunStatsCollector() if collect_stats else NullStats()
+        self._stats_factory = stats_factory
+        self._collect_stats = collect_stats
+        self._col = self._collector()
         # (region index, handle) pairs whose TV image restores from a
         # RegionCheckpoint once the wave's runtime state exists
         self._restore_pending: List[Tuple[int, JobHandle]] = []
         self._init_fleet(handles)
+
+    def _collector(self) -> StatsCollector:
+        if self._stats_factory is not None:
+            return self._stats_factory()
+        return RunStatsCollector() if self._collect_stats else NullStats()
 
     def _tenant_heap(self, slot: TenantSlot, heap_init=None):
         """The tenant's heap arrays under its namespace, with sink rows."""
@@ -704,17 +724,26 @@ class EpochMultiplexer(_FleetBase):
         pop_policy: Any = "fuse_all",
         gang: int = 0,
         collect_stats: bool = True,
+        stats_factory=None,
         device=None,
         graphs: bool = True,
+        tracer=None,
+        controller=None,
     ):
         super().__init__(
             handles, capacity=capacity, coalesce=coalesce,
-            collect_stats=collect_stats, device=device,
+            collect_stats=collect_stats, stats_factory=stats_factory,
+            device=device,
         )
         self.pop_policy = resolve_mux_policy(pop_policy, gang)
-        self._loop = EpochLoop(self.program, dispatch, graphs=graphs)
+        self._loop = EpochLoop(self.program, dispatch, graphs=graphs,
+                               tracer=tracer, controller=controller)
+        self.tracer = self._loop.tracer
         self.policy = self._loop.policy
-        self._readback = Readback(self._pack, self._unpack)
+        self.controller = self._loop.controller
+        self._readback = Readback(
+            self._pack, self._unpack,
+            active=lambda fetched: int(fetched[2].sum()))
         self._rotor = 0
         self._global_epochs = 0
         # resume preempted members now that the runtime state exists
@@ -731,14 +760,16 @@ class EpochMultiplexer(_FleetBase):
         """Take over ``prev``'s loop (its graphs) and its TV, heap and arena
         tensors, this wave's state written into them in place, when
         ``prev`` is finished and of the same layout: fused program,
-        dispatch, graphs setting, slots, and every tensor's shape, type
-        and device.  Returns whether it did; a wave that has stepped keeps
-        its own."""
+        dispatch, graphs setting, tracer and controller, slots, and every
+        tensor's shape, type and device.  Returns whether it did; a wave
+        that has stepped keeps its own."""
         mine = _bound_tensors(self._state, self._heap, self._arena)
         theirs = _bound_tensors(prev._state, prev._heap, prev._arena)
         if (prev.live or self._global_epochs
                 or prev._loop.policy.name != self._loop.policy.name
                 or prev._loop.graphs != self._loop.graphs
+                or prev._loop.tracer is not self._loop.tracer
+                or prev._loop.controller is not self._loop.controller
                 or [(s.base, s.quota) for s in prev._slots]
                 != [(s.base, s.quota) for s in self._slots]
                 or list(prev._heap) != list(self._heap)
@@ -793,13 +824,30 @@ class EpochMultiplexer(_FleetBase):
         for d in pops.values():
             cen_np[d.start - lo: d.start - lo + d.count] = d.cen
 
-        (self._state, self._heap, summary, fetched, map_launches,
-         launched, by_type, shared_dispatches) = self._loop.run_epoch(
-            self._state, self._heap, lo, hi - lo, cen_np, col,
-            self._readback, arena=self._arena,
-        )
-        job_forks, job_join, job_active, job_overflow, job_next, \
-            map_sched = fetched
+        tr = self.tracer
+        if tr.enabled:
+            tr.thread(1, "host-epochs")
+        with tr.span(
+            "epoch", "host", tid=1,
+            epoch=self._global_epochs, jobs=len(chosen), span=hi - lo,
+            mode=self.policy.name,
+        ) as sargs:
+            (self._state, self._heap, summary, fetched, map_launches,
+             launched, by_type, shared_dispatches) = self._loop.run_epoch(
+                self._state, self._heap, lo, hi - lo, cen_np, col,
+                self._readback, arena=self._arena,
+            )
+            job_forks, job_join, job_active, job_overflow, job_next, \
+                map_sched = fetched
+            if tr.enabled:
+                n_act = int(job_active.sum())
+                dec = self._loop.last_decision
+                sargs.update(
+                    launched=launched, active=n_act,
+                    util=n_act / max(1, launched),
+                    **({"mode": dec.mode, "auto_reason": dec.reason}
+                       if dec is not None else {}),
+                )
         # the region cursors advance on the device, in place; only the
         # readback copy above crosses to the host
         self._arena.next.copy_(summary.job_next)
@@ -939,21 +987,20 @@ class _ChunkLedger:
 def check_resident_options(dispatch: Any, chunk: Any):
     """The options of a resident wave, checked here for
     :class:`DeviceMultiplexer` and ``JobService(engine="device")`` alike:
-    the masked or gather dispatch (compacted sizes its launches from
-    runtime populations) and a chunk of K >= 1 epochs, or None for a fully
-    resident wave (``"auto"``, the chunk controller, is ROADMAP item 8).
-    Returns the dispatch policy."""
+    the masked, gather or auto dispatch (compacted sizes its launches from
+    runtime populations; auto resolves to masked or gather once per wave)
+    and a chunk of K >= 1 epochs, None for a fully resident wave, or
+    ``"auto"`` (a :class:`~repro_torch.control.controller.ChunkController`
+    picks K at every boundary).  Returns the dispatch policy."""
     policy = resolve_policy(dispatch)
-    if policy.name not in ("masked", "gather"):
+    if policy.name not in ("masked", "gather", "auto"):
         raise ValueError(_COMPACTED_RESIDENT_MSG)
     if chunk == "auto":
-        raise NotImplementedError(
-            "chunk='auto' (the chunk controller) is not ported to the "
-            "PyTorch package yet (ROADMAP item 8)")
+        return policy
     if isinstance(chunk, str) or (chunk is not None and chunk < 1):
         raise ValueError(
-            "chunk must be >= 1 epoch, or None for a fully resident "
-            f"wave; got {chunk!r}"
+            "chunk must be >= 1 epoch, None for a fully resident wave, or "
+            f"'auto'; got {chunk!r}"
         )
     return policy
 
@@ -973,7 +1020,15 @@ class DeviceMultiplexer(_FleetBase):
     chunk and is closed to admission and preemption.
 
     Masked and gather dispatches only (``compacted`` raises, as in the
-    reference); every live region pops each global epoch.  On the card a
+    reference; ``"auto"`` resolves to one of them once, against
+    ``controller``'s rolling window); every live region pops each global
+    epoch.  ``chunk="auto"`` takes each chunk's K from
+    ``chunk_controller`` (a fresh
+    :class:`~repro_torch.control.controller.ChunkController` unless
+    given), fed at every boundary with the completions and
+    ``queue_probe()``; K only moves the chunk's dynamic epoch bound, so
+    nothing is rebuilt.  ``tracer`` receives one ``chunk`` span per chunk
+    with its ``dispatch`` and ``readback`` children.  On the card a
     chunk is the plain loop, whose steps call the ``segmented_fork_scan``
     and ``type_rank`` kernels, or with ``megakernel=True`` one
     cooperative ``epoch_chunk`` launch (a wave whose tenant mix the kernel
@@ -993,15 +1048,34 @@ class DeviceMultiplexer(_FleetBase):
         stack_depth: int = 1 << 10,
         chunk: Any = None,
         collect_stats: bool = True,
+        stats_factory=None,
         template=None,
         megakernel: bool = False,
         device=None,
+        tracer=None,
+        controller=None,
+        chunk_controller=None,
+        queue_probe=None,
     ):
         super().__init__(
             handles, capacity=capacity, collect_stats=collect_stats,
-            device=device, template=template,
+            stats_factory=stats_factory, device=device, template=template,
         )
+        # dispatch="auto" resolves once, against the controller's rolling
+        # window, before anything is built: a resident loop bakes its mode
+        # in (DESIGN.md §14); the service makes the outcome sticky per wave
+        # shape through the template cache
+        self._dispatch_controller = controller
+        dispatch = resolve_resident_dispatch(dispatch, controller,
+                                             self.capacity)
         policy = check_resident_options(dispatch, chunk)
+        # chunk="auto": a ChunkController owns K, re-decided at every chunk
+        # boundary from completions and queue heat; K only feeds the
+        # dynamic `limit` of run_chunk, so nothing is rebuilt for it
+        self._kctl = None
+        self._queue_probe = queue_probe
+        if chunk == "auto":
+            self._kctl = chunk_controller or ChunkController()
         self.stack_depth = stack_depth
         self.chunk = chunk
         if template is not None:
@@ -1027,8 +1101,14 @@ class DeviceMultiplexer(_FleetBase):
         self.policy = self._loop.policy
         if self._loop.megakernel and self.device.type == "cuda":
             self._loop.device_table()  # no instantiated tenant mix: raise
+        # the mux owns its tracer rather than the (template-shared) loop:
+        # resident spans are emitted at chunk boundaries on the host, so a
+        # cached template serves waves traced and untraced
+        self.tracer = tracer or NULL_TRACER
         self._carry = None
+        self._chunk_seq = 0
         self._ledger = _ChunkLedger(len(self._slots))
+        self.last_deltas: Dict[str, int] = {}
 
     @property
     def loop(self) -> EpochLoop:
@@ -1063,10 +1143,12 @@ class DeviceMultiplexer(_FleetBase):
 
     def _chunk_limit(self, max_epochs: int) -> int:
         """This chunk's epoch bound: the guard for a fully resident wave,
-        else the ledger's epoch watermark plus K."""
+        else the ledger's epoch watermark plus K (the controller's K under
+        ``chunk="auto"``)."""
         if self.chunk is None:
             return max_epochs
-        return min(max_epochs, self._ledger.epochs + self.chunk)
+        k = self._kctl.current() if self._kctl is not None else self.chunk
+        return min(max_epochs, self._ledger.epochs + k)
 
     def _attach_carry(self, carry) -> None:
         """Adopt a post-chunk carry (the same tensors, updated in place):
@@ -1092,12 +1174,64 @@ class DeviceMultiplexer(_FleetBase):
         if not riders:
             return []
         self._ensure_carry()
-        carry = self._loop.run_chunk(
-            self._carry, self._chunk_limit(max_epochs),
-            n_regions=len(self._slots))
-        self._attach_carry(carry)
-        s = self._loop.chunk_summary(carry)
-        self._account(s, riders)
+        limit = self._chunk_limit(max_epochs)
+        tr = self.tracer
+        if tr.enabled:
+            tr.thread(2, "resident")
+        self._chunk_seq += 1
+        # one "chunk" span per chunk, with the chunk's single dispatch and
+        # readback as children: a wave of E epochs renders as ⌈E/K⌉
+        # readback spans.  The deltas the readback reveals ride the span's
+        # args.
+        with tr.span(
+            "chunk", "resident", tid=2,
+            seq=self._chunk_seq, jobs=len(riders),
+            k=(self._kctl.current() if self._kctl is not None
+               else self.chunk),
+            mode=self.policy.name, megakernel=self._loop.megakernel,
+        ) as sargs:
+            with tr.span("dispatch", "resident", tid=2), tr.annotation(
+                    "trees:resident_chunk"):
+                carry = self._loop.run_chunk(self._carry, limit,
+                                             n_regions=len(self._slots))
+            self._attach_carry(carry)
+            # the chunk's one readback (and, on the card, its wait)
+            with tr.span("readback", "resident", tid=2):
+                s = self._loop.chunk_summary(carry)
+            done = self._finish_chunk(s, riders, max_epochs)
+            if tr.enabled:
+                sargs.update(self.last_deltas)
+        # chunk-controller feedback: widen K while boundaries surface no
+        # completions, shrink while the job queue runs hot or the nearest
+        # deadline tightens (the probe's optional third element)
+        if self._kctl is not None:
+            queued, oldest, slack = (0, 0.0, None)
+            if self._queue_probe is not None:
+                probe = self._queue_probe()
+                queued, oldest = probe[0], probe[1]
+                if len(probe) > 2:
+                    slack = probe[2]
+            if slack is None:
+                self._kctl.observe(len(done), queued, oldest)
+            else:
+                self._kctl.observe(
+                    len(done), queued, oldest, deadline_slack=slack
+                )
+        return done
+
+    def _finish_chunk(self, s: ChunkSummary, riders: List[int],
+                      max_epochs: int) -> List[JobHandle]:
+        """Account one chunk's readback and settle its riders; leaves the
+        delta terms in ``last_deltas`` for the span's args."""
+        deltas = self._account(s, riders)
+        self.last_deltas = deltas
+        # dispatch-controller feedback: the chunk is the finest observable
+        # grain on this driver — one fill observation per boundary, against
+        # the full-TV width (tasks / (lanes + holes))
+        if self._dispatch_controller is not None and deltas["epochs"] > 0:
+            self._dispatch_controller.observe(
+                deltas["tasks"], deltas["lanes"] + deltas["holes"]
+            )
         return self._settle(s, riders, max_epochs)
 
     def run(self, max_epochs: int = 1 << 20) -> List[JobHandle]:
@@ -1108,9 +1242,10 @@ class DeviceMultiplexer(_FleetBase):
         return out
 
     # --------------------------------------------------------- accounting
-    def _account(self, s: ChunkSummary, riders: List[int]) -> None:
+    def _account(self, s: ChunkSummary, riders: List[int]) -> Dict[str, int]:
         """Credit this chunk's delta to the fleet collector and to every
-        region that rode the chunk."""
+        region that rode the chunk; returns the delta terms (the chunk
+        span's args)."""
         col = self._col
         col.dispatch()
         col.transfer()
@@ -1120,6 +1255,8 @@ class DeviceMultiplexer(_FleetBase):
         led = self._ledger
         d_epochs = s.n_epochs - led.epochs
         d_holes = s.hole_lanes - led.hole_lanes
+        d_tasks = int((s.job_tasks - led.job_tasks).sum())
+        d_lanes = d_epochs * self.capacity - d_holes
         if d_epochs > 0:
             # every global epoch fused all regions live then; the task
             # steps were span-bucketed, so launched lanes are the full-TV
@@ -1131,8 +1268,7 @@ class DeviceMultiplexer(_FleetBase):
                 n=d_epochs,
             )
             col.holes_skipped(d_holes)
-            col.lanes(int((s.job_tasks - led.job_tasks).sum()),
-                      d_epochs * self.capacity - d_holes, None)
+            col.lanes(d_tasks, d_lanes, None)
             col.forks(int((s.job_forks - led.job_forks).sum()))
         bases = np.asarray([sl.base for sl in self._slots])
         col.tv_peak(int((s.job_peak + bases).max()))
@@ -1150,6 +1286,10 @@ class DeviceMultiplexer(_FleetBase):
         led.map_elements = s.map_elements
         led.map_lanes = s.map_lanes
         led.hole_lanes = s.hole_lanes
+        return {
+            "epochs": d_epochs, "tasks": d_tasks, "lanes": d_lanes,
+            "holes": d_holes, "maps": d_maps,
+        }
 
     def _settle(self, s: ChunkSummary, riders: List[int],
                 max_epochs: int) -> List[JobHandle]:

@@ -13,7 +13,8 @@ past the last epoch and steps after the drain change nothing, identical
 and permuted consecutive waves build nothing new (``trace_count``), the
 template key ignores member order, and the resident steps launch at the
 rung of the live span.  The refusals: ``compacted``, the host-only
-options, and the options still to port.  No JAX here.
+options, and the sharded fleet still to port (beside it, the control and
+telemetry options that run now).  No JAX here.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch.apps import fib, get_case, get_fleet
 from repro_torch.core import HostEngine
+from repro_torch.obs import SpanTracer, iter_spans
 from repro_torch.service import (
     DeviceMultiplexer,
     Job,
@@ -409,9 +411,24 @@ def test_service_device_engine_refuses_host_only_options():
 @pytest.mark.parametrize("kw, item", (
     (dict(engine="sharded"), "9"),
     (dict(engine="device", chunk="auto"), "8"),
-    (dict(engine="device", dispatch="auto"), "8"),
-    (dict(engine="device", tracer=object()), "8"),
+    (dict(engine="device", dispatch="auto", calibrate=False), "8"),
+    (dict(engine="device", chunk=2, tracer=SpanTracer()), "8"),
 ))
 def test_options_still_to_port_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        JobService(device="cpu", **kw)
+    """The sharded fleet (ROADMAP item 9) still raises; item 8's options
+    (the chunk and dispatch controllers, the tracer) run a two-tenant
+    device wave whose tenants equal their solo runs."""
+    if item == "9":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP item {item}"):
+            JobService(device="cpu", **kw)
+        return
+    svc = JobService(capacity=512, device="cpu", **kw)
+    hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=256)
+          for n in (7, 9)]
+    svc.drain()
+    for h, n in zip(hs, (7, 9)):
+        _assert_solo(h, _solo(fib.PROGRAM, fib.initial(n), 256))
+    if svc.tracer is not None:
+        chunks = list(iter_spans(svc.tracer.events, "chunk", "resident"))
+        assert len(chunks) == math.ceil(svc.stats().epochs / 2)

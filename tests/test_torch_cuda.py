@@ -854,6 +854,67 @@ def test_device_service_on_cuda_matches_cpu(cuda_device, dispatch,
     assert gs.as_dict() == cs.as_dict()
 
 
+def _flip_controller(flip):
+    """A recording DispatchController that leaves masked for ``flip`` on a
+    sparse fleet: the reference's priors (gather), or a cheap pack
+    limited to masked and compacted."""
+    from repro_torch.control import CostModel, DispatchController
+
+    class Recording(DispatchController):
+        def choose(self, span_bucket):
+            d = super().choose(span_bucket)
+            self.log.append(d.mode)
+            return d
+
+    if flip == "gather":
+        ctl = Recording(cost=CostModel())
+    else:
+        ctl = Recording(cost=CostModel(dispatch_s=1e-7, transfer_s=1e-7,
+                                       per_type_s=0.0),
+                        modes=("masked", "compacted"))
+    ctl.log = []
+    return ctl
+
+
+@pytest.mark.parametrize("flip", ("gather", "compacted"))
+def test_auto_flips_modes_on_graphs_like_the_cpu(cuda_device, flip):
+    """dispatch="auto" switching modes on graphed steps: four waves of two
+    fib tenants at the two ends of a sparse TV on one service (each wave on
+    the last wave's loop, so both modes' keys are captured and replayed)
+    make the CPU's decisions and give the CPU's and a masked wave's bits."""
+    fib = all_cases()["fib"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = JobService(capacity=4096, dispatch="auto", calibrate=False,
+                         device=dev)
+        svc.controller = _flip_controller(flip)
+        waves = []
+        for _ in range(4):
+            n0 = len(svc.controller.log)
+            hs = [svc.submit_case(fib, quota=2048) for _ in range(2)]
+            svc.drain()
+            waves.append((hs, svc._mux.stats().as_dict(),
+                          svc.controller.log[n0:]))
+        runs[dev] = (waves, svc._mux.loop.captures)
+    masked = JobService(capacity=4096, device="cpu")
+    mhs = [masked.submit_case(fib, quota=2048) for _ in range(2)]
+    masked.drain()
+    (gw, captures), (cw, _) = runs["cuda"], runs["cpu"]
+    assert captures > 0
+    assert {m for _, _, log in gw for m in log} == {"masked", flip}
+    for (ghs, gstats, glog), (chs, cstats, clog) in zip(gw, cw):
+        assert glog == clog and gstats == cstats
+        for g, c, m in zip(ghs, chs, mhs):
+            assert g.status is c.status is g.status.DONE
+            for want in (c.result, m.result):
+                assert torch.equal(g.result.value.cpu(), want.value)
+                for k in want.heap:
+                    assert torch.equal(g.result.heap[k].cpu(),
+                                       want.heap[k]), k
+                assert g.result.stats.solo_dict() == \
+                    want.stats.solo_dict()
+
+
 # B, Hq, Hkv, Sq, Skv, D, causal, q_offset, window
 FLASH = [
     (2, 8, 2, 128, 128, 128, True, 0, 0),

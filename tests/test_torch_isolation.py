@@ -45,7 +45,11 @@ _, rvalue, rstats = fib.case().run(engine_cls=DeviceEngine, device="cpu",
 assert int(rvalue[0, 0]) == fib.fib_reference(12), rvalue[0]
 assert epoch_megakernel.device_table(fib.PROGRAM) is not None
 from repro_torch.apps import get_fleet, treewalk
+from repro_torch.obs import SpanTracer, iter_spans
 from repro_torch.service import JobService
+tr = SpanTracer()
+_, _, astats = fib.case().run(device="cpu", dispatch="auto", tracer=tr)
+assert len(list(iter_spans(tr.events, "epoch"))) == astats.epochs
 fleet = get_fleet("mixed3")
 svc = JobService(capacity=sum(q for _, q in fleet), device="cpu")
 handles = [svc.submit_case(c, quota=q) for c, q in fleet]
@@ -126,8 +130,20 @@ def test_default_device_is_cuda():
 
 
 def test_auto_dispatch_is_refused():
+    """dispatch="auto" runs (the controller's per-epoch pick, each of the
+    three modes bit-identical); what stays refused is a mode outside the
+    three, and compacted on a resident loop."""
+    from repro_torch.control import DispatchController
+
+    eng = HostEngine(fib.PROGRAM, capacity=1 << 8, dispatch="auto",
+                     device="cpu")
+    _, value, stats = eng.run(fib.initial(10))
+    assert int(value[0, 0]) == fib.fib_reference(10)
+    assert sum(eng.controller.decisions.values()) == stats.epochs
     with pytest.raises(ValueError, match="auto"):
-        HostEngine(fib.PROGRAM, dispatch="auto", device="cpu")
+        DispatchController(modes=("masked", "eager"))
+    with pytest.raises(ValueError, match="compacted"):
+        DeviceEngine(fib.PROGRAM, dispatch="compacted", device="cpu")
 
 
 def _no_result(proc) -> None:

@@ -32,6 +32,7 @@ from repro_torch.apps import fib, get_fleet, treewalk
 from repro_torch.core import HostEngine, InitialTask, Program, TaskType
 from repro_torch.core import convert
 from repro_torch.kernels import fork_compact
+from repro_torch.obs import MetricsRegistry, SpanTracer, iter_spans
 from repro_torch.service import (
     AdmissionController,
     AdmissionError,
@@ -389,19 +390,26 @@ def test_admission_rejects_bad_jobs():
 
 
 def test_unported_options_raise():
-    # engine="device" is ported (tests/test_torch_chunked_service.py);
-    # its adaptive chunk is not
+    # engine="device" is ported (tests/test_torch_chunked_service.py), and
+    # so are the control and telemetry options (tests/test_torch_control.py,
+    # tests/test_torch_obs.py); the sharded fleet is not
     assert JobService(engine="device", device="cpu").engine == "device"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        JobService(engine="device", chunk="auto", device="cpu")
+    svc = JobService(engine="device", chunk="auto", device="cpu")
+    assert svc.chunk_controller is not None and svc.chunk == "auto"
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         JobService(engine="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        JobService(dispatch="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        JobService(metrics=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        JobService(tracer=object(), device="cpu")
+    svc = JobService(dispatch="auto", calibrate=False, device="cpu")
+    assert svc.controller is not None
+    assert svc.controller.cost.source == "roofline"
+    reg, tr = MetricsRegistry(), SpanTracer()
+    svc = JobService(capacity=512, metrics=reg, tracer=tr, device="cpu")
+    h = svc.submit(fib.PROGRAM, fib.initial(6), quota=256, name="t")
+    svc.drain()
+    assert h.status.value == "done"
+    assert reg.value("trees_jobs_finished_total", tenant="t",
+                     status="done") == 1
+    assert len(list(iter_spans(tr.events, "epoch", "host"))) \
+        == svc.stats().epochs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             JobService()
