@@ -129,7 +129,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 alone, and an eager and a warm run under torch.profiler
                 (device busy share, device ops per epoch, the graphed run
                 recording no fewer device ops than the eager one; a short
-                graphed record is taken again, up to three times).
+                graphed record is taken again, up to three times).  The
+                mixed4 waves' eager and warm walls are their profiled
+                runs'; annealing's eager run and its profiles run 20 of
+                its 200 steps, held exactly to a fresh graphed engine's
+                five runs of those 20 steps, and its graphed runs of all
+                200 steps are held to phase 3b's masked run.  A lap is
+                printed after each sub-step.
                 Phases 3, 3b, 7, 8 and 9 run on graphs, the default;
   4b. control — (run after phase 4) CostModel.calibrated on the card (a
                 graph replay's round trip; the per-lane slopes of a masked
@@ -189,6 +195,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 one preempt/resume of a bfs tenant at a medium size, on the
                 host engine and on the device engine's epoch_chunk at K=4,
                 and one unbounded device wave under torch.profiler;
+  7b. sharded — JobService(engine="sharded", chunk=4) on two copies of
+                phase 7's full-size mixed4 wave (8 jobs, 7,602,176 slots a
+                shard): the fleet epoch_chunk at P = 1, 2 and 4, masked and
+                gather, and the plain fleet loop at P = 2, gather; then two
+                copies each of the registry's mixed3 and fib_fleet at P = 2
+                under sticky placement with rebalancing (migrations above
+                0); every job held to its solo run on the card (phase 7's,
+                held to the CPU), the per-shard task and fork sums to the
+                solo totals, one dispatch and readback per collective
+                step; for each P the wall, collective steps, epoch_chunk
+                launches, set-up and seating time, carry bytes a shard and
+                peak device memory, and that epoch_chunk (and, on the plain
+                run, segmented_fork_scan and type_rank) was launched;
   8. serve    — drive EpochServer on granite-3-8b at full width and depth
                 (40 layers, bf16, random weights from seed 0) with 16 slots
                 of 2048 rows: 48 requests, prompts of 64-1024 tokens, 32-128
@@ -222,7 +241,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 flash_attention and
                 ssd_scan once per layer of every prefill, decode_attention
                 once per layer of every epoch, and its 2-layer float32 runs
-                on the card (graphed and eager) and the CPU.
+                on the card (graphed and eager) and the CPU;
+  10. examples — the twins of the examples (examples/*_torch.py) on the
+                card, each a subprocess with its default arguments, all
+                started at once: quickstart, graph_analytics, serve_llm
+                (the toy decode program on the device engine), serve_llm
+                --legacy (reduced granite-3-8b: flash_attention and
+                decode_attention) and --legacy --arch mamba2_1_3b
+                (ssd_scan); each must exit 0 and print its checks' lines.
+The full-size CPU runs of phases 3, 3b and 5 are computed in one
+background process (CPU_REF_THREADS threads) while the card runs phases
+2-5.
 A kernel's launches count what ran on the card: a graph's capture adds
 none, each replay adds the launches the graph holds.  Profiles whose
 first attempt recorded no device activity are run again and named at
@@ -235,10 +264,14 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
+import io
 import itertools
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -293,12 +326,15 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-_T0 = [0.0]
+_T0 = [0.0, 0.0]  # the script's start, the last lap
 
 
 def lap(what: str) -> None:
-    """Print the script's elapsed time after ``what``."""
-    print(f"[env] {what} done at {time.perf_counter() - _T0[0]:.1f} s")
+    """Print the script's elapsed time after ``what``, and the time since
+    the last lap."""
+    now = time.perf_counter() - _T0[0]
+    print(f"[env] {what} done at {now:.1f} s (+{now - _T0[1]:.1f} s)")
+    _T0[1] = now
 
 
 def _events_ms(run, n: int) -> float:
@@ -357,6 +393,73 @@ def bound_ms(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------- the CPU references
+# The full-size CPU runs that the card's runs are held to take seconds
+# each on the host: phase 3's masked HostEngine runs, phase 3b's, and
+# phase 5's plain resident runs.  One background process computes them,
+# on CPU_REF_THREADS intra-op threads, from the end of phase 1 on, while
+# the card runs phases 2-5; each phase waits for its own and prints the
+# run's line where the run used to be.  The card's walls of phases 2-5
+# are taken with that process running beside them.
+CPU_REF_THREADS = 3
+CPU_REF_KEYS = (
+    [("path", n, "masked") for n in ("fib", "bfs", "mergesort")]
+    + [("apps", n, "masked") for n in ("sssp", "nqueens", "tsp", "fft",
+                                       "matmul", "annealing", "naive")]
+    + [("resident-plain", n, d) for n in ("fib", "bfs", "mergesort")
+       for d in ("masked", "gather")])
+
+
+def _cpu_ref(key):
+    """(In the background process.)  One CPU reference run, ``key`` =
+    ``(tag, case name, dispatch)``: its result and its printed line."""
+    from repro_torch.core import DeviceEngine
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    tag, name, dispatch = key
+    kw = {}
+    if tag == "apps":
+        case, _ = app_case(name, APP_FULL[name])
+    else:
+        case = {c.name: c for c, _ in path_cases()}[name]
+        if tag == "resident-plain":
+            kw["engine_cls"] = DeviceEngine
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r = _run(case, dispatch, "cpu", tag=tag, **kw)
+    return r, out.getvalue()
+
+
+class CpuRefs:
+    """The background process of the CPU references (``CPU_REF_KEYS``,
+    submitted in the order the phases need them)."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {k: self.pool.submit(_cpu_ref, k)
+                        for k in CPU_REF_KEYS}
+
+    def get(self, tag, name, dispatch):
+        """The run of ``(tag, name, dispatch)``, its line printed now."""
+        r, text = self.futures.pop((tag, name, dispatch)).result()
+        print(text, end="")
+        return r
+
+    def close(self) -> None:
+        """Stop the process, whatever it is running."""
+        for p in list(getattr(self.pool, "_processes", {}).values()):
+            p.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_REFS = []  # the running CpuRefs, once phase 1 is done
+
+
+def cpu_ref(tag, name, dispatch):
+    return CPU_REFS[0].get(tag, name, dispatch)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1356,7 +1459,7 @@ def phase_path():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
     for case, _ in cases:
-        cpu = runs[case.name, "cpu"] = _run(case, "masked", "cpu")
+        cpu = runs[case.name, "cpu"] = cpu_ref("path", case.name, "masked")
         gpu = runs[case.name, "masked"]
         if gpu[2].as_dict() != cpu[2].as_dict():
             fail(f"{case.name}: CUDA stats differ from the CPU run")
@@ -1542,7 +1645,9 @@ def phase_apps(path_cases):
     HostEngine dispatch, the plain resident DeviceEngine and
     DeviceEngine(megakernel=True), against the references, each other and
     the CPU; treewalk in both orders on phase 7's tree on the masked
-    HostEngine and both resident engines; then the paper's yardsticks."""
+    HostEngine and both resident engines; then the paper's yardsticks.
+    Returns the phase's launches and annealing's masked run (the graphs
+    phase holds its graphed runs to it)."""
     from repro_torch.apps import get_case
     from repro_torch.kernels import epoch_megakernel, fork_compact, ordered_add
 
@@ -1578,7 +1683,7 @@ def phase_apps(path_cases):
         if smallest != case.capacity:
             over_cap.append((name, case.capacity, smallest))
         # the card against the CPU, at full size
-        cpu = _run(case, "masked", "cpu", tag="apps")
+        cpu = cpu_ref("apps", name, "masked")
         worst = _same(mask, cpu, f"{name} cuda vs cpu",
                       fields=tuple(mask[2].as_dict()), fft_bound=fb)
         if fb is not None:
@@ -1606,7 +1711,7 @@ def phase_apps(path_cases):
     if over_cap:
         fail(f"capacities are not the smallest that fit: {over_cap}")
     app_yardsticks(path_cases, walls)
-    return launches
+    return launches, runs["annealing", "masked"]
 
 
 def app_yardsticks(path_cases, walls):
@@ -1787,8 +1892,9 @@ def phase_resident(cases, host_runs):
         for d in ("masked", "gather"):
             mega = runs[case.name, d]
             for dev in ("cuda", "cpu"):
-                plain = _run(case, d, dev, tag="resident-plain",
-                             engine_cls=DeviceEngine)
+                plain = (_run(case, d, dev, tag="resident-plain",
+                              engine_cls=DeviceEngine) if dev == "cuda"
+                         else cpu_ref("resident-plain", case.name, d))
                 if plain[2].as_dict() != mega[2].as_dict():
                     fail(f"resident {case.name} {d}: RunStats differ from "
                          f"the plain resident run on {dev}: "
@@ -2039,15 +2145,240 @@ def phase_service(cases, runs):
     return launches, chunk_launches, wave, host_waves
 
 
+# --------------------------------------------------------------- phase 7b
+# the sharded fleet on phase 7's full-size mixed4 wave: two copies (8
+# jobs) at these shard counts, chunk K
+SHARD_COUNTS = (1, 2, 4)
+SHARDED_K = 4
+
+
+def _sharded_run(label, members, quotas, dispatch, shards, want,
+                 megakernel=True, **kw):
+    """One JobService(engine="sharded") wave on the card: every member
+    twice (``members`` AppCases, one copy's quotas the wave's capacity),
+    each job held to ``want[name]`` (heap, values, solo-comparable stats),
+    the per-shard task and fork sums to the solo totals, one dispatch and
+    one readback per collective step.  Returns the fleet, its wall (ms),
+    its set-up and seating times (ms: the shards' construction, and every
+    boundary's seating, the card synchronised around each), the device
+    memory allocated before the wave (GiB) and the epoch_chunk launches of
+    the wave."""
+    import gc
+
+    from repro_torch.distributed import fleet as dfleet
+    from repro_torch.kernels import epoch_megakernel
+    from repro_torch.service import JobService
+
+    spent = {"set-up": [], "seating": []}
+    init0, seat0 = dfleet.ShardWave.__init__, dfleet.ShardedFleet._seat_pending
+
+    def timed(fn, what):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[what].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    svc = JobService(capacity=sum(quotas), max_jobs=len(members),
+                     engine="sharded", shards=shards, chunk=SHARDED_K,
+                     dispatch=dispatch, megakernel=megakernel,
+                     device="cuda", **kw)
+    handles = [svc.submit_case(c, quota=q, name=f"{c.name}#{r}")
+               for r in range(2) for c, q in zip(members, quotas)]
+    gc.collect()  # the last wave's services
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    k0 = epoch_megakernel.LAUNCHES["epoch_chunk"]
+    dfleet.ShardWave.__init__ = timed(init0, "set-up")
+    dfleet.ShardedFleet._seat_pending = timed(seat0, "seating")
+    try:
+        t0 = time.perf_counter()
+        svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dfleet.ShardWave.__init__ = init0
+        dfleet.ShardedFleet._seat_pending = seat0
+    fl = svc._mux
+    launches = epoch_megakernel.LAUNCHES["epoch_chunk"] - k0
+    for h in handles:
+        if h.status.value != "done":
+            fail(f"sharded {label} {h.job.name}: {h.status} {h.error}")
+        _same_tenant(_tenant(h), want[h.job.name.split("#")[0]],
+                     f"sharded {label} {h.job.name} vs its solo run")
+    per = fl.shard_stats()
+    for f in ("tasks_executed", "total_forks"):
+        solo = 2 * sum(getattr(want[c.name][2], f) for c in members)
+        if sum(getattr(s, f) for s in per) != solo:
+            fail(f"sharded {label}: per-shard {f} "
+                 f"{[getattr(s, f) for s in per]} do not sum to the solo "
+                 f"total {solo}")
+    fs = fl.stats()
+    if not fs.dispatches == fs.scalar_transfers == fl.collective_steps:
+        fail(f"sharded {label}: {fs.dispatches} dispatches and "
+             f"{fs.scalar_transfers} transfers for {fl.collective_steps} "
+             "collective steps")
+    if megakernel and not (fl.collective_steps <= launches
+                           <= shards * fl.collective_steps):
+        fail(f"sharded {label}: {launches} epoch_chunk launches for "
+             f"{fl.collective_steps} collective steps of {shards} shards")
+    return (fl, wall * 1e3, {k: sum(v) * 1e3 for k, v in spent.items()},
+            before, launches)
+
+
+def phase_sharded(wave, runs):
+    """JobService(engine="sharded", chunk=4) on the card: two copies of
+    phase 7's full-size mixed4 wave at P = 1, 2 and 4 on the fleet
+    epoch_chunk, masked and gather, and at P = 2 on the plain fleet loop,
+    gather; then two copies each of the registry's mixed3 and fib_fleet at
+    P = 2 under sticky placement with rebalancing (migrations above 0).
+    Every job is held to its solo run on the card (phase 7's ``runs``,
+    held to the CPU there).  Returns the phase's launches of epoch_chunk,
+    segmented_fork_scan and type_rank."""
+    from repro_torch.apps import get_fleet
+    from repro_torch.kernels import epoch_megakernel, fork_compact
+
+    torch.cuda.synchronize()
+    epoch_megakernel.reset_launches()
+    fork_compact.reset_launches()
+    quotas = [c.capacity for c in wave]
+    walls = {}
+    for d in ("masked", "gather"):
+        want = {c.name: runs[c.name, d] for c in wave}
+        for P in SHARD_COUNTS:
+            fl, wall, spent, before, n = _sharded_run(
+                f"mixed4 x2 {d} P={P}", wave, quotas, d, P, want)
+            carry = fl._shards[0]._carry
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in _carry_tensors(carry).values())
+            walls[d, P] = wall
+            print(f"[sharded] mixed4 x2 epoch_chunk {d:6s} P={P}: wall "
+                  f"{wall:.1f} ms, {fl.collective_steps} collective steps, "
+                  f"{n} epoch_chunk launches, set-up {spent['set-up']:.1f} "
+                  f"ms ({spent['set-up'] / P:.1f} a shard), seating "
+                  f"{spent['seating']:.1f} ms, migrations {fl.migrations}, "
+                  f"carry {nbytes / 2**20:.1f} MiB a shard, peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB ({before:.2f} GiB before the wave); every job "
+                  "equal to its solo run")
+        print(f"[sharded] mixed4 x2 {d}: wall P=2 / P=1 "
+              f"{walls[d, 2] / walls[d, 1]:.3f}, P=4 / P=1 "
+              f"{walls[d, 4] / walls[d, 1]:.3f} (the shards run one after "
+              "another on one card)")
+    want = {c.name: runs[c.name, "gather"] for c in wave}
+    s0 = dict(fork_compact.LAUNCHES)
+    fl, wall, spent, _, _ = _sharded_run(
+        "mixed4 x2 plain gather P=2", wave, quotas, "gather", 2, want,
+        megakernel=False)
+    plain = {k: fork_compact.LAUNCHES[k] - s0[k]
+             for k in ("segmented_fork_scan", "type_rank")}
+    print(f"[sharded] mixed4 x2 plain fleet loop gather P=2: wall "
+          f"{wall:.1f} ms, {fl.collective_steps} collective steps, set-up "
+          f"{spent['set-up']:.1f} ms, seating {spent['seating']:.1f} ms, "
+          f"kernel launches {plain}; every job equal to its solo run")
+    for k, n in plain.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched by the plain sharded wave")
+    for name in ("mixed3", "fib_fleet"):
+        fleet = get_fleet(name)
+        members = [c for c, _ in fleet]
+        qs = [q for _, q in fleet]
+        want = {}
+        for c, q in fleet:
+            if c.name not in want:
+                want[c.name] = _run(dataclasses.replace(c, capacity=q),
+                                    "masked", "cuda", tag="sharded")
+        fl, wall, _, _, n = _sharded_run(
+            f"{name} x2 sticky P=2", members, qs, "masked", 2, want,
+            placement="sticky", rebalance=True)
+        if fl.migrations <= 0:
+            fail(f"sharded {name} x2 sticky: no job migrated")
+        print(f"[sharded] {name} x2 sticky+rebalance epoch_chunk masked "
+              f"P=2: wall {wall:.1f} ms, {fl.collective_steps} collective "
+              f"steps, {n} epoch_chunk launches, migrations "
+              f"{fl.migrations}; every job equal to its solo run")
+    torch.cuda.synchronize()
+    launches = dict(epoch_chunk=epoch_megakernel.LAUNCHES["epoch_chunk"],
+                    **plain)
+    print(f"[sharded] kernel launches during the sharded phase: {launches}")
+    if launches["epoch_chunk"] <= 0:
+        fail("kernel epoch_chunk was not launched on the sharded path")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 10
+# each twin of the examples, as a user runs it (the card by default)
+EXAMPLE_RUNS = (
+    ("quickstart_torch.py",),
+    ("graph_analytics_torch.py",),
+    ("serve_llm_torch.py",),
+    ("serve_llm_torch.py", "--legacy"),
+    ("serve_llm_torch.py", "--legacy", "--arch", "mamba2_1_3b"),
+)
+# what each run must print (beside exiting 0): its own checks' lines
+EXAMPLE_CHECKS = {
+    EXAMPLE_RUNS[0]: ("quickstart OK", "= True"),
+    EXAMPLE_RUNS[1]: ("trees==ref: True  worklist==ref: True",
+                      "trees~=ref: True  worklist~=ref: True"),
+    EXAMPLE_RUNS[2]: ("16 requests, 273 tokens in", "(device engine)"),
+    EXAMPLE_RUNS[3]: ("granite-3-8b: 16 requests",),
+    EXAMPLE_RUNS[4]: ("mamba2-1.3b: 16 requests",),
+}
+EXAMPLE_TIMEOUT = 240
+
+
+def phase_examples():
+    """The examples' twins on the card, each a subprocess with its default
+    arguments (``serve_llm_torch.py`` also ``--legacy``: the reduced
+    granite-3-8b, flash_attention and decode_attention; and ``--legacy
+    --arch mamba2_1_3b``: ssd_scan), all started at once; each must exit 0
+    and print its checks' lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for run in EXAMPLE_RUNS:
+            procs[run] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", run[0]),
+                 *run[1:]], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for run, p in procs.items():
+            out, err = p.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT - (time.perf_counter()
+                                                    - t0)))
+            what = " ".join(run)
+            if p.returncode != 0:
+                fail(f"examples {what}: exit {p.returncode}: {err[-2000:]}")
+            missing = [c for c in EXAMPLE_CHECKS[run] if c not in out]
+            if missing:
+                fail(f"examples {what}: no {missing} in its output:\n{out}")
+            lines = out.strip().splitlines()
+            print(f"[examples] {what}: exit 0 at "
+                  f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, "
+                  f"first: {lines[0].strip()!r}, last: {lines[-1].strip()!r}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+# ------------------------------------------------------- phase 4, graphs
 def _graph_report(label, walls, captures, memory, profiles, epochs,
-                  run_epochs):
+                  run_epochs, profiled=(), eager_what=""):
     """One graphs-phase line: the eager wall, the walls of the first three
     graphed runs (a fresh loop: each key eager at its first two uses,
     captured at its third, in whichever run that falls) and of a warm
     fourth (no capture), the captures in each, the graph pool and
     result-buffer bytes, and each profiled run's busy share and device ops
-    per epoch (of ``epochs``)."""
+    per epoch (of ``epochs``).  ``profiled`` names the walls ("eager",
+    "warm") taken from the profiled runs; ``eager_what`` says what the
+    eager run ran, where it is not the graphed runs' case."""
     eager, *graphed, warm = walls
     pool, res = memory
     runs = ", ".join(
@@ -2057,8 +2388,13 @@ def _graph_report(label, walls, captures, memory, profiles, epochs,
         f"{k} busy {100 * b / w:.1f}% ({b / 1e3:.3f} of {w / 1e3:.3f} ms), "
         f"{n / epochs:.1f} device ops per epoch"
         for k, (b, w, n) in profiles.items())
-    print(f"[graphs] {label}: eager {eager:.1f} ms; graphed runs 1-3 "
-          f"{runs}, warm {warm:.1f} ms (no capture), {run_epochs} epochs; "
+
+    def tag(k):
+        return " (profiled)" if k in profiled else ""
+
+    print(f"[graphs] {label}: eager{eager_what} {eager:.1f} ms{tag('eager')}"
+          f"; graphed runs 1-3 {runs}, warm {warm:.1f} ms (no capture)"
+          f"{tag('warm')}, {run_epochs} epochs; "
           f"graph pool {pool / 2**20:.1f} MiB, result buffers "
           f"{res / 2**20:.1f} MiB; {prof}; bits equal")
 
@@ -2100,14 +2436,24 @@ def _profiles(label, eager_run, graphed_run, epochs):
     return profiles
 
 
-def _solo_graphs(label, case, dispatch, profile_case=None, reps=1):
+def _host_out(r):
+    h, v, st = r
+    return {k: t.cpu().numpy() for k, t in h.items()}, v.cpu().numpy(), st
+
+
+def _solo_graphs(label, case, dispatch, short=None, reps=1):
     """``case`` on HostEngine: eager (graphs=False), then a fresh graphed
     engine's first run (what ``AppCase.run``, which builds an engine for
     each call, costs), second, third and warm fourth run (no capture),
     every run's heap, values and RunStats equal, each wall the median of
     ``reps`` (eager: runs of one engine; graphed: ``reps`` fresh engines);
-    then an eager and a warm graphed run of ``profile_case`` (a shorter run
-    of the same program, or ``case``) under the profiler."""
+    then an eager and a warm graphed run under the profiler.
+
+    ``short`` is ``(a shorter run of the same program, the run of
+    ``case`` that the graphed runs are held to)``: the graphed runs of
+    ``case`` are held to that run (phase 3b's, held to the CPU), and the
+    eager run (its wall, its profile) is ``short``'s, held exactly to a
+    fresh graphed engine's five runs of ``short`` (the fifth profiled)."""
     from repro_torch.core import HostEngine
 
     kw = dict(capacity=case.capacity, dispatch=dispatch, device="cuda")
@@ -2124,33 +2470,59 @@ def _solo_graphs(label, case, dispatch, profile_case=None, reps=1):
             eng = engines(case)[1]
         captures = []
         for i, e in enumerate((eager_eng, eng, eng, eng, eng)):
+            if i == 0 and short is not None:
+                continue
             out = {}
             timed[i].append(
                 _wall_ms(lambda: out.setdefault("r", e.run(*args))))
-            h, v, st = out["r"]
-            runs.append(({k: t.cpu().numpy() for k, t in h.items()},
-                         v.cpu().numpy(), st))
+            runs.append(_host_out(out["r"]))
             if e is eng:
                 captures.append(eng.loop.captures)
-    walls = [float(np.median(t)) for t in timed]
+    lap(f"graphs: {label} runs")
+    walls = [float(np.median(t)) if t else None for t in timed]
     if captures[3] != captures[2]:
         fail(f"graphs {label}: the fourth run captured "
              f"{captures[3] - captures[2]} more graphs")
-    for i, r in enumerate(runs[1:], 1):
-        what = ("eager", "first", "second", "third", "warm")[i % 5]
-        _same(r, runs[0], f"graphs {label} {what} vs eager",
-              fields=tuple(runs[0][2].as_dict()))
+    want = runs[0] if short is None else short[1]
+    for i, r in enumerate(runs[0 if short else 1:]):
+        what = ("first", "second", "third", "warm")[i % 4] if short else (
+            "eager", "first", "second", "third", "warm")[(i + 1) % 5]
+        _same(r, want, f"graphs {label} {what} vs "
+              f"{'the apps phase' if short else 'eager'}",
+              fields=tuple(want[2].as_dict()))
     memory = eng.loop.graph_memory()
-    if profile_case is not None:
-        eager_eng, eng, args = engines(profile_case)
-        for _ in range(3):  # its captures
-            eng.run(*args)
-        label += f" (profiled: {profile_case.name}, a shorter run)"
-    epochs = eng.run(*args)[2].epochs
-    profiles = _profiles(label, lambda: eager_eng.run(*args),
-                         lambda: eng.run(*args), epochs)
+    eager_what = ""
+    if short is not None:
+        case = short[0]
+        eager_eng, eng, args = engines(case)
+        # its captures, then a warm run
+        got = [_host_out(eng.run(*args)) for _ in range(4)]
+        label += f" (eager and profiles: {case.name}, a shorter run)"
+        eager_what = " (the shorter run)"
+        epochs = got[-1][2].epochs
+    else:
+        epochs = eng.run(*args)[2].epochs
+    outs = {"eager": [], "graphed": []}
+
+    def kept(k, e):
+        def run():
+            outs[k].append(e.run(*args))
+            return outs[k][-1]
+        return run
+
+    profiles = _profiles(label, kept("eager", eager_eng),
+                         kept("graphed", eng), epochs)
+    if short is not None:
+        walls[0] = profiles["eager"][1] / 1e3
+        want = _host_out(outs["eager"][-1])
+        for i, r in enumerate(got + [_host_out(outs["graphed"][-1])]):
+            _same(r, want, f"graphs {label} shorter run {i + 1} vs eager",
+                  fields=tuple(want[2].as_dict()))
     _graph_report(label, walls, captures, memory, profiles, epochs,
-                  runs[0][2].epochs)
+                  runs[-1][2].epochs,
+                  profiled=("eager",) if short else (),
+                  eager_what=eager_what)
+    lap(f"graphs: {label} profiles")
     return dict(walls=walls, captures=captures, memory=memory,
                 profiles=profiles, epochs=epochs)
 
@@ -2229,8 +2601,11 @@ def _wave_graphs(label, wave, dispatch, first):
     service's first wave: ``(service, wall ms, tenants, stats)``), then the
     second, third and a warm fourth wave on that service (each on the last
     wave's loop and buffers; the fourth captures nothing); every tenant and
-    the fleet's RunStats equal; then an eager and a warm wave under the
-    profiler."""
+    the fleet's RunStats equal.  The eager wave and the warm fourth run
+    under the profiler, and their walls are the profiled runs' (the
+    profiler traces the device's activity alone: PR 25's eager waves took
+    7937 ms plain and 7770 ms profiled, on an NVIDIA H100 80GB HBM3 at
+    700 W)."""
     from repro_torch.service import EpochMultiplexer
 
     kw = dict(capacity=sum(c.capacity for c in wave), dispatch=dispatch,
@@ -2257,35 +2632,46 @@ def _wave_graphs(label, wave, dispatch, first):
             out.append(([_tenant(h) for h in hs], svc._mux.stats()))
         return None, None, svc._mux.stats()
 
-    done = []
-    walls = [_wall_ms(lambda: eager_run(done))]
-    walls.append(first_ms)
-    for _ in range(3):
-        walls.append(_wall_ms(lambda: service_run(done)))
+    graphed = []
+    walls = [None, first_ms]
+    for _ in range(2):
+        walls.append(_wall_ms(lambda: service_run(graphed)))
         captures.append(loop.captures)
+    lap(f"graphs: {label} second and third waves")
+    eager = []
+    epochs = first_stats.epochs
+    profiles = _profiles(label, lambda: eager_run(eager),
+                         lambda: service_run(graphed), epochs)
+    captures.append(loop.captures)
     if captures[3] != captures[2]:
         fail(f"graphs {label}: the fourth wave captured "
              f"{captures[3] - captures[2]} more graphs")
-    (eager_tenants, eager_stats), *graphed = done
+    walls[0] = profiles["eager"][1] / 1e3
+    walls.append(profiles["graphed"][1] / 1e3)
+    (eager_tenants, eager_stats), = eager
     for (ts, st), what in zip([(first_tenants, first_stats)] + graphed,
-                              ("first", "second", "third", "warm")):
+                              ("first", "second", "third", "warm",
+                               "warm (profile retaken)", "warm (third "
+                               "profile)")):
         for c, got, want in zip(wave, ts, eager_tenants):
             _same_tenant(got, want, f"graphs {label} {what} {c.name}")
         if st.as_dict() != eager_stats.as_dict():
             fail(f"graphs {label} {what}: fleet RunStats differ")
     memory = loop.graph_memory()
-    epochs = eager_stats.epochs
-    profiles = _profiles(label, eager_run, service_run, epochs)
-    _graph_report(label, walls, captures, memory, profiles, epochs, epochs)
+    _graph_report(label, walls, captures, memory, profiles, epochs, epochs,
+                  profiled=("eager", "warm"))
+    lap(f"graphs: {label} profiles")
     return dict(walls=walls, captures=captures, memory=memory,
                 profiles=profiles, epochs=epochs)
 
 
-def phase_graphs(fib_case, wave, host_waves):
+def phase_graphs(fib_case, wave, host_waves, anneal_run):
     """CUDA graphs of the host epoch steps against the eager steps on the
     card: fib(28) on HostEngine masked, compacted and gather, annealing
-    masked, and the mixed4 host wave masked and gather (the first wave of
-    each phase 7's JobService, ``host_waves``, and three more on it)."""
+    masked (held to phase 3b's masked run, ``anneal_run``), and the mixed4
+    host wave masked and gather (the first wave of each phase 7's
+    JobService, ``host_waves``, and three more on it).  Each sub-step's
+    lap is printed."""
     from repro_torch.kernels import fork_compact
 
     fork_compact.reset_launches()
@@ -2294,13 +2680,17 @@ def phase_graphs(fib_case, wave, host_waves):
         out["fib", d] = _solo_graphs(f"fib(28) HostEngine {d}", fib_case, d,
                                      reps=3)
         _capture_costs(f"fib(28) HostEngine {d}", fib_case, d)
+        lap(f"graphs: fib(28) {d} capture costs")
     case, _ = app_case("annealing", APP_FULL["annealing"])
-    # the profiles: 20 of the 200 steps (every epoch traces both types at
-    # the same widths), so the eager profile records 10x fewer operations
+    # the eager run and the profiles: 20 of the 200 steps (every epoch
+    # traces both types at the same widths), so the eager run takes 10x
+    # less time and its profile records 10x fewer operations; the graphed
+    # runs of all 200 steps are held to phase 3b's masked run
     n_bits, n_chains, _ = APP_FULL["annealing"]
     short, _ = app_case("annealing", (n_bits, n_chains, 20))
     out["annealing", "masked"] = _solo_graphs(
-        "annealing HostEngine masked", case, "masked", short)
+        "annealing HostEngine masked", case, "masked",
+        (short, anneal_run))
     for d in ("masked", "gather"):
         out["mixed4", d] = _wave_graphs(f"mixed4 host wave {d}", wave, d,
                                         host_waves[d])
@@ -2592,7 +2982,7 @@ def phase_control(cases, runs, wave, graph_out, first_wave_ms):
           f"{1e3 * (sum(wlog['choose_s']) + sum(wlog['observe_s'])):.3f} ms"
           "; first waves of phase 7: " + ", ".join(
               f"{d} {ms:.1f} ms" for d, ms in first_wave_ms.items())
-          + "; warm (phase 4): " + ", ".join(
+          + "; warm (phase 4, profiled): " + ", ".join(
               f"{d} {graph_out['mixed4', d]['walls'][-1]:.1f} ms"
               for d in ("masked", "gather"))
           + "; every tenant equal to its solo run")
@@ -3452,14 +3842,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from repro_torch.core import DeviceEngine
-
     dev = torch.device("cuda")
     print("[env]", sys.version.split()[0], "torch", torch.__version__,
           "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
     t0 = _T0[0] = time.perf_counter()
     phase_build()
     lap("build")
+    CPU_REFS.append(CpuRefs())
+    try:
+        return _main(dev, t0)
+    finally:
+        CPU_REFS.pop().close()
+
+
+def _main(dev, t0) -> int:
+    from repro_torch.core import DeviceEngine
+
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(dev)
@@ -3472,7 +3870,7 @@ def main() -> int:
     lap("kernels")
     launches, cases, host_runs = phase_path()
     lap("path")
-    app_launches = phase_apps(cases)
+    app_launches, anneal_run = phase_apps(cases)
     lap("apps")
     fib_case = cases[0][0]
     launches.update(phase_resident(cases, host_runs))
@@ -3496,22 +3894,29 @@ def main() -> int:
     svc_launches, svc_chunks, wave, host_waves = phase_service(cases,
                                                                host_runs)
     lap("service")
+    shard_launches = phase_sharded(wave, host_runs)
+    lap("sharded")
     chunk_paths["service"] = svc_chunks
-    launches["epoch_chunk"] += svc_chunks
-    launches["segmented_fork_scan"] = svc_launches["segmented_fork_scan"]
-    # type_rank's count: the host path's launches, the apps' and the
-    # service waves'
+    chunk_paths["sharded"] = shard_launches["epoch_chunk"]
+    launches["epoch_chunk"] += svc_chunks + shard_launches["epoch_chunk"]
+    seg_paths = {"service": svc_launches["segmented_fork_scan"],
+                 "sharded": shard_launches["segmented_fork_scan"]}
+    launches["segmented_fork_scan"] = sum(seg_paths.values())
+    # type_rank's count: the host path's launches, the apps', the service
+    # waves' and the plain sharded wave's
     type_rank_paths = {"host": launches["type_rank"],
                        "apps": app_launches["type_rank"],
-                       "service": svc_launches["type_rank"]}
+                       "service": svc_launches["type_rank"],
+                       "sharded": shard_launches["type_rank"]}
     launches["type_rank"] += (app_launches["type_rank"]
-                              + svc_launches["type_rank"])
+                              + svc_launches["type_rank"]
+                              + shard_launches["type_rank"])
     fork_scan_paths = {"host": launches["fork_scan"],
                        "apps": app_launches["fork_scan"]}
     launches["fork_scan"] += app_launches["fork_scan"]
 
     first_wave_ms = {d: host_waves[d][1] for d in host_waves}
-    graph_out = phase_graphs(fib_case, wave, host_waves)
+    graph_out = phase_graphs(fib_case, wave, host_waves, anneal_run)
     del host_waves
     lap("graphs")
     ctl_launches, trace_launches = phase_control(cases, host_runs, wave,
@@ -3520,7 +3925,6 @@ def main() -> int:
     # the control phase's launches, each auto run and each traced run
     # counted alone: the solo host runs (fork_scan, type_rank), the host
     # waves (segmented_fork_scan, type_rank), the device waves (epoch_chunk)
-    seg_paths = {"service": launches["segmented_fork_scan"]}
     for k, paths in (("fork_scan", fork_scan_paths),
                      ("type_rank", type_rank_paths),
                      ("segmented_fork_scan", seg_paths),
@@ -3554,6 +3958,8 @@ def main() -> int:
     fork_scan_paths["ssm"] = ssm_launches["fork_scan"]
     launches["fork_scan"] += fork_scan_paths["ssm"]
     launches["ssd_scan"] = ssm_launches["ssd_scan"]
+    phase_examples()
+    lap("examples")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "type_rank":

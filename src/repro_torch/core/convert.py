@@ -2,19 +2,21 @@
 
 What crosses between the two implementations is the TVM state and the
 heap, the service's ``JobArena``, on the resident path the whole
-``ResidentCarry`` (solo, or a fleet's with its arena), and on the serving path a model's weights and a decode
-cache.  These functions take the reference's ``TVMState`` leaves and heap
-dicts as numpy arrays (``{field name: ndarray}``, ``{heap var: ndarray}``)
-and turn them into the port's tensors — adding the trailing sink row every
-TV and heap array carries here (``core/tvm.py``) — and back; and the
-reference's ``init_model`` dict and cache dict, as numpy arrays, into the
-port's ``Model`` and cache.  The tests use them to hand one state to both
-implementations.
+``ResidentCarry`` (solo, or a fleet's with its arena), a sharded fleet's
+stacked carry (the reference's P shard carries on a leading axis, one
+carry a shard here), and on the serving path a model's weights and a
+decode cache.  These functions take the reference's ``TVMState`` leaves
+and heap dicts as numpy arrays (``{field name: ndarray}``, ``{heap var:
+ndarray}``) and turn them into the port's tensors — adding the trailing
+sink row every TV and heap array carries here (``core/tvm.py``) — and
+back; and the reference's ``init_model`` dict and cache dict, as numpy
+arrays, into the port's ``Model`` and cache.  The tests use them to hand
+one state to both implementations.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -133,6 +135,39 @@ def carry_to_numpy(carry: ResidentCarry) -> Dict[str, object]:
         else:
             out[name] = v.cpu().numpy()
     return out
+
+
+def _shard_leaves(leaves, p: int):
+    """Shard ``p`` of a stacked leaf mapping (every array's leading axis)."""
+    if isinstance(leaves, Mapping):
+        return {k: _shard_leaves(v, p) for k, v in leaves.items()}
+    return np.asarray(leaves)[p]
+
+
+def _stack_leaves(parts):
+    """The dual of :func:`_shard_leaves`: per-shard mappings stacked."""
+    first = parts[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_leaves([q[k] for q in parts]) for k in first}
+    return np.stack([np.asarray(q) for q in parts])
+
+
+def fleet_carries_from_numpy(leaves: Mapping[str, object],
+                             device) -> List[ResidentCarry]:
+    """The port's P shard carries from the reference's stacked fleet carry
+    (``ShardedFleet._fcarry``: every leaf with a leading axis of P), in
+    :func:`carry_from_numpy`'s layout: shard ``p`` is every leaf's row
+    ``p``."""
+    P = np.asarray(leaves["sp"]).shape[0]
+    return [carry_from_numpy(_shard_leaves(leaves, p), device)
+            for p in range(P)]
+
+
+def fleet_carries_to_numpy(carries) -> Dict[str, object]:
+    """The reference's stacked fleet carry from P shard carries (the dual
+    of :func:`fleet_carries_from_numpy`; counters int64, ``fault`` left
+    out)."""
+    return _stack_leaves([carry_to_numpy(c) for c in carries])
 
 
 def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,

@@ -79,9 +79,16 @@ reference's do), and a ``wave`` span per resident run; the annotations
 ``trees:epoch_step``, ``trees:map{id}`` and ``trees:resident_wave`` wrap
 the launches (on the card the graph replays) as host ranges.
 
-Not ported yet: the sharded fleet chunk (``run_chunk_fleet``,
-``fleet_chunk_summaries``, ROADMAP item 9) and ``seg_offsets_fn``.
-``donate`` has no meaning here: the state is updated in place.
+The sharded fleet's collective chunk (``distributed/fleet.py``):
+:meth:`EpochLoop.run_chunk_fleet` runs P shard carries, each through
+:meth:`EpochLoop.run_chunk` (on the card with ``megakernel=True``, one
+``epoch_chunk`` launch a shard), and :meth:`EpochLoop.fleet_chunk_summaries`
+reads every shard's control scalars back in one transfer.  Where the JAX
+loop stacks the shards on a leading axis and runs ``vmap`` of the plain
+loop on one device, each shard here keeps its own carry, updated in place.
+
+Not ported yet: ``seg_offsets_fn``.  ``donate`` has no meaning here: the
+state is updated in place.
 """
 from __future__ import annotations
 
@@ -1083,42 +1090,94 @@ class EpochLoop:
         the epoch guard — one dispatch for the whole program."""
         return self.run_chunk(carry, max_epochs, n_regions)
 
+    def run_chunk_fleet(self, carries: List[ResidentCarry], limits,
+                        n_regions: int) -> List[ResidentCarry]:
+        """Run P independent shard chunks: the sharded fleet's collective
+        chunk (DESIGN.md §15).
+
+        ``carries`` holds one fleet carry per shard (the JAX loop stacks
+        them on a leading axis); ``limits`` is each shard's own epoch
+        bound.  Every shard whose limit is above 0 runs one chunk through
+        :meth:`run_chunk`, in shard order: on the card with
+        ``megakernel=True`` one ``epoch_chunk`` launch, else the plain
+        fleet loop.  A shard at limit 0 (the fleet passes 0 for a shard
+        with no rider) is not run, which the reference's per-shard
+        condition makes bit-identical to running it.  Each shard's bits
+        equal a separate run's.  The carries are updated in place and
+        returned.
+        """
+        limits = np.asarray(limits).reshape(-1)
+        if limits.shape[0] != len(carries):
+            raise ValueError(
+                f"run_chunk_fleet: {limits.shape[0]} limits for "
+                f"{len(carries)} carries")
+        return [
+            self.run_chunk(c, int(lim), n_regions) if lim > 0 else c
+            for c, lim in zip(carries, limits)
+        ]
+
+    def fleet_chunk_summaries(self, carries: List[ResidentCarry]
+                              ) -> List[ChunkSummary]:
+        """The fleet boundary readback: every shard's control scalars in
+        one int64 tensor and one transfer, split on the host into
+        per-shard :class:`ChunkSummary` views, so P shards pay one
+        readback a collective chunk.  Raises if a shard's ``epoch_chunk``
+        launch reported a fault."""
+        flats = [_summary_flat(c) for c in carries]
+        v = torch.cat(flats).cpu().numpy()
+        out, at = [], 0
+        for c, f in zip(carries, flats):
+            n = f.shape[0]
+            out.append(_parse_summary(v[at:at + n], c))
+            at += n
+        return out
+
     def chunk_summary(self, carry: ResidentCarry) -> ChunkSummary:
         """The chunk-boundary readback: the control and accounting scalars
         gathered into one int64 tensor and brought back in one transfer.
         Raises if the ``epoch_chunk`` kernel reported a fault."""
-        fleet = carry.arena is not None
-        parts = (carry.n_epochs, carry.sp, carry.failed, carry.failed_stack,
-                 carry.job_epochs, carry.job_tasks, carry.job_forks,
-                 carry.job_peak) + ((carry.arena.next,) if fleet else ()) + (
-                 carry.map_launches, carry.map_elements,
-                 carry.map_lanes, carry.hole_lanes, carry.fault)
-        flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
-        v = flat.cpu().numpy()
-        J = carry.sp.shape[0]
-        n_per = 8 if fleet else 7
-        n_epochs, rest = int(v[0]), v[1:]
-        per = [rest[i * J:(i + 1) * J] for i in range(n_per)]
-        (m_ct, m_el, m_ln, holes, fault) = (int(x) for x in rest[n_per * J:])
-        if fault:
-            raise EngineError(
-                f"epoch_chunk kernel fault {fault} (1: an epoch's live map "
-                "elements exceeded the payload stage; 2: a float add "
-                "outside the ordered add)"
-            )
-        return ChunkSummary(
-            n_epochs=n_epochs,
-            sp=per[0].astype(np.int32),
-            failed=per[1].astype(bool),
-            failed_stack=per[2].astype(bool),
-            job_epochs=per[3].astype(np.int32),
-            job_tasks=per[4],
-            job_forks=per[5],
-            job_peak=per[6].astype(np.int32),
-            map_launches=m_ct, map_elements=m_el, map_lanes=m_ln,
-            hole_lanes=holes,
-            arena_next=per[7].astype(np.int32) if fleet else None,
+        return _parse_summary(_summary_flat(carry).cpu().numpy(), carry)
+
+
+def _summary_flat(carry: ResidentCarry) -> torch.Tensor:
+    """A carry's control and accounting scalars as one int64 tensor, on
+    the carry's device (:func:`_parse_summary` reads it back)."""
+    parts = (carry.n_epochs, carry.sp, carry.failed, carry.failed_stack,
+             carry.job_epochs, carry.job_tasks, carry.job_forks,
+             carry.job_peak) + (
+             (carry.arena.next,) if carry.arena is not None else ()) + (
+             carry.map_launches, carry.map_elements,
+             carry.map_lanes, carry.hole_lanes, carry.fault)
+    return torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+
+
+def _parse_summary(v: np.ndarray, carry: ResidentCarry) -> ChunkSummary:
+    """The :class:`ChunkSummary` of :func:`_summary_flat`'s values."""
+    fleet = carry.arena is not None
+    J = carry.sp.shape[0]
+    n_per = 8 if fleet else 7
+    n_epochs, rest = int(v[0]), v[1:]
+    per = [rest[i * J:(i + 1) * J] for i in range(n_per)]
+    (m_ct, m_el, m_ln, holes, fault) = (int(x) for x in rest[n_per * J:])
+    if fault:
+        raise EngineError(
+            f"epoch_chunk kernel fault {fault} (1: an epoch's live map "
+            "elements exceeded the payload stage; 2: a float add "
+            "outside the ordered add)"
         )
+    return ChunkSummary(
+        n_epochs=n_epochs,
+        sp=per[0].astype(np.int32),
+        failed=per[1].astype(bool),
+        failed_stack=per[2].astype(bool),
+        job_epochs=per[3].astype(np.int32),
+        job_tasks=per[4],
+        job_forks=per[5],
+        job_peak=per[6].astype(np.int32),
+        map_launches=m_ct, map_elements=m_el, map_lanes=m_ln,
+        hole_lanes=holes,
+        arena_next=per[7].astype(np.int32) if fleet else None,
+    )
 
 
 class HostEngine:

@@ -1,1 +1,2 @@
-# Launch layer: the serving entry point (serve.py).
+# Launch layer: the serving entry point (serve.py) and the sharded fleet's
+# device layout (mesh.py).

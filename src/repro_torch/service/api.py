@@ -1,5 +1,5 @@
 """Execution surface of the serving front door (PyTorch port of
-``repro/service/api.py``, host engine).
+``repro/service/api.py``).
 
 :class:`JobService` is the multi-tenant front door: ``submit`` enqueues a
 program with a TV-region quota — optionally under a
@@ -19,7 +19,12 @@ dtypes agree), on the host loop
 (:class:`~repro_torch.service.multiplexer.DeviceMultiplexer`,
 ``engine="device"``: K epochs a chunk, or the whole wave with
 ``chunk=None``; ``megakernel=True`` runs each chunk on the card as one
-``epoch_chunk`` launch).  A device wave's members are seated in
+``epoch_chunk`` launch) or across the P shards of a
+:class:`~repro_torch.distributed.fleet.ShardedFleet` (``engine="sharded"``,
+``shards``, ``placement``, ``rebalance``: P copies of one wave's slot
+layout, one collective chunk and one readback a step, the whole queue
+streaming into the shards' placement queues).  A device or sharded wave's
+members are seated in
 :func:`~repro_torch.service.jobs.canonical_wave_order` and its shape is
 looked up in a :class:`~repro_torch.service.jobs.WaveTemplateCache`, so a
 wave of a shape seen before builds nothing (``trace_count``).  A host
@@ -39,16 +44,16 @@ wave shape on the device engine, sticky through the template cache),
 calibrated by default with
 :meth:`~repro_torch.control.controller.CostModel.calibrated` on the
 service's device; ``chunk="auto"`` one ``ChunkController`` fed by the
-service's queue probe; ``metrics`` (a ``MetricsRegistry``) gets each
-wave's run series and the per-tenant lifecycle, deadline, preemption and
-template-cache series; ``tracer`` gets the wave drivers' spans.
-
-Not ported yet: the sharded fleet (``engine="sharded"``, ROADMAP item
-9), which raises ``NotImplementedError``.
+service's queue probe; ``placement="auto"`` (sharded engine) one
+``PlacementController``; ``metrics`` (a ``MetricsRegistry``) gets each
+wave's run series (with a ``shard`` label on the sharded engine) and the
+per-tenant lifecycle, deadline, preemption and template-cache series;
+``tracer`` gets the wave drivers' spans.
 """
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import itertools
 import time
 from typing import (
@@ -125,13 +130,6 @@ class JobFuture:
         return self.result().__await__()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP item "
-        f"{item})"
-    )
-
-
 class JobService:
     """Multi-tenant job service over one shared TVM.
 
@@ -143,7 +141,13 @@ class JobService:
     each wave resident (masked or gather, every live region each epoch)
     with ``stack_depth``, a chunk of ``chunk`` epochs (``None``: the whole
     wave), ``template_cache`` (a fresh :class:`WaveTemplateCache` unless
-    given) and ``megakernel``.  ``device=None`` means CUDA (and raises
+    given) and ``megakernel``.  ``engine="sharded"`` runs each wave as a
+    :class:`~repro_torch.distributed.fleet.ShardedFleet` of ``shards``
+    shards with the device engine's options: ``placement``
+    (``round_robin`` / ``least_loaded`` / ``sticky`` / ``auto``) assigns
+    queued jobs to shards and ``rebalance`` migrates them off hot shards
+    at chunk boundaries; per-job results stay bit-identical to solo at
+    every P.  ``device=None`` means CUDA (and raises
     where CUDA is absent); pass ``device="cpu"`` to run the plain PyTorch
     versions on the CPU.  ``classes``/``admission``/``preemption``/
     ``evict_over_deadline``/``clock`` configure the admission layer.
@@ -175,6 +179,9 @@ class JobService:
         device=None,
         metrics=None,
         tracer=None,
+        shards: int = 1,
+        placement: str = "round_robin",
+        rebalance: bool = True,
         calibrate: bool = True,
         classes: Optional[List[QuotaClass]] = None,
         admission: Optional[AdmissionController] = None,
@@ -188,13 +195,25 @@ class JobService:
                 f"got {engine!r}"
             )
         if engine == "sharded":
-            raise _not_ported(
-                "JobService(engine='sharded'), the sharded fleet", "9")
-        if engine == "device":
+            from ..distributed.fleet import PLACEMENTS
+
+            if shards < 1:
+                raise ValueError(f"shards must be >= 1, got {shards}")
+            if placement not in PLACEMENTS + ("auto",):
+                raise ValueError(
+                    f"placement must be one of {PLACEMENTS + ('auto',)}, "
+                    f"got {placement!r}"
+                )
+        elif shards != 1:
+            raise ValueError(
+                "shards requires engine='sharded' (host/device waves run "
+                f"one TVM); got shards={shards}"
+            )
+        if engine in ("device", "sharded"):
             check_resident_options(dispatch, chunk)
             if gang or pop_policy != "fuse_all":
                 raise ValueError(
-                    "engine='device' runs every live region each epoch "
+                    f"engine={engine!r} runs every live region each epoch "
                     "(fuse_all); gang/pop_policy are host-engine options"
                 )
         elif chunk is not None:
@@ -208,6 +227,9 @@ class JobService:
                 "engine='device' (the host engine has no resident loop)"
             )
         self.engine = engine
+        self.shards = int(shards)
+        self.placement = placement
+        self.rebalance = bool(rebalance)
         self.stack_depth = stack_depth
         self.chunk = chunk
         self.megakernel = bool(megakernel)
@@ -256,6 +278,17 @@ class JobService:
             self.chunk_controller = ChunkController()
             if metrics is not None:
                 self.chunk_controller.bind_registry(metrics, app="service")
+        # placement="auto" (sharded): the controller lives here so its
+        # workload-mix window carries across waves, like the K controller
+        self.placement_controller = None
+        if engine == "sharded" and placement == "auto":
+            from ..control.controller import PlacementController
+
+            self.placement_controller = PlacementController()
+            if metrics is not None:
+                self.placement_controller.bind_registry(
+                    metrics, app="service"
+                )
         # admission layer: an explicit controller wins (its clock becomes
         # the service clock so handle stamps and deadlines share a base)
         if admission is not None:
@@ -270,7 +303,9 @@ class JobService:
         self.preemption = bool(preemption)
         self._ids = itertools.count()
         self._queue: List[JobHandle] = []
-        self._mux = None  # the live wave's EpochMultiplexer/DeviceMultiplexer
+        # the live wave: an EpochMultiplexer, DeviceMultiplexer or
+        # ShardedFleet
+        self._mux = None
         # the last finished host wave, kept until the next wave takes over
         # its loop and buffers (EpochMultiplexer._adopt)
         self._last = None
@@ -281,7 +316,10 @@ class JobService:
     def _stats_factory(self):
         """Per-wave collector factory: the plain collector when metrics are
         off (the disabled path allocates nothing extra), the registry
-        adapter around it when on."""
+        adapter around it when on.  The sharded engine calls it with each
+        shard's index, which labels every series ``shard`` (a registry
+        pins labelnames per metric name, so keep one registry per engine
+        flavour)."""
         if self.metrics is None:
             return None
         from ..core.scheduler import NullStats, RunStatsCollector
@@ -292,11 +330,11 @@ class JobService:
         dispatch = resolve_policy(self.dispatch).name
         collect = self.collect_stats
 
-        def factory():
+        def factory(p: Optional[int] = None):
             inner = RunStatsCollector() if collect else NullStats()
             return MetricsCollector(
                 inner, registry, driver=driver, dispatch=dispatch,
-                app="service",
+                app="service", shard=None if p is None else str(p),
             )
 
         return factory
@@ -546,7 +584,7 @@ class JobService:
             wave = self._take_wave()
             if not wave:
                 return []
-            if self.engine == "device":
+            if self.engine in ("device", "sharded"):
                 self._mux = self._device_wave(wave)
             else:
                 self._mux = EpochMultiplexer(
@@ -591,12 +629,16 @@ class JobService:
                     self._admit_ready = True
         return done
 
-    def _device_wave(self, wave: List[JobHandle]) -> DeviceMultiplexer:
+    def _device_wave(self, wave: List[JobHandle]):
         """A resident wave: members seated in canonical order (so a
         permutation of an earlier wave lands on its cached template's slot
         layout), ``dispatch="auto"`` resolved (a cached template's mode
         wins before the controller is asked), the template looked up by
-        the wave's key, stored on a miss."""
+        the wave's key, stored on a miss.  On the sharded engine the wave
+        is a :class:`~repro_torch.distributed.fleet.ShardedFleet` of that
+        template (the key is not a function of P: every shard replicates
+        the one wave's layout), and the whole queue streams into its
+        placement queues."""
         order = canonical_wave_order([h.job for h in wave])
         wave = [wave[i] for i in order]
         jobs = [h.job for h in wave]
@@ -619,6 +661,36 @@ class JobService:
         )
         tpl = self.template_cache.lookup(key)
         self._observe_template_cache(hit=tpl is not None)
+        if self.engine == "sharded":
+            from ..distributed.fleet import ShardedFleet
+
+            mux = ShardedFleet(
+                wave,
+                shards=self.shards,
+                dispatch=dispatch,
+                stack_depth=self.stack_depth,
+                chunk=self.chunk,
+                placement=self.placement,
+                placement_controller=self.placement_controller,
+                rebalance=self.rebalance,
+                collect_stats=self.collect_stats,
+                stats_factory=self._stats_factory(),
+                template=tpl,
+                megakernel=self.megakernel,
+                device=self.device,
+                tracer=self.tracer,
+                controller=self.controller,
+                chunk_controller=self.chunk_controller,
+                queue_probe=self._queue_probe,
+            )
+            # the anchor wave sized ONE shard's layout; the other P - 1
+            # shards start vacant and fill from the queue here (and from
+            # later submits through streaming admission)
+            self._queue = [h for h in self._queue if not mux.admit(h)]
+            if tpl is None:
+                self.template_cache.store(dataclasses.replace(
+                    mux.template, key=key))
+            return mux
         mux = DeviceMultiplexer(
             wave,
             dispatch=dispatch,

@@ -1123,7 +1123,10 @@ class DeviceMultiplexer(_FleetBase):
     # ------------------------------------------------------------ driving
     def _ensure_carry(self) -> None:
         """Build the resident carry on first use: a seated region's stack
-        gets its seed entry (sp=1), a vacant one starts empty (sp=0)."""
+        gets its seed entry (sp=1), a vacant one starts empty (sp=0).  A
+        sharded fleet's shard builds it with every region vacant and seats
+        its tenants later through ``admit``, so a shard's first seating and
+        its mid-flight reseeds are one path."""
         if self._carry is not None:
             return
         J = len(self._slots)
@@ -1222,7 +1225,9 @@ class DeviceMultiplexer(_FleetBase):
     def _finish_chunk(self, s: ChunkSummary, riders: List[int],
                       max_epochs: int) -> List[JobHandle]:
         """Account one chunk's readback and settle its riders; leaves the
-        delta terms in ``last_deltas`` for the span's args."""
+        delta terms in ``last_deltas`` for the span's args.  Shared by
+        :meth:`step` and the sharded fleet's collective step, which runs
+        every shard's chunk itself and then finishes each shard here."""
         deltas = self._account(s, riders)
         self.last_deltas = deltas
         # dispatch-controller feedback: the chunk is the finest observable

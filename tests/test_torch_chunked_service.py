@@ -13,8 +13,8 @@ past the last epoch and steps after the drain change nothing, identical
 and permuted consecutive waves build nothing new (``trace_count``), the
 template key ignores member order, and the resident steps launch at the
 rung of the live span.  The refusals: ``compacted``, the host-only
-options, and the sharded fleet still to port (beside it, the control and
-telemetry options that run now).  No JAX here.
+options; the sharded fleet and the control and telemetry options, which
+once raised as still to port, run.  No JAX here.
 """
 from __future__ import annotations
 
@@ -415,14 +415,10 @@ def test_service_device_engine_refuses_host_only_options():
     (dict(engine="device", chunk=2, tracer=SpanTracer()), "8"),
 ))
 def test_options_still_to_port_raise(kw, item):
-    """The sharded fleet (ROADMAP item 9) still raises; item 8's options
-    (the chunk and dispatch controllers, the tracer) run a two-tenant
-    device wave whose tenants equal their solo runs."""
-    if item == "9":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP item {item}"):
-            JobService(device="cpu", **kw)
-        return
+    """The options that once raised as still to port run now: the sharded
+    fleet (ROADMAP item 9) and item 8's options (the chunk and dispatch
+    controllers, the tracer) each run a two-tenant wave whose tenants
+    equal their solo runs."""
     svc = JobService(capacity=512, device="cpu", **kw)
     hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=256)
           for n in (7, 9)]

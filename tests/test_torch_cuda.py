@@ -854,6 +854,46 @@ def test_device_service_on_cuda_matches_cpu(cuda_device, dispatch,
     assert gs.as_dict() == cs.as_dict()
 
 
+@pytest.mark.parametrize("placement", ("least_loaded", "sticky"))
+@pytest.mark.parametrize("megakernel", (False, True))
+def test_sharded_service_on_cuda_matches_cpu(cuda_device, megakernel,
+                                             placement):
+    """JobService(engine='sharded') at P = 2 on the card (the plain fleet
+    loop, or one epoch_chunk launch a shard) against the same service on
+    the CPU: every job, every shard's RunStats and the fleet's, the
+    collective steps and the migrations."""
+    from repro_torch.kernels import epoch_megakernel
+
+    fleet = get_fleet("mixed4")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        svc = JobService(capacity=sum(q for _, q in fleet),
+                         max_jobs=len(fleet), engine="sharded", shards=2,
+                         chunk=4, placement=placement,
+                         megakernel=megakernel and dev == "cuda",
+                         device=dev)
+        handles = [svc.submit_case(c, quota=q, name=f"{c.name}#{r}")
+                   for r in range(2) for c, q in fleet]
+        k0 = epoch_megakernel.LAUNCHES["epoch_chunk"]
+        svc.drain()
+        runs[dev] = (handles, svc._mux,
+                     epoch_megakernel.LAUNCHES["epoch_chunk"] - k0)
+    (gh, gf, launches), (ch, cf, _) = runs["cuda"], runs["cpu"]
+    for g, c in zip(gh, ch):
+        assert g.status is c.status is g.status.DONE
+        assert torch.equal(g.result.value.cpu(), c.result.value)
+        for k in c.result.heap:
+            assert torch.equal(g.result.heap[k].cpu(), c.result.heap[k]), k
+        assert g.result.stats.solo_dict() == c.result.stats.solo_dict()
+    assert [s.as_dict() for s in gf.shard_stats()] == [
+        s.as_dict() for s in cf.shard_stats()]
+    assert gf.stats().as_dict() == cf.stats().as_dict()
+    assert (gf.collective_steps, gf.migrations) == (cf.collective_steps,
+                                                    cf.migrations)
+    if megakernel:
+        assert gf.collective_steps <= launches <= 2 * gf.collective_steps
+
+
 def _flip_controller(flip):
     """A recording DispatchController that leaves masked for ``flip`` on a
     sparse fleet: the reference's priors (gather), or a cheap pack

@@ -1,9 +1,10 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
-(every module, the job service, the treewalk app, the ten registry cases,
-the baselines, the oracle and its overhead report, and the LLM server, on
-an attention and an SSM model, among them, runs with both blocked), runs
-on the CPU only when asked, and its chip smoke script
-refuses to run without a card or without the repository beside it."""
+(every module, the job service, the sharded fleet, the treewalk app, the
+ten registry cases, the baselines, the oracle and its overhead report,
+the LLM server, on an attention and an SSM model, and the three example
+twins, among them, runs with both blocked), runs on the CPU only when
+asked, and its chip smoke script refuses to run without a card or without
+the repository beside it."""
 from __future__ import annotations
 
 import os
@@ -21,7 +22,7 @@ from repro_torch.core import DeviceEngine, HostEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-_BLOCKED_RUN = r'''
+_BLOCK = r'''
 import importlib, importlib.abc, pkgutil, sys
 
 class _Block(importlib.abc.MetaPathFinder):
@@ -31,6 +32,9 @@ class _Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, _Block())
+'''
+
+_BLOCKED_RUN = _BLOCK + r'''
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
@@ -55,6 +59,14 @@ svc = JobService(capacity=sum(q for _, q in fleet), device="cpu")
 handles = [svc.submit_case(c, quota=q) for c, q in fleet]
 svc.drain()
 assert all(h.status.value == "done" for h in handles), handles
+from repro_torch.distributed import ShardedFleet
+import repro_torch.launch.mesh
+sharded = JobService(capacity=sum(q for _, q in fleet), engine="sharded",
+                     shards=2, chunk=4, device="cpu")
+sharded_hs = [sharded.submit_case(c, quota=q) for c, q in fleet * 2]
+sharded.drain()
+assert all(h.status.value == "done" for h in sharded_hs), sharded_hs
+assert isinstance(sharded._mux, ShardedFleet)
 walk = handles[1].result.heap
 visit, clock = treewalk.treewalk_reference(
     fleet[1][0].heap_init["left"], fleet[1][0].heap_init["right"])
@@ -118,6 +130,29 @@ def test_port_imports_and_runs_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     assert "isolated 23 resident 23 service 23 served 4 ssm 3" in out.stdout
     assert "apps 10 oracle 153 7" in out.stdout
+
+
+_TWINS_RUN = _BLOCK + r'''
+import runpy
+for argv in (["quickstart_torch.py"],
+             ["graph_analytics_torch.py", "--nodes", "64"],
+             ["serve_llm_torch.py", "--requests", "3"],
+             ["serve_llm_torch.py", "--legacy", "--requests", "2"]):
+    sys.argv = argv + ["--device", "cpu"]
+    runpy.run_path("examples/" + argv[0], run_name="__main__")
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+assert not leaked, leaked
+print("twins isolated")
+'''
+
+
+def test_example_twins_run_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _TWINS_RUN], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "quickstart OK" in out.stdout and "twins isolated" in out.stdout
 
 
 def test_default_device_is_cuda():

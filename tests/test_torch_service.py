@@ -392,12 +392,18 @@ def test_admission_rejects_bad_jobs():
 def test_unported_options_raise():
     # engine="device" is ported (tests/test_torch_chunked_service.py), and
     # so are the control and telemetry options (tests/test_torch_control.py,
-    # tests/test_torch_obs.py); the sharded fleet is not
+    # tests/test_torch_obs.py) and the sharded fleet
+    # (tests/test_torch_sharded_fleet.py), which once raised here
     assert JobService(engine="device", device="cpu").engine == "device"
     svc = JobService(engine="device", chunk="auto", device="cpu")
     assert svc.chunk_controller is not None and svc.chunk == "auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        JobService(engine="sharded", device="cpu")
+    svc = JobService(capacity=512, max_jobs=1, engine="sharded", shards=2,
+                     chunk=2, device="cpu")
+    hs = [svc.submit(fib.PROGRAM, fib.initial(n), quota=512)
+          for n in (7, 9)]
+    svc.drain()
+    assert [int(h.result.value[0, 0]) for h in hs] == [13, 34]
+    assert svc._mux.shards == 2 and svc.stats().dispatches > 0
     svc = JobService(dispatch="auto", calibrate=False, device="cpu")
     assert svc.controller is not None
     assert svc.controller.cost.source == "roofline"
