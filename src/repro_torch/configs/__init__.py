@@ -1,9 +1,7 @@
-"""Architecture registry: one module per architecture the port's model code
-runs (dense attention, the Mamba-2 SSM and the attention ∥ SSM hybrid),
+"""Architecture registry: one module per architecture (dense attention,
+MoE, encoder-decoder, the Mamba-2 SSM and the attention ∥ SSM hybrid),
 plus the input-shape table and per-cell skip rules (a copy of
-``repro/configs/__init__.py``).  The other architectures of the reference
-(MoE, encoder-decoder) need model code that is not ported yet; asking for
-one raises ``NotImplementedError`` naming its ROADMAP item."""
+``repro/configs/__init__.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,25 +23,12 @@ ARCH_IDS = (
     "chameleon_34b",
 )
 
-# architecture -> the ROADMAP item whose model code it waits for
-NOT_PORTED = {
-    "whisper_large_v3": "ROADMAP item 11 (the encoder-decoder path: "
-                        "encode, cross-attention)",
-    "granite_moe_1b_a400m": "ROADMAP item 11 (the MoE path: models/moe.py)",
-    "llama4_scout_17b_a16e": "ROADMAP item 11 (the MoE path: models/moe.py)",
-}
-
-
 def normalize(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
 
 
 def _module(arch: str):
-    name = normalize(arch)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: it waits for {NOT_PORTED[name]}")
-    return importlib.import_module(f".{name}", __package__)
+    return importlib.import_module(f".{normalize(arch)}", __package__)
 
 
 def get_config(arch: str) -> ModelConfig:

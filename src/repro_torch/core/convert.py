@@ -174,17 +174,19 @@ def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
                       device) -> Model:
     """The port's ``Model`` from the reference's ``init_model`` dict.
 
-    Stacked ``layers/...`` arrays are split along their leading ``L`` axis
-    into one tensor per layer; matmul weights and the SSM's ``conv_w`` (2-D
-    per layer) are cast once to ``cfg.compute_dtype`` — the same
-    round-to-nearest-even cast the reference applies at each use, so the
-    values are the same bits — and norm scales and the SSM's ``a_log``,
-    ``dt_bias`` and ``d_skip`` stay in the parameter dtype.
+    Stacked ``layers/...`` and ``encoder/...`` arrays are split along their
+    leading axis (``n_layers``, ``n_encoder_layers``) into one tensor per
+    layer; matmul weights (the MoE's expert stacks among them, and
+    ``enc_pos_embed``) and the SSM's ``conv_w`` (2-D or more per layer) are
+    cast once to ``cfg.compute_dtype`` — the same round-to-nearest-even
+    cast the reference applies at each use, so the values are the same
+    bits — and norm scales and the SSM's ``a_log``, ``dt_bias`` and
+    ``d_skip`` stay in the parameter dtype.
     """
     values = {}
     for name, arr in params_np.items():
         arr = np.asarray(arr)
-        if name.startswith("layers/"):
+        if name.startswith(("layers/", "encoder/")):
             dt = storage_dtype(cfg, arr.ndim - 1)
             values[name] = [torch.as_tensor(np.array(a), device=device)
                             .to(dt) for a in arr]
@@ -197,12 +199,14 @@ def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
 def cache_from_numpy(cache_np: Mapping[str, np.ndarray], cfg: ModelConfig,
                      device) -> Dict[str, torch.Tensor]:
     """The port's decode cache from the reference's: ``lengths``, and
-    those of ``k``, ``v`` (L, B, Hkv, S, hd) and ``ssm_conv``
-    (L, B, K-1, di+2N) it holds in the compute dtype, ``ssm_state``
-    (L, B, nh, P, N) in float32."""
+    those of ``k``, ``v`` (L, B, Hkv, S, hd), ``ssm_conv``
+    (L, B, K-1, di+2N), ``enc_out`` (B, T_enc, d), ``cross_k`` and
+    ``cross_v`` (L, B, Hkv, T_enc, hd) it holds in the compute dtype,
+    ``ssm_state`` (L, B, nh, P, N) in float32."""
     out = {"lengths": torch.as_tensor(np.array(cache_np["lengths"], np.int32),
                                       device=device)}
-    for k in ("k", "v", "ssm_conv", "ssm_state"):
+    for k in ("k", "v", "ssm_conv", "ssm_state", "enc_out", "cross_k",
+              "cross_v"):
         if k in cache_np:
             dt = torch.float32 if k == "ssm_state" else cfg.compute_dtype
             out[k] = torch.as_tensor(np.array(cache_np[k], np.float32),

@@ -1,10 +1,12 @@
 """Serving entry point: the epoch-synchronized (TVM) continuous-batching
-engine over an architecture config (dense attention, Mamba-2 SSM or the
-hybrid), on the card unless ``--device cpu`` is given.
+engine over any architecture config, on the card unless ``--device cpu``
+is given.  An encoder-decoder config (whisper) serves one frame input
+drawn from the seed, shared by every request.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
       --requests 16 --slots 4 --max-new 24
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
 
 As in the reference, ``--reduced`` is on by default (it cannot be turned
 off), so the model is the architecture's small same-family config.
@@ -36,11 +38,17 @@ def main(argv: Optional[list] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = configs.get_reduced(args.arch)
+    rng = np.random.RandomState(args.seed)
+    enc = None
+    if cfg.encdec:  # the stub frontend's frame embeddings
+        enc = torch.as_tensor(
+            rng.normal(size=(1, cfg.encoder_len, cfg.d_model)),
+            dtype=torch.float32)
     server = EpochServer(
         cfg, init_model(cfg, seed=args.seed, device=args.device),
         n_slots=args.slots, max_len=args.max_len, device=args.device,
+        enc_frames=enc,
     )
-    rng = np.random.RandomState(args.seed)
     for _ in range(args.requests):
         plen = rng.randint(4, 24)
         server.submit(

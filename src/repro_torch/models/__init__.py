@@ -1,8 +1,8 @@
-# Model stack of the serving path: decoders of dense GQA attention, Mamba-2
-# SSM or hybrid (attention ∥ SSM) blocks (attention, ssm, layers, model),
-# their configuration and parameter builder (common).  Loops over one
-# ParameterDict per layer; MoE and encoder-decoder blocks are not ported
-# yet and raise.
+# Model stack of the serving path: decoder-only or encoder-decoder models of
+# dense GQA attention, Mamba-2 SSM or hybrid (attention ∥ SSM) blocks with
+# a dense, parallel or MoE FFN (attention, ssm, moe, layers, model), their
+# configuration and parameter builder (common).  Loops over one
+# ParameterDict per layer.
 from .common import (  # noqa: F401
     ModelConfig,
     MoEConfig,
@@ -11,7 +11,9 @@ from .common import (  # noqa: F401
 )
 from .model import (  # noqa: F401
     Model,
+    build_cross_cache,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_model,

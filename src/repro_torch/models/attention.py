@@ -1,6 +1,7 @@
 """GQA attention block: the prefill path (``ops.attention``: the
 ``flash_attention`` kernel on the card), the decode path (ragged KV-cache
-update + ``ops.gqa_decode``: the ``decode_attention`` kernel), sliding-window
+update + ``ops.gqa_decode``: the ``decode_attention`` kernel), self- or
+cross-attention (keys and values from an encoder's output), sliding-window
 and QK-norm options, head padding (a copy of ``repro/models/attention.py``).
 
 The decode path writes the cache in place (the reference builds a new one
@@ -20,14 +21,11 @@ from ..kernels import ops
 from .common import ModelConfig, ParamScope
 from .layers import rope
 
-_CROSS_MSG = ("cross-attention is not ported yet: it comes with the "
-              "encoder-decoder path (ROADMAP item 11)")
-
 
 def init_attn(s: ParamScope, cfg: ModelConfig,
               n_layers: Optional[int] = None, cross: bool = False):
-    if cross:
-        raise NotImplementedError(_CROSS_MSG)
+    """The projections of self- or cross-attention: the same parameters
+    (``cross`` changes only where K/V come from at apply time)."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
@@ -77,14 +75,16 @@ def apply_attn(p: Mapping, prefix: str, cfg: ModelConfig, x: torch.Tensor,
                causal: bool = True, window: int = 0, use_rope: bool = True,
                kv_source: Optional[torch.Tensor] = None,
                return_kv: bool = False):
-    """Training / prefill attention over x (B, S, d).  With ``return_kv``
-    also returns the rotary-applied (k, v) in cache layout (B, Hkv, S, hd),
-    as transposed views."""
-    if kv_source is not None:
-        raise NotImplementedError(_CROSS_MSG)
+    """Training / prefill attention over x (B, S, d); keys and values from
+    ``kv_source`` (B, Skv, d) for cross-attention, else from x.  With
+    ``return_kv`` also returns the rotary-applied (k, v) in cache layout
+    (B, Hkv, Skv, hd), as transposed views."""
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, prefix, cfg, x, x, pos, pos, use_rope)
+    xkv = x if kv_source is None else kv_source
+    Skv = xkv.shape[1]
+    pos_q = torch.arange(S, device=x.device).expand(B, S)
+    pos_kv = torch.arange(Skv, device=x.device).expand(B, Skv)
+    q, k, v = _project_qkv(p, prefix, cfg, x, xkv, pos_q, pos_kv, use_rope)
     # (B, H, S, hd) views; the kernel reads them through their strides
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     out = ops.attention(q, k, v, causal=causal, window=window)
@@ -116,16 +116,25 @@ def apply_attn_decode(p: Mapping, prefix: str, cfg: ModelConfig,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode over x (B, 1, d) and one layer's cache
     (B, Hkv, S, hd), written in place.  Returns (out (B, 1, d), cache_k,
-    cache_v)."""
-    if cross:
-        raise NotImplementedError(_CROSS_MSG)
+    cache_v).
+
+    For cross-attention (``cross=True``) the cache holds the encoder's
+    precomputed K/V and is not written; only q is projected (no rotary),
+    and ``lengths`` is the encoder length."""
     B = x.shape[0]
-    pos = lengths[:, None]  # (B, 1) absolute position of the new token
-    q, k, v = _project_qkv(p, prefix, cfg, x, x, pos, pos, use_rope)
-    write_cache_row(cache_k, lengths, k[:, 0])
-    write_cache_row(cache_v, lengths, v[:, 0])
-    out = ops.gqa_decode(q[:, 0], cache_k, cache_v, lengths + 1,
-                         window=window)
+    if cross:
+        hd, hq = cfg.resolved_head_dim, cfg.n_heads_padded
+        q = (x @ p[f"{prefix}/wq"]).reshape(B, 1, hq, hd)
+        if cfg.qk_norm:
+            q = _qk_norm(q, p[f"{prefix}/q_scale"])
+        att_len = lengths
+    else:
+        pos = lengths[:, None]  # (B, 1) absolute position of the new token
+        q, k, v = _project_qkv(p, prefix, cfg, x, x, pos, pos, use_rope)
+        write_cache_row(cache_k, lengths, k[:, 0])
+        write_cache_row(cache_v, lengths, v[:, 0])
+        att_len = lengths + 1
+    out = ops.gqa_decode(q[:, 0], cache_k, cache_v, att_len, window=window)
     out = _head_mask(cfg, out)
     out = out.reshape(B, 1, -1)
     return out @ p[f"{prefix}/wo"], cache_k, cache_v

@@ -165,9 +165,9 @@ class Params:
     a time.
 
     Names follow the reference (``embed/tok_embed``, ``layers/attn/wq``).
-    A ``layers/...`` entry of shape ``(L, ...)`` is drawn as ``L`` separate
-    tensors of shape ``(...)`` (the port keeps one module per layer), each
-    with the stacked weight's std ``L ** -0.5``.
+    A ``layers/...`` (or ``encoder/...``) entry of shape ``(L, ...)`` is
+    drawn as ``L`` separate tensors of shape ``(...)`` (the port keeps one
+    module per layer), each with the stacked weight's std ``L ** -0.5``.
     """
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
@@ -193,7 +193,7 @@ class Params:
             scale: Optional[float] = None) -> Value:
         std = scale if scale is not None else (
             shape[0] ** -0.5 if shape else 1.0)
-        if name.startswith("layers/"):
+        if name.startswith(("layers/", "encoder/")):
             v: Value = [self._draw(tuple(shape[1:]), init, std)
                         for _ in range(shape[0])]
         else:

@@ -1,16 +1,17 @@
-"""Model assembly: the decoder-only model with attn | ssm | hybrid blocks
-(dense GQA attention, the Mamba-2 block, or both in parallel) and a dense
-(SwiGLU) or parallel MLP, prefill over ragged prompts, and a single-token
-decode step over a ragged cache (a copy of ``repro/models/model.py``).
+"""Model assembly: the decoder-only or encoder-decoder transformer with
+attn | ssm | hybrid blocks (dense GQA attention, the Mamba-2 block, or both
+in parallel), a dense (SwiGLU), parallel or MoE FFN, prefill over ragged
+prompts, and a single-token decode step over a ragged cache (a copy of
+``repro/models/model.py``).
 
 The reference scans the layer stack over stacked per-layer parameters; the
-port keeps one ``ParameterDict`` per layer in an ``nn.ModuleList`` and
-loops over it in Python.  The MoE and encoder-decoder branches raise
-``NotImplementedError`` naming their ROADMAP items; ``loss_fn``,
-``chunked_xent`` and ``encode`` wait for the training and encoder slices.
+port keeps one ``ParameterDict`` per layer (and per encoder layer) in an
+``nn.ModuleList`` and loops over it in Python.  ``loss_fn`` and
+``chunked_xent`` wait for the training slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -28,21 +29,14 @@ from .layers import (
     init_norm,
     logits_fn,
 )
+from .moe import apply_moe, init_moe
 from .ssm import apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
-
-_MOE_MSG = "MoE layers are not ported yet (ROADMAP item 11, models/moe.py)"
-_ENC_MSG = ("the encoder-decoder path is not ported yet (ROADMAP item 11: "
-            "encode, cross-attention)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference's model this port lacks."""
+    """Raise for a block type the reference's model lacks."""
     if cfg.block not in ("attn", "ssm", "hybrid"):
         raise ValueError(f"unknown block type {cfg.block!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE_MSG)
-    if cfg.encdec:
-        raise NotImplementedError(_ENC_MSG)
 
 
 # ------------------------------------------------------------------ model
@@ -50,32 +44,41 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _per_layer(values: Mapping[str, Value], pre: str, n: int
+               ) -> nn.ModuleList:
+    """One ``ParameterDict`` per layer from the stacked ``{pre}...``
+    entries of ``values`` (each a list of ``n`` tensors)."""
+    stacked = {k[len(pre):]: v for k, v in values.items() if k.startswith(pre)}
+    for k, v in stacked.items():
+        if len(v) != n:
+            raise ValueError(f"{pre}{k}: {len(v)} layers, config has {n}")
+    return nn.ModuleList(
+        nn.ParameterDict({k: _frozen(v[i]) for k, v in stacked.items()})
+        for i in range(n))
+
+
 class Model(nn.Module):
     """A model's parameters under the reference's names.
 
     ``model["embed/tok_embed"]`` and ``model["final_norm/scale"]`` are the
-    top-level tensors; ``model.layers[i]["attn/wq"]`` is layer i's slice of
-    the reference's stacked ``layers/attn/wq``.
+    top-level tensors (``enc_pos_embed`` and ``enc_final_norm/*`` too);
+    ``model.layers[i]["attn/wq"]`` is layer i's slice of the reference's
+    stacked ``layers/attn/wq``, and ``model.encoder[i]["attn/wq"]`` encoder
+    layer i's of ``encoder/attn/wq`` (no encoder layers without
+    ``cfg.encdec``).
     """
 
     def __init__(self, cfg: ModelConfig, values: Mapping[str, Value]):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        pre = "layers/"
+        stacked = ("layers/", "encoder/")
         self.top = nn.ParameterDict({
-            k: _frozen(v) for k, v in values.items() if not k.startswith(pre)
-        })
-        layered = {k[len(pre):]: v for k, v in values.items()
-                   if k.startswith(pre)}
-        for k, v in layered.items():
-            if len(v) != cfg.n_layers:
-                raise ValueError(f"layers/{k}: {len(v)} layers, config has "
-                                 f"{cfg.n_layers}")
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _frozen(v[i]) for k, v in layered.items()})
-            for i in range(cfg.n_layers)
-        )
+            k: _frozen(v) for k, v in values.items()
+            if not k.startswith(stacked)})
+        self.layers = _per_layer(values, "layers/", cfg.n_layers)
+        self.encoder = _per_layer(
+            values, "encoder/", cfg.n_encoder_layers if cfg.encdec else 0)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
@@ -105,8 +108,22 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     has_ffn = _has_ffn(cfg)
     if has_ffn and not cfg.parallel_block:
         init_norm(lyr.scope("norm2"), cfg)
-    if has_ffn:
+    if cfg.moe is not None:
+        init_moe(lyr.scope("moe"), cfg)
+    elif has_ffn:
         init_mlp(lyr.scope("mlp"), cfg)
+    if cfg.encdec:
+        enc = pb.scope("encoder")
+        init_attn(enc.scope("attn"), cfg, n_layers=cfg.n_encoder_layers)
+        # the encoder's stacks need its own layer count
+        ecfg = dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers)
+        init_mlp(enc.scope("mlp"), ecfg)
+        init_norm(enc.scope("norm1"), ecfg)
+        init_norm(enc.scope("norm2"), ecfg)
+        init_norm(pb.scope("enc_final_norm"), cfg, layered=False)
+        pb.add("enc_pos_embed", (cfg.encoder_len, cfg.d_model), scale=0.02)
+        init_attn(lyr.scope("cross"), cfg, cross=True)
+        init_norm(lyr.scope("norm_cross"), cfg)
     init_norm(pb.scope("final_norm"), cfg, layered=False)
     return Model(cfg, pb.values)
 
@@ -121,7 +138,7 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def _has_ffn(cfg: ModelConfig) -> bool:
-    return cfg.d_ff > 0 and cfg.block != "ssm"
+    return cfg.moe is not None or (cfg.d_ff > 0 and cfg.block != "ssm")
 
 
 # ---------------------------------------------------------------- forward
@@ -135,23 +152,35 @@ def _mix(cfg: ModelConfig, a: Optional[torch.Tensor],
 
 
 def _ffn(cfg: ModelConfig, p: Mapping, x: torch.Tensor, h: torch.Tensor,
-         mix: torch.Tensor) -> torch.Tensor:
-    """x + mix, then the MLP: in parallel on the shared norm (command-r),
-    or after its own norm."""
-    if cfg.parallel_block and cfg.d_ff > 0:
-        return x + (mix + apply_mlp(p, "mlp", cfg, h))  # mixer ∥ mlp
+         mix: torch.Tensor, cross=None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + mix, then the cross-attention step (``cross``: the normed
+    stream -> its attention output) and the FFN: the MLP in parallel on the
+    shared norm (command-r), or the MoE or MLP after its own norm.
+    Returns (x', the MoE's aux loss or None)."""
+    if cfg.parallel_block and cfg.moe is None and cfg.d_ff > 0:
+        return x + (mix + apply_mlp(p, "mlp", cfg, h)), None  # mixer ∥ mlp
     x = x + mix
-    if _has_ffn(cfg):
+    if cross is not None:
+        x = x + cross(apply_norm(p, "norm_cross", cfg, x))
+    aux = None
+    if cfg.moe is not None:
+        y, aux = apply_moe(p, "moe", cfg, apply_norm(p, "norm2", cfg, x))
+        x = x + y
+    elif _has_ffn(cfg):
         h2 = apply_norm(p, "norm2", cfg, x)
         x = x + apply_mlp(p, "mlp", cfg, h2)
-    return x
+    return x, aux
 
 
 def _decoder_layer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
-                   window: int, collect_kv: bool = False
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (x', kv) — kv nonempty only when collect_kv: the layer's
-    ``k``, ``v`` (attention) and ``ssm_state``, ``ssm_conv`` (SSM)."""
+                   window: int, enc_out: Optional[torch.Tensor],
+                   collect_kv: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+    """Returns (x', aux or None, kv) — kv nonempty only when collect_kv:
+    the layer's ``k``, ``v`` (attention) and ``ssm_state``, ``ssm_conv``
+    (SSM)."""
     kv: Dict[str, torch.Tensor] = {}
     h = apply_norm(p, "norm1", cfg, x)
     a = y = None
@@ -168,29 +197,84 @@ def _decoder_layer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                 p, "ssm", cfg, h, return_state=True)
         else:
             y = apply_ssm(p, "ssm", cfg, h)
-    return _ffn(cfg, p, x, h, _mix(cfg, a, y)), kv
+    cross = None
+    if cfg.encdec and enc_out is not None:
+        def cross(hc):
+            return apply_attn(p, "cross", cfg, hc, causal=False,
+                              use_rope=False, kv_source=enc_out)
+    x, aux = _ffn(cfg, p, x, h, _mix(cfg, a, y), cross)
+    return x, aux, kv
+
+
+def encode(params: Model, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (stub
+    frontend): frames (B, T_enc, d) -> (B, T_enc, d) in the compute
+    dtype."""
+    dt = cfg.compute_dtype
+    x = frames.to(dt) + params["enc_pos_embed"].to(dt)[None]
+    for p in params.encoder:
+        a = apply_norm(p, "norm1", cfg, x)
+        x = x + apply_attn(p, "attn", cfg, a, causal=False, use_rope=False)
+        m = apply_norm(p, "norm2", cfg, x)
+        x = x + apply_mlp(p, "mlp", cfg, m)
+    return apply_norm(params, "enc_final_norm", cfg, x)
+
+
+def _encoder_out(params: Model, cfg: ModelConfig,
+                 enc_frames) -> Optional[torch.Tensor]:
+    if not cfg.encdec:
+        return None
+    if enc_frames is None:
+        raise ValueError("an encoder-decoder model needs encoder frames")
+    return encode(params, cfg, enc_frames)
+
+
+def _forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
+             enc_out: Optional[torch.Tensor], collect_kv: bool):
+    x = embed_tokens(params, cfg, tokens)
+    kvs: Dict[str, List[torch.Tensor]] = {}
+    aux = torch.zeros((), device=x.device)
+    for p, win in zip(params.layers, _layer_windows(cfg)):
+        x, layer_aux, kv = _decoder_layer(cfg, p, x, win, enc_out,
+                                          collect_kv)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+        for name, t in kv.items():
+            kvs.setdefault(name, []).append(t)
+    return apply_norm(params, "final_norm", cfg, x), aux, kvs
 
 
 def forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
             enc_frames=None, collect_kv: bool = False):
-    """Token ids (B, S) -> final hidden states (B, S, d), plus the summed
-    MoE aux loss (0: no MoE).  With ``collect_kv`` also returns the
+    """Token ids (B, S) -> final hidden states (B, S, d), plus the MoE aux
+    losses summed over the layers (float32; 0 without MoE).  An
+    encoder-decoder model needs ``enc_frames`` (B, T_enc, d), which the
+    encoder runs over first.  With ``collect_kv`` also returns the
     per-layer cache entries ``{"k": [L x (B, Hkv, S, hd)], "v": ...,
     "ssm_state": [L x (B, nh, P, N)], "ssm_conv": ...}`` (those of the
     block type) for the prefill -> decode handoff."""
-    if enc_frames is not None:
-        raise NotImplementedError(_ENC_MSG)
-    x = embed_tokens(params, cfg, tokens)
-    kvs: Dict[str, List[torch.Tensor]] = {}
-    for p, win in zip(params.layers, _layer_windows(cfg)):
-        x, kv = _decoder_layer(cfg, p, x, win, collect_kv)
-        for name, t in kv.items():
-            kvs.setdefault(name, []).append(t)
-    x = apply_norm(params, "final_norm", cfg, x)
-    aux = torch.zeros((), device=x.device)
+    enc_out = _encoder_out(params, cfg, enc_frames)
+    x, aux, kvs = _forward(params, cfg, tokens, enc_out, collect_kv)
     if collect_kv:
         return x, aux, kvs
     return x, aux
+
+
+def build_cross_cache(params: Model, cfg: ModelConfig, enc_out: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer cross-attention K/V from the encoder output (B, T_enc, d):
+    (L, B, Hkv, T_enc, hd) each, written layer by layer."""
+    B, T = enc_out.shape[:2]
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads_padded
+    ks, vs = (enc_out.new_empty((cfg.n_layers, B, hkv, T, hd))
+              for _ in range(2))
+    for p, k, v in zip(params.layers, ks, vs):
+        k.copy_((enc_out @ p["cross/wk"]).reshape(B, T, hkv, hd)
+                .transpose(1, 2))
+        v.copy_((enc_out @ p["cross/wv"]).reshape(B, T, hkv, hd)
+                .transpose(1, 2))
+    return ks, vs
 
 
 def prefill(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
@@ -202,26 +286,37 @@ def prefill(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     (B, Vp) float32, decode cache).
 
     Without ``cache`` a fresh cache is returned, its K/V padded with zeros
-    to ``max_len`` rows as the reference's.  With ``cache`` and ``slots``
-    (i64[B]) each layer's K/V is written straight into those slots' rows
-    of ``cache`` (rows past S zeroed: the same contents as the reference's
-    padded copy scattered into the slots, without the padded copy), each
-    layer's SSM state and conv window overwrite those slots' whole, and
-    their lengths are set.  Ragged right-padded prompts: pass
-    ``last_positions`` (= prompt_len - 1); pad rows past a request's
-    length are never read back (decode masks by length).  The SSM state
-    and conv window, as in the reference, are those at the end of the
-    padded bucket: a short prompt's state has scanned its pad tokens."""
+    to ``max_len`` rows as the reference's, and for an encoder-decoder
+    model its ``enc_out`` and cross-attention ``cross_k``, ``cross_v`` from
+    ``enc_frames``.  With ``cache`` and ``slots`` (i64[B]) each layer's K/V
+    is written straight into those slots' rows of ``cache`` (rows past S
+    zeroed: the same contents as the reference's padded copy scattered
+    into the slots, without the padded copy), each layer's SSM state and
+    conv window overwrite those slots' whole, and their lengths are set;
+    the cross entries are left as they are (the server builds them once,
+    and the reference's server keeps its own over what its prefill
+    builds).  The encoder runs once, over ``enc_frames``.  Ragged
+    right-padded prompts: pass ``last_positions`` (= prompt_len - 1); pad
+    rows past a request's length are never read back (decode masks by
+    length).  The SSM state and conv window, as in the reference, are
+    those at the end of the padded bucket: a short prompt's state has
+    scanned its pad tokens."""
     B, S = tokens.shape
+    enc_out = _encoder_out(params, cfg, enc_frames)
     if cache is None:
         cache = init_cache(cfg, B, max_len or S, device=tokens.device)
         slots = torch.arange(B, device=tokens.device)
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
+            cache["cross_k"], cache["cross_v"] = build_cross_cache(
+                params, cfg, enc_out)
     elif slots is None:
         raise ValueError("prefill into a cache needs the slots to fill")
     if "k" in cache and cache["k"].shape[3] < S:
         raise ValueError(f"prompt bucket {S} exceeds the cache's "
                          f"{cache['k'].shape[3]} rows")
-    x, _, kvs = forward(params, cfg, tokens, collect_kv=True)
+    x, _, kvs = _forward(params, cfg, tokens, enc_out, collect_kv=True)
+    del enc_out
     for name, per_layer in kvs.items():
         for c, new in zip(cache[name], per_layer):
             if name in ("k", "v"):
@@ -247,23 +342,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Ragged decode cache for all layers: ``lengths`` i32[batch]; for
     attention ``k``, ``v`` of shape (L, batch, Hkv, max_len, hd); for the
     SSM ``ssm_conv`` (L, batch, K-1, di+2N) in ``dtype`` and ``ssm_state``
-    (L, batch, nh, P, N) float32, on ``device`` (None: CUDA, raising where
+    (L, batch, nh, P, N) float32; for an encoder-decoder model ``enc_out``
+    (batch, T_enc, d) and the cross-attention ``cross_k``, ``cross_v``
+    (L, batch, Hkv, T_enc, hd), on ``device`` (None: CUDA, raising where
     it is absent)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     L = cfg.n_layers
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads_padded
     cache = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.block in ("attn", "hybrid"):
-        shape = (L, batch, cfg.n_kv_heads_padded, max_len,
-                 cfg.resolved_head_dim)
+        shape = (L, batch, hkv, max_len, hd)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     if cfg.block in ("ssm", "hybrid"):
         s = init_ssm_cache(cfg, batch, dtype, device)
         cache["ssm_conv"] = s["conv"].new_zeros((L,) + s["conv"].shape)
         cache["ssm_state"] = s["state"].new_zeros((L,) + s["state"].shape)
+    if cfg.encdec:
+        T = cfg.encoder_len
+        cache["enc_out"] = torch.zeros((batch, T, cfg.d_model), dtype=dtype,
+                                       device=device)
+        # cross-attention K/V, computed once per request from enc_out
+        shape = (L, batch, hkv, T, hd)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
 
 
@@ -274,11 +379,16 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     (B, Vp) float32, cache).  The K/V rows, SSM states and conv windows
     are written into ``cache`` in place, for every slot, idle ones too, as
     the reference does, and ``lengths`` is advanced by one for every slot
-    in place; the returned dict is ``cache``.  The step reads and writes
-    no tensor but ``tokens``, the parameters and the cache, so a CUDA
-    graph of it replays over a fixed token buffer (``EpochServer``)."""
+    in place; the returned dict is ``cache``.  Cross-attention reads the
+    cache's ``cross_k``, ``cross_v`` over the encoder's ``encoder_len``
+    rows.  The step reads and writes no tensor but ``tokens``, the
+    parameters and the cache, so a CUDA graph of it replays over a fixed
+    token buffer (``EpochServer``)."""
     x = embed_tokens(params, cfg, tokens)
     lengths = cache["lengths"]
+    cross_on = cfg.encdec and "enc_out" in cache
+    if cross_on:
+        enc_lens = torch.full_like(lengths, cfg.encoder_len)
     for i, (p, win) in enumerate(zip(params.layers, _layer_windows(cfg))):
         hn = apply_norm(p, "norm1", cfg, x)
         a = y = None
@@ -288,7 +398,14 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.block in ("ssm", "hybrid"):
             y = apply_ssm_decode(p, "ssm", cfg, hn, cache["ssm_conv"][i],
                                  cache["ssm_state"][i])
-        x = _ffn(cfg, p, x, hn, _mix(cfg, a, y))
+        cross = None
+        if cross_on:
+            def cross(hc, p=p, i=i):
+                return apply_attn_decode(
+                    p, "cross", cfg, hc, cache["cross_k"][i],
+                    cache["cross_v"][i], enc_lens, use_rope=False,
+                    cross=True)[0]
+        x, _ = _ffn(cfg, p, x, hn, _mix(cfg, a, y), cross)
     x = apply_norm(params, "final_norm", cfg, x)
     logits = logits_fn(params, cfg, x[:, 0])
     lengths.add_(1)

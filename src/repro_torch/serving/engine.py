@@ -19,8 +19,12 @@ The mapping to the paper's machine (§4):
 Prefills are batched per epoch (bucketed padding) and write their K/V, or
 their SSM state and conv window, straight into the slots they were
 allocated — the analogue of the paper's coalesced TV writes at fork time.
-Each epoch reads back one argmax vector.  The server runs any block type
-the model code runs: dense attention, Mamba-2 SSM, or the hybrid.
+Each epoch reads back one argmax vector.  The server runs any model the
+model code runs: dense attention, Mamba-2 SSM or the hybrid, with a dense
+or MoE FFN, decoder-only or encoder-decoder.  An encoder-decoder server
+encodes its frame input once, shares it across the slots as the cache's
+``enc_out``, ``cross_k`` and ``cross_v``, and hands every prefill the
+frames again (its encoder runs over them, as the reference's does).
 
 On the card the decode step is captured once per server in a CUDA graph
 (``graphs=True``, the default), as the reference jits it once: the first
@@ -44,7 +48,9 @@ from ..core.convert import params_from_numpy
 from ..core.engine import resolve_device
 from ..kernels import ops as kops
 from ..models.common import ModelConfig
-from ..models.model import Model, decode_step, init_cache, prefill
+from ..models.model import (
+    Model, build_cross_cache, decode_step, encode, init_cache, prefill,
+)
 
 
 @dataclasses.dataclass
@@ -71,10 +77,12 @@ class EpochServer:
     ``params_or_model`` is a :class:`Model` on ``device`` or the
     reference's ``init_model`` dict as numpy arrays (converted with
     ``params_from_numpy``).  ``device`` defaults to CUDA and raises where
-    there is none; pass ``device="cpu"`` for the CPU.  ``graphs`` replays
-    the decode step from a CUDA graph on the card from the second decode
-    epoch on (``captures`` counts the captures: one per server that
-    decodes twice); it changes nothing on the CPU.  ``last_logits`` is
+    there is none; pass ``device="cpu"`` for the CPU.  An encoder-decoder
+    config needs ``enc_frames`` (1 or more, T_enc, d; a tensor or a numpy
+    array, of which the first is served); other configs ignore it.
+    ``graphs`` replays the decode step from a CUDA graph on the card from
+    the second decode epoch on (``captures`` counts the captures: one per
+    server that decodes twice); it changes nothing on the CPU.  ``last_logits`` is
     then the graph's logits buffer, which the next epoch's replay
     overwrites: read it before the next ``step``.
     """
@@ -83,10 +91,6 @@ class EpochServer:
                  params_or_model: Union[Model, Mapping[str, np.ndarray]],
                  n_slots: int = 8, max_len: int = 256, device=None,
                  enc_frames=None, graphs: bool = True):
-        if enc_frames is not None or cfg.encdec:
-            raise NotImplementedError(
-                "encoder-decoder serving is not ported yet (ROADMAP item 11:"
-                " encode, cross-attention)")
         self.device = resolve_device(device)
         if isinstance(params_or_model, Model):
             on = params_or_model.device
@@ -102,6 +106,9 @@ class EpochServer:
         self.n_slots = n_slots
         self.max_len = max_len
         self.cache = init_cache(cfg, n_slots, max_len, device=self.device)
+        self._enc_frames = None
+        if cfg.encdec:
+            self._encode_once(enc_frames)
         # host-side TV bookkeeping (paper phase 1/3 state)
         self.active = np.zeros(n_slots, bool)
         self.remaining = np.zeros(n_slots, np.int64)
@@ -124,6 +131,22 @@ class EpochServer:
         self._tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
                                    device=self.device)
         self._next_host = None
+
+    @torch.no_grad()
+    def _encode_once(self, enc_frames) -> None:
+        """Encode the first frame input once, broadcast it to every slot as
+        ``enc_out`` and build the cross-attention K/V from it, in the cache
+        the decode step reads (the reference's server shares one input
+        across its slots)."""
+        if enc_frames is None:
+            raise ValueError("an encoder-decoder config needs enc_frames")
+        frames = torch.as_tensor(enc_frames, device=self.device)
+        self._enc_frames = frames
+        enc = encode(self.params, self.cfg, frames[:1])
+        self.cache["enc_out"].copy_(enc.expand_as(self.cache["enc_out"]))
+        del self.cache["cross_k"], self.cache["cross_v"]  # built anew
+        self.cache["cross_k"], self.cache["cross_v"] = build_cross_cache(
+            self.params, self.cfg, self.cache["enc_out"])
 
     # ----------------------------------------------------------- frontend
     def submit(self, req: Request) -> int:
@@ -158,11 +181,15 @@ class EpochServer:
         toks = np.zeros((n_new, Lp), np.int64)
         for i, r in enumerate(reqs):
             toks[i, : len(r.prompt)] = r.prompt  # right-pad: ragged prompts
+        ef = None
+        if self.cfg.encdec:  # every prefill row reads the shared frames
+            ef = self._enc_frames[:1].expand(
+                (n_new,) + tuple(self._enc_frames.shape[1:]))
         logits, self.cache = prefill(
             self.params, self.cfg, torch.as_tensor(toks, device=self.device),
             last_positions=torch.as_tensor(
                 np.asarray(plens, np.int64) - 1, device=self.device),
-            cache=self.cache,
+            enc_frames=ef, cache=self.cache,
             slots=torch.as_tensor(slots, device=self.device),
         )
         next_tok = logits.argmax(-1).cpu().numpy()

@@ -147,13 +147,11 @@ def test_gqa_decode_matches_pallas_decode(case, dtype):
 
 
 def test_wrappers_accept_every_config_group():
-    """Every ported config's attention shape, full and reduced, passes both
-    kernels' shape checks (needs no card): groups 2, 4, 5, 7 and 8, and
+    """Every config's attention shape, full and reduced, passes both
+    kernels' shape checks (needs no card): groups 1, 2, 4, 5, 7 and 8, and
     any group of 1 to 8 at every head dim."""
     groups = set()
     for arch in configs.ARCH_IDS:
-        if arch in configs.NOT_PORTED:
-            continue
         for cfg in (configs.get_config(arch), configs.get_reduced(arch)):
             if cfg.block == "ssm":  # attention-free
                 continue
@@ -161,7 +159,7 @@ def test_wrappers_accept_every_config_group():
             flash_attention.check_shape(Hq, Hkv, cfg.resolved_head_dim)
             decode_attention.check_shape(Hq, Hkv, cfg.resolved_head_dim)
             groups.add(Hq // Hkv)
-    assert {2, 4, 5, 7, 8} <= groups, groups
+    assert {1, 2, 4, 5, 7, 8} <= groups, groups
     for g in range(1, 9):
         for D in flash_attention.HEAD_DIMS:
             decode_attention.check_shape(3 * g, 3, D)

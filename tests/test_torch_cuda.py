@@ -1165,6 +1165,44 @@ def test_ssd_scan_checks_its_inputs(cuda_device):
         ssd_scan.ssd_scan(x.cpu(), dt, A, B, B)
 
 
+@pytest.mark.parametrize("arch", ("granite_moe_1b_a400m",
+                                  "llama4_scout_17b_a16e",
+                                  "whisper_large_v3"))
+def test_moe_and_encdec_servers_on_cuda_match_cpu(cuda_device, arch):
+    """The MoE and encoder-decoder servers (reduced, float32) on the card:
+    the tokens and epochs of the CPU, the decode step captured once, and
+    the attention launches the code predicts (whisper: a prefill's encoder,
+    self- and cross-attention, an epoch's self and cross decodes)."""
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              compute_dtype=torch.float32)
+    model = init_model(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(2)
+    frames = (rng.normal(size=(1, cfg.encoder_len, cfg.d_model))
+              .astype(np.float32) if cfg.encdec else None)
+    prompts = [rng.randint(3, cfg.vocab, n).astype(np.int32)
+               for n in (5, 30, 9, 17, 2)]
+    per_prefill = cfg.n_layers * (2 if cfg.encdec else 1) + (
+        cfg.n_encoder_layers if cfg.encdec else 0)
+    per_epoch = cfg.n_layers * (2 if cfg.encdec else 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        srv = EpochServer(cfg, model.to(dev), n_slots=3, max_len=64,
+                          device=dev, enc_frames=frames)
+        flash_attention.reset_launches()
+        decode_attention.reset_launches()
+        for p in prompts:
+            srv.submit(Request(prompt=p, max_new_tokens=6))
+        done = srv.run_to_completion()
+        out[dev] = ([(r.rid, r.output) for r in done], srv.epochs)
+        if dev == "cuda":
+            assert srv.captures == 1
+            assert flash_attention.LAUNCHES["flash_attention"] == \
+                srv.timings["prefills"] * per_prefill
+            assert decode_attention.LAUNCHES["decode_attention"] == \
+                srv.epochs * per_epoch
+    assert out["cuda"] == out["cpu"]
+
+
 @pytest.mark.parametrize("arch", ("mamba2_1_3b", "hymba_1_5b"))
 def test_ssm_server_on_cuda_matches_cpu(cuda_device, arch):
     cfg = dataclasses.replace(configs.get_reduced(arch),

@@ -1,10 +1,10 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package
 (every module, the job service, the sharded fleet, the treewalk app, the
 ten registry cases, the baselines, the oracle and its overhead report,
-the LLM server, on an attention and an SSM model, and the three example
-twins, among them, runs with both blocked), runs on the CPU only when
-asked, and its chip smoke script refuses to run without a card or without
-the repository beside it."""
+the LLM server, on an attention, an SSM, two MoE and an encoder-decoder
+model, and the three example twins, among them, runs with both blocked),
+runs on the CPU only when asked, and its chip smoke script refuses to run
+without a card or without the repository beside it."""
 from __future__ import annotations
 
 import os
@@ -90,6 +90,18 @@ for n in (5, 9):
     ssm_srv.submit(Request(prompt=np.arange(3, 3 + n, dtype=np.int32),
                            max_new_tokens=3))
 assert [len(r.output) for r in ssm_srv.run_to_completion()] == [3, 3]
+served_more = []
+for arch in ("granite_moe_1b_a400m", "llama4_scout_17b_a16e",
+             "whisper_large_v3"):
+    cfg = configs.get_reduced(arch)
+    enc = (np.ones((1, cfg.encoder_len, cfg.d_model), np.float32)
+           if cfg.encdec else None)
+    more = EpochServer(cfg, init_model(cfg, seed=0, device="cpu"),
+                       n_slots=2, max_len=32, device="cpu", enc_frames=enc)
+    more.submit(Request(prompt=np.arange(3, 8, dtype=np.int32),
+                        max_new_tokens=3))
+    served_more += [len(r.output) for r in more.run_to_completion()]
+assert served_more == [3, 3, 3], served_more
 from repro_torch.apps import all_cases, mergesort, nqueens, sssp
 from repro_torch.apps.baselines import bitonic, worklist
 from repro_torch.core import compare, run_oracle
@@ -110,7 +122,7 @@ leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"
 assert not leaked, leaked
 print("isolated", stats.epochs, "resident", rstats.epochs,
       "service", svc.stats().epochs, "served", srv.epochs,
-      "ssm", ssm_srv.epochs)
+      "ssm", ssm_srv.epochs, "moe and encdec", len(served_more))
 print("apps", len(all_cases()), "oracle", report.t1_tasks,
       report.t_inf_epochs)
 '''
@@ -128,7 +140,8 @@ def test_port_imports_and_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "isolated 23 resident 23 service 23 served 4 ssm 3" in out.stdout
+    assert ("isolated 23 resident 23 service 23 served 4 ssm 3 "
+            "moe and encdec 3") in out.stdout
     assert "apps 10 oracle 153 7" in out.stdout
 
 

@@ -42,13 +42,19 @@ def weights():
     return params, {k: np.asarray(v) for k, v in params.items()}
 
 
-def _serve(weights, specs, n_slots, max_len, waves=1):
+def _serve(weights, specs, n_slots, max_len, waves=1, cfgs=(JCFG, TCFG),
+           frames=None):
     """Serve ``specs`` [(prompt, max_new, eos)] on both servers, split into
-    ``waves`` submitted one after another (each run to completion)."""
+    ``waves`` submitted one after another (each run to completion).
+    ``cfgs``: the (JAX, port) configs of ``weights``; ``frames``: an
+    encoder-decoder model's encoder input, numpy."""
     jparams, nparams = weights
-    js = JServer(JCFG, jparams, n_slots=n_slots, max_len=max_len)
-    ts = EpochServer(TCFG, nparams, n_slots=n_slots, max_len=max_len,
-                     device="cpu")
+    jcfg, tcfg = cfgs
+    jf = None if frames is None else jnp.asarray(frames)
+    js = JServer(jcfg, jparams, n_slots=n_slots, max_len=max_len,
+                 enc_frames=jf)
+    ts = EpochServer(tcfg, nparams, n_slots=n_slots, max_len=max_len,
+                     device="cpu", enc_frames=frames)
     for wave in np.array_split(np.arange(len(specs)), waves):
         for i in wave:
             p, m, eos = specs[i]

@@ -188,13 +188,13 @@ def test_ssd_tensor_core_ref_matches_jax(S, with_h0):
 
 def test_ssd_design_by_dtype_and_shape():
     """``ssd_scan.pick_design`` is a pure function of dtype and shape (needs
-    no card): every ported SSM config at full width takes the tensor-core
+    no card): every SSM config at full width takes the tensor-core
     design in bfloat16 and the CUDA-core one in float32; the reduced
     configs' P = 8 takes the CUDA-core one; every shape is one the kernel
     takes."""
     seen = set()
     for arch in configs.ARCH_IDS:
-        if arch in configs.NOT_PORTED or configs.get_config(arch).ssm is None:
+        if configs.get_config(arch).ssm is None:
             continue
         for cfg, full in ((configs.get_config(arch), True),
                           (configs.get_reduced(arch), False)):
