@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. build    — compile the CUDA kernels from src/repro_torch/kernels/csrc
                 (fork_compact.cu, epoch_megakernel.cu, ordered_add.cu,
-                flash_attention.cu, decode_attention.cu, ssd_scan.cu: one
-                nvcc each, in parallel, each timed) into
+                flash_attention.cu, flash_attention_bwd.cu,
+                decode_attention.cu, ssd_scan.cu: one nvcc each, in
+                parallel, each timed) into
                 src/repro_torch/kernels/build/ (ptxas report: each
                 kernel's registers, spills and shared memory, one
                 epoch_chunk instantiation per device table);
@@ -133,17 +134,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 tenant's, the fleet's) equal; walls (fib's the medians of
                 three fresh engines), captures, the graph pool's and
                 result buffers'
-                bytes, fib's eager uses, captures and first replays timed
-                alone, and an eager and a warm run under torch.profiler
-                (device busy share, device ops per epoch, the graphed run
-                recording no fewer device ops than the eager one; a short
-                graphed record is taken again, up to three times).  The
-                mixed4 waves' eager and warm walls are their profiled
-                runs'; annealing's eager run and its profiles run 20 of
-                its 200 steps, held exactly to a fresh graphed engine's
-                five runs of those 20 steps, and its graphed runs of all
-                200 steps are held to phase 3b's masked run.  A lap is
-                printed after each sub-step.
+                bytes, and fib's eager uses, captures and first replays
+                timed alone (no profiles: PERF.md keeps the earlier
+                runs' busy shares and device ops).  Annealing's eager run runs 20 of its 200
+                steps, held exactly to a fresh graphed engine's five runs
+                of those 20 steps, and its graphed runs of all 200 steps
+                are held to phase 3b's masked run.  A lap is printed after
+                each sub-step.
                 Phases 3, 3b, 7, 8 and 9 run on graphs, the default;
   4b. control — (run after phase 4) CostModel.calibrated on the card (a
                 graph replay's round trip; the per-lane slopes of a masked
@@ -272,6 +269,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 model's float32 card-vs-CPU runs (granite-moe and whisper
                 at 2 layers, llama4-scout at 1 layer on 2 requests of
                 16-32 prompt tokens and 4 new);
+  8d. train  — train_granite_d12: make_train_step on granite-3-8b at
+                full width and 12 of its 40 layers (2.59 B float32
+                parameters, bf16 compute, remat "full"), 5 steps of
+                SyntheticLM batches of 4 x 2048 (seed 0) under AdamW over
+                cosine_schedule(3e-3, 10, 5): every kernel's count set to
+                0 before the steps and read after (flash_attention twice a
+                layer a step, forward and remat; flash_attention_bwd's
+                three launches once a layer a step; fork_scan,
+                decode_attention and ssd_scan never); each step's loss and
+                grad norm finite, every parameter's gradient present and
+                finite and every parameter moved; ms a step, tokens/s,
+                peak memory (under 72 GiB); a sixth step under
+                torch.profiler (the backward kernels' share of device
+                time); then one layer at full width in float32, 1 x 256
+                tokens, 2 steps from the same weights on the card and on
+                the CPU (the background process): losses and grad norms
+                within 1e-4, each step-1 gradient within 1e-3 of its max
+                |CPU value|, the parameters after step 2 within the bound
+                Adam's sign steps allow (TRAIN_MOVED_FRACTION);
+                phase 2 also holds flash_attention_bwd to
+                mha_backward_ref (and the forward's lse to the plain
+                logsumexp) at the training shape (4 x 32/8 heads x 2048,
+                D 128, causal, bf16), granite-moe's 16/8 heads of 64 with
+                a window of 512 (bf16) and 1 x 32/8 x 256 in float32, and
+                times it beside its bound, its plain version and SDPA's
+                backward;
   10. examples — the twins of the examples (examples/*_torch.py) on the
                 card, each a subprocess with its default arguments, all
                 started at once: quickstart, graph_analytics, serve_llm
@@ -284,8 +307,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                 its checks' lines.
 The full-size CPU runs of phases 3, 3b and 5 are computed in one
 background process (CPU_REF_THREADS threads) while the card runs phases
-2-5, and the float32 CPU runs of phases 8, 9 and 8c in the same process
-beside the serving phases.
+2-5, and the float32 CPU runs of phases 8, 9, 8c and 8d in the same
+process beside the serving phases.
 A kernel's launches count what ran on the card: a graph's capture adds
 none, each replay adds the launches the graph holds.  Profiles whose
 first attempt recorded no device activity are run again and named at
@@ -458,6 +481,8 @@ def _cpu_ref(key):
     tag, name, dispatch = key
     if tag == "serve":
         return _cpu_float32_run(name)
+    if tag == "train":
+        return _cpu_train_run()
     kw = {}
     if tag == "apps":
         case, _ = app_case(name, APP_FULL[name])
@@ -518,22 +543,24 @@ def phase_build():
                          capture_output=True, text=True, check=True)
     print("[build] nvcc:", ver.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    mods = (fork_compact, epoch_megakernel, ordered_add, flash_attention,
-            decode_attention, ssd_scan)
+    builds = [m.build for m in (fork_compact, epoch_megakernel, ordered_add,
+                                flash_attention, decode_attention, ssd_scan)]
+    builds.append(flash_attention.build_bwd)
 
-    def timed_build(m):
+    def timed_build(build):
         t = time.perf_counter()
-        path, log = m.build(ptxas_info=True)
+        path, log = build(ptxas_info=True)
         return path, log, time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(mods)) as pool:
-        built = list(pool.map(timed_build, mods))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(timed_build, builds))
     dt = time.perf_counter() - t0
     for path, log, secs in built:
         print(f"[build] {path.name} in {secs:.2f} s")
         for name, info in ptxas_kernels(log):
             print(f"[build]   {name}: {info}")
-    print(f"[build] {len(mods)} libraries built in {dt:.2f} s (in parallel)")
+    print(f"[build] {len(builds)} libraries built in {dt:.2f} s (in "
+          "parallel)")
 
 
 def ptxas_kernels(log: str):
@@ -1898,7 +1925,7 @@ def phase_profile(label, run, cpu=True):
     # and named in PROFILE_RETRIES (one of a 4 ms resident run, the first
     # profile after phase 5, once recorded none; the cause is not known);
     # a second empty one fails.  Partial records are caught where an
-    # eager profile gives a floor (_profiles, _decode_graphs)
+    # eager profile gives a floor (_decode_graphs)
     _pad_graph()
     for attempt in (1, 2):
         torch.cuda.synchronize()
@@ -2460,71 +2487,25 @@ def phase_examples():
 
 
 # ------------------------------------------------------- phase 4, graphs
-def _graph_report(label, walls, captures, memory, profiles, epochs,
-                  run_epochs, profiled=(), eager_what=""):
+def _graph_report(label, walls, captures, memory, run_epochs,
+                  eager_what=""):
     """One graphs-phase line: the eager wall, the walls of the first three
     graphed runs (a fresh loop: each key eager at its first two uses,
     captured at its third, in whichever run that falls) and of a warm
     fourth (no capture), the captures in each, the graph pool and
-    result-buffer bytes, and each profiled run's busy share and device ops
-    per epoch (of ``epochs``).  ``profiled`` names the walls ("eager",
-    "warm") taken from the profiled runs; ``eager_what`` says what the
-    eager run ran, where it is not the graphed runs' case."""
+    result-buffer bytes.  ``eager_what`` says what the eager run ran,
+    where it is not the graphed runs' case.  (The phase takes no profiles:
+    PERF.md keeps the eager and warm runs' busy shares and device ops per
+    epoch from the earlier runs.)"""
     eager, *graphed, warm = walls
     pool, res = memory
     runs = ", ".join(
         f"{w:.1f} ms ({c - b} captures)"
         for w, b, c in zip(graphed, [0] + captures[:-1], captures))
-    prof = "; ".join(
-        f"{k} busy {100 * b / w:.1f}% ({b / 1e3:.3f} of {w / 1e3:.3f} ms), "
-        f"{n / epochs:.1f} device ops per epoch"
-        for k, (b, w, n) in profiles.items())
-
-    def tag(k):
-        return " (profiled)" if k in profiled else ""
-
-    print(f"[graphs] {label}: eager{eager_what} {eager:.1f} ms{tag('eager')}"
-          f"; graphed runs 1-3 {runs}, warm {warm:.1f} ms (no capture)"
-          f"{tag('warm')}, {run_epochs} epochs; "
-          f"graph pool {pool / 2**20:.1f} MiB, result buffers "
-          f"{res / 2**20:.1f} MiB; {prof}; bits equal")
-
-
-def _profiled(label, run):
-    """``run`` under the profiler (the device's activity alone): busy us,
-    wall us, device operations."""
-    busy, wall, events = phase_profile(label, run, cpu=False)
-    return busy, wall, sum(e.count for e in events)
-
-
-def _profiles(label, eager_run, graphed_run, epochs):
-    """An eager and a warm graphed run under the profiler.  A graph replay
-    runs every operation of the eager step and the copies into its result
-    buffers, so a graphed profile that records fewer device operations an
-    epoch than the eager one missed some: it is not kept."""
-    profiles = {"eager": _profiled(f"{label} eager", eager_run)}
-    # the profiler has lost device records of graphed runs (up to an
-    # epoch's worth of annealing's, in some runs and not in others): a
-    # graphed record short of the eager one's is taken again, up to
-    # GRAPHED_PROFILE_ATTEMPTS in all, each retry named in PROFILE_RETRIES;
-    # only a record at least as long as the eager one is kept
-    for attempt in range(1, GRAPHED_PROFILE_ATTEMPTS + 1):
-        again = "" if attempt == 1 else f", attempt {attempt}"
-        profiles["graphed"] = _profiled(f"{label} graphed (warm{again})",
-                                        graphed_run)
-        if profiles["graphed"][2] >= profiles["eager"][2]:
-            break
-        print(f"[profile] {label}: the graphed profile recorded "
-              f"{profiles['graphed'][2]} device ops, fewer than the eager "
-              f"one's {profiles['eager'][2]}")
-        PROFILE_RETRIES.append(f"{label} graphed (short, attempt "
-                               f"{attempt})")
-    else:
-        fail(f"graphs {label}: the graphed profile recorded "
-             f"{profiles['graphed'][2] / epochs:.1f} device ops an epoch "
-             f"in each of {GRAPHED_PROFILE_ATTEMPTS} attempts, fewer than "
-             f"the eager one's {profiles['eager'][2] / epochs:.1f}")
-    return profiles
+    print(f"[graphs] {label}: eager{eager_what} {eager:.1f} ms; graphed "
+          f"runs 1-3 {runs}, warm {warm:.1f} ms (no capture), {run_epochs} "
+          f"epochs; graph pool {pool / 2**20:.1f} MiB, result buffers "
+          f"{res / 2**20:.1f} MiB; bits equal")
 
 
 def _host_out(r):
@@ -2537,14 +2518,13 @@ def _solo_graphs(label, case, dispatch, short=None, reps=1):
     engine's first run (what ``AppCase.run``, which builds an engine for
     each call, costs), second, third and warm fourth run (no capture),
     every run's heap, values and RunStats equal, each wall the median of
-    ``reps`` (eager: runs of one engine; graphed: ``reps`` fresh engines);
-    then an eager and a warm graphed run under the profiler.
+    ``reps`` (eager: runs of one engine; graphed: ``reps`` fresh engines).
 
     ``short`` is ``(a shorter run of the same program, the run of
     ``case`` that the graphed runs are held to)``: the graphed runs of
     ``case`` are held to that run (phase 3b's, held to the CPU), and the
-    eager run (its wall, its profile) is ``short``'s, held exactly to a
-    fresh graphed engine's five runs of ``short`` (the fifth profiled)."""
+    eager run (its wall) is ``short``'s, held exactly to a fresh graphed
+    engine's five runs of ``short``."""
     from repro_torch.core import HostEngine
 
     kw = dict(capacity=case.capacity, dispatch=dispatch, device="cuda")
@@ -2586,36 +2566,20 @@ def _solo_graphs(label, case, dispatch, short=None, reps=1):
     if short is not None:
         case = short[0]
         eager_eng, eng, args = engines(case)
-        # its captures, then a warm run
-        got = [_host_out(eng.run(*args)) for _ in range(4)]
-        label += f" (eager and profiles: {case.name}, a shorter run)"
+        # its captures, then two warm runs
+        got = [_host_out(eng.run(*args)) for _ in range(5)]
+        label += f" (eager: {case.name}, a shorter run)"
         eager_what = " (the shorter run)"
-        epochs = got[-1][2].epochs
-    else:
-        epochs = eng.run(*args)[2].epochs
-    outs = {"eager": [], "graphed": []}
-
-    def kept(k, e):
-        def run():
-            outs[k].append(e.run(*args))
-            return outs[k][-1]
-        return run
-
-    profiles = _profiles(label, kept("eager", eager_eng),
-                         kept("graphed", eng), epochs)
-    if short is not None:
-        walls[0] = profiles["eager"][1] / 1e3
-        want = _host_out(outs["eager"][-1])
-        for i, r in enumerate(got + [_host_out(outs["graphed"][-1])]):
+        out = {}
+        walls[0] = _wall_ms(lambda: out.setdefault(
+            "r", eager_eng.run(*args)))
+        want = _host_out(out["r"])
+        for i, r in enumerate(got):
             _same(r, want, f"graphs {label} shorter run {i + 1} vs eager",
                   fields=tuple(want[2].as_dict()))
-    _graph_report(label, walls, captures, memory, profiles, epochs,
-                  runs[-1][2].epochs,
-                  profiled=("eager",) if short else (),
+    _graph_report(label, walls, captures, memory, runs[-1][2].epochs,
                   eager_what=eager_what)
-    lap(f"graphs: {label} profiles")
-    return dict(walls=walls, captures=captures, memory=memory,
-                profiles=profiles, epochs=epochs)
+    return dict(walls=walls, captures=captures, memory=memory)
 
 
 def _capture_costs(label, case, dispatch):
@@ -2692,11 +2656,7 @@ def _wave_graphs(label, wave, dispatch, first):
     service's first wave: ``(service, wall ms, tenants, stats)``), then the
     second, third and a warm fourth wave on that service (each on the last
     wave's loop and buffers; the fourth captures nothing); every tenant and
-    the fleet's RunStats equal.  The eager wave and the warm fourth run
-    under the profiler, and their walls are the profiled runs' (the
-    profiler traces the device's activity alone: PR 25's eager waves took
-    7937 ms plain and 7770 ms profiled, on an NVIDIA H100 80GB HBM3 at
-    700 W)."""
+    the fleet's RunStats equal."""
     from repro_torch.service import EpochMultiplexer
 
     kw = dict(capacity=sum(c.capacity for c in wave), dispatch=dispatch,
@@ -2725,35 +2685,26 @@ def _wave_graphs(label, wave, dispatch, first):
 
     graphed = []
     walls = [None, first_ms]
-    for _ in range(2):
+    for _ in range(3):
         walls.append(_wall_ms(lambda: service_run(graphed)))
         captures.append(loop.captures)
-    lap(f"graphs: {label} second and third waves")
-    eager = []
-    epochs = first_stats.epochs
-    profiles = _profiles(label, lambda: eager_run(eager),
-                         lambda: service_run(graphed), epochs)
-    captures.append(loop.captures)
     if captures[3] != captures[2]:
         fail(f"graphs {label}: the fourth wave captured "
              f"{captures[3] - captures[2]} more graphs")
-    walls[0] = profiles["eager"][1] / 1e3
-    walls.append(profiles["graphed"][1] / 1e3)
+    eager = []
+    epochs = first_stats.epochs
+    walls[0] = _wall_ms(lambda: eager_run(eager))
     (eager_tenants, eager_stats), = eager
     for (ts, st), what in zip([(first_tenants, first_stats)] + graphed,
-                              ("first", "second", "third", "warm",
-                               "warm (profile retaken)", "warm (third "
-                               "profile)")):
+                              ("first", "second", "third", "warm")):
         for c, got, want in zip(wave, ts, eager_tenants):
             _same_tenant(got, want, f"graphs {label} {what} {c.name}")
         if st.as_dict() != eager_stats.as_dict():
             fail(f"graphs {label} {what}: fleet RunStats differ")
     memory = loop.graph_memory()
-    _graph_report(label, walls, captures, memory, profiles, epochs, epochs,
-                  profiled=("eager", "warm"))
-    lap(f"graphs: {label} profiles")
-    return dict(walls=walls, captures=captures, memory=memory,
-                profiles=profiles, epochs=epochs)
+    _graph_report(label, walls, captures, memory, epochs)
+    lap(f"graphs: {label}")
+    return dict(walls=walls, captures=captures, memory=memory)
 
 
 def phase_graphs(fib_case, wave, host_waves, anneal_run):
@@ -3302,6 +3253,151 @@ def _flash_work(case):
     return n_bytes, 4 * D * B * Hq * pairs
 
 
+# the backward (phase 8d's gradient): the training shape (granite-3-8b,
+# batch 4 x 2048, 32/8 heads of 128, causal), granite-moe's heads (16/8 of
+# 64) with a window of 512, and in float32 the card-vs-CPU check's shape
+# (one sequence of 256)
+FLASH_TRAIN = (4, 32, 8, 2048, 2048, 128, True, 0, 0)
+FLASH_BWD_MORE = ((4, 16, 8, 2048, 2048, 64, True, 0, 512, torch.bfloat16),
+                  (1, 32, 8, 256, 256, 128, True, 0, 0, torch.float32))
+# each 64-row tile of one (batch, head) of dq (consecutive queries), dk
+# and dv (consecutive keys) within tol of its own Frobenius norm (bf16: P
+# and dS rounded to bf16 as the products' operands, and each output;
+# float32: other sums).  On each tile's own scale, because under a causal
+# mask a key's gradient falls off as about 1/sqrt(its position), so a
+# tolerance of the tensor's max lets most rows be tens of percent wrong;
+# by tiles and not by rows, because dq's first row is zero in exact
+# arithmetic (o_0 = v_0, so dS_00 = P_00 (dP_00 - delta_0) = 0) and both
+# versions give rounding noise there.  Readings on the H100 at the three
+# shapes below: bf16 at most 3.5e-3, float32 at most 2.4e-7; a kernel
+# whose dq skips its last key tile, or whose dK/dV leaves one head of the
+# group out, reads 0.40 to 1.0, and one whose dV of the last key tile is
+# 30 % off reads 0.30 (0.3 % of the tensor's max)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the forward's lse against the plain logsumexp: of max(1, max |plain|)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def _flash_bwd_work(case):
+    """(bytes, flops) the backward needs: q, k, v, o, dO and lse read and
+    dq, dk, dv written once; five products of 2 D flops per visible
+    (query, key) pair (S, dP, dV, dK, dQ)."""
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    n_bytes, fwd_flops = _flash_work(case[:9])
+    n_bytes = 2 * (4 * B * Hq * Sq * D + 4 * B * Hkv * Skv * D) \
+        + 4 * B * Hq * Sq
+    return n_bytes, fwd_flops // 4 * 10
+
+
+def _tile_rel_err(got, want, rows=64):
+    """max over tiles of ``rows`` consecutive positions of one (batch,
+    head) of ||got - want|| / ||want|| (Frobenius), a tile's norm floored
+    at 1e-6 of the largest (a key no query sees has exactly zero
+    gradient)."""
+    pad = (-want.shape[-2]) % rows
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.reshape(*x.shape[:-2], -1, rows * x.shape[-1])
+
+    norm = tiles(want).norm(dim=-1)
+    err = tiles(got.float() - want.float()).norm(dim=-1)
+    return float((err / norm.clamp_min(1e-6 * float(norm.max()))).max())
+
+
+def _flash_bwd_check(case, dtype, gen):
+    """The backward kernel against ``mha_backward_ref`` on the forward
+    kernel's own output and lse, q as the block's strided view, each of
+    dq, dk, dv within ``BWD_TOL`` tile by tile (``_tile_rel_err``);
+    returns (max |err|, the largest tile error, (q, k, v, o, lse, do))."""
+    from repro_torch.kernels import flash_attention, ref
+
+    q, k, v = _flash_inputs(case, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+    kw = dict(zip(("causal", "q_offset", "window"), case[6:9]))
+    o, lse = flash_attention.flash_attention(q, k, v, return_lse=True, **kw)
+    _, want_lse = ref.mha_ref(q, k, v, return_lse=True, **kw)
+    e = float((lse - want_lse).abs().max())
+    if e > LSE_TOL[dtype] * max(1.0, float(want_lse.abs().max())):
+        fail(f"flash_attention {case[:9]} {dtype}: the lse it writes is "
+             f"off by {e}")
+    del want_lse
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.mha_backward_ref(q, k, v, o, lse, do, **kw)
+    err = rel = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            fail(f"flash_attention_bwd {case[:9]} {dtype} {name}: "
+                 "non-finite")
+        e, r = float((g - w).abs().max()), _tile_rel_err(g, w)
+        print(f"[kernels] flash_attention_bwd {case[:9]} {dtype} {name}: "
+              f"max |kernel - plain| {e:.3g} ({e / float(w.abs().max()):.3g}"
+              f" of max |plain|), largest tile error {r:.3g}")
+        if r > BWD_TOL[dtype]:
+            fail(f"flash_attention_bwd {case[:9]} {dtype} {name}: a tile is"
+                 f" off by {r} of its norm (tolerance {BWD_TOL[dtype]})")
+        err, rel = max(err, e), max(rel, r)
+    del got, want
+    return err, rel, (q, k, v, o, lse, do)
+
+
+def _flash_bwd_row(gen):
+    """Phase 2's backward cases, then the training shape timed beside its
+    bound, the plain version and SDPA's backward: the kernel's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    err = rel = 0.0
+    for case in FLASH_BWD_MORE:
+        e, r, _ = _flash_bwd_check(case, case[9], gen)
+        err, rel = max(err, e), max(rel, r)
+    e, r, (q, k, v, o, lse, do) = _flash_bwd_check(
+        FLASH_TRAIN, torch.bfloat16, gen)
+    err, rel = max(err, e), max(rel, r)
+    torch.cuda.synchronize()
+    print(f"[kernels] flash_attention_bwd within tolerance of "
+          f"mha_backward_ref (each 64-row tile of each gradient within "
+          f"{BWD_TOL[torch.bfloat16]} of its norm in bf16, "
+          f"{BWD_TOL[torch.float32]} in float32) at the training shape "
+          f"{FLASH_TRAIN[:6]} causal bf16, granite-moe's "
+          f"{FLASH_BWD_MORE[0][:6]} window {FLASH_BWD_MORE[0][8]} bf16 and "
+          f"{FLASH_BWD_MORE[1][:6]} float32: max |kernel - plain| = "
+          f"{err:.3g}, largest tile error {rel:.3g}")
+    b, by = bound_ms(*_flash_bwd_work(FLASH_TRAIN),
+                     ops_per_s=TENSOR_BF16_FLOPS)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                          enable_gqa=True)
+    t = {"ms": cuda_ms(lambda: flash_attention.flash_attention_bwd(
+             q, k, v, o, lse, do), iters=5, reps=2),
+         "plain_ms": cuda_ms(lambda: ref.mha_backward_ref(q, k, v, o, lse,
+                                                          do),
+                             iters=2, reps=2),
+         # eager: autograd's backward of one SDPA call (ms-long: the
+         # host's launches are not what is timed)
+         "library_ms": call_ms(lambda: torch.autograd.grad(
+             sdpa, (qg, kg, vg), do, retain_graph=True), iters=10)}
+    print(f"[kernels] flash_attention_bwd at {FLASH_TRAIN[:6]} causal bf16:"
+          f" device {t['ms']:.5f} ms, bound {b:.5f} ms ({by}; "
+          f"{100 * b / t['ms']:.1f}% of it), plain {t['plain_ms']:.5f} ms, "
+          f"library (SDPA's backward, eager) {t['library_ms']:.5f} ms "
+          f"(kernel / SDPA {t['ms'] / t['library_ms']:.2f})")
+    del q, k, v, o, lse, do, qg, kg, vg, sdpa
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        design="three launches, no float atomics: delta = rowsum(dO o O); "
+               "dK/dV per (key tile, kv head), the group's heads summed in "
+               "the CTA; dQ per (q tile, q head); mma.sync in bf16, CUDA "
+               "cores in float32",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="none: port-only, the gradient of "
+                 "src/repro/kernels/flash_attention.py:98 (the reference "
+                 "differentiates ref.mha_ref with XLA; no Pallas backward)",
+        max_abs_err=err, max_rel_err=rel, bound_ms=b, bound_by=by, **t)
+
+
 def _decode_work(lengths, S, B, Hq, Hkv, D, window=0):
     """(bytes, flops): each visible cache row's K and V once, q and the
     output once; 4 D flops per (q head, visible row)."""
@@ -3352,6 +3448,7 @@ def phase_attention(dev):
           f"cross-attention {ENCDEC_PREFILL[1][:6]}, non-causal; llama4's "
           f"{LLAMA4_PREFILL[:6]} causal (group 5, D 128): max |kernel - "
           f"plain| = {new_err:.3g}")
+    bwd_row = _flash_bwd_row(gen)
 
     def check_decode(shape, windows, lengths, what):
         B, Hq, Hkv, S, D = shape
@@ -3516,7 +3613,7 @@ def phase_attention(dev):
           f"library (SDPA) {r['library_ms']:.5f} ms (kernel / SDPA "
           f"{r['ms'] / r['library_ms']:.2f}); warm in L2: kernel "
           f"{r['warm_ms']:.5f} ms, SDPA {r['library_warm_ms']:.5f} ms")
-    return rows
+    return rows + [bwd_row]
 
 
 # ------------------------------------------------------------ phase 2, SSD
@@ -3989,7 +4086,13 @@ def _float32_model(arch):
     hundred times less."""
     from repro_torch.models import init_model
 
-    model = init_model(_cfg32(arch), seed=1, device="cpu")
+    return _fan_in(init_model(_cfg32(arch), seed=1, device="cpu"))
+
+
+def _fan_in(model):
+    """``model`` with every random per-layer matrix (and the encoder's)
+    rescaled from the reference's std, ``n_layers ** -0.5``, to
+    ``fan_in ** -0.5`` (see ``_float32_model``), in place."""
     cfg = model.cfg
     with torch.no_grad():
         for layers, n in ((model.layers, cfg.n_layers),
@@ -4048,7 +4151,8 @@ def _card_vs_cpu(arch, tag, model=None):
 def phase_serve():
     from repro_torch import configs
 
-    CPU_REFS[0].submit([("serve", arch, "float32") for arch in CARD_VS_CPU])
+    CPU_REFS[0].submit([("serve", arch, "float32") for arch in CARD_VS_CPU]
+                       + [("train", "granite_3_8b", "float32")])
 
     cfg = configs.get_config("granite_3_8b")
     srv, model, epochs, n_pf, launches = _serve_cell(cfg, SERVE_REQUESTS,
@@ -4183,6 +4287,265 @@ def phase_moe_encdec_serve():
     return out
 
 
+# --------------------------------------------------------------- phase 8d
+# train_granite_d12: granite-3-8b at full width and 12 of its 40 layers
+# (2.59 B float32 parameters: with their gradients and AdamW's two moments
+# about 41 GB, as much as one card holds beside the activations), bf16
+# compute, remat "full"; SyntheticLM batches of 4 x 2048 from seed 0;
+# AdamW over cosine_schedule(3e-3, 10 warmup steps, 5 steps), the
+# reference build's schedule and rate
+TRAIN_LAYERS = 12
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 5, 3e-3
+# the card against the CPU: one layer at full width, float32, one sequence
+# of 256, two steps from the same parameters
+TRAIN_CHECK_SEQ, TRAIN_CHECK_STEPS = 256, 2
+TRAIN_VALUE_TOL = 1e-4  # loss and grad norm, relative
+TRAIN_GRAD_TOL = 1e-3   # each step-1 gradient: of its max |CPU value|
+# after step 2: Adam moves an element by about lr at each step whatever
+# its gradient's size, so an element whose tiny gradient has the other
+# sign on the other device ends up to 2 (lr1 + lr2) away; every element
+# must be within that, and at most 1% of each parameter's elements more
+# than 1e-5 of its max |value| away
+TRAIN_MOVED_FRACTION = 1e-2
+
+
+class _Watched:
+    """An optimiser that shows each step's parameters and gradients to
+    ``look`` before it updates them (the train step calls ``update``)."""
+
+    def __init__(self, opt, look):
+        self.opt, self.look = opt, look
+
+    def update(self, params, grads, state):
+        self.look(params, grads)
+        return self.opt.update(params, grads, state)
+
+
+def _train_setup(cfg, params, steps, look, seq, batch, seed):
+    """(step function, optimiser state, data) for ``params``, as the
+    port's ``build`` makes them."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import init_opt_state, make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup_steps=10,
+                                   total_steps=steps))
+    return (make_train_step(cfg, _Watched(opt, look)),
+            init_opt_state(opt, params),
+            SyntheticLM(cfg.vocab, seq, batch, seed=seed))
+
+
+def _train_check_cfg():
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("granite_3_8b"),
+                               n_layers=1, compute_dtype=torch.float32)
+
+
+def _train_check_run(device):
+    """Two float32 steps of one full-width granite layer on ``device``,
+    from weights drawn on the CPU from seed 1 at fan-in scale
+    (``_fan_in``): (each step's loss and grad norm, step 1's gradients and
+    the parameters after step 2, on the host)."""
+    from repro_torch.data import place_batch
+    from repro_torch.models import init_model
+
+    cfg = _train_check_cfg()
+    model = _fan_in(init_model(cfg, seed=1, device="cpu", trainable=True))
+    model = model.to(device)
+    seen = {}
+
+    def look(params, grads):
+        seen.setdefault("grads", {k: g.detach().float().cpu().clone()
+                                  for k, g in grads.items()})
+
+    step, state, data = _train_setup(cfg, model, TRAIN_STEPS, look,
+                                     TRAIN_CHECK_SEQ, 1, 2)
+    metrics = []
+    for s in range(TRAIN_CHECK_STEPS):
+        model, state, mt = step(model, state,
+                                place_batch(data.batch_at(s), device))
+        metrics.append({k: float(mt[k]) for k in ("loss", "grad_norm",
+                                                  "lr")})
+    return metrics, seen["grads"], {
+        n: p.detach().cpu() for n, p, _ in model.named_leaves()}
+
+
+def _cpu_train_run():
+    """(In the background process.)  The CPU half of phase 8d's
+    card-vs-CPU check."""
+    torch.set_num_threads(CPU_REF_THREADS)
+    t0 = time.perf_counter()
+    run = _train_check_run("cpu")
+    return run, (f"[cpu] granite-3-8b one layer float32 training reference"
+                 f": {TRAIN_CHECK_STEPS} steps in "
+                 f"{time.perf_counter() - t0:.2f} s\n")
+
+
+def _train_vs_cpu():
+    """Phase 8d's check of the card against the CPU (module constants)."""
+    from repro_torch.kernels import flash_attention
+
+    t0 = time.perf_counter()
+    flash_attention.reset_launches()
+    c_metrics, c_grads, c_params = _train_check_run("cuda")
+    card_s = time.perf_counter() - t0
+    L = 1
+    if (flash_attention.LAUNCHES["flash_attention"],
+            flash_attention.LAUNCHES["flash_attention_bwd"]) != (
+            TRAIN_CHECK_STEPS * 2 * L, TRAIN_CHECK_STEPS * 3 * L):
+        fail(f"train float32: launches {dict(flash_attention.LAUNCHES)}")
+    h_metrics, h_grads, h_params = cpu_ref("train", "granite_3_8b",
+                                           "float32")
+    worst = {}
+    for s, (c, h) in enumerate(zip(c_metrics, h_metrics)):
+        for k in ("loss", "grad_norm"):
+            e = abs(c[k] - h[k]) / abs(h[k])
+            worst[k] = max(worst.get(k, 0.0), e)
+            if not e <= TRAIN_VALUE_TOL:
+                fail(f"train float32 step {s + 1} {k}: card {c[k]}, CPU "
+                     f"{h[k]}")
+    worst["grad"] = 0.0
+    for k, h in h_grads.items():
+        e = float((c_grads[k] - h).abs().max()) / float(h.abs().max())
+        worst["grad"] = max(worst["grad"], e)
+        if not e <= TRAIN_GRAD_TOL:
+            fail(f"train float32 step 1 grad {k}: max |card - CPU| is "
+                 f"{e:.3g} of its max |CPU value|")
+    lr_sum = sum(m["lr"] for m in h_metrics)
+    worst["param"] = worst["moved"] = 0.0
+    for k, h in h_params.items():
+        d = (c_params[k] - h).abs()
+        moved = float((d > 1e-5 * float(h.abs().max())).float().mean())
+        worst["param"] = max(worst["param"], float(d.max()))
+        worst["moved"] = max(worst["moved"], moved)
+        if float(d.max()) > 2 * lr_sum * 1.01 or moved > TRAIN_MOVED_FRACTION:
+            fail(f"train float32 params {k} after step 2: max |card - CPU| "
+                 f"{float(d.max())} (bound {2 * lr_sum}), {moved:.3g} of "
+                 "the elements apart")
+    print(f"[train] granite-3-8b float32, one layer at full width, 1 x "
+          f"{TRAIN_CHECK_SEQ} tokens, {TRAIN_CHECK_STEPS} steps, card "
+          f"(FlashAttention, the kernels) against CPU (the plain path): "
+          f"loss within {worst['loss']:.3g} and grad norm within "
+          f"{worst['grad_norm']:.3g} (relative; tolerance "
+          f"{TRAIN_VALUE_TOL}), every step-1 gradient within "
+          f"{worst['grad']:.3g} of its max |CPU value| (tolerance "
+          f"{TRAIN_GRAD_TOL}), parameters after step 2 within "
+          f"{worst['param']:.3g} (bound 2 x the two steps' lr = "
+          f"{2 * lr_sum:.3g}), at most {100 * worst['moved']:.3f}% of a "
+          f"parameter's elements more than 1e-5 of its max apart (limit "
+          f"{100 * TRAIN_MOVED_FRACTION:.0f}%); card {card_s:.2f} s")
+
+
+def phase_train():
+    """Phase 8d: ``train_granite_d12`` through ``make_train_step`` (module
+    constants), every kernel's count set to 0 before the five steps and
+    read after; each step's loss and grad norm finite, every parameter's
+    gradient present and finite and every parameter moved; ms a step,
+    tokens/s, peak memory; one more step profiled (the backward kernels'
+    share of device time); then the card against the CPU.  Returns the
+    five steps' launches."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.data import place_batch
+    from repro_torch.kernels import (
+        decode_attention, flash_attention, fork_compact, ssd_scan,
+    )
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(configs.get_config("granite_3_8b"),
+                              n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda", trainable=True)
+    leaves = [p for _, p, _ in params.named_leaves()]
+    seen = {}
+
+    def look(p, grads):
+        seen["n_grads"] = sum(g is not None for g in grads.values())
+        seen["finite"] = torch.stack(
+            [torch.isfinite(g).all() for g in grads.values()]).all()
+        seen["sums"] = torch.stack([x.sum(dtype=torch.float64)
+                                    for x in p.values()])
+
+    step, state, data = _train_setup(cfg, params, TRAIN_STEPS, look,
+                                     TRAIN_SEQ, TRAIN_BATCH, 0)
+    batches = [place_batch(data.batch_at(s), "cuda")
+               for s in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves)
+    print(f"[train] {cfg.name}: {cfg.n_layers} of 40 layers at full width "
+          f"(d_model {cfg.d_model}, {_describe(cfg)}, vocab {cfg.vocab}), "
+          f"{n_params / 1e9:.3f} B float32 parameters, bf16 compute, remat "
+          f"{cfg.remat!r}; parameters and AdamW state on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mods = (fork_compact, flash_attention, decode_attention, ssd_scan)
+    for mod in mods:
+        mod.reset_launches()
+    walls = []
+    for s in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, state, mt = step(params, state, batches[s])
+        m = {k: float(v) for k, v in mt.items()}
+        walls.append(time.perf_counter() - t)
+        after = torch.stack([x.sum(dtype=torch.float64) for x in leaves])
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"train step {s + 1}: loss {m['loss']}, grad norm "
+                 f"{m['grad_norm']}")
+        if seen["n_grads"] != len(leaves) or not bool(seen["finite"]):
+            fail(f"train step {s + 1}: {seen['n_grads']} of {len(leaves)} "
+                 "gradients, or one not finite")
+        unmoved = int((after == seen["sums"]).sum())
+        if unmoved:
+            fail(f"train step {s + 1}: {unmoved} parameters did not move")
+        print(f"[train] step {s + 1}: loss {m['loss']:.4f} (xent "
+              f"{m['xent']:.4f}, aux {m['aux']:.3g}, {m['n_tokens']:.0f} "
+              f"tokens), grad norm {m['grad_norm']:.4f}, lr {m['lr']:.3g}, "
+              f"{1e3 * walls[-1]:.1f} ms")
+    launches = {"fork_scan": fork_compact.LAUNCHES["fork_scan"],
+                **flash_attention.LAUNCHES, **decode_attention.LAUNCHES,
+                **ssd_scan.LAUNCHES}
+    L = cfg.n_layers
+    print(f"[train] kernel launches during the {TRAIN_STEPS} steps: "
+          f"{launches}")
+    _expect_launches("train", launches, {
+        "flash_attention": TRAIN_STEPS * L * 2,
+        "flash_attention_bwd": TRAIN_STEPS * L * 3,
+        "fork_scan": 0, "decode_attention": 0, "ssd_scan": 0})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = float(np.mean(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] train_granite_d12: {TRAIN_STEPS} steps of {TRAIN_BATCH}"
+          f" x {TRAIN_SEQ} tokens, every loss and grad norm finite, every "
+          f"parameter's gradient present and finite, every parameter "
+          f"moved; step 1 {1e3 * walls[0]:.1f} ms, steps 2-{TRAIN_STEPS} "
+          f"{1e3 * warm:.1f} ms a step ({tokens / warm:.0f} tokens/s), peak "
+          f"memory {peak:.2f} GiB")
+    if peak > 72:
+        fail(f"train: peak memory {peak:.2f} GiB over 72")
+
+    def one_step():
+        step(params, state, batches[TRAIN_STEPS])
+        return None, None, SimpleNamespace(epochs=1)
+
+    busy, wall, events = phase_profile(
+        f"train_granite_d12, one step (step {TRAIN_STEPS + 1})", one_step,
+        cpu=False)
+    bwd = device_us(events, "dkdv_kernel", "dq_kernel", "delta_kernel")
+    fwd = device_us(events, "flash_wg_kernel")
+    print(f"[train] one profiled step: device busy {busy / 1e3:.1f} of "
+          f"{wall / 1e3:.1f} ms ({100 * busy / wall:.1f}%); "
+          f"flash_attention_bwd {bwd / 1e3:.2f} ms ({100 * bwd / busy:.1f}% "
+          f"of device time), flash_attention forward {fwd / 1e3:.2f} ms "
+          f"({100 * fwd / busy:.1f}%)")
+    del params, state, batches, leaves, seen, step
+    torch.cuda.empty_cache()
+    lap("8d train cell")
+    _train_vs_cpu()
+    return {"train": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4297,11 +4660,13 @@ def _main(dev, t0) -> int:
     lap("ssm")
     cells.update(phase_moe_encdec_serve())
     lap("moe and encoder-decoder serve")
+    cells.update(phase_train())
+    lap("train")
     # the serving kernels' counts by cell; fork_scan's: the host path's,
     # the apps', the servers'
     serve_paths = {k: {cell: n[k] for cell, n in cells.items() if n[k]}
-                   for k in ("flash_attention", "decode_attention",
-                             "ssd_scan")}
+                   for k in ("flash_attention", "flash_attention_bwd",
+                             "decode_attention", "ssd_scan")}
     for k, paths in serve_paths.items():
         launches[k] = sum(paths.values())
     for cell, n in cells.items():

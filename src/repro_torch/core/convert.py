@@ -9,8 +9,8 @@ decode cache.  These functions take the reference's ``TVMState`` leaves
 and heap dicts as numpy arrays (``{field name: ndarray}``, ``{heap var:
 ndarray}``) and turn them into the port's tensors — adding the trailing
 sink row every TV and heap array carries here (``core/tvm.py``) — and
-back; and the reference's ``init_model`` dict and cache dict, as numpy
-arrays, into the port's ``Model`` and cache.  The tests use them to hand
+back; and the reference's ``init_model`` dict, cache dict and optimiser
+state, as numpy arrays, into the port's ``Model``, cache and ``OptState``.  The tests use them to hand
 one state to both implementations.
 """
 from __future__ import annotations
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..models.common import ModelConfig, storage_dtype
-from ..models.model import Model
+from ..models.model import STACKS, Model
+from ..optim.adamw import OptState
 from .engine import ResidentCarry, _hilo_value
 from .tvm import JobArena, TVMState, heap_with_sink, heap_without_sink
 
@@ -171,29 +172,57 @@ def fleet_carries_to_numpy(carries) -> Dict[str, object]:
 
 
 def params_from_numpy(params_np: Mapping[str, np.ndarray], cfg: ModelConfig,
-                      device) -> Model:
+                      device, trainable: bool = False) -> Model:
     """The port's ``Model`` from the reference's ``init_model`` dict.
 
     Stacked ``layers/...`` and ``encoder/...`` arrays are split along their
     leading axis (``n_layers``, ``n_encoder_layers``) into one tensor per
-    layer; matmul weights (the MoE's expert stacks among them, and
-    ``enc_pos_embed``) and the SSM's ``conv_w`` (2-D or more per layer) are
-    cast once to ``cfg.compute_dtype`` — the same round-to-nearest-even
-    cast the reference applies at each use, so the values are the same
-    bits — and norm scales and the SSM's ``a_log``, ``dt_bias`` and
-    ``d_skip`` stay in the parameter dtype.
+    layer; for serving, matmul weights (the MoE's expert stacks among
+    them, and ``enc_pos_embed``) and the SSM's ``conv_w`` (2-D or more per
+    layer) are cast once to ``cfg.compute_dtype`` — the same
+    round-to-nearest-even cast the reference applies at each use, so the
+    values are the same bits — and norm scales and the SSM's ``a_log``,
+    ``dt_bias`` and ``d_skip`` stay in the parameter dtype.  A
+    ``trainable`` model keeps every parameter in the parameter dtype, with
+    ``requires_grad``.
     """
     values = {}
     for name, arr in params_np.items():
         arr = np.asarray(arr)
-        if name.startswith(("layers/", "encoder/")):
-            dt = storage_dtype(cfg, arr.ndim - 1)
+        if name.startswith(STACKS):
+            dt = storage_dtype(cfg, arr.ndim - 1, trainable)
             values[name] = [torch.as_tensor(np.array(a), device=device)
                             .to(dt) for a in arr]
         else:
-            dt = storage_dtype(cfg, arr.ndim)
+            dt = storage_dtype(cfg, arr.ndim, trainable)
             values[name] = torch.as_tensor(np.array(arr), device=device).to(dt)
-    return Model(cfg, values)
+    return Model(cfg, values, trainable)
+
+
+def opt_state_from_numpy(state_np: Mapping[str, object], model: Model,
+                         device) -> OptState:
+    """The port's ``OptState`` for ``model`` from the reference's, as numpy:
+    ``{"m": {name: array}, "v": ..., "step": int, "master": {...}}`` (the
+    reference's ``OptState`` fields).  Each moment and master follows
+    ``model.named_leaves()``: a stacked name's array is split into its
+    ``(1, ...)`` layer slices (``optim/adamw.py`` says why), float32."""
+    def split(d):
+        out = {}
+        for name, p, layered in model.named_leaves():
+            if layered:
+                base, i = name[:-1].split("[")
+                arr = np.asarray(d[base])[int(i)][None]
+            else:
+                arr = np.asarray(d[name])
+            out[name] = torch.as_tensor(np.array(arr, np.float32),
+                                        device=device)
+        return out
+
+    master = state_np.get("master") or {}
+    return OptState(
+        m=split(state_np["m"]), v=split(state_np["v"]),
+        step=torch.as_tensor(np.int32(state_np["step"]), device=device),
+        master=split(master) if master else {})
 
 
 def cache_from_numpy(cache_np: Mapping[str, np.ndarray], cfg: ModelConfig,

@@ -1,7 +1,8 @@
 # Hand-written CUDA kernels — the scans (fork_compact.py), the resident
 # megakernel (epoch_megakernel.py), the ordered float scatter-add
-# (ordered_add.py), the serving path's attention
-# (flash_attention.py, decode_attention.py) and the Mamba-2 scan
+# (ordered_add.py), the serving and training path's attention
+# (flash_attention.py: forward and backward, decode_attention.py) and the
+# Mamba-2 scan
 # (ssd_scan.py), sources in csrc/, built by
 # nvcc.py — their plain PyTorch versions (ref.py), and the wrappers that
 # pick one by the tensor's device (ops.py); each module's launch counts

@@ -43,6 +43,15 @@
 // future or wholly behind the window are skipped, as in the Pallas kernel;
 // the epilogue writes O / l in bf16 through the output strides.
 //
+// The log-sum-exp: given a non-null lse pointer, every design also writes
+// lse[b, h, i] = m + log(l) of each row's scaled scores in float32 (its
+// online max and sum), which the backward reads to recompute
+// P = exp(S - lse) without a second pass over the keys.  The backward is
+// flash_attention_bwd.cu: a delta = rowsum(dO * O) pre-pass, a dK/dV
+// kernel per (key tile, kv head) summing the GQA group in the CTA, and a
+// dQ kernel per (q tile, q head), mma.sync in bf16, no float atomics.
+// The serving path passes null and writes nothing more.
+//
 // float32 (the card-vs-CPU checks, which hold it within 1e-5: TF32 tensor
 // cores would break that): the CUDA-core kernel of the first port,
 // unchanged.  One CTA of 128 threads per (q tile of 64 rows, q head,
@@ -122,7 +131,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
              long long v_sh, long long v_ss, long long o_sb, long long o_sh,
              long long o_ss, float scale, int causal, int q_offset,
-             int window) {
+             int window, float* __restrict__ lse) {
   constexpr int kQStride = D;
   constexpr int kKStride = D + 4;  // conflict-free float4 reads of 8 rows
   constexpr int kOC = (D + 31) / 32;  // float4 output chunks per thread
@@ -264,6 +273,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + rg * 4 + i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * Hq + h) * Sq + r] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int c = 0; c < kOC; ++c) {
       if (cg * 4 + 32 * c >= D) continue;
@@ -281,6 +293,7 @@ constexpr int smem_bytes() {
 
 // ----------------------------------------------- shared by the bf16 designs
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -395,7 +408,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 long long k_sb, long long k_sh, long long k_ss,
                 long long v_sb, long long v_sh, long long v_ss,
                 long long o_sb, long long o_sh, long long o_ss,
-                float scale_log2, int causal, int q_offset, int window) {
+                float scale_log2, int causal, int q_offset, int window,
+                float* __restrict__ lse) {
   using L = Layout<D>;
   constexpr int kMT = L::kMT;
   constexpr int kBN = L::kBN;
@@ -597,6 +611,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const float inv = 1.f / fmaxf(li, 1e-30f);
       const int r = q0 + wrow + 16 * mt + (lane >> 2) + 8 * i;
       if (r >= Sq) continue;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)b * Hq + h) * Sq + r] =
+            (m[mt][i] + log2f(fmaxf(li, 1e-30f))) * kLn2;
 #pragma unroll
       for (int dt = 0; dt < kDT; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(ob + r * o_ss + dt * 8 +
@@ -609,7 +626,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Skv, const long long* st,
-           float scale, int causal, int q_offset, int window,
+           float scale, int causal, int q_offset, int window, float* lse,
            cudaStream_t s) {
   constexpr int bytes = Layout<D>::kBytes;
   constexpr int threads = Layout<D>::kThreads;
@@ -628,7 +645,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       Hq, Hkv, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale * kLog2e, causal, q_offset,
-      window);
+      window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -844,7 +861,7 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
                 __nv_bfloat16* __restrict__ o, int B, int Hq, int Hkv,
                 int Sq, int Skv, long long o_sb, long long o_sh,
                 long long o_ss, float scale_log2, int causal, int q_offset,
-                int window) {
+                int window, float* __restrict__ lse) {
   using L = Layout<D>;
   constexpr int kHalves = D / 64;     // 128-byte swizzle atoms across D
   constexpr int kNT = kBN / 8;        // n8 column groups of S
@@ -1022,6 +1039,9 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float inv = 1.f / fmaxf(lr, 1e-30f);
       const int row = w.q0 + row0 + 8 * r;
       if (row >= Sq) continue;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)w.b * Hq + w.h) * Sq + row] =
+            (m[r] + log2f(fmaxf(lr, 1e-30f))) * kLn2;
 #pragma unroll
       for (int dt = 0; dt < kDT; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(ob + row * o_ss + dt * 8 +
@@ -1076,7 +1096,7 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Skv, const long long* st,
-           float scale, int causal, int q_offset, int window,
+           float scale, int causal, int q_offset, int window, float* lse,
            cudaStream_t s) {
   constexpr int bytes = Layout<D>::kBytes;
   static bool configured = false;
@@ -1106,7 +1126,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int grid = (int)(n_items < n_sm ? n_items : n_sm);
   flash_wg_kernel<D><<<grid, kThreads, bytes, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Hq, Hkv, Sq, Skv,
-      st[9], st[10], st[11], scale * kLog2e, causal, q_offset, window);
+      st[9], st[10], st[11], scale * kLog2e, causal, q_offset, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -1116,7 +1136,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int Sq, int Skv, const long long* st,
-               float scale, int causal, int q_offset, int window,
+               float scale, int causal, int q_offset, int window, float* lse,
                cudaStream_t s) {
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;
@@ -1132,7 +1152,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale, causal, q_offset, window);
+      st[10], st[11], scale, causal, q_offset, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -1140,18 +1160,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
-           float scale, int causal, int q_offset, int window,
+           float scale, int causal, int q_offset, int window, float* lse,
            cudaStream_t s) {
   if (dtype == 0)
     return launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale, causal,
-                         q_offset, window, s);
+                         q_offset, window, lse, s);
   if (dtype == 1) {
     if constexpr (D >= 64)
       return wg::launch<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale, causal,
-                           q_offset, window, s);
+                           q_offset, window, lse, s);
     else
       return tc::launch<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, st, scale, causal,
-                           q_offset, window, s);
+                           q_offset, window, lse, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1163,23 +1183,28 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16.  strides (in elements): q_sb, q_sh, q_ss,
 // k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss; the stride of D is 1
 // for all four.  D in {16, 32, 64, 128}; Hq a multiple of Hkv; B, Hq <= 65535.
+// lse: null, or a contiguous float32 (B, Hq, Sq) that receives each row's
+// log-sum-exp.
 int trees_flash_attention(int dtype, const void* q, const void* k,
                           const void* v, void* o, int B, int Hq, int Hkv,
                           int Sq, int Skv, int D, const long long* strides,
                           float scale, int causal, int q_offset, int window,
-                          void* stream) {
+                          float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0) return 0;
   switch (D) {
     case 16: return launch<16>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                               strides, scale, causal, q_offset, window, s);
+                               strides, scale, causal, q_offset, window, lse,
+                               s);
     case 32: return launch<32>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                               strides, scale, causal, q_offset, window, s);
+                               strides, scale, causal, q_offset, window, lse,
+                               s);
     case 64: return launch<64>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                               strides, scale, causal, q_offset, window, s);
+                               strides, scale, causal, q_offset, window, lse,
+                               s);
     case 128: return launch<128>(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv,
                                  strides, scale, causal, q_offset, window,
-                                 s);
+                                 lse, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
 """Build a CUDA source of this package into a shared library with ``nvcc``.
 
 Each kernel module (``fork_compact.py``, ``epoch_megakernel.py``,
-``ordered_add.py``, ``flash_attention.py``, ``decode_attention.py``,
-``ssd_scan.py``) compiles its source under ``csrc/`` for ``sm_90a`` into a
+``ordered_add.py``, ``flash_attention.py`` (two sources: the forward and
+the backward), ``decode_attention.py``, ``ssd_scan.py``) compiles its
+sources under ``csrc/`` for ``sm_90a`` into a
 library with a plain C interface, at first use, into ``build/`` beside
 this file (listed in ``.gitignore``), and loads it with ``ctypes``.  The
 library's name carries a hash of the source, the ``.cuh`` headers beside

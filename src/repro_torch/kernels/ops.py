@@ -96,8 +96,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """GQA attention (B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
     On the CPU the plain version switches to the blockwise online-softmax
-    form beyond 1024 keys, as the reference's does; on the card it is the
-    ``flash_attention`` kernel.
+    form beyond 1024 keys, as the reference's does, and PyTorch's autograd
+    differentiates it (as XLA differentiates the reference's).  On the card
+    it is the ``flash_attention`` kernel; where a gradient is wanted (grad
+    enabled and an input requiring it) it runs under
+    ``flash_attention.FlashAttention``, whose backward is the
+    ``flash_attention_bwd`` kernels.
     """
     if q.device.type == "cpu":
         if k.shape[2] > 1024:
@@ -106,9 +110,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      block_k=512)
         return ref.mha_ref(q, k, v, causal=causal, scale=scale,
                            q_offset=q_offset, window=window)
+    if _wants_grad(q, k, v):
+        return flash_attention.FlashAttention.apply(q, k, v, causal, scale,
+                                                    q_offset, window)
     return flash_attention.flash_attention(q, k, v, causal=causal,
                                            scale=scale, q_offset=q_offset,
                                            window=window)
+
+
+def _wants_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _no_grad_kernel(what: str, later: str, *xs: torch.Tensor) -> None:
+    """A kernel without a backward writes through ``ctypes`` into a tensor
+    autograd does not see: under grad it would drop the gradient, so it
+    raises instead, naming the item that brings the backward."""
+    if _wants_grad(*xs):
+        raise NotImplementedError(
+            f"{what}: the kernel has no backward on the card yet; {later}")
 
 
 def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -119,6 +139,8 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         scale=scale, window=window)
+    _no_grad_kernel("gqa_decode", "no training path decodes (ROADMAP item "
+                    "11)", q, k_cache, v_cache)
     return decode_attention.decode_attention(q, k_cache, v_cache, lengths,
                                              scale=scale, window=window)
 
@@ -134,4 +156,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, h0=h0)
+    _no_grad_kernel("ssd", "ssd_scan's backward, for SSM and hybrid "
+                    "training, is ROADMAP item 11", *(
+                        t for t in (x, dt, A, B, C, h0) if t is not None))
     return ssd_scan.ssd_scan(x, dt, A, B, C, h0=h0)

@@ -190,12 +190,14 @@ def _attn_mask(Sq: int, Skv: int, causal: bool, q_offset: int, window: int,
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool = True, scale: float | None = None,
-            q_offset: int = 0, window: int = 0) -> torch.Tensor:
+            q_offset: int = 0, window: int = 0, return_lse: bool = False):
     """Grouped-query attention (plain ``mha_flash``), float32 accumulation.
 
     q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
     dtype.  Query i sits at absolute position ``q_offset + i`` for the
-    causal mask; ``window > 0`` keeps the last ``window`` positions.
+    causal mask; ``window > 0`` keeps the last ``window`` positions.  With
+    ``return_lse`` also the float32 log-sum-exp of each row's scaled
+    scores (B, Hq, Sq), what the kernel writes for its backward.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -208,7 +210,42 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(B, Hq, Sq)
+    return out
+
+
+def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     causal: bool = True, scale: float | None = None,
+                     q_offset: int = 0, window: int = 0):
+    """The gradient of :func:`mha_ref` from its output ``o`` and
+    log-sum-exp ``lse`` (plain ``flash_attention_bwd``): ``(dq, dk, dv)``
+    in the inputs' dtype, computed in float32 as the backward kernels do:
+    P = exp(s - lse) over the visible keys (0 elsewhere), dV = Pᵀ dO,
+    δ = rowsum(dO ∘ O), dS = P ∘ (dO Vᵀ - δ), dQ = scale dS K and
+    dK = scale dSᵀ Q, a GQA group's heads summed into their kv head."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qf = q.float().reshape(B, Hkv, g, Sq, D)
+    dof = do.float().reshape(B, Hkv, g, Sq, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    p = torch.exp(s - lse.float().reshape(B, Hkv, g, Sq, 1))
+    if causal or window > 0:
+        mask = _attn_mask(Sq, Skv, causal, q_offset, window, q.device)
+        p = p.masked_fill(~mask, 0.0)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    delta = (do.float() * o.float()).sum(-1).reshape(B, Hkv, g, Sq, 1)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

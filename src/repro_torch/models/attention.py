@@ -18,7 +18,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from ..kernels import ops
-from .common import ModelConfig, ParamScope
+from .common import ModelConfig, ParamScope, mm_weight
 from .layers import rope
 
 
@@ -59,9 +59,12 @@ def _project_qkv(p: Mapping, prefix: str, cfg: ModelConfig, xq, xkv,
                  positions_q, positions_kv, use_rope: bool):
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
-    q = (xq @ p[f"{prefix}/wq"]).reshape(*xq.shape[:-1], hq, hd)
-    k = (xkv @ p[f"{prefix}/wk"]).reshape(*xkv.shape[:-1], hkv, hd)
-    v = (xkv @ p[f"{prefix}/wv"]).reshape(*xkv.shape[:-1], hkv, hd)
+    q = (xq @ mm_weight(p, f"{prefix}/wq", cfg)).reshape(
+        *xq.shape[:-1], hq, hd)
+    k = (xkv @ mm_weight(p, f"{prefix}/wk", cfg)).reshape(
+        *xkv.shape[:-1], hkv, hd)
+    v = (xkv @ mm_weight(p, f"{prefix}/wv", cfg)).reshape(
+        *xkv.shape[:-1], hkv, hd)
     if cfg.qk_norm:
         q = _qk_norm(q, p[f"{prefix}/q_scale"])
         k = _qk_norm(k, p[f"{prefix}/k_scale"])
@@ -89,7 +92,7 @@ def apply_attn(p: Mapping, prefix: str, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     out = ops.attention(q, k, v, causal=causal, window=window)
     out = _head_mask(cfg, out.transpose(1, 2))  # (B, S, H, hd)
-    proj = out.reshape(B, S, -1) @ p[f"{prefix}/wo"]
+    proj = out.reshape(B, S, -1) @ mm_weight(p, f"{prefix}/wo", cfg)
     if return_kv:
         return proj, (k, v)
     return proj
@@ -124,7 +127,8 @@ def apply_attn_decode(p: Mapping, prefix: str, cfg: ModelConfig,
     B = x.shape[0]
     if cross:
         hd, hq = cfg.resolved_head_dim, cfg.n_heads_padded
-        q = (x @ p[f"{prefix}/wq"]).reshape(B, 1, hq, hd)
+        q = (x @ mm_weight(p, f"{prefix}/wq", cfg)).reshape(
+            B, 1, hq, hd)
         if cfg.qk_norm:
             q = _qk_norm(q, p[f"{prefix}/q_scale"])
         att_len = lengths
@@ -137,4 +141,4 @@ def apply_attn_decode(p: Mapping, prefix: str, cfg: ModelConfig,
     out = ops.gqa_decode(q[:, 0], cache_k, cache_v, att_len, window=window)
     out = _head_mask(cfg, out)
     out = out.reshape(B, 1, -1)
-    return out @ p[f"{prefix}/wo"], cache_k, cache_v
+    return out @ mm_weight(p, f"{prefix}/wo", cfg), cache_k, cache_v

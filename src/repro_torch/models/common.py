@@ -9,9 +9,11 @@ belongs to the sharded fleet (ROADMAP item 9).
 reference's rule (``Params.add``: a normal with std ``shape[0] ** -0.5``,
 where ``shape[0]`` of a stacked layer weight is ``n_layers``), one tensor at
 a time, and stores each matmul weight in the compute dtype at once, so a
-full-width model never holds a float32 copy of its weights.  Storing the
-cast is exact: the reference casts the float32 weight to the compute dtype
-at each use, the same round-to-nearest-even conversion.
+full-width serving model never holds a float32 copy of its weights.
+Storing the cast is exact: the reference casts the float32 weight to the
+compute dtype at each use, the same round-to-nearest-even conversion.  A
+model built to train keeps its parameters in the parameter dtype and casts
+them at each use (:func:`mm_weight`), as the reference does.
 """
 from __future__ import annotations
 
@@ -150,10 +152,22 @@ def finalize(cfg: ModelConfig, model_axis_size: int) -> ModelConfig:
     )
 
 
-def storage_dtype(cfg: ModelConfig, per_layer_ndim: int) -> torch.dtype:
+def storage_dtype(cfg: ModelConfig, per_layer_ndim: int,
+                  trainable: bool = False) -> torch.dtype:
     """Matmul weights (2-D per layer) in the compute dtype, norm scales in
-    the parameter dtype."""
-    return cfg.compute_dtype if per_layer_ndim >= 2 else cfg.param_dtype
+    the parameter dtype; a model built to train keeps every parameter in
+    the parameter dtype, as the reference does."""
+    if trainable or per_layer_ndim < 2:
+        return cfg.param_dtype
+    return cfg.compute_dtype
+
+
+def mm_weight(p, name: str, cfg: ModelConfig) -> torch.Tensor:
+    """A matmul weight in the compute dtype: the reference's cast at each
+    use, the identity where it is stored so (a serving model); a trainable
+    model's float32 weight is cast here, and its gradient flows back
+    through the cast."""
+    return p[name].to(cfg.compute_dtype)
 
 
 # ------------------------------------------------------------- parameters
@@ -170,10 +184,12 @@ class Params:
     module per layer), each with the stacked weight's std ``L ** -0.5``.
     """
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 trainable: bool = False):
         self.cfg = cfg
         self.gen = generator
         self.device = generator.device
+        self.trainable = trainable
         self.values: Dict[str, Value] = {}
 
     def _draw(self, shape: Tuple[int, ...], init: str, std: float):
@@ -187,7 +203,7 @@ class Params:
             v = torch.ones(shape, device=self.device, dtype=dt)
         else:
             raise ValueError(init)
-        return v.to(storage_dtype(self.cfg, len(shape)))
+        return v.to(storage_dtype(self.cfg, len(shape), self.trainable))
 
     def add(self, name: str, shape: Tuple[int, ...], init: str = "normal",
             scale: Optional[float] = None) -> Value:

@@ -4,7 +4,8 @@ A copy of ``repro/models/layers.py`` on torch tensors.  The apply functions
 take a parameter mapping (a layer's ``ParameterDict``, or the model for the
 top-level names) and a prefix, as the reference does; matmul weights are
 already stored in the compute dtype (``common.storage_dtype``), so the
-reference's cast at each use is the identity here.
+reference's cast at each use is the identity here (``mm_weight``; a
+model built to train stores float32 and casts).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamScope
+from .common import ModelConfig, ParamScope, mm_weight
 
 
 # ------------------------------------------------------------------ norms
@@ -66,10 +67,10 @@ def init_mlp(s: ParamScope, cfg: ModelConfig, d_ff: int = 0):
 def apply_mlp(p: Mapping, prefix: str, cfg: ModelConfig, x):
     """SwiGLU: silu in float32, cast, then the product in the compute
     dtype, as the reference does."""
-    g = x @ p[f"{prefix}/w_gate"]
-    u = x @ p[f"{prefix}/w_up"]
+    g = x @ mm_weight(p, f"{prefix}/w_gate", cfg)
+    u = x @ mm_weight(p, f"{prefix}/w_up", cfg)
     h = F.silu(g.float()).to(cfg.compute_dtype) * u
-    return h @ p[f"{prefix}/w_down"]
+    return h @ mm_weight(p, f"{prefix}/w_down", cfg)
 
 
 # ------------------------------------------------------------- embeddings
@@ -88,9 +89,9 @@ def logits_fn(p: Mapping, cfg: ModelConfig, x):
     """x (..., d) -> float32 logits (..., vocab_padded); padded entries
     masked with -1e30."""
     if cfg.tie_embeddings:
-        w = p["embed/tok_embed"].T
+        w = mm_weight(p, "embed/tok_embed", cfg).T
     else:
-        w = p["embed/unembed"]
+        w = mm_weight(p, "embed/unembed", cfg)
     logits = (x @ w).float()
     vp, v = cfg.vocab_padded, cfg.vocab
     if vp != v:

@@ -2,12 +2,18 @@
 attn | ssm | hybrid blocks (dense GQA attention, the Mamba-2 block, or both
 in parallel), a dense (SwiGLU), parallel or MoE FFN, prefill over ragged
 prompts, and a single-token decode step over a ragged cache (a copy of
-``repro/models/model.py``).
+``repro/models/model.py``), and the training loss (``loss_fn``,
+``chunked_xent``).
 
 The reference scans the layer stack over stacked per-layer parameters; the
 port keeps one ``ParameterDict`` per layer (and per encoder layer) in an
-``nn.ModuleList`` and loops over it in Python.  ``loss_fn`` and
-``chunked_xent`` wait for the training slice.
+``nn.ModuleList`` and loops over it in Python.  A serving model's
+parameters are frozen and its matmul weights stored in the compute dtype;
+a model built to train (``init_model(..., trainable=True)``,
+``core.convert.params_from_numpy(..., trainable=True)``) keeps them in the
+parameter dtype with ``requires_grad``, and ``forward`` recomputes each
+layer in the backward pass under ``cfg.remat``, as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -15,7 +21,9 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as tcp
 
 from ..core.engine import resolve_device
 from .attention import apply_attn, apply_attn_decode, init_attn
@@ -40,12 +48,15 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------ model
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+STACKS = ("layers/", "encoder/")  # the reference's stacked prefixes
 
 
-def _per_layer(values: Mapping[str, Value], pre: str, n: int
-               ) -> nn.ModuleList:
+def _param(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
+
+
+def _per_layer(values: Mapping[str, Value], pre: str, n: int,
+               trainable: bool) -> nn.ModuleList:
     """One ``ParameterDict`` per layer from the stacked ``{pre}...``
     entries of ``values`` (each a list of ``n`` tensors)."""
     stacked = {k[len(pre):]: v for k, v in values.items() if k.startswith(pre)}
@@ -53,7 +64,8 @@ def _per_layer(values: Mapping[str, Value], pre: str, n: int
         if len(v) != n:
             raise ValueError(f"{pre}{k}: {len(v)} layers, config has {n}")
     return nn.ModuleList(
-        nn.ParameterDict({k: _frozen(v[i]) for k, v in stacked.items()})
+        nn.ParameterDict({k: _param(v[i], trainable)
+                          for k, v in stacked.items()})
         for i in range(n))
 
 
@@ -65,39 +77,57 @@ class Model(nn.Module):
     ``model.layers[i]["attn/wq"]`` is layer i's slice of the reference's
     stacked ``layers/attn/wq``, and ``model.encoder[i]["attn/wq"]`` encoder
     layer i's of ``encoder/attn/wq`` (no encoder layers without
-    ``cfg.encdec``).
+    ``cfg.encdec``).  ``trainable`` parameters require grad; a serving
+    model's are frozen.
     """
 
-    def __init__(self, cfg: ModelConfig, values: Mapping[str, Value]):
+    def __init__(self, cfg: ModelConfig, values: Mapping[str, Value],
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        stacked = ("layers/", "encoder/")
         self.top = nn.ParameterDict({
-            k: _frozen(v) for k, v in values.items()
-            if not k.startswith(stacked)})
-        self.layers = _per_layer(values, "layers/", cfg.n_layers)
+            k: _param(v, trainable) for k, v in values.items()
+            if not k.startswith(STACKS)})
+        self.layers = _per_layer(values, "layers/", cfg.n_layers, trainable)
         self.encoder = _per_layer(
-            values, "encoder/", cfg.n_encoder_layers if cfg.encdec else 0)
+            values, "encoder/", cfg.n_encoder_layers if cfg.encdec else 0,
+            trainable)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
+
+    def named_leaves(self) -> List[Tuple[str, nn.Parameter, bool]]:
+        """``(name, parameter, per-layer)`` in the reference's key order:
+        its parameter dict flattened by sorted name (as a JAX pytree is),
+        a stacked name's layers in layer order.  Layer ``i`` of the
+        reference's ``layers/attn/wq`` is named ``layers/attn/wq[i]``."""
+        entries = [(k, None, p) for k, p in self.top.items()]
+        for pre, mods in (("layers/", self.layers),
+                          ("encoder/", self.encoder)):
+            for i, mod in enumerate(mods):
+                entries += [(pre + k, i, p) for k, p in mod.items()]
+        entries.sort(key=lambda e: (e[0], -1 if e[1] is None else e[1]))
+        return [(k if i is None else f"{k}[{i}]", p, i is not None)
+                for k, i, p in entries]
 
     @property
     def device(self) -> torch.device:
         return self.top["embed/tok_embed"].device
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
+def init_model(cfg: ModelConfig, seed: int = 0, device=None,
+               trainable: bool = False) -> Model:
     """Random weights drawn on ``device`` (None: CUDA, raising where it is
     absent) from ``torch.Generator(seed)``, under the reference's init rule
     (``common.Params``), one tensor at a time and stored in their final
-    dtypes."""
+    dtypes: a serving model's matmul weights in the compute dtype, a
+    ``trainable`` model's parameters all in the parameter dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    pb = Params(cfg, gen)
+    pb = Params(cfg, gen, trainable)
     init_embeddings(pb.scope("embed"), cfg)
     lyr = pb.scope("layers")
     if cfg.block in ("attn", "hybrid"):
@@ -125,7 +155,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
         init_attn(lyr.scope("cross"), cfg, cross=True)
         init_norm(lyr.scope("norm_cross"), cfg)
     init_norm(pb.scope("final_norm"), cfg, layered=False)
-    return Model(cfg, pb.values)
+    return Model(cfg, pb.values, trainable)
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -230,14 +260,51 @@ def _encoder_out(params: Model, cfg: ModelConfig,
     return encode(params, cfg, enc_frames)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: keep the products'
+    outputs, recompute the rest."""
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, layer, p: Dict[str, torch.Tensor]):
+    """``layer`` recomputed in the backward pass as the reference's
+    ``jax.checkpoint`` of its scan body: ``cfg.remat`` "full" saves
+    nothing of the layer but its input, "none" runs it plainly, any other
+    value (the reference's "dots") keeps the matrix products' outputs
+    (a selective checkpoint saving ``aten.mm``/``bmm``).  Where no
+    gradient is taken (grad disabled, or none of the layer's parameters
+    ``p`` requires one, as a serving model's) the layer runs plainly."""
+    if (cfg.remat == "none" or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in p.values())):
+        return layer
+    kw = {}
+    if cfg.remat != "full":
+        kw["context_fn"] = lambda: tcp.create_selective_checkpoint_contexts(
+            _save_dots)
+    return lambda *a: tcp.checkpoint(layer, *a, use_reentrant=False, **kw)
+
+
 def _forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
-             enc_out: Optional[torch.Tensor], collect_kv: bool):
+             enc_out: Optional[torch.Tensor], collect_kv: bool,
+             remat: bool = False):
     x = embed_tokens(params, cfg, tokens)
     kvs: Dict[str, List[torch.Tensor]] = {}
     aux = torch.zeros((), device=x.device)
     for p, win in zip(params.layers, _layer_windows(cfg)):
-        x, layer_aux, kv = _decoder_layer(cfg, p, x, win, enc_out,
-                                          collect_kv)
+        if remat and not collect_kv:
+            def layer(h, p=p, win=win):
+                h, a, _ = _decoder_layer(cfg, p, h, win, enc_out)
+                return h, a
+            x, layer_aux = _remat(cfg, layer, p)(x)
+            kv = {}
+        else:
+            x, layer_aux, kv = _decoder_layer(cfg, p, x, win, enc_out,
+                                              collect_kv)
         if layer_aux is not None:
             aux = aux + layer_aux
         for name, t in kv.items():
@@ -246,16 +313,18 @@ def _forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
-            enc_frames=None, collect_kv: bool = False):
+            enc_frames=None, remat: bool = True, collect_kv: bool = False):
     """Token ids (B, S) -> final hidden states (B, S, d), plus the MoE aux
     losses summed over the layers (float32; 0 without MoE).  An
     encoder-decoder model needs ``enc_frames`` (B, T_enc, d), which the
-    encoder runs over first.  With ``collect_kv`` also returns the
-    per-layer cache entries ``{"k": [L x (B, Hkv, S, hd)], "v": ...,
+    encoder runs over first.  ``remat`` recomputes each decoder layer in
+    the backward pass under ``cfg.remat`` (never with ``collect_kv``, as
+    in the reference).  With ``collect_kv`` also returns the per-layer
+    cache entries ``{"k": [L x (B, Hkv, S, hd)], "v": ...,
     "ssm_state": [L x (B, nh, P, N)], "ssm_conv": ...}`` (those of the
     block type) for the prefill -> decode handoff."""
     enc_out = _encoder_out(params, cfg, enc_frames)
-    x, aux, kvs = _forward(params, cfg, tokens, enc_out, collect_kv)
+    x, aux, kvs = _forward(params, cfg, tokens, enc_out, collect_kv, remat)
     if collect_kv:
         return x, aux, kvs
     return x, aux
@@ -275,6 +344,46 @@ def build_cross_cache(params: Model, cfg: ModelConfig, enc_out: torch.Tensor
         v.copy_((enc_out @ p["cross/wv"]).reshape(B, T, hkv, hd)
                 .transpose(1, 2))
     return ks, vs
+
+
+# ------------------------------------------------------------------- loss
+def chunked_xent(params: Model, cfg: ModelConfig, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the labels >= 0 without materialising
+    (B, S, V) logits: sequence chunks of ``min(chunk, S)`` (labels padded
+    with -1), each chunk's float32 logits, ``logsumexp`` less the picked
+    logit (labels clipped for the gather), summed in the reference's chunk
+    order.  Returns (total / max(count, 1), count)."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    hp = F.pad(hidden, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, S + pad, chunk):
+        h, y = hp[:, c0:c0 + chunk], lp[:, c0:c0 + chunk]
+        logits = logits_fn(params, cfg, h)  # (B, c, Vp) float32
+        lse = torch.logsumexp(logits, dim=-1)
+        yc = y.clamp(0, cfg.vocab_padded - 1).long()
+        picked = torch.gather(logits, -1, yc[..., None])[..., 0]
+        valid = (y >= 0).float()
+        tot = tot + ((lse - picked) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """(xent + aux_weight * aux, {"xent", "aux", "n_tokens"}) of a batch
+    ``{"tokens": (B, S), "labels": (B, S), "enc_frames": ...}``, the
+    layers under ``cfg.remat``."""
+    hidden, aux = forward(params, cfg, batch["tokens"],
+                          enc_frames=batch.get("enc_frames"))
+    loss, n_tok = chunked_xent(params, cfg, hidden, batch["labels"])
+    total = loss + aux_weight * aux
+    return total, dict(xent=loss, aux=aux, n_tokens=n_tok)
 
 
 def prefill(params: Model, cfg: ModelConfig, tokens: torch.Tensor,

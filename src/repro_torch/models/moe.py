@@ -32,7 +32,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamScope
+from .common import ModelConfig, ParamScope, mm_weight
 
 
 def init_moe(s: ParamScope, cfg: ModelConfig,
@@ -66,7 +66,7 @@ def route(p: Mapping, prefix: str, cfg: ModelConfig, xt: torch.Tensor
     ``jax.lax.top_k``'s: probabilities descending, the lower expert first
     on a tie (a stable descending sort)."""
     K = cfg.moe.top_k
-    logits = (xt @ p[f"{prefix}/router"]).float()
+    logits = (xt @ mm_weight(p, f"{prefix}/router", cfg)).float()
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, experts = gates[:, :K], experts[:, :K]
@@ -133,10 +133,11 @@ def apply_moe(p: Mapping, prefix: str, cfg: ModelConfig, x: torch.Tensor
     xb = buf[:E * C].view(E, C, d)
 
     # ---- per-expert SwiGLU: batched products over the expert axis
-    g = torch.bmm(xb, p[f"{prefix}/w_gate"])
-    u = torch.bmm(xb, p[f"{prefix}/w_up"])
+    g = torch.bmm(xb, mm_weight(p, f"{prefix}/w_gate", cfg))
+    u = torch.bmm(xb, mm_weight(p, f"{prefix}/w_up", cfg))
     h = F.silu(g.float()).to(dt) * u
-    yb = torch.bmm(h, p[f"{prefix}/w_down"]).view(E * C, d)
+    yb = torch.bmm(h, mm_weight(p, f"{prefix}/w_down", cfg)).view(
+        E * C, d)
 
     # ---- combine: gather back, weight by gate, sum over K ----------------
     gathered = torch.where(keep[:, None], yb[slot.clamp(max=E * C - 1)],
@@ -144,9 +145,9 @@ def apply_moe(p: Mapping, prefix: str, cfg: ModelConfig, x: torch.Tensor
     y = (gathered.view(T, K, d) * gates.to(dt)[..., None]).sum(1)
 
     if m.n_shared_experts:
-        gs = xt @ p[f"{prefix}/ws_gate"]
-        us = xt @ p[f"{prefix}/ws_up"]
+        gs = xt @ mm_weight(p, f"{prefix}/ws_gate", cfg)
+        us = xt @ mm_weight(p, f"{prefix}/ws_up", cfg)
         hs = F.silu(gs.float()).to(dt) * us
-        y = y + hs @ p[f"{prefix}/ws_down"]
+        y = y + hs @ mm_weight(p, f"{prefix}/ws_down", cfg)
 
     return y.view(B, S, d), aux

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..core.engine import resolve_device
 from ..kernels import ops
-from .common import ModelConfig, ParamScope
+from .common import ModelConfig, ParamScope, mm_weight
 
 
 def _dims(cfg: ModelConfig):
@@ -53,9 +53,9 @@ def init_ssm(s_: ParamScope, cfg: ModelConfig):
 def _split_proj(p: Mapping, prefix: str, cfg: ModelConfig, u):
     """u (B, S, d) -> z, x, bc, dt_raw (pre-conv, pre-activation)."""
     di = _dims(cfg)[1]
-    zx = u @ p[f"{prefix}/w_in_zx"]
-    bc = u @ p[f"{prefix}/w_in_bc"]
-    dt_raw = u @ p[f"{prefix}/w_in_dt"]
+    zx = u @ mm_weight(p, f"{prefix}/w_in_zx", cfg)
+    bc = u @ mm_weight(p, f"{prefix}/w_in_bc", cfg)
+    dt_raw = u @ mm_weight(p, f"{prefix}/w_in_dt", cfg)
     return zx[..., :di], zx[..., di:], bc, dt_raw
 
 
@@ -76,7 +76,7 @@ def _gate_out(p: Mapping, prefix: str, cfg: ModelConfig, y, xh, z):
     y = y + xh * p[f"{prefix}/d_skip"].to(dt_)[:, None]
     y = y.reshape(*z.shape)
     y = y * F.silu(z.float()).to(dt_)
-    return y @ p[f"{prefix}/w_out"]
+    return y @ mm_weight(p, f"{prefix}/w_out", cfg)
 
 
 def apply_ssm(p: Mapping, prefix: str, cfg: ModelConfig, u: torch.Tensor,
@@ -93,7 +93,7 @@ def apply_ssm(p: Mapping, prefix: str, cfg: ModelConfig, u: torch.Tensor,
     # depthwise causal conv over [x, B, C]: a left-to-right sum of K
     # products in the compute dtype, as the reference's Python ``sum``
     xbc = torch.cat([x, bc], -1)
-    w = p[f"{prefix}/conv_w"]  # (K, di+2N)
+    w = mm_weight(p, f"{prefix}/conv_w", cfg)  # (K, di+2N)
     pad = F.pad(xbc, (0, 0, K - 1, 0))
     conv = pad[:, :S] * w[0]
     for i in range(1, K):
@@ -138,7 +138,7 @@ def apply_ssm_decode(p: Mapping, prefix: str, cfg: ModelConfig,
 
     xbc = torch.cat([x, bc], -1)[:, 0]                      # (B, di+2N)
     hist = torch.cat([conv_cache, xbc[:, None]], 1)         # (B, K, di+2N)
-    conv = (hist * p[f"{prefix}/conv_w"][None]).sum(1)
+    conv = (hist * mm_weight(p, f"{prefix}/conv_w", cfg)[None]).sum(1)
     conv = F.silu(conv.float()).to(dt_)
     xh = conv[:, :di].reshape(B_, nh, P)
     Bm, Cm = conv[:, di:di + N], conv[:, di + N:]

@@ -9,7 +9,8 @@ of float32 angles, which XLA and torch round differently by one ulp on a
 few angles, so it is held to :data:`FFT_RTOL` of the largest |JAX value|.
 matmul at n = 16, block 4 (four float terms added into each ``C`` cell in
 one payload) is the case where the order of the adds shows; it too is
-exact.  The JAX runs are cached per module.
+exact.  The JAX runs are cached per module, computed in background
+processes (``_jax_refs.JaxRefs``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _jax_refs import JaxRefs
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import get_case as jget_case
 from repro.apps import matmul as jmatmul
 from repro.apps import mergesort as jmergesort
@@ -61,26 +64,34 @@ def assert_same_run(t, j, name):
     assert tstats.as_dict() == jstats.as_dict()
 
 
+# the JAX runs the module's tests read, in the order they read them
+MATMUL16 = ("matmul16", 16, 4)
+JAX_KEYS = ([(name, d) for name in APPS for d in DISPATCHES]
+            + [(("naive", n), d) for n in (8, 16) for d in DISPATCHES]
+            + [(MATMUL16, d) for d in DISPATCHES])
+
+
+def jax_ref(key):
+    """``(heap, value, stats)`` of the JAX ``HostEngine`` on ``key`` =
+    ``(case key, dispatch)``; the case key is a registry name or a
+    ``(name, args)`` tuple built by ``_programs``."""
+    key, dispatch = key
+    prog, init, heap_init, cap = _programs(key, jax=True)
+    heap, value, stats = JHostEngine(
+        prog, capacity=cap, dispatch=dispatch
+    ).run(init, heap_init=heap_init)
+    return ({k: np.asarray(v) for k, v in heap.items()}, np.asarray(value),
+            stats)
+
+
 @pytest.fixture(scope="module")
 def jax_host():
     """``(key, dispatch) -> (heap, value, stats)`` of the JAX
-    ``HostEngine``, each run once per module; ``key`` is a registry name
-    or a ``(name, args)`` tuple built by ``_programs``."""
-    cache = {}
-
-    def get(key, dispatch):
-        if (key, dispatch) not in cache:
-            prog, init, heap_init, cap = _programs(key, jax=True)
-            heap, value, stats = JHostEngine(
-                prog, capacity=cap, dispatch=dispatch
-            ).run(init, heap_init=heap_init)
-            cache[key, dispatch] = (
-                {k: np.asarray(v) for k, v in heap.items()},
-                np.asarray(value), stats,
-            )
-        return cache[key, dispatch]
-
-    return get
+    ``HostEngine`` (:func:`jax_ref`), each run once per module, in two
+    background processes started with the module's first use."""
+    refs = JaxRefs(__name__, JAX_KEYS)
+    yield refs
+    refs.close()
 
 
 def _programs(key, jax: bool):

@@ -20,6 +20,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode

@@ -995,6 +995,152 @@ def test_flash_attention_matches_plain(cuda_device, case, dtype):
                                  window=win), dtype)
 
 
+# the backward: each 64-row tile of one (batch, head) of each gradient
+# (consecutive queries of dq, keys of dk and dv) within tol of its own
+# Frobenius norm (float32: sums in another order; bfloat16: P and dS are
+# rounded to bf16 as the products' operands, as the forward rounds P).
+# Tile by tile, since under a causal mask a late key's gradient is many
+# times smaller than an early one's; not row by row, since dq's first
+# row is zero in exact arithmetic and both versions give noise there.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def _tile_rel_err(got, want, rows=64):
+    """max over tiles of ``rows`` consecutive positions of one (batch,
+    head) of ||got - want|| / ||want|| (Frobenius), a tile's norm floored
+    at 1e-6 of the largest (an unseen key's gradient is 0)."""
+    pad = (-want.shape[-2]) % rows
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+        return x.reshape(*x.shape[:-2], -1, rows * x.shape[-1])
+
+    norm = tiles(want).norm(dim=-1)
+    err = tiles(got.float() - want.float()).norm(dim=-1)
+    return float((err / norm.clamp_min(1e-6 * float(norm.max()))).max())
+
+
+def _flash_case(case, dtype, device, seed):
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=device,
+                    dtype=dtype).transpose(1, 2)   # strided, as on the path
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=g, device=device,
+                        dtype=dtype).transpose(1, 2) for _ in range(2))
+    do = torch.randn((B, Hq, Sq, D), generator=g, device=device, dtype=dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
+    """The forward's lse and the backward's dq, dk, dv against the plain
+    versions on the kernel's own output and lse."""
+    causal, qo, win = case[6:]
+    q, k, v, do = _flash_case(case, dtype, cuda_device, sum(case[:6]))
+    kw = dict(causal=causal, q_offset=qo, window=win)
+    flash_attention.reset_launches()
+    out, lse = flash_attention.flash_attention(q, k, v, return_lse=True,
+                                               **kw)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"flash_attention": 1,
+                                        "flash_attention_bwd": 3}
+    _, want_lse = ref.mha_ref(q, k, v, return_lse=True, **kw)
+    err = float((lse - want_lse).abs().max())
+    assert err <= LSE_TOL[dtype] * max(1.0, float(want_lse.abs().max()))
+    want = ref.mha_backward_ref(q, k, v, out, lse, do, **kw)
+    for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype, name
+        assert torch.isfinite(g).all(), name
+        err = _tile_rel_err(g, w)
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_attention_gradient_on_the_card(cuda_device, dtype):
+    """``ops.attention`` under grad runs ``FlashAttention``: one forward
+    and one backward (three launches), gradients equal to autograd's
+    through the plain version."""
+    case = (2, 8, 2, 200, 200, 128, True, 0, 0)
+    q, k, v, do = _flash_case(case, dtype, cuda_device, 5)
+    grads = {}
+    for how in ("kernel", "plain"):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        flash_attention.reset_launches()
+        if how == "kernel":
+            out = ops.attention(*xs)
+        else:
+            out = ref.mha_ref(*(x.float() for x in xs))
+        out.backward(do.to(out.dtype))
+        torch.cuda.synchronize()
+        want = (1, 3) if how == "kernel" else (0, 0)
+        assert (flash_attention.LAUNCHES["flash_attention"],
+                flash_attention.LAUNCHES["flash_attention_bwd"]) == want
+        grads[how] = [x.grad.float() for x in xs]
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        err = _tile_rel_err(g, w)
+        assert err <= BWD_TOL[dtype], err
+
+
+def test_kernels_without_backward_raise_under_grad(cuda_device):
+    """``ssd`` and ``gqa_decode`` write through ctypes, out of autograd's
+    sight: under grad they raise rather than drop the gradient."""
+    q = torch.randn((2, 4, 16), device=cuda_device, requires_grad=True)
+    kc = torch.randn((2, 2, 8, 16), device=cuda_device)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.gqa_decode(q, kc, kc, lens)
+    x = torch.randn((1, 8, 2, 8), device=cuda_device, requires_grad=True)
+    dt = torch.rand((1, 8, 2), device=cuda_device)
+    A = -torch.rand((2,), device=cuda_device)
+    Bm = torch.randn((1, 8, 16), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ssd_scan's backward"):
+        ops.ssd(x, dt, A, Bm, Bm)
+    with torch.no_grad():  # serving: no gradient wanted
+        ops.gqa_decode(q, kc, kc, lens)
+        ops.ssd(x, dt, A, Bm, Bm)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_model_gradients_on_the_card(cuda_device, dtype):
+    """A trainable reduced granite on the card: every parameter gets a
+    finite gradient through the attention kernels (one forward a layer,
+    another in the remat recompute, one backward), held to the CPU's
+    in float32."""
+    from repro_torch.data import SyntheticLM, place_batch
+    from repro_torch.models import loss_fn
+
+    cfg = dataclasses.replace(configs.get_reduced("granite_3_8b"),
+                              compute_dtype=dtype)
+    batch = SyntheticLM(cfg.vocab, 64, 2, seed=0).batch_at(0)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu" and dtype != torch.float32:
+            break
+        model = init_model(cfg, seed=0, device="cpu", trainable=True).to(dev)
+        flash_attention.reset_launches()
+        loss, _ = loss_fn(model, cfg, place_batch(batch, dev))
+        leaves = model.named_leaves()
+        gs = torch.autograd.grad(loss, [p for _, p, _ in leaves])
+        grads[dev] = {n: g.float().cpu() for (n, _, _), g in zip(leaves, gs)}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.n_layers
+            assert flash_attention.LAUNCHES == {
+                "flash_attention": 2 * L, "flash_attention_bwd": 3 * L}
+    for name, g in grads["cuda"].items():
+        assert torch.isfinite(g).all(), name
+        if "attn/" in name:
+            assert g.abs().max() > 0, name
+    if "cpu" in grads:
+        for name, g in grads["cuda"].items():
+            w = grads["cpu"][name]
+            err = float((g - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("group,D,window", ((1, 128, 0), (4, 128, 0),
                                             (4, 128, 100), (2, 64, 0),

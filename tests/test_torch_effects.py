@@ -18,6 +18,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import HeapVar as JHeapVar
 from repro.core import HostEngine as JHostEngine
 from repro.core import InitialTask as JInitialTask

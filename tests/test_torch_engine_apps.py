@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import get_case as jget_case
 from repro_torch.apps import bfs, mergesort
 from repro_torch.apps import get_case as tget_case

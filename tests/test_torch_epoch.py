@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import fib as jfib
 from repro.apps import get_case as jget_case
 from repro.core import tvm as jtvm

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.apps import fib
 from repro_torch.core import DeviceEngine, HostEngine
 
@@ -129,8 +130,12 @@ print("apps", len(all_cases()), "oracle", report.t1_tasks,
 
 
 def _env():
+    """The subprocesses' environment: the checkout on the path, and one
+    OpenMP thread for torch (their tensors are small, as in the test
+    modules that pin one thread)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 

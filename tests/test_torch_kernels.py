@@ -19,6 +19,7 @@ import types as pytypes
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import tvm as jtvm
 from repro.kernels import ops as jops
 from repro_torch.core import tvm

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models import model as jmodel
 from repro.models.common import finalize as jfinalize

@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import fft as jfft
 from repro.apps import fib as jfib
 from repro.apps import get_case as jget_case

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import tvm
 from repro_torch.kernels import nvcc, ops, ordered_add, ref
 

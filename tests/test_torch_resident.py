@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import get_case as jget_case
 from repro.core import DeviceEngine as JDeviceEngine
 from repro.core import engine as jengine

@@ -7,7 +7,8 @@ masked and gather dispatches the heap, the TV values and every
 ``RunStats`` field must be equal, exactly — fft's heap within
 ``test_torch_apps.FFT_RTOL`` of its largest |JAX value| (its twiddles'
 ``cos``/``sin`` round differently in the two libraries).  The JAX runs are
-cached per module.
+cached per module, computed in background processes
+(``_jax_refs.JaxRefs``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _jax_refs import JaxRefs
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import DeviceEngine as JDeviceEngine
 from repro_torch.apps import get_case, mergesort
 from repro_torch.core import DeviceEngine, EngineError
@@ -25,25 +28,33 @@ from test_torch_apps import APPS, _programs, assert_same_run
 DISPATCHES = ("masked", "gather")
 
 
+# the JAX runs the module's tests read, in the order they read them
+JAX_KEYS = ([(name, d) for name in APPS for d in DISPATCHES]
+            + [(("naive", n), d) for n in (8, 16) for d in DISPATCHES]
+            + [(("matmul16", 16, 4), "gather")])
+
+
+def jax_ref(key):
+    """``(heap, value, stats)`` of the JAX ``DeviceEngine`` on ``key`` =
+    ``(case key, dispatch)`` (case keys as ``test_torch_apps._programs``
+    builds them)."""
+    key, dispatch = key
+    prog, init, heap_init, cap = _programs(key, jax=True)
+    heap, value, stats = JDeviceEngine(
+        prog, capacity=cap, dispatch=dispatch
+    ).run(init, heap_init=heap_init)
+    return ({k: np.asarray(v) for k, v in heap.items()}, np.asarray(value),
+            stats)
+
+
 @pytest.fixture(scope="module")
 def jax_resident():
     """``(key, dispatch) -> (heap, value, stats)`` of the JAX
-    ``DeviceEngine``, each run once per module."""
-    cache = {}
-
-    def get(key, dispatch):
-        if (key, dispatch) not in cache:
-            prog, init, heap_init, cap = _programs(key, jax=True)
-            heap, value, stats = JDeviceEngine(
-                prog, capacity=cap, dispatch=dispatch
-            ).run(init, heap_init=heap_init)
-            cache[key, dispatch] = (
-                {k: np.asarray(v) for k, v in heap.items()},
-                np.asarray(value), stats,
-            )
-        return cache[key, dispatch]
-
-    return get
+    ``DeviceEngine`` (:func:`jax_ref`), each run once per module, in two
+    background processes started with the module's first use."""
+    refs = JaxRefs(__name__, JAX_KEYS)
+    yield refs
+    refs.close()
 
 
 def _run_port(key, dispatch, **kw):

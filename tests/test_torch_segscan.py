@@ -19,6 +19,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.kernels import fork_compact as jfc
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

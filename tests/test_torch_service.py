@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -23,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _jax_refs import JaxRefs
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.apps import get_fleet as jget_fleet
 from repro.service import EpochMultiplexer as JEpochMultiplexer
 from repro.service import Job as JJob
@@ -69,12 +70,33 @@ def _np(x):
     return np.asarray(x)
 
 
-@functools.lru_cache(maxsize=None)
+# the JAX fleet runs the module's tests read, in the order they read them
+JAX_KEYS = (("mixed4", "masked"), ("mixed4", "gather"),
+            ("fib_fleet", "masked"))
+_JAX_REFS = []
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_fleets():
+    """The JAX fleet runs (:func:`jax_ref`), in two background processes
+    started with the module's first test, so that they overlap the port's
+    fleet runs before them."""
+    _JAX_REFS.append(JaxRefs(__name__, JAX_KEYS))
+    yield
+    _JAX_REFS.pop().close()
+
+
 def _jax_fleet(name: str, dispatch: str):
-    """One JAX EpochMultiplexer run of a fleet (cached per module): each
-    job's value, heap and JobStats, the fleet RunStats, and — on the
-    masked run — the TVM state, heap, arena and stacks before and after
-    global epoch SNAP_AFTER + 1."""
+    """One JAX EpochMultiplexer run of a fleet (cached per module)."""
+    return _JAX_REFS[0](name, dispatch)
+
+
+def jax_ref(key):
+    """One JAX EpochMultiplexer run of a fleet, ``key`` = ``(fleet name,
+    dispatch)``: each job's value, heap and JobStats, the fleet RunStats,
+    and — on the masked run — the TVM state, heap, arena and stacks before
+    and after global epoch SNAP_AFTER + 1."""
+    name, dispatch = key
     hs = _handles(jget_fleet(name), JJob, JJobHandle)
     mux = JEpochMultiplexer(hs, dispatch=dispatch)
     snaps = []

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models.model import init_model as jinit_model
 from repro.serving import EpochServer as JServer
